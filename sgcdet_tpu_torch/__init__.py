@@ -1,0 +1,16 @@
+"""sgcdet_tpu_torch: the PyTorch / CUDA port of sgcdet_tpu for NVIDIA Hopper.
+
+The JAX package ``sgcdet_tpu`` is the reference this port is tested
+against; this package imports torch and neither jax nor the JAX package.
+
+Layout:
+  models/   torch modules, one per module of sgcdet_tpu/models (eval forward)
+  ops/      kernel wrappers with their plain PyTorch versions, host NMS
+  csrc/     hand-written CUDA C++ kernels for sm_90a, built at first use
+  configs.py  the ScanNet config (the JAX package's field names)
+  voxel_grid.py, visibility.py  NumPy voxel grid, projection, exact budgets
+  scene.py  NumPy synthetic scene
+  convert.py  flax params -> the port's state_dict
+  infer.py  detect(model, scene): the serving entry point
+  profile_serving.py  where the serving time goes, on a card
+"""

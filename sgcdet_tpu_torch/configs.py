@@ -1,0 +1,89 @@
+"""Configuration of the port: the fields of sgcdet_tpu/configs/config.py that
+the eval forward, decode and NMS read, with the same names and the ScanNet
+defaults (configs/SGCDet_ScanNet.py of the reference).
+
+``SGCDet`` and ``decode_bboxes`` read attributes only, so the JAX package's
+``ModelConfig`` works in their place; the tests hold ``scannet()`` here
+field by field against the JAX package's.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class TestConfig:
+    nms_pre: int = 1000
+    score_thr: float = 0.01
+    iou_thr: float = 0.25  # aligned 3D NMS threshold (ScanNet head)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    embed_dims: int = 256
+    n_classes: int = 18
+    n_reg_outs: int = 6
+    head_type: str = "scannet"  # the port runs the ScanNet head only
+    # adaptive sparse volume (coarse -> fine)
+    voxel_size_list: Tuple[Tuple[float, float, float], ...] = (
+        (0.64, 0.64, 0.8),
+        (0.32, 0.32, 0.4),
+        (0.16, 0.16, 0.2),
+    )
+    n_voxels_list: Tuple[Tuple[int, int, int], ...] = (
+        (10, 10, 4),
+        (20, 20, 8),
+        (40, 40, 16),
+    )
+    topk_list: Tuple[int, ...] = (800, 6400)
+    # depth head
+    dbound: Tuple[float, float, float] = (0.2, 5.0, 0.4)
+    neighbor_img_num: int = 2
+    # attention
+    num_heads: int = 8
+    num_points: int = 4
+    # per-camera visible-query compaction budget: a fraction of K for every
+    # level, a tuple of per-level fractions (1.0 disables a level), or None
+    # (off); see visibility.derive_visibility_budgets for an exact one
+    visibility_budget: float | Tuple[float, ...] | None = None
+    # 3D neck and detection head
+    neck3d_out_channels: int = 128
+    neck3d_n_blocks: Tuple[int, ...] = (1, 1, 1)
+    n_scales: int = 3
+    # 'bfloat16' (default) or 'float32'; BatchNorm statistics, the depth
+    # softmax, sampling coordinates and kernel accumulation stay f32
+    compute_dtype: str = "bfloat16"
+    test_cfg: TestConfig = field(default_factory=TestConfig)
+
+    @property
+    def depth_channels(self) -> int:
+        return round((self.dbound[1] - self.dbound[0]) / self.dbound[2])
+
+    @property
+    def n_voxels(self):
+        return self.n_voxels_list[-1]
+
+    @property
+    def voxel_size(self):
+        return self.voxel_size_list[-1]
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    # resized (pre-pad) image shape for ScanNet's 968x1296 frames, and the
+    # padded shape the network sees
+    img_shape: Tuple[int, int] = (239, 320)
+    pad_size: Tuple[int, int] = (240, 320)
+
+
+@dataclass(frozen=True)
+class SGCDetConfig:
+    name: str = "sgcdet_scannet"
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+
+def scannet() -> SGCDetConfig:
+    """configs/SGCDet_ScanNet.py"""
+    return SGCDetConfig(name="sgcdet_scannet")

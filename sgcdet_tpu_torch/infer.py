@@ -1,0 +1,34 @@
+"""Serving entry point: one scene in, detections out (the eval step of
+sgcdet_tpu/train/loop.py::make_eval_step plus the host half of
+sgcdet_tpu/cli.py::run_eval)."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.det_head import decode_bboxes
+
+_SCENE_KEYS = ("imgs", "proj_img", "proj_feat4", "origin")
+
+
+@torch.inference_mode()
+def forward_scene(model, scene) -> dict:
+    """Run ``model`` on one scene (dict of arrays or tensors with keys
+    imgs, proj_img, proj_feat4, origin), on the model's device."""
+    dev = next(model.parameters()).device
+    args = [x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x, np.float32))
+            for x in (scene[k] for k in _SCENE_KEYS)]
+    return model(*(a.to(dev) for a in args))
+
+
+def detect(model, scene):
+    """Detections of one scene: (boxes (M, 6) center form (cx, cy, cz, dx,
+    dy, dz) with z at the geometric center, scores (M,), labels (M,)),
+    NumPy, after decode and aligned 3D NMS with the model config's
+    test settings."""
+    out = forward_scene(model, scene)
+    head_outs = [tuple(t.cpu().numpy() for t in scale) for scale in out["head_outs"]]
+    origin = scene["origin"]
+    origin = origin.cpu().numpy() if torch.is_tensor(origin) else np.asarray(origin)
+    return decode_bboxes(head_outs, out["valid"].cpu().numpy(), origin,
+                         model.cfg.voxel_size, model.cfg)

@@ -1,0 +1,146 @@
+"""Multi-view-stereo + monocular depth-distribution head
+(sgcdet_tpu/models/depth_net.py, reference DepthNet_Fusion): per-view
+categorical depth distributions over D bins from (a) a plane-sweep
+dot-product cost volume against the temporally adjacent views, through the
+truncated ResNet-18 matching extractor, and (b) a monocular branch from FPN
+features, fused by 2D U-Nets and a softmax taken in f32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.sweep import plane_sweep_correlation
+from .layers import BatchNorm2d, Conv2d, ConvTranspose2d
+from .resnet import ResNetFPNMatching
+
+
+def get_closest_frame_ids(num_cams: int, num_select: int) -> np.ndarray:
+    """Temporally adjacent neighbour ids (depth_est_fusion.py:53-64):
+    boundary rows are shifted inward by k/2+1."""
+    assert num_select % 2 == 0
+    main = np.arange(num_cams)[:, None]
+    offsets = np.concatenate(
+        [np.arange(-num_select // 2, 0), np.arange(1, num_select // 2 + 1)]
+    )[None]
+    closest = main + offsets
+    closest[0:num_select // 2, :] += num_select // 2 + 1
+    closest[num_cams - num_select // 2:num_cams, :] -= num_select // 2 + 1
+    return closest
+
+
+def _warp_grid(src_proj, ref_proj, depth_values, h, w):
+    """Plane-sweep sample coordinates, always in f32.
+
+    Reproduces homo_warping's grid convention (pixel / ((S-1)/2) - 1 fed to
+    grid_sample(align_corners=False), i.e. sample position
+    ``p * S/(S-1) - 0.5``).  Planes behind the source camera give huge, inf
+    or NaN coordinates (division by z); the sweep ops clip them.
+    Returns x_eff, y_eff of shape (N, D, H*W).
+    """
+    d = depth_values.shape[0]
+    dev = src_proj.device
+    proj = src_proj.float() @ torch.linalg.inv(ref_proj.float())
+    rot = proj[:, :3, :3]
+    trans = proj[:, :3, 3:4]
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    xyz = torch.stack([xs.reshape(-1), ys.reshape(-1),
+                       torch.ones(h * w, device=dev)], 0)  # (3, HW)
+    rot_xyz = torch.einsum("nij,jk->nik", rot, xyz)  # (N, 3, HW)
+    proj_xyz = (rot_xyz[:, :, None, :] * depth_values.float().reshape(1, 1, d, 1)
+                + trans[:, :, None, :])
+    z = proj_xyz[:, 2]
+    px = proj_xyz[:, 0] / z
+    py = proj_xyz[:, 1] / z
+    return px * (w / (w - 1)) - 0.5, py * (h / (h - 1)) - 0.5
+
+
+class ConvBnReLU2D(nn.Module):
+    def __init__(self, cin, cout, stride=1):
+        super().__init__()
+        self.conv = Conv2d(cin, cout, 3, stride, 1, bias=False)
+        self.bn = BatchNorm2d(cout)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.conv(x)))
+
+
+def _deconv_bn_relu(cin, cout):
+    return nn.Sequential(
+        ConvTranspose2d(cin, cout, 3, 2, 1, output_padding=1, bias=False),
+        BatchNorm2d(cout), nn.ReLU(),
+    )
+
+
+class SimpleUnet2D(nn.Module):
+    """2-level residual U-Net (depth_est_fusion.py:139-163)."""
+
+    def __init__(self, channels):
+        super().__init__()
+        d = channels
+        self.conv1 = ConvBnReLU2D(d, 2 * d, stride=2)
+        self.conv2 = ConvBnReLU2D(2 * d, 2 * d)
+        self.conv3 = ConvBnReLU2D(2 * d, 4 * d, stride=2)
+        self.conv4 = ConvBnReLU2D(4 * d, 4 * d)
+        self.conv9 = _deconv_bn_relu(4 * d, 2 * d)
+        self.conv11 = _deconv_bn_relu(2 * d, d)
+
+    def forward(self, x):
+        conv2 = self.conv2(self.conv1(x))
+        y = self.conv4(self.conv3(conv2))
+        y = conv2 + self.conv9(y)
+        return x + self.conv11(y)
+
+
+class DepthNetFusion(nn.Module):
+    """Depth distribution head for one scene of N views.
+
+    forward(feats (N, C_mono, H, W) FPN level 0, imgs (N, 3, Hi, Wi),
+    proj_feat (N, 4, 4) K[R|t] at feature resolution) -> (N, D, H, W) f32
+    softmax depth distributions.
+    """
+
+    def __init__(self, dbound, neighbor_img_num=2, mono_channels=256):
+        super().__init__()
+        self.dbound = tuple(dbound)
+        self.neighbor_img_num = neighbor_img_num
+        d_ch = self.depth_channels
+        self.fnet_mvs = ResNetFPNMatching(output_dim=128)
+        self.correlation_regulation = SimpleUnet2D(d_ch)
+        self.fnet_mono = ConvBnReLU2D(mono_channels, 128)
+        self.mono_regulation = SimpleUnet2D(128)
+        self.fusion_regulation = SimpleUnet2D(d_ch + 128)
+        self.depth_reg = Conv2d(d_ch + 128, d_ch, 3, 1, 1)
+
+    @property
+    def depth_channels(self):
+        return round((self.dbound[1] - self.dbound[0]) / self.dbound[2])
+
+    def forward(self, feats, imgs, proj_feat):
+        n = feats.shape[0]
+        d0, d1, step = self.dbound
+        depth_values = torch.from_numpy(
+            np.arange(d0, d1, step, dtype=np.float32) + step / 2).to(feats.device)
+
+        f_mvs = self.fnet_mvs(imgs)
+        k = min(self.neighbor_img_num, n - 1)
+        neighbor_ids = get_closest_frame_ids(n, k)
+        corr = torch.zeros((n, self.depth_channels) + tuple(f_mvs.shape[2:]),
+                           dtype=f_mvs.dtype, device=f_mvs.device)
+        for j in range(k):
+            nei = torch.from_numpy(neighbor_ids[:, j]).to(f_mvs.device)
+            corr = corr + plane_sweep_correlation(
+                f_mvs[nei], f_mvs, proj_feat[nei], proj_feat, depth_values)
+        corr = corr / k
+
+        cost_reg = self.correlation_regulation(corr)
+        mono_reg = self.mono_regulation(self.fnet_mono(feats))
+        fused = self.fusion_regulation(torch.cat([cost_reg, mono_reg], 1))
+        logits = self.depth_reg(fused)
+        # the distributions reweight the value sampling and must sum to 1:
+        # normalize in f32 whatever the compute dtype
+        return torch.softmax(logits.float(), dim=1)

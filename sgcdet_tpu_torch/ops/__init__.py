@@ -1,0 +1,18 @@
+"""Ops of the port: the hand-written Hopper kernels behind their wrappers,
+their plain PyTorch versions, and host-side NMS."""
+from ._cuda import LIBRARY, plain_ops
+from .dfa3d import DFA3D_FWD_MH, DFA3D_FWD_S1, dfa3d_attend, dfa3d_attention_plain
+from .nms import aligned_3d_nms
+from .sweep import SWEEP_FWD, plane_sweep_correlation, plane_sweep_correlation_plain
+
+# every kernel of the serving path, by the name chip_smoke.py reports
+KERNELS = {
+    "sweep_fwd": SWEEP_FWD,
+    "dfa3d_fwd_s1": DFA3D_FWD_S1,
+    "dfa3d_fwd_mh": DFA3D_FWD_MH,
+}
+
+__all__ = [
+    "KERNELS", "LIBRARY", "plain_ops", "dfa3d_attend", "dfa3d_attention_plain",
+    "aligned_3d_nms", "plane_sweep_correlation", "plane_sweep_correlation_plain",
+]

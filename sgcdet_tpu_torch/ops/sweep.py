@@ -1,0 +1,105 @@
+"""Fused plane-sweep warp + correlation (counterpart of
+sgcdet_tpu/ops/sweep_pallas.py).
+
+For every (view, depth plane, reference pixel):
+
+    corr = <bilinear_sample(src_fea, H_d(pixel)), ref_fea(pixel)> / sqrt(C)
+
+with zero padding per corner (grid_sample(align_corners=False) semantics of
+the reference's homo_warping + dot-product correlation).  The math is f32
+whatever the input type, and the result is cast back to the input type,
+as the TPU kernel does (sweep_pallas.py:596).
+
+* ``sweep_fwd_plain`` — the plain PyTorch version, one depth plane at a time
+  so the peak intermediate is one (N, H*W, C) corner gather.
+* ``sweep_fwd`` — the wrapper: kernel K1 (csrc/sweep_fwd.cu) for CUDA
+  tensors, the plain version for CPU tensors.
+* ``plane_sweep_correlation`` — the op of the depth net, NCHW in and out,
+  with the signature of ``sweep_pallas.plane_sweep_correlation_pallas``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ._cuda import DTYPE_CODE, Kernel, check_cuda_input, use_kernel
+from .sampling import bilinear_corners, gather_rows
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# sgc_sweep_fwd(dtype, src, ref, x_eff, y_eff, out, n, h, w, c, d, stream)
+SWEEP_FWD = Kernel("sgc_sweep_fwd", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+
+
+def sweep_fwd_plain(src_img, ref_img, x_eff, y_eff):
+    """src_img/ref_img: (N, H, W, C); x_eff/y_eff: (N, D, H*W) f32 sample
+    coordinates in src pixels.  Returns corr (N, D, H*W) f32."""
+    n, h, w, c = src_img.shape
+    d = x_eff.shape[1]
+    src = src_img.reshape(n, h * w, c).float()
+    ref = ref_img.reshape(n, h * w, c).float()
+    inv_sqrt_c = 1.0 / math.sqrt(c)
+    out = torch.empty((n, d, h * w), dtype=torch.float32, device=src.device)
+    for di in range(d):
+        warped = None
+        for flat, wgt in bilinear_corners(x_eff[:, di].float(),
+                                          y_eff[:, di].float(), h, w):
+            term = wgt[..., None] * gather_rows(src, flat)
+            warped = term if warped is None else warped + term
+        out[:, di] = (warped * ref).sum(-1) * inv_sqrt_c
+    return out
+
+
+def sweep_fwd_cuda(src_img, ref_img, x_eff, y_eff):
+    """Kernel K1 on CUDA tensors; same contract as ``sweep_fwd_plain``."""
+    dev = src_img.device
+    dtypes = (torch.float32, torch.bfloat16)
+    src = check_cuda_input(src_img, "src_img", dtypes, 4, dev)
+    ref = check_cuda_input(ref_img, "ref_img", (src.dtype,), 4, dev)
+    n, h, w, c = src.shape
+    if ref.shape != src.shape:
+        raise ValueError(f"ref_img {tuple(ref.shape)} != src_img {tuple(src.shape)}")
+    if c != 128:
+        raise ValueError(f"sweep_fwd kernel takes the matching net's C = 128, got {c}")
+    xe = check_cuda_input(x_eff, "x_eff", (torch.float32,), 3, dev)
+    ye = check_cuda_input(y_eff, "y_eff", (torch.float32,), 3, dev)
+    d = xe.shape[1]
+    if xe.shape != (n, d, h * w) or ye.shape != xe.shape:
+        raise ValueError(f"x_eff/y_eff must be (N, D, H*W) = ({n}, {d}, {h * w})")
+    out = torch.empty((n, d, h * w), dtype=torch.float32, device=dev)
+    SWEEP_FWD(dev, DTYPE_CODE[src.dtype], src.data_ptr(), ref.data_ptr(),
+              xe.data_ptr(), ye.data_ptr(), out.data_ptr(), n, h, w, c, d)
+    return out
+
+
+def sweep_fwd(src_img, ref_img, x_eff, y_eff):
+    """Plane-sweep correlation core: kernel for CUDA tensors, plain version
+    for CPU tensors (see ``sweep_fwd_plain`` for the contract)."""
+    if use_kernel(src_img):
+        return sweep_fwd_cuda(src_img, ref_img, x_eff, y_eff)
+    return sweep_fwd_plain(src_img, ref_img, x_eff, y_eff)
+
+
+def _correlate(core, src_fea, ref_fea, src_proj, ref_proj, depth_values):
+    from ..models.depth_net import _warp_grid
+
+    n, c, h, w = src_fea.shape
+    x_eff, y_eff = _warp_grid(src_proj, ref_proj, depth_values, h, w)
+    corr = core(src_fea.permute(0, 2, 3, 1), ref_fea.permute(0, 2, 3, 1),
+                x_eff, y_eff)
+    return corr.reshape(n, -1, h, w).to(src_fea.dtype)
+
+
+def plane_sweep_correlation(src_fea, ref_fea, src_proj, ref_proj, depth_values):
+    """src_fea/ref_fea: (N, C, H, W); src_proj/ref_proj: (N, 4, 4);
+    depth_values: (D,).  Returns (N, D, H, W) in src_fea's dtype."""
+    return _correlate(sweep_fwd, src_fea, ref_fea, src_proj, ref_proj,
+                      depth_values)
+
+
+def plane_sweep_correlation_plain(src_fea, ref_fea, src_proj, ref_proj,
+                                  depth_values):
+    """``plane_sweep_correlation`` through the plain version on any device."""
+    return _correlate(sweep_fwd_plain, src_fea, ref_fea, src_proj, ref_proj,
+                      depth_values)

@@ -1,0 +1,55 @@
+"""Synthetic posed-view scene, NumPy only (the same scene as
+``__graft_entry__._example_scene``, which builds it with jax.numpy)."""
+from __future__ import annotations
+
+import numpy as np
+
+from .voxel_grid import compute_projection
+
+
+def example_scene(img_shape, pad, n_views, rng=None, trajectory="ring"):
+    """Synthetic scene: random normalized images and camera poses.
+
+    trajectory="ring": inward-looking orbit at radius 3 — every camera sees
+    essentially the whole volume.  trajectory="indoor": a walkthrough inside
+    the volume looking outward, like a real ScanNet capture — each camera
+    sees only part of the grid, so visibility-budget compaction has a
+    realistic (exact) bound to exploit.
+
+    Returns dict of float32 arrays: imgs (N, 3, *pad), proj_img (N, 3, 4),
+    proj_feat4 (N, 4, 4), origin (3,).
+    """
+    rng = rng or np.random.RandomState(0)
+    imgs = rng.randn(n_views, 3, *pad).astype(np.float32)
+    intr = np.eye(4, dtype=np.float32)
+    intr[0, 0] = intr[1, 1] = 1000.0
+    intr[0, 2], intr[1, 2] = 648.0, 484.0
+    exts = []
+    for i in range(n_views):
+        if trajectory == "indoor":
+            # camera walks a small interior loop, panning a full turn
+            ang = 2 * np.pi * (2 * i) / max(n_views, 1)
+            px = 0.8 * np.cos(2 * np.pi * i / max(n_views, 1))
+            py = 0.8 * np.sin(2 * np.pi * i / max(n_views, 1))
+            pos = [px, py, 1.4]
+        else:
+            ang = 2 * np.pi * i / max(n_views, 1)
+            pos = [0, 1.0, 3.0]
+        e = np.eye(4, dtype=np.float32)
+        c, s = np.cos(ang), np.sin(ang)
+        # world->camera: x_cam = R (x - C); rows = camera axes in world
+        e[:3, :3] = np.array([[c, -s, 0], [0, 0, -1], [s, c, 0]], np.float32)
+        if trajectory == "indoor":
+            e[:3, 3] = -e[:3, :3] @ np.asarray(pos, np.float32)
+        else:
+            e[:3, 3] = pos
+        exts.append(e)
+    exts = np.stack(exts)
+    ori_h = 968
+    proj_img = compute_projection(intr, exts, ori_h, img_shape[0], 1)
+    ratio4 = ori_h / (img_shape[0] / 4)
+    intr4 = intr.copy()
+    intr4[:2] /= ratio4
+    proj4 = np.einsum("ij,njk->nik", intr4, exts)
+    origin = np.array([0.0, 0.0, 0.5], np.float32)
+    return dict(imgs=imgs, proj_img=proj_img, proj_feat4=proj4, origin=origin)

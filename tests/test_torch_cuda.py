@@ -1,0 +1,104 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips where torch sees no CUDA
+device: the hand-written kernels have no CPU mode.  The module imports no
+JAX, so it also runs on a GPU host without it:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
+from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
+
+from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
+    assert_close_scaled,
+    dfa3d_inputs,
+    keep_global_torch_rng,
+    sweep_inputs,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _rel(dtype):
+    """Kernel and plain version both sum in f32 and round once to the output
+    dtype, in different orders: one bf16 ulp, or f32 rounding noise."""
+    return 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sweep_kernel_matches_plain(cuda_device, dtype):
+    src, ref, src_proj, ref_proj, dv = sweep_inputs(c=128)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (src, ref, src_proj,
+                                                          ref_proj, dv)]
+    args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+    before = KERNELS["sweep_fwd"].launches
+    got = plane_sweep_correlation(*args)
+    assert KERNELS["sweep_fwd"].launches == before + 1
+    with plain_ops():
+        expected = plane_sweep_correlation(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert_close_scaled(got.float().cpu().numpy(), expected.float().cpu().numpy(),
+                        _rel(dtype), "sweep kernel")
+
+
+def test_sweep_kernel_non_finite_coordinates_contribute_zero(cuda_device):
+    rng = np.random.RandomState(1)
+    n, h, w, c, d = 2, 5, 7, 128, 3
+    src, ref = (torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32))
+                .to(cuda_device) for _ in range(2))
+    x = torch.from_numpy(rng.uniform(-2, w + 1, (n, d, h * w)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-2, h + 1, (n, d, h * w)).astype(np.float32))
+    x, y = x.to(cuda_device), y.to(cuda_device)
+    bad = torch.zeros_like(x, dtype=torch.bool)
+    bad.view(-1)[::5] = True
+    clean = sweep_fwd(src, ref, x, y)
+    for value in (float("nan"), float("inf"), -float("inf"), 1e30):
+        out = sweep_fwd(src, ref, torch.where(bad, value, x), y)
+        assert torch.isfinite(out).all()
+        assert (out[bad] == 0).all()
+        assert torch.equal(out[~bad], clean[~bad])
+
+
+@pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],
+                         ids=["stage1", "stage2"])
+@pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float32])
+def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype):
+    value, dpt, locs, attn = dfa3d_inputs(heads, p, c, n=4, h=14, w=20, d=12,
+                                          k=300)
+    counts = torch.tensor([0, 100, 299, 300], dtype=torch.int32,
+                          device=cuda_device)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (value, dpt, locs, attn)]
+    args[0] = args[0].to(vdtype)
+    name = "dfa3d_fwd_s1" if heads == p == 1 else "dfa3d_fwd_mh"
+    before = KERNELS[name].launches
+    got = dfa3d_attend(*args, heads, valid_counts=counts)
+    assert KERNELS[name].launches == before + 1
+    with plain_ops():
+        expected = dfa3d_attend(*args, heads, valid_counts=counts)
+    torch.cuda.synchronize()
+    assert got.dtype == vdtype
+    assert_close_scaled(got.float().cpu().numpy(), expected.float().cpu().numpy(),
+                        _rel(vdtype), "dfa3d kernel")
+    for cam, cnt in enumerate(counts.tolist()):
+        assert (got[cam, cnt:] == 0).all()
+
+
+def test_dfa3d_kernel_rejects_cpu_operands_on_the_card_path(cuda_device):
+    """A CUDA value tensor goes to the kernel, which refuses operands left on
+    the CPU instead of falling back to the plain version."""
+    value, dpt, locs, attn = dfa3d_inputs(8, 4, 32, k=8)
+    with pytest.raises(ValueError, match="expected cuda"):
+        dfa3d_attend(torch.from_numpy(value).to(cuda_device), torch.from_numpy(dpt),
+                     torch.from_numpy(locs), torch.from_numpy(attn), 8)
