@@ -1,10 +1,10 @@
 """Configuration of the port: the fields of sgcdet_tpu/configs/config.py that
-the eval forward, decode and NMS read, with the same names and the ScanNet
-defaults (configs/SGCDet_ScanNet.py of the reference).
+the eval forward, decode, NMS, losses and the train step read, with the same
+names and the ScanNet defaults (configs/SGCDet_ScanNet.py of the reference).
 
-``SGCDet`` and ``decode_bboxes`` read attributes only, so the JAX package's
-``ModelConfig`` works in their place; the tests hold ``scannet()`` here
-field by field against the JAX package's.
+``SGCDet``, ``decode_bboxes``, ``compute_losses`` and the train step read
+attributes only, so the JAX package's configs work in their place; the tests
+hold ``scannet()`` here field by field against the JAX package's.
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ class ModelConfig:
     # attention
     num_heads: int = 8
     num_points: int = 4
+    ffn_dropout: float = 0.1
     # per-camera visible-query compaction budget: a fraction of K for every
     # level, a tuple of per-level fractions (1.0 disables a level), or None
     # (off); see visibility.derive_visibility_budgets for an exact one
@@ -51,6 +52,15 @@ class ModelConfig:
     neck3d_out_channels: int = 128
     neck3d_n_blocks: Tuple[int, ...] = (1, 1, 1)
     n_scales: int = 3
+    limit: int = 27
+    centerness_topk: int = 18
+    # losses; the depth loss reads GT depth maps at downsample_factor x the
+    # stride-4 prediction grid
+    occ_loss: bool = True
+    depth_loss: bool = False
+    downsample_factor: int = 8
+    depth_loss_weight: float = 0.5
+    depth_max_tol: int = 0
     # 'bfloat16' (default) or 'float32'; BatchNorm statistics, the depth
     # softmax, sampling coordinates and kernel accumulation stay f32
     compute_dtype: str = "bfloat16"
@@ -75,6 +85,20 @@ class DataConfig:
     # padded shape the network sees
     img_shape: Tuple[int, int] = (239, 320)
     pad_size: Tuple[int, int] = (240, 320)
+    max_boxes: int = 128  # static GT padding
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 2e-4
+    weight_decay: float = 1e-4
+    training_steps: int = 1201 * 36
+    pct_start: float = 0.05
+    final_div_factor: float = 1e4
+    div_factor: float = 25.0  # initial lr = max lr / 25
+    grad_clip: float = 35.0
+    backbone_lr_mult: float = 0.1
+    batch_size_per_device: int = 1
 
 
 @dataclass(frozen=True)
@@ -82,6 +106,7 @@ class SGCDetConfig:
     name: str = "sgcdet_scannet"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 def scannet() -> SGCDetConfig:

@@ -1,0 +1,216 @@
+// Fused DFA3D sampling backward (kernels K6 `dfa3d_bwd_s1` and K5
+// `dfa3d_bwd_mh`): one template, one entry point; the wrapper counts the
+// stage-1 and stage-2 launches apart.
+//
+// Replaces the TPU kernels sgcdet_tpu/ops/dfa3d_pallas.py::_bwd_kernel_s1
+// (stage 1: heads=1, P=1, attention 1, all C channels; launched by _run_bwd,
+// selected at :527-529) and sgcdet_tpu/ops/dfa3d_pallas2.py::_bwd_kernel_v2
+// (stage 2: heads x P points, c channels per head; _run_bwd_v2), together
+// with the XLA chain that follows them on the TPU (dfa3d_pallas2.py:744-791,
+// dfa3d_pallas.py:764-815): those kernels emit per-corner weight gradients
+// and depth-vector gradients, and XLA turns them into location and
+// attention gradients.  Here the chain is done in registers.  With the
+// forward's notation (dfa3d_fwd.cu), for every (view n, query q, head h,
+// point p) and each in-image corner with bilinear weight b, depth score
+// s = dpt[d0c] * wd0 + dpt[d1c] * wd1 and attention a:
+//
+//   t          = <g[n, q, head channels], value[corner, head channels]>
+//   d_value   += (b * a * s) * g                         (atomics)
+//   d_dpt[d0c]+= t * b * a * wd0,  d_dpt[d1c] += t * b * a * wd1  (atomics)
+//   d_attn     = sum_corners t * b * s
+//   d_lx, d_ly = sum_corners t * a * s * db/dlx, db/dly
+//   d_ld       = sum_corners t * b * a * (valid1 * dpt[d1c] - valid0 * dpt[d0c])
+//   d_locs     = (d_lx * W, d_ly * H, d_ld * D)   (pixel = loc * size - 0.5)
+//
+// Queries at or past valid_counts[n] get zero d_locs / d_attn and scatter
+// nothing (dfa3d_pallas.py:448-465).  Coordinates are clipped as in the
+// forward, so NaN and far-off samples touch no corner.  All gradients are
+// f32; the wrapper casts them once to the input dtypes.  With SAMPLE_GRADS
+// off (stage 1 in the model: its locations are fixed voxel centres and its
+// attention is 1) only d_value and d_dpt are produced.
+//
+// What bounds it on this card: the scatter.  Per (query, head, point,
+// corner) the kernel re-gathers one c-channel value row and two depth bins,
+// and adds c + 2 f32 values by atomics into the (N, H, W, C) and
+// (N, H, W, D) buffers, which resolve in L2.  The counted rows past each
+// camera's visible count (most of them at the finest level) cost one
+// broadcast load of the count.
+//
+// Design: one warp per (view, query, head), lanes over the head's c
+// channels (c / 32 per lane), exactly as the forward.  The incoming gradient
+// row is loaded once into registers; each corner's dot product t is one
+// warp reduction (every lane ends with the sum), so every lane carries the
+// location and attention gradients and lane 0 writes them once per point.
+// No pair/quad row images, no dquad/un-quad pass and no transposed windows
+// (those worked around Mosaic).
+#include "common.cuh"
+
+namespace {
+
+template <typename VT, typename DT, int VEC, bool SAMPLE_GRADS>
+__global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
+    const VT* __restrict__ value,    // (N, H, W, heads*c)
+    const DT* __restrict__ depth,    // (N, H, W, D)
+    const float* __restrict__ locs,  // (N, K, heads, P, 3) normalized (u, v, d)
+    const float* __restrict__ attn,  // (N, K, heads, P)
+    const int* __restrict__ counts,  // (N,) visible-query counts, or null
+    const VT* __restrict__ g,        // (N, K, heads*c) incoming gradient
+    float* __restrict__ d_value,     // (N, H, W, heads*c), zeroed by the caller
+    float* __restrict__ d_depth,     // (N, H, W, D), zeroed by the caller
+    float* __restrict__ d_locs,      // (N, K, heads, P, 3) or null
+    float* __restrict__ d_attn,      // (N, K, heads, P) or null
+    int n, int h, int w, int heads, int dsize, int k, int p) {
+  constexpr int C = 32 * VEC;  // channels per head
+  const int lane = threadIdx.x & 31;
+  const long long warp_id =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (warp_id >= (long long)n * k * heads) return;
+  const int head = (int)(warp_id % heads);
+  const long long nq = warp_id / heads;  // cam * k + q
+  const int q = (int)(nq % k);
+  const int cam = (int)(nq / k);
+  const int cfull = heads * C;
+
+  if (counts != nullptr && q >= counts[cam]) {
+    if (SAMPLE_GRADS) {
+      for (int i = lane; i < 3 * p; i += 32) d_locs[warp_id * p * 3 + i] = 0.f;
+      for (int i = lane; i < p; i += 32) d_attn[warp_id * p + i] = 0.f;
+    }
+    return;
+  }
+
+  float gv[VEC];
+  sgc::load_f32<VT, VEC>(g + nq * cfull + head * C + lane * VEC, gv);
+  const long long hw = (long long)h * w;
+  const float* lp = locs + warp_id * p * 3;
+  const float* ap = attn + warp_id * p;
+  const VT* vbase = value + cam * hw * cfull + head * C + lane * VEC;
+  float* dvbase = d_value + cam * hw * cfull + head * C + lane * VEC;
+  const DT* dbase = depth + cam * hw * dsize;
+  float* ddbase = d_depth + cam * hw * dsize;
+
+  for (int pt = 0; pt < p; ++pt) {
+    const float u = sgc::clip_coord(lp[3 * pt] * w - 0.5f, -4.f, w + 4.f);
+    const float v = sgc::clip_coord(lp[3 * pt + 1] * h - 0.5f, -4.f, h + 4.f);
+    const float dd = sgc::clip_coord(lp[3 * pt + 2] * dsize - 0.5f, -4.f,
+                                     dsize + 4.f);
+    const float a = ap[pt];
+    const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
+    const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
+    const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
+    const bool dv0 = d0 >= 0 && d0 <= dsize - 1;
+    const bool dv1 = d0 + 1 >= 0 && d0 + 1 <= dsize - 1;
+    const float wd0 = dv0 ? 1.f - ld : 0.f;
+    const float wd1 = dv1 ? ld : 0.f;
+    const int d0c = min(max(d0, 0), dsize - 1);
+    const int d1c = min(max(d0 + 1, 0), dsize - 1);
+    float g_lx = 0.f, g_ly = 0.f, g_ld = 0.f, g_a = 0.f;
+#pragma unroll
+    for (int corner = 0; corner < 4; ++corner) {
+      const int dy = corner >> 1, dx = corner & 1;
+      const int yi = y0 + dy, xi = x0 + dx;
+      if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
+      const long long pix = (long long)yi * w + xi;
+      const DT* drow = dbase + pix * dsize;
+      const float dp0 = sgc::to_f32(drow[d0c]), dp1 = sgc::to_f32(drow[d1c]);
+      const float s = dp0 * wd0 + dp1 * wd1;
+      const float by = dy ? ly : 1.f - ly, bx = dx ? lx : 1.f - lx;
+      const float b = by * bx;
+      const float wgt = (b * a) * s;
+      float val[VEC];
+      sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
+      float t = 0.f;
+      float* dvrow = dvbase + pix * cfull;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        t += gv[i] * val[i];
+        atomicAdd(dvrow + i, wgt * gv[i]);
+      }
+      t = sgc::warp_sum(t);
+      const float t_s = t * b * a;  // gradient of the depth score s
+      if (lane == 0) {
+        if (wd0 != 0.f) atomicAdd(ddbase + pix * dsize + d0c, t_s * wd0);
+        if (wd1 != 0.f) atomicAdd(ddbase + pix * dsize + d1c, t_s * wd1);
+      }
+      if (SAMPLE_GRADS) {
+        const float t_b = t * a * s;  // gradient of the bilinear weight b
+        g_a += t * b * s;
+        g_lx += t_b * (dx ? by : -by);
+        g_ly += t_b * (dy ? bx : -bx);
+        g_ld += t_s * ((dv1 ? dp1 : 0.f) - (dv0 ? dp0 : 0.f));
+      }
+    }
+    if (SAMPLE_GRADS && lane == 0) {
+      float* dl = d_locs + (warp_id * p + pt) * 3;
+      dl[0] = g_lx * w;
+      dl[1] = g_ly * h;
+      dl[2] = g_ld * dsize;
+      d_attn[warp_id * p + pt] = g_a;
+    }
+  }
+}
+
+template <typename VT, typename DT, int VEC, bool SAMPLE_GRADS>
+void launch(const void* value, const void* depth, const float* locs,
+            const float* attn, const int* counts, const void* g, float* d_value,
+            float* d_depth, float* d_locs, float* d_attn, int n, int h, int w,
+            int heads, int dsize, int k, int p, cudaStream_t stream) {
+  const long long warps = (long long)n * k * heads;
+  const int threads = 256;
+  const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
+  dfa3d_bwd_kernel<VT, DT, VEC, SAMPLE_GRADS><<<(unsigned)blocks, threads, 0, stream>>>(
+      static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
+      counts, static_cast<const VT*>(g), d_value, d_depth, d_locs, d_attn, n,
+      h, w, heads, dsize, k, p);
+}
+
+template <typename VT, typename DT, int VEC>
+void launch_sg(const void* value, const void* depth, const float* locs,
+               const float* attn, const int* counts, const void* g,
+               float* d_value, float* d_depth, float* d_locs, float* d_attn,
+               int n, int h, int w, int heads, int dsize, int k, int p,
+               cudaStream_t stream) {
+  if (d_locs != nullptr)
+    launch<VT, DT, VEC, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
+  else
+    launch<VT, DT, VEC, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
+}
+
+template <typename VT, typename DT>
+int dispatch_c(int c, const void* value, const void* depth, const float* locs,
+               const float* attn, const int* counts, const void* g,
+               float* d_value, float* d_depth, float* d_locs, float* d_attn,
+               int n, int h, int w, int heads, int dsize, int k, int p,
+               cudaStream_t stream) {
+  switch (c) {
+    case 32: launch_sg<VT, DT, 1>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream); break;
+    case 256: launch_sg<VT, DT, 8>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// value (N, H, W, heads*c) of type vdtype, depth (N, H, W, dsize) of type
+// ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
+// (N,) int32 or null, g (N, K, heads*c) of type vdtype -> d_value, d_depth
+// (f32, zero-initialised by the caller) and, where both pointers are
+// non-null, d_locs and d_attn (f32, every element written).
+extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
+                             const void* depth, const float* locs,
+                             const float* attn, const int* counts,
+                             const void* g, float* d_value, float* d_depth,
+                             float* d_locs, float* d_attn, int n, int h, int w,
+                             int heads, int c, int dsize, int k, int p,
+                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n * (long long)k == 0) return (int)cudaSuccess;
+  if (ddtype != sgc::kFloat32) return (int)cudaErrorInvalidValue;
+  if ((d_locs == nullptr) != (d_attn == nullptr)) return (int)cudaErrorInvalidValue;
+  if (vdtype == sgc::kBFloat16)
+    return dispatch_c<__nv_bfloat16, float>(c, value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
+  if (vdtype == sgc::kFloat32)
+    return dispatch_c<float, float>(c, value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
+  return (int)cudaErrorInvalidValue;
+}

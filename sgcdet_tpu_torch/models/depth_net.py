@@ -3,7 +3,8 @@
 categorical depth distributions over D bins from (a) a plane-sweep
 dot-product cost volume against the temporally adjacent views, through the
 truncated ResNet-18 matching extractor, and (b) a monocular branch from FPN
-features, fused by 2D U-Nets and a softmax taken in f32.
+features, fused by 2D U-Nets and a softmax taken in f32; and the depth
+loss against GT depth maps (``downsample_gt_depth``, ``depth_loss``).
 """
 from __future__ import annotations
 
@@ -144,3 +145,44 @@ class DepthNetFusion(nn.Module):
         # the distributions reweight the value sampling and must sum to 1:
         # normalize in f32 whatever the compute dtype
         return torch.softmax(logits.float(), dim=1)
+
+
+def downsample_gt_depth(gt_depths, downsample_factor, dbound, depth_channels,
+                        max_tol=0):
+    """GT depth -> one-hot bins at feature resolution with min-pooling
+    (depth_net.py:236-264).
+
+    gt_depths: (N, H, W) meters (0 = invalid).  Returns (N*h*w, D) float
+    one-hot, with an optional +-max_tol bin tolerance."""
+    n, h, w = gt_depths.shape
+    ds = downsample_factor
+    g = gt_depths.reshape(n, h // ds, ds, w // ds, ds).permute(0, 1, 3, 2, 4)
+    g = g.reshape(n, h // ds, w // ds, ds * ds)
+    g = torch.where(g == 0.0, 1e5, g).amin(-1)
+    g = (g - (dbound[0] - dbound[2])) / dbound[2]
+    g = torch.where((g < depth_channels + 1) & (g >= 0.0), g, 0.0)
+    onehot = F.one_hot(g.long(), depth_channels + 1).to(gt_depths.dtype)
+    onehot = onehot.reshape(-1, depth_channels + 1)[:, 1:]
+    if max_tol >= 1:
+        acc = onehot
+        for err in range(-max_tol, max_tol + 1):
+            if err < 0:
+                acc = acc + F.pad(acc[..., 1:], (0, 1))
+            elif err > 0:
+                acc = acc + F.pad(acc[..., :-1], (1, 0))
+        onehot = acc / (acc + 1e-5)
+    return onehot
+
+
+def depth_loss(gt_depths, depth_preds, downsample_factor, dbound,
+               loss_weight=0.5, max_tol=0):
+    """Masked BCE between the predicted distributions (N, D, H, W) and the
+    one-hot GT bins (depth_net.py:267-277)."""
+    d_ch = depth_preds.shape[1]
+    labels = downsample_gt_depth(gt_depths, downsample_factor, dbound, d_ch, max_tol)
+    preds = depth_preds.permute(0, 2, 3, 1).reshape(-1, d_ch)
+    fg = labels.amax(1) > 0.0
+    preds = preds.clamp(1e-7, 1 - 1e-7)
+    bce = -(labels * torch.log(preds) + (1 - labels) * torch.log(1 - preds))
+    bce = torch.where(fg[:, None], bce, 0.0).sum()
+    return loss_weight * bce / fg.sum().clamp(min=1)

@@ -1,7 +1,8 @@
 """Anchor-free FCOS-style 3D detection head, ScanNet variant
 (sgcdet_tpu/models/det_head.py; reference ScanNetImVoxelHeadV2): shared
-3x3x3 conv heads over the scales with a learned exp scale per scale, and
-the host-side (NumPy) decode + aligned NMS."""
+3x3x3 conv heads over the scales with a learned exp scale per scale; the
+FCOS target assignment over a padded GT set and the head's three losses
+(``head_loss_single``); and the host-side (NumPy) decode + aligned NMS."""
 from __future__ import annotations
 
 import math
@@ -13,6 +14,7 @@ from torch import nn
 from ..ops.nms import aligned_3d_nms
 from ..voxel_grid import voxel_centers_zero_origin
 from .layers import Conv3d
+from .losses import axis_aligned_iou_loss, bce_with_logits, sigmoid_focal_loss
 
 
 class Scale(nn.Module):
@@ -68,12 +70,124 @@ def _trilinear_resize_np(x, size):
 
 
 def bbox_pred_to_corner(points, pred):
-    """Distances -> corner boxes (x1, y1, z1, x2, y2, z2)."""
-    return np.stack([
+    """Distances -> corner boxes (x1, y1, z1, x2, y2, z2); NumPy arrays or
+    torch tensors."""
+    stack = torch.stack if torch.is_tensor(points) else np.stack
+    return stack([
         points[:, 0] - pred[:, 0], points[:, 1] - pred[:, 2],
         points[:, 2] - pred[:, 4], points[:, 0] + pred[:, 1],
         points[:, 1] + pred[:, 3], points[:, 2] + pred[:, 5],
-    ], axis=-1)
+    ], -1)
+
+
+# ---------------------------------------------------------------------------
+# target assignment and losses (det_head.py:80-286, axis-aligned branch)
+# ---------------------------------------------------------------------------
+
+
+def head_points(featmap_sizes, voxel_size, origin):
+    """Multi-scale voxel-centre points (concatenated), per-point scale ids
+    and per-level point counts.  origin: (3,) tensor."""
+    pts, scales, level_sizes = [], [], []
+    for i, fs in enumerate(featmap_sizes):
+        vs = tuple(v * (2 ** i) for v in voxel_size)
+        base = torch.from_numpy(voxel_centers_zero_origin(tuple(fs), vs)).to(origin.device)
+        pts.append(base + origin[None])
+        scales.append(torch.full((base.shape[0],), i, dtype=torch.int64,
+                                 device=origin.device))
+        level_sizes.append(base.shape[0])
+    return torch.cat(pts, 0), torch.cat(scales, 0), level_sizes
+
+
+def compute_centerness(bbox_targets):
+    """sqrt of the product of per-axis min/max distance ratios; the clip
+    keeps outside points at 0 instead of NaN."""
+    r = None
+    for a in range(3):
+        pair = bbox_targets[..., 2 * a:2 * a + 2]
+        ratio = pair.amin(-1) / pair.amax(-1).clamp(min=1e-12)
+        r = ratio if r is None else r * ratio
+    return torch.sqrt(r.clamp(min=0.0))
+
+
+def _best_scale(inside_mask, level_sizes, n_scales, limit):
+    """Per-box best scale: the smallest scale with >= limit inside points,
+    else the coarsest.  ``torch.argmax`` takes the first maximum, as
+    ``jnp.argmax`` does."""
+    counts = torch.stack([m.sum(0) for m in torch.split(inside_mask, level_sizes)])
+    lower = counts < limit  # (S, B)
+    extra = torch.arange(n_scales, 0, -1, device=inside_mask.device)[:, None]
+    lower_index = (torch.argmax(lower.long() * extra, dim=0) - 1).clamp(min=0)
+    all_upper = (~lower).all(0)
+    return torch.where(all_upper, n_scales - 1, lower_index)
+
+
+def fcos_targets(points, scales, level_sizes, gt_boxes, gt_labels, gt_mask,
+                 n_scales, limit, centerness_topk):
+    """FCOS target assignment over padded GT, axis-aligned boxes.
+
+    points: (P, 3); gt_boxes: (B, 7) gravity-centre (x, y, z, dx, dy, dz,
+    yaw); gt_labels: (B,) int; gt_mask: (B,) bool (False = padding).
+    Returns (centerness_targets (P,), corner target boxes (P, 6),
+    labels (P,) with -1 for background, geo_occ (P,))."""
+    float_max = 1e8
+    volumes = (gt_boxes[:, 3] * gt_boxes[:, 4] * gt_boxes[:, 5])[None]  # (1, B)
+    local = points[:, None, :]
+    centers = gt_boxes[None, :, :3]
+    half = gt_boxes[None, :, 3:6] / 2
+    d_min = local - (centers - half)  # (P, B, 3)
+    d_max = (centers + half) - local
+    bbox_targets6 = torch.stack(
+        [d_min[..., 0], d_max[..., 0], d_min[..., 1], d_max[..., 1],
+         d_min[..., 2], d_max[..., 2]], -1)  # (P, B, 6)
+    inside = (bbox_targets6.amin(-1) > 0) & gt_mask[None, :]
+    best_scale = _best_scale(inside, level_sizes, n_scales, limit)
+    inside_best = best_scale[None, :] == scales[:, None]
+
+    centerness = compute_centerness(bbox_targets6)
+    centerness = torch.where(inside & inside_best, centerness, -1.0)
+    top_c = torch.topk(centerness.T, centerness_topk + 1, dim=1).values[:, -1]
+    inside_top = centerness > top_c[None, :]
+
+    vol = torch.where(inside & inside_best & inside_top, volumes, float_max)
+    # first minimum among ties, as jnp.argmin
+    min_area, min_inds = vol.min(1).values, vol.argmin(1)
+    labels = torch.where(min_area == float_max, -1, gt_labels[min_inds])
+    tgt6 = bbox_targets6[torch.arange(points.shape[0], device=points.device), min_inds]
+    centerness_targets = compute_centerness(tgt6)
+    geo_occ = inside.any(1)
+    return centerness_targets, bbox_pred_to_corner(points, tgt6), labels, geo_occ
+
+
+def head_loss_single(head_outs, valids_flat, points, scales, level_sizes,
+                     gt_boxes, gt_labels, gt_mask, cfg):
+    """Losses of one scene.  head_outs: per scale (centerness (1, ...),
+    bbox_pred (6, ...), cls_score (nc, ...)) without the batch dim;
+    valids_flat: (P,) bool.  Returns (loss_centerness, loss_bbox, loss_cls,
+    labels, geo_occ, n_pos)."""
+    if cfg.head_type != "scannet":
+        raise NotImplementedError("the port trains the ScanNet head only")
+
+    def flat(i, width):
+        return torch.cat([h[i].permute(1, 2, 3, 0).reshape(-1, width)
+                          for h in head_outs])
+
+    flat_centerness = flat(0, 1)[:, 0]
+    flat_bbox = flat(1, head_outs[0][1].shape[0])
+    flat_cls = flat(2, cfg.n_classes)
+    centerness_t, bbox_t, labels, geo_occ = fcos_targets(
+        points, scales, level_sizes, gt_boxes, gt_labels, gt_mask,
+        cfg.n_scales, cfg.limit, cfg.centerness_topk)
+
+    pos = (labels >= 0) & valids_flat
+    n_pos = pos.sum().float()
+    avg = n_pos.clamp(min=1.0)
+    loss_cls = sigmoid_focal_loss(flat_cls, labels, cfg.n_classes, valids_flat, avg)
+    loss_centerness = bce_with_logits(flat_centerness, centerness_t, pos, avg)
+    weight = centerness_t * pos.float()
+    loss_bbox = axis_aligned_iou_loss(bbox_pred_to_corner(points, flat_bbox),
+                                      bbox_t, weight, weight.sum())
+    return loss_centerness, loss_bbox, loss_cls, labels, geo_occ, n_pos
 
 
 def decode_bboxes(head_outs, valid, origin, voxel_size, cfg):

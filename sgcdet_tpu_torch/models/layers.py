@@ -70,13 +70,22 @@ class Linear(_Cast, nn.Linear):
 
 
 class _F32BatchNorm:
-    """BatchNorm in f32, result in the input dtype (running statistics in
-    eval mode, batch statistics in train mode)."""
+    """BatchNorm in f32, result in the input dtype (layers.py:187-232).
+
+    Eval mode, or ``frozen=True`` whatever the mode: running statistics,
+    never updated.  Train mode: biased batch statistics over (N, spatial),
+    and the running variance moves by the unbiased n/(n-1) estimate with
+    momentum 0.1, which is what ``F.batch_norm`` does.  A frozen BN's affine
+    still gets gradients (the optimizer leaves it alone)."""
+
+    def __init__(self, *args, frozen: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.frozen = frozen
 
     def forward(self, x):
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, self.training, self.momentum,
-                         self.eps)
+                         self.weight, self.bias, self.training and not self.frozen,
+                         self.momentum, self.eps)
         return y.to(x.dtype)
 
 
@@ -104,19 +113,36 @@ class LayerNorm(nn.Module):
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
+def dropout(x, rate: float, generator: torch.Generator | None):
+    """``flax.linen.Dropout`` in train mode: keep with probability
+    1 - rate and scale the kept values by 1 / (1 - rate).  The mask comes
+    from ``generator`` (on x's device), never from torch's global one."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs an explicit torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 class FFN(nn.Module):
-    """mmcv FFN in eval: Linear -> ReLU -> Linear, residual add.  Names
+    """mmcv FFN: Linear -> ReLU -> Dropout -> Linear -> Dropout, residual
+    add (layers.py:266-280); the dropouts act in train mode only.  Names
     ``layers.0.0`` / ``layers.1`` as in the reference state dict."""
 
-    def __init__(self, embed_dims: int, feedforward_channels: int):
+    def __init__(self, embed_dims: int, feedforward_channels: int,
+                 dropout: float = 0.1):
         super().__init__()
+        self.dropout = dropout
         self.layers = nn.ModuleList([
             nn.Sequential(Linear(embed_dims, feedforward_channels), nn.ReLU()),
             Linear(feedforward_channels, embed_dims),
         ])
 
-    def forward(self, x, identity=None):
-        y = self.layers[1](self.layers[0](x))
+    def forward(self, x, identity=None, generator=None):
+        rate = self.dropout if self.training else 0.0
+        y = dropout(self.layers[0](x), rate, generator)
+        y = dropout(self.layers[1](y), rate, generator)
         return (x if identity is None else identity) + y
 
 

@@ -1,10 +1,12 @@
 """Backbones (sgcdet_tpu/models/resnet.py), with the reference's torchvision
 naming so ``state_dict`` keys match the released checkpoints.
 
-* ``ResNet50`` — mmdet ResNet-50 'pytorch' style, eval-mode BN everywhere
-  (frozen stem/stage-1 in training, configs/SGCDet_ScanNet.py:74-83).
+* ``ResNet50`` — mmdet ResNet-50 'pytorch' style.  Every BN is frozen
+  (running statistics in train mode too, resnet.py:45-61,75), and the
+  optimizer keeps the stem, stage 1 and every BN affine fixed
+  (configs/SGCDet_ScanNet.py:74-83, ``train/optim.py::param_label``).
 * ``ResNetFPNMatching`` — the truncated ResNet-18 stereo-matching extractor
-  of the depth head, output stride 4.  Its blocks register the downsample
+  of the depth head, output stride 4; its BNs train normally.  Its blocks register the downsample
   BN twice, as ``bn3`` and as ``downsample.1`` (the same module), exactly as
   the reference does (layer_matching.py:118-127), so both key sets appear in
   ``state_dict``.
@@ -23,17 +25,17 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes, planes, stride=1, downsample=False):
         super().__init__()
         self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes, frozen=True)
         # 'pytorch' style: stride on the 3x3 conv
         self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes, frozen=True)
         self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4, frozen=True)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
                 Conv2d(inplanes, planes * 4, 1, stride, bias=False),
-                BatchNorm2d(planes * 4),
+                BatchNorm2d(planes * 4, frozen=True),
             )
 
     def forward(self, x):
@@ -50,7 +52,7 @@ class ResNet50(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64, frozen=True)
         inplanes = 64
         for s, (planes, blocks, stride) in enumerate(
             [(64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2)], start=1

@@ -31,9 +31,10 @@ class AdaptiveSparseVolume(nn.Module):
                                               (0.16, 0.16, 0.2)),
                  n_voxels_list: Sequence = ((10, 10, 4), (20, 20, 8), (40, 40, 16)),
                  topk_list: Sequence = (800, 6400), num_heads=8, num_points=4,
-                 visibility_budget=None):
+                 visibility_budget=None, ffn_dropout=0.1):
         """visibility_budget: None, a fraction for every level, or one
-        fraction per level (1.0 disables compaction at that level)."""
+        fraction per level (1.0 disables compaction at that level);
+        ffn_dropout: the rate of the lifting FFN's dropouts in train mode."""
         super().__init__()
         self.embed_dims = embed_dims
         self.voxel_size_list = tuple(voxel_size_list)
@@ -47,17 +48,19 @@ class AdaptiveSparseVolume(nn.Module):
                 if vb >= 1.0:
                     vb = None
             heads.append(ViewTransformer(embed_dims, num_heads, num_points,
-                                         visibility_budget=vb))
+                                         visibility_budget=vb,
+                                         ffn_dropout=ffn_dropout))
         self.base_heads = nn.ModuleList(heads)
         self.occ_pred_heads = nn.ModuleList(
             [nn.Sequential(Linear(embed_dims, 1), nn.Sigmoid())
              for _ in range(len(self.n_voxels_list) - 1)])
 
     def forward(self, mlvl_feats, mlvl_dpt_dists, origin, projection, img_shape,
-                dbound):
+                dbound, generator=None):
         """mlvl_feats: list of (N, C, H_l, W_l), finest first (FPN order);
         mlvl_dpt_dists: list of (N, D, H_l, W_l), finest first; origin: (3,);
-        projection: (N, 3, 4) at image resolution.
+        projection: (N, 3, 4) at image resolution; generator: the FFN
+        dropout's masks in train mode.
         Returns (volume (C, X, Y, Z), valid (X, Y, Z) f32, occ_preds or None).
         """
         n_levels = len(self.n_voxels_list)
@@ -77,7 +80,8 @@ class AdaptiveSparseVolume(nn.Module):
                 voxel_centers_zero_origin(nvox, self.voxel_size_list[i])).to(dev)
             head = self.base_heads[i]
             if i == 0:
-                seeds = head(ref_all, origin, projection, feat, dpt, img_shape, dbound)
+                seeds = head(ref_all, origin, projection, feat, dpt, img_shape, dbound,
+                             generator)
                 volume = seeds.T.reshape(self.embed_dims, *nvox)
                 continue
             upsampled = interpolate_linear(volume[None], nvox)[0]  # (C, X, Y, Z)
@@ -86,7 +90,7 @@ class AdaptiveSparseVolume(nn.Module):
             # spatial scan order (the reference's nonzero() order)
             top_idx = torch.sort(top_k_indices(occ, self.topk_list[i - 1]))[0]
             seeds = head(ref_all[top_idx], origin, projection, feat, dpt,
-                         img_shape, dbound)  # (K, C)
+                         img_shape, dbound, generator)  # (K, C)
             flat = torch.zeros((int(np.prod(nvox)), self.embed_dims),
                                dtype=seeds.dtype, device=dev)
             flat[top_idx] = seeds
@@ -100,3 +104,13 @@ class AdaptiveSparseVolume(nn.Module):
         if occ_preds_list:
             return volume, valid, torch.cat(occ_preds_list[::-1], 0)
         return volume, torch.ones(self.n_voxels_list[-1], device=dev), None
+
+
+def occ_loss(occ_pred, geo_occ, weight=0.5):
+    """BCE between the predicted occupancy and the box-derived geometric
+    occupancy (sparse_head.py:131-138).  occ_pred (M,), geo_occ (>=M,)
+    bool."""
+    target = geo_occ[:occ_pred.shape[0]].to(occ_pred.dtype)
+    p = occ_pred.clamp(1e-7, 1 - 1e-7)
+    bce = -(target * torch.log(p) + (1 - target) * torch.log(1 - p))
+    return bce.mean() * weight

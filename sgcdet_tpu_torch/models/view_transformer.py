@@ -206,19 +206,21 @@ class VoxFormerLayer(nn.Module):
     ``ffns.0``, ``norms.{0,1}``."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4,
-                 visibility_budget=None):
+                 visibility_budget=None, ffn_dropout=0.1):
         super().__init__()
         self.attentions = nn.ModuleList([DeformCrossAttention(
             embed_dims, num_heads, num_points,
             visibility_budget=visibility_budget)])
-        self.ffns = nn.ModuleList([FFN(embed_dims, embed_dims * 2)])
+        self.ffns = nn.ModuleList([FFN(embed_dims, embed_dims * 2, ffn_dropout)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims), LayerNorm(embed_dims)])
 
-    def forward(self, query, value_img, dpt_img, ref_cam, mask, spatial_shapes):
+    def forward(self, query, value_img, dpt_img, ref_cam, mask, spatial_shapes,
+                generator=None):
+        """generator: the FFN dropout's masks in train mode."""
         query = self.attentions[0](query, value_img, dpt_img, ref_cam, mask,
                                    spatial_shapes)
         query = self.norms[0](query)
-        query = self.ffns[0](query)
+        query = self.ffns[0](query, generator=generator)
         return self.norms[1](query)
 
 
@@ -240,15 +242,18 @@ class ViewTransformer(nn.Module):
     .layers.0`` as in the reference's DenseHead."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4,
-                 visibility_budget=None):
+                 visibility_budget=None, ffn_dropout=0.1):
         super().__init__()
         self.embed_dims = embed_dims
         self.cross_transformer = _Transformer([
-            VoxFormerLayer(embed_dims, num_heads, num_points, visibility_budget)])
+            VoxFormerLayer(embed_dims, num_heads, num_points, visibility_budget,
+                           ffn_dropout)])
 
-    def forward(self, ref_points, origin, projection, feat, dpt, img_shape, dbound):
+    def forward(self, ref_points, origin, projection, feat, dpt, img_shape, dbound,
+                generator=None):
         """ref_points: (K, 3) origin-relative voxel centers; feat:
-        (N, C, H, W); dpt: (N, D, H, W).  Returns seed features (K, C)."""
+        (N, C, H, W); dpt: (N, D, H, W); generator: the FFN dropout's masks
+        in train mode.  Returns seed features (K, C)."""
         spatial_shapes = ((feat.shape[2], feat.shape[3]),)
         value_img = feat.permute(0, 2, 3, 1)
         dpt_img = dpt.permute(0, 2, 3, 1)
@@ -257,5 +262,6 @@ class ViewTransformer(nn.Module):
         query = torch.zeros((ref_points.shape[0], self.embed_dims),
                             dtype=value_img.dtype, device=value_img.device)
         for layer in self.cross_transformer.encoder.layers:
-            query = layer(query, value_img, dpt_img, ref_cam, mask, spatial_shapes)
+            query = layer(query, value_img, dpt_img, ref_cam, mask, spatial_shapes,
+                          generator)
         return query

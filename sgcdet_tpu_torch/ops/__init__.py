@@ -1,15 +1,31 @@
 """Ops of the port: the hand-written Hopper kernels behind their wrappers,
 their plain PyTorch versions, and host-side NMS."""
 from ._cuda import LIBRARY, plain_ops
-from .dfa3d import DFA3D_FWD_MH, DFA3D_FWD_S1, dfa3d_attend, dfa3d_attention_plain
+from .dfa3d import (
+    DFA3D_BWD_MH,
+    DFA3D_BWD_S1,
+    DFA3D_FWD_MH,
+    DFA3D_FWD_S1,
+    dfa3d_attend,
+    dfa3d_attention_plain,
+)
 from .nms import aligned_3d_nms
-from .sweep import SWEEP_FWD, plane_sweep_correlation, plane_sweep_correlation_plain
+from .sweep import (
+    SWEEP_BWD,
+    SWEEP_FWD,
+    plane_sweep_correlation,
+    plane_sweep_correlation_plain,
+)
 
-# every kernel of the serving path, by the name chip_smoke.py reports
+# every kernel of the serving and train paths, by the name chip_smoke.py
+# reports
 KERNELS = {
     "sweep_fwd": SWEEP_FWD,
     "dfa3d_fwd_s1": DFA3D_FWD_S1,
     "dfa3d_fwd_mh": DFA3D_FWD_MH,
+    "sweep_bwd": SWEEP_BWD,
+    "dfa3d_bwd_s1": DFA3D_BWD_S1,
+    "dfa3d_bwd_mh": DFA3D_BWD_MH,
 }
 
 __all__ = [

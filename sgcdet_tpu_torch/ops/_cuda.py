@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written Hopper kernels of ``csrc/``.
 
-The CUDA sources are compiled at first use by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``.  The
+The CUDA sources are compiled at first use by ``nvcc`` for ``sm_90a``, one
+process per source started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The
 library lands in ``build/kernels-<hash>/`` at the repository root, keyed by
 a hash of the sources, so an edited kernel is rebuilt and an unchanged one
 is reused.  Nothing here runs at import time: the CPU tests import every
@@ -29,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,21 +89,37 @@ class _Library:
         for src in _sources():
             digest.update(src.name.encode())
             digest.update(src.read_bytes())
-        digest.update(" ".join(NVCC_FLAGS).encode())
+        digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
         out_dir = BUILD_ROOT / f"kernels-{digest.hexdigest()[:16]}"
         lib = out_dir / "libsgcdet_kernels.so"
         if lib.exists():
             return lib
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libsgcdet_kernels.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources() if s.suffix == ".cu"]]
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        # one nvcc per source, all at once, then one link
+        procs, objs = [], []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        self.log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed}):\n{self.log}")
+        tmp = out_dir / f"libsgcdet_kernels.{tag}.so"
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0
-        self.log = proc.stdout + proc.stderr
+        self.log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{self.log}")
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
         return lib
 

@@ -12,8 +12,12 @@ as the TPU kernel does (sweep_pallas.py:596).
 
 * ``sweep_fwd_plain`` — the plain PyTorch version, one depth plane at a time
   so the peak intermediate is one (N, H*W, C) corner gather.
-* ``sweep_fwd`` — the wrapper: kernel K1 (csrc/sweep_fwd.cu) for CUDA
-  tensors, the plain version for CPU tensors.
+* ``sweep_fwd_cuda`` / ``sweep_bwd_cuda`` — kernels K1 (csrc/sweep_fwd.cu)
+  and K4 (csrc/sweep_bwd.cu) on CUDA tensors.
+* ``sweep_fwd`` — the differentiable op: a ``torch.autograd.Function`` whose
+  forward is K1 and backward K4 for CUDA tensors, and the plain version and
+  its VJP for CPU tensors (or under ``plain_ops()``).  Like the TPU op
+  (sweep_pallas.py:575-576) it has no coordinate gradient.
 * ``plane_sweep_correlation`` — the op of the depth net, NCHW in and out,
   with the signature of ``sweep_pallas.plane_sweep_correlation_pallas``.
 """
@@ -30,6 +34,9 @@ from .sampling import bilinear_corners, gather_rows
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # sgc_sweep_fwd(dtype, src, ref, x_eff, y_eff, out, n, h, w, c, d, stream)
 SWEEP_FWD = Kernel("sgc_sweep_fwd", [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
+# sgc_sweep_bwd(dtype, src, ref, x_eff, y_eff, g, d_src, d_ref, n, h, w, c, d, stream)
+SWEEP_BWD = Kernel("sgc_sweep_bwd",
+                   [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I])
 
 
 def sweep_fwd_plain(src_img, ref_img, x_eff, y_eff):
@@ -51,34 +58,89 @@ def sweep_fwd_plain(src_img, ref_img, x_eff, y_eff):
     return out
 
 
-def sweep_fwd_cuda(src_img, ref_img, x_eff, y_eff):
-    """Kernel K1 on CUDA tensors; same contract as ``sweep_fwd_plain``."""
+def sweep_bwd_plain(src_img, ref_img, x_eff, y_eff, g):
+    """Plain version of K4: the VJP of ``sweep_fwd_plain`` in (src, ref),
+    recomputed under autograd.  Returns (d_src, d_ref) in the inputs'
+    dtypes."""
+    with torch.enable_grad():
+        src = src_img.detach().requires_grad_()
+        ref = ref_img.detach().requires_grad_()
+        out = sweep_fwd_plain(src, ref, x_eff, y_eff)
+        return torch.autograd.grad(out, (src, ref), g)
+
+
+def _check(src_img, ref_img, x_eff, y_eff):
     dev = src_img.device
-    dtypes = (torch.float32, torch.bfloat16)
-    src = check_cuda_input(src_img, "src_img", dtypes, 4, dev)
+    src = check_cuda_input(src_img, "src_img", (torch.float32, torch.bfloat16), 4, dev)
     ref = check_cuda_input(ref_img, "ref_img", (src.dtype,), 4, dev)
     n, h, w, c = src.shape
     if ref.shape != src.shape:
         raise ValueError(f"ref_img {tuple(ref.shape)} != src_img {tuple(src.shape)}")
     if c != 128:
-        raise ValueError(f"sweep_fwd kernel takes the matching net's C = 128, got {c}")
+        raise ValueError(f"sweep kernels take the matching net's C = 128, got {c}")
     xe = check_cuda_input(x_eff, "x_eff", (torch.float32,), 3, dev)
     ye = check_cuda_input(y_eff, "y_eff", (torch.float32,), 3, dev)
     d = xe.shape[1]
     if xe.shape != (n, d, h * w) or ye.shape != xe.shape:
         raise ValueError(f"x_eff/y_eff must be (N, D, H*W) = ({n}, {d}, {h * w})")
-    out = torch.empty((n, d, h * w), dtype=torch.float32, device=dev)
-    SWEEP_FWD(dev, DTYPE_CODE[src.dtype], src.data_ptr(), ref.data_ptr(),
+    return src, ref, xe, ye
+
+
+def sweep_fwd_cuda(src_img, ref_img, x_eff, y_eff):
+    """Kernel K1 on CUDA tensors; same contract as ``sweep_fwd_plain``."""
+    src, ref, xe, ye = _check(src_img, ref_img, x_eff, y_eff)
+    n, h, w, c = src.shape
+    d = xe.shape[1]
+    out = torch.empty((n, d, h * w), dtype=torch.float32, device=src.device)
+    SWEEP_FWD(src.device, DTYPE_CODE[src.dtype], src.data_ptr(), ref.data_ptr(),
               xe.data_ptr(), ye.data_ptr(), out.data_ptr(), n, h, w, c, d)
     return out
 
 
+def sweep_bwd_cuda(src_img, ref_img, x_eff, y_eff, g):
+    """Kernel K4 on CUDA tensors: (d_src, d_ref) of the correlation for its
+    incoming gradient ``g`` (N, D, H*W); same contract as
+    ``sweep_bwd_plain``.  K4 accumulates both in f32 (d_src by atomics);
+    they are cast once to the input dtype."""
+    src, ref, xe, ye = _check(src_img, ref_img, x_eff, y_eff)
+    n, h, w, c = src.shape
+    d = xe.shape[1]
+    gg = check_cuda_input(g.float(), "g", (torch.float32,), 3, src.device)
+    if gg.shape != xe.shape:
+        raise ValueError(f"g {tuple(gg.shape)} must be {tuple(xe.shape)}")
+    d_src = torch.zeros((n, h, w, c), dtype=torch.float32, device=src.device)
+    d_ref = torch.empty((n, h, w, c), dtype=torch.float32, device=src.device)
+    SWEEP_BWD(src.device, DTYPE_CODE[src.dtype], src.data_ptr(), ref.data_ptr(),
+              xe.data_ptr(), ye.data_ptr(), gg.data_ptr(), d_src.data_ptr(),
+              d_ref.data_ptr(), n, h, w, c, d)
+    return d_src.to(src_img.dtype), d_ref.to(ref_img.dtype)
+
+
+class _Sweep(torch.autograd.Function):
+    """K1 forward / K4 backward on the card, the plain version and its VJP
+    on the CPU.  The route is fixed in the forward, so the backward of a
+    ``plain_ops()`` forward stays plain (the autograd engine does not see
+    the context)."""
+
+    @staticmethod
+    def forward(ctx, src_img, ref_img, x_eff, y_eff):
+        ctx.kernel = use_kernel(src_img)
+        ctx.save_for_backward(src_img, ref_img, x_eff, y_eff)
+        fwd = sweep_fwd_cuda if ctx.kernel else sweep_fwd_plain
+        return fwd(src_img, ref_img, x_eff, y_eff)
+
+    @staticmethod
+    def backward(ctx, g):
+        bwd = sweep_bwd_cuda if ctx.kernel else sweep_bwd_plain
+        d_src, d_ref = bwd(*ctx.saved_tensors, g)
+        return d_src, d_ref, None, None
+
+
 def sweep_fwd(src_img, ref_img, x_eff, y_eff):
-    """Plane-sweep correlation core: kernel for CUDA tensors, plain version
-    for CPU tensors (see ``sweep_fwd_plain`` for the contract)."""
-    if use_kernel(src_img):
-        return sweep_fwd_cuda(src_img, ref_img, x_eff, y_eff)
-    return sweep_fwd_plain(src_img, ref_img, x_eff, y_eff)
+    """Plane-sweep correlation core, differentiable in src and ref: kernels
+    for CUDA tensors, plain versions for CPU tensors (see
+    ``sweep_fwd_plain`` for the contract)."""
+    return _Sweep.apply(src_img, ref_img, x_eff, y_eff)
 
 
 def _correlate(core, src_fea, ref_fea, src_proj, ref_proj, depth_values):

@@ -1,10 +1,12 @@
-"""Where the time of one serving forward goes, on a CUDA card.
+"""Where the time of one serving forward, or of one train step, goes on a
+CUDA card.
 
     python -m sgcdet_tpu_torch.profile_serving [--reps 3]
+    python -m sgcdet_tpu_torch.profile_serving --train [--reps 3]
 
-The configuration is chip_smoke.py's serving one: ScanNet, bf16 compute,
-40 views of the indoor scene, the exact auto visibility budget, random
-weights from a seeded init.  Prints, after 3 warm-up forwards:
+The serving configuration is chip_smoke.py's: ScanNet, bf16 compute, 40
+views of the indoor scene, the exact auto visibility budget, random weights
+from a seeded init.  Prints, after 3 warm-up forwards:
 
 * seconds per scene of ``infer.detect`` and of the forward alone (host
   clock, mean of 10 calls, ``--reps`` times);
@@ -12,6 +14,16 @@ weights from a seeded init.  Prints, after 3 warm-up forwards:
   events recorded by forward hooks, mean of 4 forwards);
 * torch.profiler's table of device time per op over 3 forwards, and the
   device's idle share over that window (union of the kernel intervals).
+
+``--train`` takes chip_smoke.py's train setting instead (the same model and
+scene with bench.py's synthetic ground truth, depth loss on, FFN dropout
+0.1) and prints, after 2 warm-up steps:
+
+* seconds per step of ``train.make_train_step`` (host clock, mean of 5
+  steps, ``--reps`` times) and the peak memory allocated;
+* the stream milliseconds of forward + losses, backward and optimizer
+  (CUDA events between the three, mean of 4 steps; host gaps included);
+* torch.profiler's table and idle share over 2 steps.
 """
 from __future__ import annotations
 
@@ -25,7 +37,9 @@ import torch
 from .configs import scannet
 from .infer import detect, forward_scene
 from .models import SGCDet
-from .scene import example_scene
+from .scene import example_scene, example_train_scene
+from .train import init_train_state, make_train_step
+from .train.loop import scene_losses
 from .visibility import derive_visibility_budgets
 
 STAGES = ("backbone", "neck", "depth_head", "voxel_head", "neck_3d", "bbox_head")
@@ -76,13 +90,81 @@ def idle_share(prof):
     return span / 1e3, busy / 1e3, 1.0 - busy / span
 
 
+def print_profile(prof, what):
+    span, busy, idle = idle_share(prof)
+    print(f"profiled window ({what}): span {span:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {idle:.4f}")
+    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30,
+                                    max_name_column_width=70))
+
+
+def profile_train(dev, reps):
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = scannet()
+    scene = example_train_scene(cfg.data.img_shape, cfg.data.pad_size, 40,
+                                cfg.model.n_classes, cfg.model.downsample_factor)
+    budget = derive_visibility_budgets([(scene["origin"], scene["proj_img"])],
+                                       cfg.data.img_shape, cfg.model)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, visibility_budget=budget, depth_loss=True))
+    model, optimizer = init_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    step = make_train_step(model, cfg, optimizer)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    print(f"device: {torch.cuda.get_device_name(0)}; train; budget {budget}", flush=True)
+    for _ in range(2):
+        step(scene, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    for rep in range(reps):
+        t = time.perf_counter()
+        for _ in range(5):
+            step(scene, gen)
+        torch.cuda.synchronize()
+        print(f"rep {rep}: train step {(time.perf_counter() - t) / 5:.5f} s/step",
+              flush=True)
+    print(f"peak memory allocated: {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+
+    # the step's three parts, as make_train_step runs them
+    phases = ("forward+losses", "backward", "optimizer")
+    times = []
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        losses, _ = scene_losses(model, cfg, scene, gen)
+        total = sum(losses.values())
+        ev[1].record()
+        optimizer.zero_grad()
+        total.backward()
+        ev[2].record()
+        optimizer.step()
+        ev[3].record()
+        times.append(ev)
+    torch.cuda.synchronize()
+    for i, name in enumerate(phases):
+        ms = float(np.mean([ev[i].elapsed_time(ev[i + 1]) for ev in times]))
+        print(f"phase {name}: {ms:.3f} ms")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(scene, gen)
+        torch.cuda.synchronize()
+    print_profile(prof, "2 train steps")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of the serving forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA device")
     dev = torch.device("cuda", 0)
+    if args.train:
+        profile_train(dev, args.reps)
+        return
     cfg = scannet()
     scene = example_scene(cfg.data.img_shape, cfg.data.pad_size, 40, trajectory="indoor")
     budget = derive_visibility_budgets([(scene["origin"], scene["proj_img"])],
@@ -117,11 +199,7 @@ def main():
         for _ in range(3):
             forward_scene(model, scene)
         torch.cuda.synchronize()
-    span, busy, idle = idle_share(prof)
-    print(f"profiled window (3 forwards): span {span:.3f} ms, device busy "
-          f"{busy:.3f} ms, idle share {idle:.4f}")
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30,
-                                    max_name_column_width=70))
+    print_profile(prof, "3 forwards")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
-"""Synthetic posed-view scene, NumPy only (the same scene as
-``__graft_entry__._example_scene``, which builds it with jax.numpy)."""
+"""Synthetic posed-view scenes, NumPy only: ``example_scene`` is the scene of
+``__graft_entry__._example_scene`` (which builds it with jax.numpy), and
+``example_train_scene`` adds the synthetic ground truth of
+``bench.py::train_step_time``."""
 from __future__ import annotations
 
 import numpy as np
@@ -53,3 +55,30 @@ def example_scene(img_shape, pad, n_views, rng=None, trajectory="ring"):
     proj4 = np.einsum("ij,njk->nik", intr4, exts)
     origin = np.array([0.0, 0.0, 0.5], np.float32)
     return dict(imgs=imgs, proj_img=proj_img, proj_feat4=proj4, origin=origin)
+
+
+def example_train_scene(img_shape, pad, n_views, n_classes, downsample_factor,
+                        trajectory="indoor"):
+    """``example_scene`` plus the train step's synthetic ground truth, as
+    ``bench.py::train_step_time`` builds it (bench.py:299-316): 16 padded
+    gravity-centre boxes of which the first 8 are real, random labels, and
+    metric depth maps at ``downsample_factor`` x the stride-4 grid, all from
+    ``RandomState(3)``.
+
+    Adds gt_boxes (16, 7) f32, gt_labels (16,) int32, gt_mask (16,) bool and
+    gt_depth (N, pad_h / 4 * ds, pad_w / 4 * ds) f32."""
+    scene = example_scene(img_shape, pad, n_views, trajectory=trajectory)
+    rng = np.random.RandomState(3)
+    max_boxes, n_real = 16, 8
+    boxes = np.zeros((max_boxes, 7), np.float32)
+    boxes[:, :3] = rng.uniform(-2, 2, (max_boxes, 3))
+    boxes[:, 3:6] = rng.uniform(0.3, 1.5, (max_boxes, 3))
+    dh = pad[0] // 4 * downsample_factor
+    dw = pad[1] // 4 * downsample_factor
+    return dict(
+        scene,
+        gt_boxes=boxes,
+        gt_labels=rng.randint(0, n_classes, max_boxes).astype(np.int32),
+        gt_mask=np.arange(max_boxes) < n_real,
+        gt_depth=rng.uniform(0.5, 4.5, (n_views, dh, dw)).astype(np.float32),
+    )

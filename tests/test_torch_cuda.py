@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card:
+the forward kernels K1-K3, and the backward kernels K4-K6 through autograd
+(the ops' ``torch.autograd.Function``s) against the plain versions' VJPs.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device: the hand-written kernels have no CPU mode.  The module imports no
@@ -16,6 +18,7 @@ from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
 from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     assert_close_scaled,
     dfa3d_inputs,
+    graph_has,
     keep_global_torch_rng,
     sweep_inputs,
 )
@@ -102,3 +105,66 @@ def test_dfa3d_kernel_rejects_cpu_operands_on_the_card_path(cuda_device):
     with pytest.raises(ValueError, match="expected cuda"):
         dfa3d_attend(torch.from_numpy(value).to(cuda_device), torch.from_numpy(dpt),
                      torch.from_numpy(locs), torch.from_numpy(attn), 8)
+
+
+def _grads(out, inputs, g):
+    return torch.autograd.grad(out, [t for t in inputs if t.requires_grad], g)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sweep_backward_kernel_matches_plain(cuda_device, dtype):
+    src, ref, src_proj, ref_proj, dv = sweep_inputs(c=128)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (src, ref, src_proj,
+                                                          ref_proj, dv)]
+    args[0], args[1] = (a.to(dtype).requires_grad_() for a in args[:2])
+    g = torch.randn((src.shape[0], len(dv)) + src.shape[2:], device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0)).to(dtype)
+    out = plane_sweep_correlation(*args)
+    assert graph_has(out, "_SweepBackward")
+    before = KERNELS["sweep_bwd"].launches
+    got = _grads(out, args[:2], g)
+    assert KERNELS["sweep_bwd"].launches == before + 1
+    with plain_ops():
+        expected = _grads(plane_sweep_correlation(*args), args[:2], g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_src", "d_ref"), got, expected):
+        assert a.dtype == dtype
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                            _rel(dtype), f"sweep {name}")
+
+
+@pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],
+                         ids=["stage1", "stage2"])
+@pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sample_grads", [True, False], ids=["all", "value_depth"])
+def test_dfa3d_backward_kernel_matches_plain(cuda_device, heads, p, c, vdtype,
+                                             sample_grads):
+    value, dpt, locs, attn = dfa3d_inputs(heads, p, c, n=4, h=14, w=20, d=12,
+                                          k=300)
+    counts = torch.tensor([0, 100, 299, 300], dtype=torch.int32,
+                          device=cuda_device)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (value, dpt, locs, attn)]
+    args[0] = args[0].to(vdtype)
+    for i, a in enumerate(args):
+        a.requires_grad_(i < 2 or sample_grads)
+    g = torch.randn((4, 300, heads * c), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0)).to(vdtype)
+    out = dfa3d_attend(*args, heads, valid_counts=counts)
+    assert graph_has(out, "_DFA3DBackward")
+    name = "dfa3d_bwd_s1" if heads == p == 1 else "dfa3d_bwd_mh"
+    before = KERNELS[name].launches
+    got = _grads(out, args, g)
+    assert KERNELS[name].launches == before + 1
+    with plain_ops():
+        expected = _grads(dfa3d_attend(*args, heads, valid_counts=counts), args, g)
+    torch.cuda.synchronize()
+    for gname, a, b, inp in zip(("d_value", "d_dpt", "d_locs", "d_attn"), got,
+                                expected, args):
+        assert a.dtype == inp.dtype
+        # f32 gradients sum in another order (atomics): 1e-5 of the scale
+        rel = _rel(vdtype) if a.dtype == torch.bfloat16 else 1e-5
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                            rel, f"dfa3d {gname}")
+    if sample_grads:
+        for cam, cnt in enumerate(counts.tolist()):
+            assert (got[2][cam, cnt:] == 0).all() and (got[3][cam, cnt:] == 0).all()

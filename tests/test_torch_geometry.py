@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's NumPy helpers, held against
 the originals, so the port (and chip_smoke.py) runs without the JAX package:
 
-* ``configs.scannet()`` field by field;
+* ``configs.scannet()`` field by field, the train path's fields (dropout,
+  FCOS assignment, losses, GT padding, ``TrainConfig``) included;
 * ``voxel_grid`` and ``visibility.derive_visibility_budgets``, bit for bit;
 * ``view_transformer.compact_queries`` against ``jax.lax.top_k`` on the 0/1
   visibility scores, as the JAX DeformCrossAttention selects.
@@ -32,7 +33,7 @@ from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
 )
 
 
-@pytest.mark.parametrize("section", ["model", "model.test_cfg", "data"])
+@pytest.mark.parametrize("section", ["model", "model.test_cfg", "data", "train"])
 def test_scannet_config_matches_jax(section):
     ours, ref = configs.scannet(), jconfigs.scannet()
     for name in section.split("."):

@@ -112,3 +112,18 @@ def dfa3d_inputs(heads, p, c, n=3, h=6, w=9, d=8, k=40, seed=0):
     locs = rng.uniform(-0.2, 1.2, (n, k, heads, p, 3)).astype(np.float32)
     attn = rng.uniform(0.0, 1.0, (n, k, heads, p)).astype(np.float32)
     return value, dpt.astype(np.float32), locs, attn
+
+
+def graph_has(t, name):
+    """True when the autograd graph behind tensor ``t`` holds a node of
+    type ``name`` (e.g. the ``_DFA3DBackward`` of the port's Function)."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        if type(fn).__name__ == name:
+            return True
+        seen.add(fn)
+        todo.extend(f for f, _ in fn.next_functions)
+    return False
