@@ -13,14 +13,25 @@ Phases, each fatal on failure:
               the shapes of the ScanNet 40-view eval path: bf16 value with
               f32 depth, and f32; out-of-image, behind-camera and NaN
               coordinates; a valid_counts case whose counted-out rows must be
-              exactly zero.  Prints each max abs error with its worst ratio to
-              the per-element tolerance, and the warm time of kernel and
-              plain version.
+              exactly zero.  Then the DFA3D template in the combination of
+              every other TPU DFA3D kernel: bf16 value with bf16 depth at the
+              2D lifting path's shapes (uniform 2-bin depth at d = 0.5,
+              uncounted, all three levels), counted bf16/bf16 stage 1 and
+              uncounted bf16/bf16 multi-head with a 12-bin depth (packed
+              quads), uncounted f32/f32 and bf16/f32 stage 1 and multi-head
+              (v1, v3); and F.grid_sample, the library call that computes the
+              2D stage 1, against the kernel at f32.  Prints each max abs
+              error with its worst ratio to the per-element tolerance, and
+              the warm time of kernel, plain version and library call.
 3b. backward — every backward kernel against its plain version (the VJP of
               the plain forward) on the card, at the train path's shapes:
               bf16 and f32 value with f32 depth; out-of-image, behind-camera,
               NaN and image-edge coordinates; counted cases whose counted-out
-              rows must get exactly zero location and attention gradients.
+              rows must get exactly zero location and attention gradients;
+              then the same combinations as phase 3 (bf16/bf16 at the 2D
+              path's shapes and with a 12-bin depth, uncounted f32), and
+              aten's grid_sampler_2d_backward, the library call that
+              computes the 2D stage 1's d_value, against the kernel at f32.
               Prints each gradient's max abs error, its worst ratio to the
               per-element tolerance, and the warm time of kernel and plain
               version.
@@ -45,11 +56,22 @@ Phases, each fatal on failure:
               parameter moved and every frozen one did not, seconds per step,
               peak memory, and the launch counts of each step (sweep fwd/bwd
               2/2, stage-1 fwd/bwd 3/3, stage-2 fwd/bwd 3/3).
+8. 2D lifting — ViewTransformer(use_depth=False) at the ScanNet width (embed
+              256, 8 heads x 4 points, FFN 512), one per level, on seeded
+              features at the three lifting shapes and the indoor scene's
+              voxels (400 at level 0, seeded subsets of 800 and 6400 above):
+              f32 with TF32 off through the kernels and the plain versions
+              (output and the gradients of a seeded sum(out * g) for the
+              features and every parameter); bf16 in train mode, forward and
+              backward, finite, with the launches of the bf16-depth kernels
+              (1 stage-1 and 1 stage-2, forward and backward, per level),
+              warm milliseconds and peak memory per level.
 
 Each phase prints its seconds.  The last three lines are the kernel report
-(one JSON object; ``launches`` are the train run's), the card's name and
-power limit, and the device record (one JSON object).  The script imports
-torch and sgcdet_tpu_torch only.
+(one JSON object; ``launches`` are the train run's for the kernels of the
+DFA3D and serving paths, the bf16 2D lifting run's for the bf16-depth
+instances), the card's name and power limit, and the device record (one
+JSON object).  The script imports torch and sgcdet_tpu_torch only.
 """
 from __future__ import annotations
 
@@ -65,21 +87,41 @@ from pathlib import Path
 N_VIEWS = 40
 SERVE_SCENES = 3
 
-# TPU kernel each Hopper kernel replaces, and its source in this repo
+# TPU kernels each Hopper kernel replaces, and its source in this repo
+_OPS = "sgcdet_tpu/ops/"
 KERNEL_INFO = {
     "sweep_fwd": ("sgcdet_tpu_torch/csrc/sweep_fwd.cu",
-                  "sgcdet_tpu/ops/sweep_pallas.py:233"),
+                  f"{_OPS}sweep_pallas.py:233; {_OPS}sweep_pallas.py:225"),
     "dfa3d_fwd_s1": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
-                     "sgcdet_tpu/ops/dfa3d_pallas.py:303"),
+                     f"{_OPS}dfa3d_pallas.py:303; {_OPS}dfa3d_pallas3.py:179"),
     "dfa3d_fwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
-                     "sgcdet_tpu/ops/dfa3d_pallas2.py:267"),
+                     f"{_OPS}dfa3d_pallas2.py:267; {_OPS}dfa3d_pallas.py:262; "
+                     f"{_OPS}dfa3d_pallas3.py:154"),
     "sweep_bwd": ("sgcdet_tpu_torch/csrc/sweep_bwd.cu",
-                  "sgcdet_tpu/ops/sweep_pallas.py:243"),
+                  f"{_OPS}sweep_pallas.py:243"),
     "dfa3d_bwd_s1": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
-                     "sgcdet_tpu/ops/dfa3d_pallas.py:439"),
+                     f"{_OPS}dfa3d_pallas.py:439; {_OPS}dfa3d_pallas3.py:257"),
     "dfa3d_bwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
-                     "sgcdet_tpu/ops/dfa3d_pallas2.py:318"),
+                     f"{_OPS}dfa3d_pallas2.py:318; {_OPS}dfa3d_pallas.py:394; "
+                     f"{_OPS}dfa3d_pallas3.py:227"),
+    "dfa3d_fwd_s1_bd": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
+                        f"{_OPS}dfa3d_pallas3.py:699"),
+    "dfa3d_fwd_mh_bd": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
+                        f"{_OPS}dfa3d_pallas3.py:665"),
+    "dfa3d_bwd_s1_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
+                        f"{_OPS}dfa3d_pallas.py:439 at bf16 depth (the backward "
+                        "of pq_s1 / pq_s1c)"),
+    "dfa3d_bwd_mh_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
+                        f"{_OPS}dfa3d_pallas2.py:318 at bf16 depth (the 2D "
+                        "path's stage 2)"),
 }
+# the bf16-depth instances, launched by the 2D lifting path
+KERNELS_2D = ("dfa3d_fwd_s1_bd", "dfa3d_fwd_mh_bd", "dfa3d_bwd_s1_bd",
+              "dfa3d_bwd_mh_bd")
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and f32 flop/s outside
+# the tensor cores, where every kernel here computes
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 # launches of each kernel per scene on the serving path
 LAUNCHES_PER_SCENE = {"sweep_fwd": 2, "dfa3d_fwd_s1": 3, "dfa3d_fwd_mh": 3}
 # ... and per step on the train path
@@ -155,6 +197,89 @@ def compare_tensors(torch, name, got, want, f32_rel=1e-4):
     return err
 
 
+def nbytes(t, frac=1.0):
+    return t.numel() * t.element_size() * frac
+
+
+def bound(byte_count, flops):
+    """The least time the card could take (ms) and what sets it: the bytes
+    each input is read once and each output written once over the HBM rate,
+    or the operations over the f32 rate."""
+    t_bytes = byte_count / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def touched_rows(locs, counts, h, w, dsize):
+    """Distinct (view, pixel, head) value rows and distinct (view, pixel,
+    bin) depth elements that the in-image corners of this run's samples
+    read: per corner the two bins of the depth lerp that lie in range (the
+    rows past each view's count read nothing; NaN lands off the image and
+    off the depth range, as in the kernels)."""
+    import torch
+
+    n, k, heads = locs.shape[:3]
+    dev = locs.device
+
+    def cell(coord, size):
+        return (coord * size - 0.5).nan_to_num(nan=-4.0).clamp(-4, size + 4).floor().long()
+
+    x, y, d = cell(locs[..., 0], w), cell(locs[..., 1], h), cell(locs[..., 2], dsize)
+    live = torch.ones(locs.shape[:4], dtype=torch.bool, device=dev)
+    if counts is not None:
+        q = torch.arange(k, device=dev)
+        live = live & (q[None, :, None, None] < counts[:, None, None, None])
+    cam = torch.arange(n, device=dev).view(n, 1, 1, 1)
+    head = torch.arange(heads, device=dev).view(1, 1, heads, 1).expand_as(live)
+    rows, bins = [], []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            xi, yi = x + dx, y + dy
+            ok = live & (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+            pix = (cam * h + yi) * w + xi
+            rows.append(pix[ok] * heads + head[ok])
+            for di in (d, d + 1):
+                ok_d = ok & (di >= 0) & (di < dsize)
+                bins.append(pix[ok_d] * dsize + di[ok_d])
+    return torch.cat(rows).unique().numel(), torch.cat(bins).unique().numel()
+
+
+def dfa3d_work(args, outs, counts, backward, dot=True):
+    """Bytes and flops of one DFA3D call on ``args`` = (value, depth, locs,
+    attn[, g]) with outputs ``outs``: the value rows and depth bins the
+    run's samples touch, the per-query operands and the FMAs (2 flops) of
+    the rows its counts let through, every output.  Per (query, head,
+    point, corner, channel) the forward does one FMA, the backward a
+    d_value update and, where it needs the dot product <g, value row> for
+    the sample or depth gradients (``dot``), one FMA of it; a backward
+    without ``dot`` reads no value row."""
+    value, depth, locs = args[:3]
+    n, h, w, cfull = value.shape
+    k, heads, p = locs.shape[1:4]
+    c = cfull // heads
+    frac = 1.0 if counts is None else float(counts.clamp(max=k).sum()) / (n * k)
+    value_rows, depth_elems = touched_rows(locs, counts, h, w, depth.shape[-1])
+    reads_value = dot or not backward
+    byte_count = ((value_rows * c * value.element_size() if reads_value else 0)
+                  + depth_elems * depth.element_size())
+    byte_count += sum(nbytes(t, frac) for t in args[2:])  # locs, attn, g
+    byte_count += sum(nbytes(t) for t in outs if t is not None)
+    fmas = 1 + (backward and dot)
+    flops = n * k * frac * heads * p * 4 * c * 2 * fmas
+    return byte_count, flops
+
+
+def sweep_work(args, outs, backward):
+    """Bytes and flops of one sweep call on (src, ref, x, y[, g]): per
+    (view, plane, pixel) four C-channel corner FMAs and a C-channel dot
+    product (10 C flops); the backward recomputes the sample, scatters four
+    corner updates and sums the reference gradient (18 C flops)."""
+    c = args[0].shape[-1]
+    samples = args[2].numel()
+    byte_count = sum(nbytes(t) for t in args) + sum(nbytes(t) for t in outs)
+    return byte_count, samples * c * (18 if backward else 10)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels vs plain at main-path shapes
 # ---------------------------------------------------------------------------
@@ -216,11 +341,10 @@ def _sweep_cases(torch, dev, cfg, scene, gen):
     return cases
 
 
-def _lifting_inputs(torch, dev, cfg, scene, level, budget, gen):
-    """Stage-1 and stage-2 inputs of one pyramid level, compacted by the
-    main path's own rule (visible queries first, counts = visible per
-    camera)."""
-    from sgcdet_tpu_torch.models.view_transformer import compact_queries, point_sampling
+def _level_voxels(torch, dev, cfg, level):
+    """The voxel centres one lifting level takes: all of them at level 0, a
+    seeded sorted subset of top-k size above (the occupancy top-k's count
+    and scan order)."""
     from sgcdet_tpu_torch.voxel_grid import voxel_centers_zero_origin
 
     m = cfg.model
@@ -229,16 +353,37 @@ def _lifting_inputs(torch, dev, cfg, scene, level, budget, gen):
     k = ref_all.shape[0] if level == 0 else m.topk_list[level - 1]
     keep = torch.sort(torch.randperm(ref_all.shape[0], generator=torch.Generator()
                                      .manual_seed(level))[:k])[0]
-    ref_cam, mask = point_sampling(
-        ref_all[keep].to(dev), torch.from_numpy(scene["origin"]).to(dev),
-        torch.from_numpy(scene["proj_img"]).to(dev), cfg.data.img_shape, m.dbound)
+    return ref_all[keep].to(dev)
+
+
+def _level_hw(cfg, level):
+    ds = 2 ** (2 - level) * 4
+    return cfg.data.img_shape[0] // ds, cfg.data.img_shape[1] // ds
+
+
+def _project(torch, dev, cfg, scene, level):
+    from sgcdet_tpu_torch.models.view_transformer import point_sampling
+
+    return point_sampling(
+        _level_voxels(torch, dev, cfg, level), torch.from_numpy(scene["origin"]).to(dev),
+        torch.from_numpy(scene["proj_img"]).to(dev), cfg.data.img_shape,
+        cfg.model.dbound)
+
+
+def _lifting_inputs(torch, dev, cfg, scene, level, budget, gen):
+    """Stage-1 and stage-2 inputs of one pyramid level, compacted by the
+    main path's own rule (visible queries first, counts = visible per
+    camera)."""
+    from sgcdet_tpu_torch.models.view_transformer import compact_queries
+
+    m = cfg.model
+    ref_cam, mask = _project(torch, dev, cfg, scene, level)
     compact = compact_queries(mask, budget)
     check(compact is not None, f"level {level}: the budget keeps every query")
     sel, counts = compact
     kb = sel.shape[1]
     ref_s = torch.gather(ref_cam, 1, sel[..., None].expand(-1, -1, 3))
-    ds = 2 ** (2 - level) * 4
-    h, w = cfg.data.img_shape[0] // ds, cfg.data.img_shape[1] // ds
+    h, w = _level_hw(cfg, level)
     heads, pts, dsize = m.num_heads, m.num_points, m.depth_channels
     locs2 = ref_s[:, :, None, None, :] + torch.randn(
         (N_VIEWS, kb, heads, pts, 3), device=dev, generator=gen) * torch.tensor(
@@ -252,6 +397,97 @@ def _lifting_inputs(torch, dev, cfg, scene, level, budget, gen):
                 locs1=ref_s[:, :, None, None, :].contiguous(),
                 attn1=torch.ones((N_VIEWS, kb, 1, 1), device=dev),
                 locs2=locs2, attn2=attn2, heads=heads)
+
+
+def _lifting_2d_inputs(torch, dev, cfg, scene, level, gen):
+    """Stage-1 and stage-2 operands of the 2D lifting path at one level, as
+    msda_2d_attend builds them: every query (the 2D path does not compact),
+    bf16 values, a uniform 2-bin depth of bf16 ones sampled at d = 0.5."""
+    m = cfg.model
+    ref_cam, _ = _project(torch, dev, cfg, scene, level)
+    k = ref_cam.shape[1]
+    h, w = _level_hw(cfg, level)
+    heads, pts = m.num_heads, m.num_points
+    uv = ref_cam[..., :2]
+    uv2 = uv[:, :, None, None, :] + torch.randn(
+        (N_VIEWS, k, heads, pts, 2), device=dev, generator=gen) * torch.tensor(
+        [2.0 / w, 2.0 / h], device=dev)
+
+    def with_d(xy):
+        return torch.cat([xy, torch.full_like(xy[..., :1], 0.5)], -1).contiguous()
+
+    bf16 = torch.bfloat16
+    return dict(
+        h=h, w=w, k=k, heads=heads,
+        value=torch.randn((N_VIEWS, h, w, m.embed_dims), device=dev, generator=gen).to(bf16),
+        vp=torch.randn((N_VIEWS, h, w, m.embed_dims), device=dev, generator=gen).to(bf16),
+        ones=torch.ones((N_VIEWS, h, w, 2), device=dev, dtype=bf16),
+        locs1=with_d(uv[:, :, None, None, :]),
+        attn1=torch.ones((N_VIEWS, k, 1, 1), device=dev),
+        locs2=with_d(uv2),
+        attn2=torch.softmax(torch.randn((N_VIEWS, k, heads, pts), device=dev,
+                                        generator=gen), -1))
+
+
+def stage1_grid(locs1, dtype):
+    """The 2D stage 1's locations as a grid_sample grid: 2 loc - 1,
+    (N, K, 1, 2), in ``dtype`` (grid_sample takes its grid in the value's
+    dtype)."""
+    return (2 * locs1[:, :, 0, 0, :2] - 1)[:, :, None, :].to(dtype).contiguous()
+
+
+def grid_sample_stage1(torch, value, grid):
+    """The library call that computes the 2D stage 1: F.grid_sample of the
+    (N, C, H, W) view of the NHWC value on ``stage1_grid`` (align_corners=
+    False: pixel = loc * size - 0.5, zero padding per corner).  Returns
+    (N, C, K, 1)."""
+    import torch.nn.functional as F
+
+    return F.grid_sample(value.permute(0, 3, 1, 2), grid, mode="bilinear",
+                         padding_mode="zeros", align_corners=False)
+
+
+def grid_sample_stage1_bwd(torch, g, value, grid):
+    """The library call that computes the 2D stage 1's backward as the
+    module runs it (d_value only): aten's grid_sampler_2d_backward for the
+    call of ``grid_sample_stage1``, with g (N, K, C).  Returns (d_value as
+    (N, C, H, W), the grid gradient or None where the call skipped it)."""
+    return torch.ops.aten.grid_sampler_2d_backward(
+        g.transpose(1, 2)[..., None], value.permute(0, 3, 1, 2), grid, 0, 0,
+        False, [True, False])
+
+
+def _timing(torch, report, name, kernel_name, run_kernel, run_plain, work,
+            run_library=None, main=False):
+    """Warm times of kernel, plain version and library call, and the bound
+    from ``work(kernel outputs) -> (bytes, flops)``; the report keeps the
+    case at the shapes of the kernel's main path (``main``)."""
+    ms_k = cuda_ms(torch, run_kernel)
+    ms_p = cuda_ms(torch, run_plain, iters=2)
+    ms_l = None if run_library is None else cuda_ms(torch, run_library)
+    outs = run_kernel()
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    bound_ms, bound_by = bound(*work(outs))
+    log(f"[kernels] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+        + (f"library {ms_l:.4f} ms, " if ms_l is not None else "")
+        + f"bound {bound_ms:.4f} ms ({bound_by})")
+    if main:
+        report[kernel_name].update(ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+                                   bound_by=bound_by, library_ms=ms_l)
+
+
+def _zeros_past_count(torch, counts, rows=0):
+    """A check that the rows of ``outs[rows]`` past each camera's count
+    (and, for a backward, of ``outs[3]`` too) are exactly zero."""
+    def check_rows(outs):
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        q = torch.arange(outs[rows].shape[1], device=counts.device)
+        past = q[None, :] >= counts[:, None]
+        tensors = (outs[rows],) if rows == 0 else (outs[2], outs[3])
+        check(all(bool((t[past] == 0).all()) for t in tensors),
+              "rows past valid_counts are not exactly zero")
+        log(f"[kernels]   {int(past.sum())} counted-out rows exactly zero")
+    return check_rows
 
 
 def phase_kernels(torch, dev, report):
@@ -273,20 +509,24 @@ def phase_kernels(torch, dev, report):
         rec = report[kernel_name]
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
 
-    def timing(name, kernel_name, run_kernel, run_plain):
-        """Warm times; the report keeps the first (main-path) case."""
-        ms_k = cuda_ms(torch, run_kernel)
-        ms_p = cuda_ms(torch, run_plain, iters=3)
-        log(f"[kernels] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
-        if "ms" not in report[kernel_name]:
-            report[kernel_name].update(ms=ms_k, plain_ms=ms_p)
+    def dfa3d(name, kernel_name, args, extra=None, time=None, run_library=None):
+        """time: None, "log" (print the times) or "main" (and report them)."""
+        compare(name, kernel_name, lambda: dfa3d_fwd_cuda(*args),
+                lambda: dfa3d_attention_plain(*args), extra)
+        if time:
+            _timing(torch, report, name, kernel_name, lambda: dfa3d_fwd_cuda(*args),
+                    lambda: dfa3d_attention_plain(*args),
+                    lambda outs: dfa3d_work(args[:4], outs, args[5], False),
+                    run_library, main=time == "main")
 
     for name, src, ref, xe, ye in _sweep_cases(torch, dev, cfg, scene, gen):
         args = (src, ref, xe, ye)
         compare(name, "sweep_fwd", lambda: sweep_fwd_cuda(*args),
                 lambda: sweep_fwd_plain(*args))
-        timing(name, "sweep_fwd", lambda: sweep_fwd_cuda(*args),
-               lambda: sweep_fwd_plain(*args))
+        _timing(torch, report, name, "sweep_fwd", lambda: sweep_fwd_cuda(*args),
+                lambda: sweep_fwd_plain(*args),
+                lambda outs: sweep_work(args, outs, False),
+                main=src.dtype == torch.bfloat16)
 
     for level in range(3):
         x = _lifting_inputs(torch, dev, cfg, scene, level, budget[level], gen)
@@ -295,36 +535,72 @@ def phase_kernels(torch, dev, report):
             value = x["value"].to(vdt)
             tag = "bf16/f32" if vdt == torch.bfloat16 else "f32/f32"
             counts = x["counts"]
-
-            def zeros_past_count(out, counts=counts):
-                q = torch.arange(out.shape[1], device=dev)
-                past = q[None, :] >= counts[:, None]
-                check(bool((out[past] == 0).all()),
-                      "rows past valid_counts are not exactly zero")
-                log(f"[kernels]   {int(past.sum())} counted-out rows exactly zero")
-
             s1 = (value, x["depth"], x["locs1"], x["attn1"], 1, counts)
-            compare(f"stage1 {tag} {shape} counted", "dfa3d_fwd_s1",
-                    lambda: dfa3d_fwd_cuda(*s1), lambda: dfa3d_attention_plain(*s1),
-                    zeros_past_count)
+            timed = level == 2 and ("main" if vdt == torch.bfloat16 else "log")
+            dfa3d(f"stage1 {tag} {shape} counted", "dfa3d_fwd_s1", s1,
+                  _zeros_past_count(torch, counts), time=timed)
             vp = torch.randn((N_VIEWS, x["h"], x["w"], value.shape[-1]),
                              device=dev, generator=gen).to(vdt)
             s2 = (vp, x["depth"], x["locs2"], x["attn2"], x["heads"], counts)
-            compare(f"stage2 {tag} {shape} counted", "dfa3d_fwd_mh",
-                    lambda: dfa3d_fwd_cuda(*s2), lambda: dfa3d_attention_plain(*s2),
-                    zeros_past_count)
+            dfa3d(f"stage2 {tag} {shape} counted", "dfa3d_fwd_mh", s2,
+                  _zeros_past_count(torch, counts), time=timed)
             if level == 2 and vdt == torch.bfloat16:
                 locs_nan = x["locs2"].clone()
                 locs_nan.view(-1)[::997] = float("nan")
-                s2n = (vp, x["depth"], locs_nan, x["attn2"], x["heads"], None)
-                compare(f"stage2 {tag} {shape} uncounted, NaN locs", "dfa3d_fwd_mh",
-                        lambda: dfa3d_fwd_cuda(*s2n),
-                        lambda: dfa3d_attention_plain(*s2n))
+                dfa3d(f"stage2 {tag} {shape} uncounted, NaN locs", "dfa3d_fwd_mh",
+                      (vp, x["depth"], locs_nan, x["attn2"], x["heads"], None))
             if level == 2:
-                timing(f"stage1 {tag} {shape}", "dfa3d_fwd_s1",
-                       lambda: dfa3d_fwd_cuda(*s1), lambda: dfa3d_attention_plain(*s1))
-                timing(f"stage2 {tag} {shape}", "dfa3d_fwd_mh",
-                       lambda: dfa3d_fwd_cuda(*s2), lambda: dfa3d_attention_plain(*s2))
+                # the v1 (_fwd_kernel) and v3 (_fwd_kernel_q / _q_s1) rows:
+                # uncounted, f32 and bf16 value with f32 depth
+                dfa3d(f"stage1 {tag} {shape} uncounted (v3 q_s1)", "dfa3d_fwd_s1",
+                      s1[:5] + (None,), time="log")
+                dfa3d(f"stage2 {tag} {shape} uncounted (v1, v3 q)", "dfa3d_fwd_mh",
+                      s2[:5] + (None,), time="log")
+        # the packed-quad rows with a real 12-bin depth in bf16: counted
+        # stage 1 (pq_s1c) and uncounted multi-head (pq)
+        if level == 2:
+            bf = torch.bfloat16
+            dpt_bf = x["depth"].to(bf)
+            dfa3d(f"stage1 bf16/bf16 {shape} counted, 12-bin depth (pq_s1c)",
+                  "dfa3d_fwd_s1_bd",
+                  (x["value"].to(bf), dpt_bf, x["locs1"], x["attn1"], 1, x["counts"]),
+                  _zeros_past_count(torch, x["counts"]), time="log")
+            dfa3d(f"stage2 bf16/bf16 {shape} uncounted, 12-bin depth (pq)",
+                  "dfa3d_fwd_mh_bd", (vp.to(bf), dpt_bf, x["locs2"], x["attn2"],
+                                      x["heads"], None), time="log")
+
+    # the 2D lifting path: bf16 value with bf16 (uniform) depth, uncounted
+    for level in range(3):
+        y = _lifting_2d_inputs(torch, dev, cfg, scene, level, gen)
+        shape = f"({N_VIEWS},{y['h']},{y['w']}) K={y['k']}"
+        s1 = (y["value"], y["ones"], y["locs1"], y["attn1"], 1, None)
+        s2 = (y["vp"], y["ones"], y["locs2"], y["attn2"], y["heads"], None)
+        last = level == 2
+        grid = stage1_grid(y["locs1"], torch.bfloat16)
+        library = (lambda: grid_sample_stage1(torch, s1[0], grid)) if last else None
+        dfa3d(f"2D stage1 bf16/bf16 {shape}", "dfa3d_fwd_s1_bd", s1,
+              time=last and "main", run_library=library)
+        dfa3d(f"2D stage2 bf16/bf16 {shape}", "dfa3d_fwd_mh_bd", s2,
+              time=last and "main")
+        if last:
+            locs_nan = y["locs2"].clone()
+            locs_nan.view(-1)[::997] = float("nan")
+            dfa3d(f"2D stage2 bf16/bf16 {shape}, NaN locs", "dfa3d_fwd_mh_bd",
+                  s2[:2] + (locs_nan,) + s2[3:])
+            # F.grid_sample computes the same function as the 2D stage 1
+            # (checked at f32: in bf16 it takes its grid in bf16 too, so its
+            # bf16 time is for bf16 coordinates; both times are printed)
+            v32, grid32 = y["value"].float(), stage1_grid(y["locs1"], torch.float32)
+            s1_32 = (v32, y["ones"].float(), y["locs1"], y["attn1"], 1)
+            lib = grid_sample_stage1(torch, v32, grid32)[..., 0].transpose(1, 2)
+            ker = dfa3d_fwd_cuda(*s1_32)
+            torch.cuda.synchronize()
+            compare_tensors(torch, f"F.grid_sample vs 2D stage1 f32/f32 {shape}",
+                            lib.contiguous(), ker)
+            log(f"[kernels] 2D stage1 f32/f32 {shape}: kernel "
+                f"{cuda_ms(torch, lambda: dfa3d_fwd_cuda(*s1_32)):.4f} ms, "
+                f"F.grid_sample f32 "
+                f"{cuda_ms(torch, lambda: grid_sample_stage1(torch, v32, grid32)):.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -408,10 +684,10 @@ def phase_serving(torch, dev, kernels):
     log(f"[serving] warm seconds per scene: {sum(times[1:]) / len(times[1:]):.4f}")
     log(f"[serving] peak memory allocated: {peak / 2**30:.3f} GiB")
     log(f"[serving] kernel launches over {SERVE_SCENES} scenes: {launches}")
-    for name, per_scene in LAUNCHES_PER_SCENE.items():
-        check(launches[name] == per_scene * SERVE_SCENES,
-              f"{name}: {launches[name]} launches, expected "
-              f"{per_scene * SERVE_SCENES}")
+    for name in kernels:
+        want = LAUNCHES_PER_SCENE.get(name, 0) * SERVE_SCENES
+        check(launches[name] == want,
+              f"{name}: {launches[name]} launches, expected {want}")
     return launches
 
 
@@ -459,12 +735,26 @@ def phase_backward(torch, dev, report):
         rec = report[kernel_name]
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
 
-    def timing(name, kernel_name, run_kernel, run_plain):
-        ms_k = cuda_ms(torch, run_kernel)
-        ms_p = cuda_ms(torch, run_plain, iters=3)
-        log(f"[kernels] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms")
-        if "ms" not in report[kernel_name]:
-            report[kernel_name].update(ms=ms_k, plain_ms=ms_p)
+    def dfa3d(name, kernel_name, args, sample_grads=True, extra=None, time=None,
+              depth_grad=True, run_library=None):
+        """args: (value, depth, locs, attn, g, heads, counts); time: None,
+        "log" or "main", as in phase 3."""
+        kw = dict(sample_grads=sample_grads, depth_grad=depth_grad)
+
+        def run_k():
+            return dfa3d_bwd_cuda(*args, **kw)
+
+        def run_p():
+            return dfa3d_bwd_plain(*args, **kw)
+
+        name = (f"{name}, sample grads {sample_grads}"
+                + ("" if depth_grad else ", no depth grad"))
+        compare(name, kernel_name, run_k, run_p, names, extra)
+        if time:
+            _timing(torch, report, name, kernel_name, run_k, run_p,
+                    lambda outs: dfa3d_work(args[:5], outs, args[6], True,
+                                            dot=sample_grads or depth_grad),
+                    run_library, main=time == "main")
 
     for name, src, ref, xe, ye in _sweep_cases(torch, dev, cfg, scene, gen):
         g = torch.randn(xe.shape, device=dev, generator=gen)
@@ -472,21 +762,16 @@ def phase_backward(torch, dev, report):
         name = name.replace("sweep", "sweep bwd")
         compare(name, "sweep_bwd", lambda: sweep_bwd_cuda(*args),
                 lambda: sweep_bwd_plain(*args), ("d_src", "d_ref"))
-        timing(name, "sweep_bwd", lambda: sweep_bwd_cuda(*args),
-               lambda: sweep_bwd_plain(*args))
+        _timing(torch, report, name, "sweep_bwd", lambda: sweep_bwd_cuda(*args),
+                lambda: sweep_bwd_plain(*args),
+                lambda outs: sweep_work(args, outs, True),
+                main=src.dtype == torch.bfloat16)
 
     for level in range(3):
         x = _lifting_inputs(torch, dev, cfg, scene, level, budget[level], gen)
         shape = f"({N_VIEWS},{x['h']},{x['w']}) K'={x['kb']}"
         counts = x["counts"]
-
-        def zero_sample_grads_past_count(outs, counts=counts):
-            q = torch.arange(outs[2].shape[1], device=dev)
-            past = q[None, :] >= counts[:, None]
-            check(bool((outs[2][past] == 0).all()) and bool((outs[3][past] == 0).all()),
-                  "d_locs / d_attn of rows past valid_counts are not exactly zero")
-            log(f"[kernels]   {int(past.sum())} counted-out rows: d_locs, d_attn exactly zero")
-
+        past_zero = _zeros_past_count(torch, counts, rows=2)
         for vdt in (torch.bfloat16, torch.float32):
             tag = "bf16/f32" if vdt == torch.bfloat16 else "f32/f32"
             value = x["value"].to(vdt)
@@ -494,33 +779,90 @@ def phase_backward(torch, dev, report):
                              generator=gen).to(vdt)
             locs1 = _edge_locs(x["locs1"], x["w"], x["h"])
             s1 = (value, x["depth"], locs1, x["attn1"], g1, 1, counts)
-            for sg in (True, False):
-                compare(f"stage1 bwd {tag} {shape} counted, sample grads {sg}",
-                        "dfa3d_bwd_s1",
-                        lambda sg=sg: dfa3d_bwd_cuda(*s1, sample_grads=sg),
-                        lambda sg=sg: dfa3d_bwd_plain(*s1, sample_grads=sg), names,
-                        zero_sample_grads_past_count if sg else None)
+            dfa3d(f"stage1 bwd {tag} {shape} counted", "dfa3d_bwd_s1", s1, True,
+                  past_zero)
+            # stage 1 as the model runs it: no location/attention grads
+            timed = level == 2 and ("main" if vdt == torch.bfloat16 else "log")
+            dfa3d(f"stage1 bwd {tag} {shape} counted", "dfa3d_bwd_s1", s1, False,
+                  time=timed)
             vp = torch.randn((N_VIEWS, x["h"], x["w"], value.shape[-1]),
                              device=dev, generator=gen).to(vdt)
             locs2 = _edge_locs(x["locs2"], x["w"], x["h"])
             s2 = (vp, x["depth"], locs2, x["attn2"], g1, x["heads"], counts)
-            compare(f"stage2 bwd {tag} {shape} counted", "dfa3d_bwd_mh",
-                    lambda: dfa3d_bwd_cuda(*s2), lambda: dfa3d_bwd_plain(*s2),
-                    names, zero_sample_grads_past_count)
+            dfa3d(f"stage2 bwd {tag} {shape} counted", "dfa3d_bwd_mh", s2,
+                  extra=past_zero, time=timed)
             if level == 2 and vdt == torch.bfloat16:
                 locs_nan = locs2.clone()
                 locs_nan.view(-1)[::997] = float("nan")
-                s2n = (vp, x["depth"], locs_nan, x["attn2"], g1, x["heads"], None)
-                compare(f"stage2 bwd {tag} {shape} uncounted, NaN locs",
-                        "dfa3d_bwd_mh", lambda: dfa3d_bwd_cuda(*s2n),
-                        lambda: dfa3d_bwd_plain(*s2n), names)
-            if level == 2:
-                # stage 1 as the model runs it: no location/attention grads
-                timing(f"stage1 bwd {tag} {shape}", "dfa3d_bwd_s1",
-                       lambda: dfa3d_bwd_cuda(*s1, sample_grads=False),
-                       lambda: dfa3d_bwd_plain(*s1, sample_grads=False))
-                timing(f"stage2 bwd {tag} {shape}", "dfa3d_bwd_mh",
-                       lambda: dfa3d_bwd_cuda(*s2), lambda: dfa3d_bwd_plain(*s2))
+                dfa3d(f"stage2 bwd {tag} {shape} uncounted, NaN locs", "dfa3d_bwd_mh",
+                      (vp, x["depth"], locs_nan, x["attn2"], g1, x["heads"], None))
+            if level == 2 and vdt == torch.float32:
+                # the v1 (_bwd_kernel) and v3 (_bwd_kernel_q / _q_s1) rows:
+                # uncounted f32
+                dfa3d(f"stage1 bwd {tag} {shape} uncounted (v3 q_s1)", "dfa3d_bwd_s1",
+                      s1[:6] + (None,), time="log")
+                dfa3d(f"stage2 bwd {tag} {shape} uncounted (v1, v3 q)",
+                      "dfa3d_bwd_mh", s2[:6] + (None,), time="log")
+            if level == 2 and vdt == torch.bfloat16:
+                # the backward of pq_s1c and of the bf16 multi-head with a
+                # real 12-bin depth in bf16
+                dpt_bf = x["depth"].to(torch.bfloat16)
+                dfa3d(f"stage1 bwd bf16/bf16 {shape} counted, 12-bin depth",
+                      "dfa3d_bwd_s1_bd", (value, dpt_bf) + s1[2:], True, past_zero,
+                      time="log")
+                dfa3d(f"stage2 bwd bf16/bf16 {shape} uncounted, 12-bin depth",
+                      "dfa3d_bwd_mh_bd", (vp, dpt_bf) + s2[2:6] + (None,),
+                      time="log")
+
+    # the 2D lifting path: bf16 value with bf16 (uniform) depth, uncounted;
+    # as the module runs it: no depth gradient (the uniform depth is a
+    # constant), and at stage 1 no location/attention gradients either
+    for level in range(3):
+        y = _lifting_2d_inputs(torch, dev, cfg, scene, level, gen)
+        shape = f"({N_VIEWS},{y['h']},{y['w']}) K={y['k']}"
+        g = torch.randn((N_VIEWS, y["k"], y["value"].shape[-1]), device=dev,
+                        generator=gen).to(torch.bfloat16)
+        locs1 = _edge_locs(y["locs1"], y["w"], y["h"])
+        locs1[..., 2] = 0.5
+        s1 = (y["value"], y["ones"], locs1, y["attn1"], g, 1, None)
+        s2 = (y["vp"], y["ones"], y["locs2"], y["attn2"], g, y["heads"], None)
+        last = level == 2
+        grid = stage1_grid(locs1, torch.bfloat16)
+        library = (lambda: grid_sample_stage1_bwd(torch, g, s1[0], grid)) if last else None
+        dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_bd", s1, False,
+              time=last and "main", depth_grad=False, run_library=library)
+        dfa3d(f"2D stage2 bwd bf16/bf16 {shape}", "dfa3d_bwd_mh_bd", s2,
+              time=last and "main", depth_grad=False)
+        if last:
+            # ... with the depth gradient (the value gather, the dot products
+            # and the depth atomics on top of the scatter), and every gradient
+            dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_bd", s1, False,
+                  time="log")
+            dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_bd", s1, True,
+                  time="log")
+            dfa3d(f"2D stage2 bwd bf16/bf16 {shape}", "dfa3d_bwd_mh_bd", s2,
+                  time="log")
+            locs_nan = y["locs2"].clone()
+            locs_nan.view(-1)[::997] = float("nan")
+            dfa3d(f"2D stage2 bwd bf16/bf16 {shape}, NaN locs", "dfa3d_bwd_mh_bd",
+                  s2[:2] + (locs_nan,) + s2[3:])
+            # aten's grid_sampler_2d_backward computes the 2D stage 1's
+            # d_value (checked at f32, as the forward's yardstick)
+            v32, g32 = y["value"].float(), g.float()
+            grid32 = stage1_grid(locs1, torch.float32)
+            s1_32 = (v32, y["ones"].float(), locs1, y["attn1"], g32, 1, None)
+            kw = dict(sample_grads=False, depth_grad=False)
+            lib, lib_grid = grid_sample_stage1_bwd(torch, g32, v32, grid32)
+            ker = dfa3d_bwd_cuda(*s1_32, **kw)[0]
+            torch.cuda.synchronize()
+            compare_tensors(torch, f"grid_sampler_2d_backward vs 2D stage1 bwd "
+                            f"f32/f32 {shape} d_value",
+                            lib.permute(0, 2, 3, 1).contiguous(), ker, f32_rel=1e-5)
+            log(f"[kernels] 2D stage1 bwd f32/f32 {shape}: kernel "
+                f"{cuda_ms(torch, lambda: dfa3d_bwd_cuda(*s1_32, **kw)):.4f} ms, "
+                f"grid_sampler_2d_backward f32 "
+                f"{cuda_ms(torch, lambda: grid_sample_stage1_bwd(torch, g32, v32, grid32)):.4f}"
+                f" ms (grid gradient {'computed' if lib_grid is not None else 'skipped'})")
 
 
 # ---------------------------------------------------------------------------
@@ -651,8 +993,9 @@ def phase_train(torch, dev, kernels):
         check(all(map(math.isfinite, vals.values())), f"step {i}: non-finite {vals}")
         log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: {times[-1]:.4f} s, "
             + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
-        check(per_step == LAUNCHES_PER_STEP,
-              f"step {i}: launches {per_step}, expected {LAUNCHES_PER_STEP}")
+        expected = {name: LAUNCHES_PER_STEP.get(name, 0) for name in kernels}
+        check(per_step == expected,
+              f"step {i}: launches {per_step}, expected {expected}")
     launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     after = model.state_dict()
@@ -678,6 +1021,144 @@ def phase_train(torch, dev, kernels):
     log(f"[train] peak memory allocated: {peak / 2**30:.3f} GiB")
     log(f"[train] kernel launches over {TRAIN_STEPS} steps: {launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the 2D lifting path
+# ---------------------------------------------------------------------------
+
+
+def _lifting_2d_models(torch, dev, cfg):
+    """One ViewTransformer(use_depth=False) per level at the ScanNet width,
+    seeded weights, f32 on the card."""
+    from sgcdet_tpu_torch.models.layers import init_weights
+    from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
+
+    m = cfg.model
+    models = []
+    for level in range(3):
+        vt = ViewTransformer(m.embed_dims, m.num_heads, m.num_points,
+                             ffn_dropout=m.ffn_dropout, use_depth=False)
+        init_weights(vt, torch.Generator().manual_seed(10 + level))
+        models.append(vt.to(dev))
+    return models
+
+
+def phase_lifting_2d(torch, dev, kernels):
+    import copy
+
+    from sgcdet_tpu_torch.models.layers import set_compute_dtype
+    from sgcdet_tpu_torch.ops import plain_ops
+
+    cfg, scene = _scene_and_cfg()
+    m = cfg.model
+    origin = torch.from_numpy(scene["origin"]).to(dev)
+    proj = torch.from_numpy(scene["proj_img"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    levels = []
+    for level in range(3):
+        h, w = _level_hw(cfg, level)
+        ref = _level_voxels(torch, dev, cfg, level)
+        feat = torch.randn((N_VIEWS, m.embed_dims, h, w), device=dev, generator=gen)
+        dpt = torch.zeros((N_VIEWS, m.depth_channels, h, w), device=dev)  # unused
+        g = torch.randn((ref.shape[0], m.embed_dims), device=dev, generator=gen)
+        levels.append((ref, feat, dpt, g))
+        log(f"[2D lifting] level {level}: features ({N_VIEWS},{m.embed_dims},{h},{w}), "
+            f"{ref.shape[0]} voxels")
+    models = _lifting_2d_models(torch, dev, cfg)
+
+    def run(model, level, feat, train_gen=None):
+        ref, _, dpt, g = levels[level]
+        out = model(ref, origin, proj, feat, dpt, cfg.data.img_shape, m.dbound,
+                    train_gen)
+        return out, (out.float() * g).sum()
+
+    # (i) f32, TF32 off: kernels vs plain versions, output and gradients
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for level, model in enumerate(models):
+        model.eval()
+        params = list(model.named_parameters())
+        results = []
+        for plain in (False, True):
+            feat = levels[level][1].clone().requires_grad_()
+            if plain:
+                with plain_ops():
+                    out, loss = run(model, level, feat)
+                    grads = torch.autograd.grad(loss, [feat] + [p for _, p in params])
+            else:
+                out, loss = run(model, level, feat)
+                grads = torch.autograd.grad(loss, [feat] + [p for _, p in params])
+            results.append((out.detach(), grads))
+        torch.cuda.synchronize()
+        (out_k, grads_k), (out_p, grads_p) = results
+        check(bool(torch.isfinite(out_k).all()), f"level {level}: non-finite output")
+        # the kernels sum in another order than the plain versions (the
+        # backward's atomics in a varying one): 1e-4 of the output's scale,
+        # 1e-3 of each gradient's after softmax, MHA and LayerNorm
+        err = float((out_k - out_p).abs().max())
+        tol = 1e-4 * max(float(out_p.abs().max()), 1e-3)
+        log(f"[2D lifting] f32 level {level} output: max_abs_err {err:.3e} (tol {tol:.3e})")
+        check(err <= tol, f"2D lifting level {level}: output differs")
+        worst = []
+        for name, a, b in zip(["features"] + [n for n, _ in params], grads_k, grads_p):
+            check(bool(torch.isfinite(a).all()), f"level {level}: non-finite grad {name}")
+            e = float((a - b).abs().max())
+            t = 1e-3 * max(float(b.abs().max()), 1e-8)
+            worst.append((e / t, name, e))
+        worst.sort(reverse=True)
+        log(f"[2D lifting] f32 level {level}: {len(worst)} gradients, worst err/tol "
+            + "; ".join(f"{n} {r:.3f} (err {e:.2e})" for r, n, e in worst[:3]))
+        check(worst[0][0] <= 1.0, f"2D lifting level {level}: gradient {worst[0][1]} differs")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    # (ii) bf16, train mode (FFN dropout 0.1): forward + backward through the
+    # bf16-depth kernels, one level after another
+    bf16_models = []
+    for model in models:
+        mb = copy.deepcopy(model)
+        set_compute_dtype(mb, torch.bfloat16)
+        bf16_models.append(mb.train())
+    for k in kernels.values():
+        k.launches = 0
+    peaks = []
+    for level, model in enumerate(bf16_models):
+        feat = levels[level][1].to(torch.bfloat16).requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out, loss = run(model, level, feat, gen)
+        grads = torch.autograd.grad(loss, [feat] + list(model.parameters()))
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        check(bool(torch.isfinite(out.float()).all()) and all(
+            bool(torch.isfinite(x.float()).all()) for x in grads),
+            f"2D lifting bf16 level {level}: non-finite output or gradient")
+    launches = {name: k.launches for name, k in kernels.items()}
+    log(f"[2D lifting] bf16 kernel launches over 3 levels (forward + backward): "
+        f"{launches}")
+    expected = {name: (3 if name in KERNELS_2D else 0) for name in kernels}
+    check(launches == expected, f"2D lifting launches {launches}, expected {expected}")
+
+    for level, model in enumerate(bf16_models):
+        feat = levels[level][1].to(torch.bfloat16)
+
+        def fwd(model=model, level=level, feat=feat):
+            model.eval()
+            with torch.no_grad():
+                run(model, level, feat)
+
+        def fwd_bwd(model=model, level=level, feat=feat):
+            model.train()
+            f = feat.clone().requires_grad_()
+            _, loss = run(model, level, f, gen)
+            torch.autograd.grad(loss, [f] + list(model.parameters()))
+
+        ms_f = cuda_ms(torch, fwd, iters=3)
+        ms_fb = cuda_ms(torch, fwd_bwd, iters=3)
+        log(f"[2D lifting] bf16 level {level}: forward {ms_f:.4f} ms, forward + "
+            f"backward {ms_fb:.4f} ms, peak memory {peaks[level] / 2**30:.3f} GiB")
+    return {name: launches[name] for name in KERNELS_2D}
 
 
 def main() -> int:
@@ -721,13 +1202,15 @@ def main() -> int:
     def run_serving():
         serving.update(phase_serving(torch, dev, KERNELS))
 
-    train = {}
+    train, lifting_2d = {}, {}
     for name, fn in (("kernels", lambda: phase_kernels(torch, dev, report)),
                      ("backward", lambda: phase_backward(torch, dev, report)),
                      ("slice f32", lambda: phase_slice_f32(torch, dev)),
                      ("serving", run_serving),
                      ("train f32", lambda: phase_train_f32(torch, dev)),
-                     ("train", lambda: train.update(phase_train(torch, dev, KERNELS)))):
+                     ("train", lambda: train.update(phase_train(torch, dev, KERNELS))),
+                     ("2D lifting", lambda: lifting_2d.update(
+                         phase_lifting_2d(torch, dev, KERNELS)))):
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
@@ -735,10 +1218,14 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = report[name]
+        # launches: the main path of each kernel (the train step; the bf16
+        # 2D lifting run for the bf16-depth instances)
+        launches = lifting_2d[name] if name in KERNELS_2D else train[name]
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=train[name],
+                            replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
-                            plain_ms=rec["plain_ms"],
+                            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
                             serving_launches=serving.get(name, 0)))
     print(json.dumps({"kernels": kernels}))
     print(smi)

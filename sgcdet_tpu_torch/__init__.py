@@ -4,7 +4,7 @@ The JAX package ``sgcdet_tpu`` is the reference this port is tested
 against; this package imports torch and neither jax nor the JAX package.
 
 Layout:
-  models/   torch modules, one per module of sgcdet_tpu/models (eval forward)
+  models/   torch modules, one per module of sgcdet_tpu/models
   ops/      kernel wrappers with their plain PyTorch versions, host NMS
   csrc/     hand-written CUDA C++ kernels for sm_90a, built at first use
   configs.py  the ScanNet config (the JAX package's field names)
@@ -12,5 +12,8 @@ Layout:
   scene.py  NumPy synthetic scene
   convert.py  flax params -> the port's state_dict
   infer.py  detect(model, scene): the serving entry point
+  train/    init_train_state, make_train_step: the train step
   profile_serving.py  where the serving time goes, on a card
+
+Entry points build on the card unless the caller passes device="cpu".
 """

@@ -96,6 +96,27 @@ def _depth_head(sd, p, s):
     _conv(sd, "depth_head.depth_reg", p["depth_reg"])
 
 
+def _view_transformer(sd, prefix, p):
+    """One ViewTransformer tree (``layer{j}`` subtrees), DFA3D or 2D path:
+    the 2D path's deformable attention has no ``sampling_offsets_depth``."""
+    for layer_name, lp in p.items():
+        j = layer_name[len("layer"):]
+        tp = f"{prefix}cross_transformer.encoder.layers.{j}"
+        at, af = f"{tp}.attentions.0", lp["cross_attn"]
+        _linear(sd, f"{at}.output_proj", af["output_proj"])
+        for lin, node in af["deformable_attention"].items():
+            _linear(sd, f"{at}.deformable_attention.{lin}", node)
+        mp = af["attention_pooling"]
+        sd[f"{at}.attention_pooling.in_proj_weight"] = np.asarray(mp["in_proj_kernel"]).T
+        sd[f"{at}.attention_pooling.in_proj_bias"] = np.asarray(mp["in_proj_bias"])
+        _linear(sd, f"{at}.attention_pooling.out_proj", mp["out_proj"])
+        _linear(sd, f"{tp}.ffns.0.layers.0.0", lp["ffn"]["fc1"])
+        _linear(sd, f"{tp}.ffns.0.layers.1", lp["ffn"]["fc2"])
+        for k in (0, 1):
+            sd[f"{tp}.norms.{k}.weight"] = np.asarray(lp[f"norm{k + 1}"]["scale"])
+            sd[f"{tp}.norms.{k}.bias"] = np.asarray(lp[f"norm{k + 1}"]["bias"])
+
+
 def _voxel_head(sd, p):
     for name in p:
         if name.startswith("occ_pred_head"):
@@ -103,24 +124,7 @@ def _voxel_head(sd, p):
             _linear(sd, f"voxel_head.occ_pred_heads.{i}.0", p[name])
             continue
         i = name[len("base_head"):]
-        for layer_name, lp in p[name].items():
-            j = layer_name[len("layer"):]
-            tp = f"voxel_head.base_heads.{i}.cross_transformer.encoder.layers.{j}"
-            at, af = f"{tp}.attentions.0", lp["cross_attn"]
-            _linear(sd, f"{at}.output_proj", af["output_proj"])
-            for lin in ("sampling_offsets", "sampling_offsets_depth",
-                        "attention_weights", "value_proj"):
-                _linear(sd, f"{at}.deformable_attention.{lin}",
-                        af["deformable_attention"][lin])
-            mp = af["attention_pooling"]
-            sd[f"{at}.attention_pooling.in_proj_weight"] = np.asarray(mp["in_proj_kernel"]).T
-            sd[f"{at}.attention_pooling.in_proj_bias"] = np.asarray(mp["in_proj_bias"])
-            _linear(sd, f"{at}.attention_pooling.out_proj", mp["out_proj"])
-            _linear(sd, f"{tp}.ffns.0.layers.0.0", lp["ffn"]["fc1"])
-            _linear(sd, f"{tp}.ffns.0.layers.1", lp["ffn"]["fc2"])
-            for k in (0, 1):
-                sd[f"{tp}.norms.{k}.weight"] = np.asarray(lp[f"norm{k + 1}"]["scale"])
-                sd[f"{tp}.norms.{k}.bias"] = np.asarray(lp[f"norm{k + 1}"]["bias"])
+        _view_transformer(sd, f"voxel_head.base_heads.{i}.", p[name])
 
 
 def _neck3d(sd, p, s):
@@ -173,5 +177,18 @@ def state_dict_from_flax(params, batch_stats) -> dict:
         _neck3d(sd, params["neck_3d"], stats["neck_3d"])
     if "bbox_head" in params:
         _bbox_head(sd, params["bbox_head"])
+    return _tensors(sd)
+
+
+def view_transformer_state_dict_from_flax(params) -> dict:
+    """Flax params of a standalone ``sgcdet_tpu.models.view_transformer
+    .ViewTransformer`` (DFA3D or 2D path) -> the port's ``ViewTransformer``
+    ``state_dict``."""
+    sd = {}
+    _view_transformer(sd, "", params)
+    return _tensors(sd)
+
+
+def _tensors(sd):
     return {k: torch.from_numpy(np.array(v, dtype=np.int64 if k.endswith(
         "num_batches_tracked") else np.float32)) for k, v in sd.items()}

@@ -1,15 +1,21 @@
-// Fused DFA3D sampling backward (kernels K6 `dfa3d_bwd_s1` and K5
-// `dfa3d_bwd_mh`): one template, one entry point; the wrapper counts the
-// stage-1 and stage-2 launches apart.
+// Fused DFA3D sampling backward (kernels K6 `dfa3d_bwd_s1`, K5
+// `dfa3d_bwd_mh` and their bf16-depth instances K6' `dfa3d_bwd_s1_bd`, K5'
+// `dfa3d_bwd_mh_bd`): one template, one entry point; the wrapper counts the
+// four apart.
 //
-// Replaces the TPU kernels sgcdet_tpu/ops/dfa3d_pallas.py::_bwd_kernel_s1
-// (stage 1: heads=1, P=1, attention 1, all C channels; launched by _run_bwd,
-// selected at :527-529) and sgcdet_tpu/ops/dfa3d_pallas2.py::_bwd_kernel_v2
-// (stage 2: heads x P points, c channels per head; _run_bwd_v2), together
-// with the XLA chain that follows them on the TPU (dfa3d_pallas2.py:744-791,
-// dfa3d_pallas.py:764-815): those kernels emit per-corner weight gradients
-// and depth-vector gradients, and XLA turns them into location and
-// attention gradients.  Here the chain is done in registers.  With the
+// Replaces every Pallas DFA3D backward of sgcdet_tpu/ops:
+// dfa3d_pallas.py::_bwd_kernel_s1 (stage 1: heads=1, P=1, attention 1, all
+// C channels; launched by _run_bwd, selected at :527-529; it is also the
+// backward of pq_s1 / pq_s1c, ops/dfa3d.py:44-73, which at bf16 takes bf16
+// depth: K6'), dfa3d_pallas2.py::_bwd_kernel_v2 (stage 2: heads x P points,
+// c channels per head; _run_bwd_v2; at bf16 depth the 2D path's stage 2:
+// K5'), dfa3d_pallas.py::_bwd_kernel (v1 multi-head, f32) and
+// dfa3d_pallas3.py::_bwd_kernel_q / _bwd_kernel_q_s1 (v3 f32 quad rows),
+// together with the XLA chain that follows them on the TPU
+// (dfa3d_pallas2.py:744-791, dfa3d_pallas.py:764-815): those kernels emit
+// per-corner weight gradients and depth-vector gradients, and XLA turns
+// them into location and attention gradients.  Here the chain is done in
+// registers.  With the
 // forward's notation (dfa3d_fwd.cu), for every (view n, query q, head h,
 // point p) and each in-image corner with bilinear weight b, depth score
 // s = dpt[d0c] * wd0 + dpt[d1c] * wd1 and attention a:
@@ -25,15 +31,20 @@
 // Queries at or past valid_counts[n] get zero d_locs / d_attn and scatter
 // nothing (dfa3d_pallas.py:448-465).  Coordinates are clipped as in the
 // forward, so NaN and far-off samples touch no corner.  All gradients are
-// f32; the wrapper casts them once to the input dtypes.  With SAMPLE_GRADS
+// accumulated in f32 (d_dpt too at bf16 depth); the wrapper casts them
+// once to the input dtypes.  With SAMPLE_GRADS
 // off (stage 1 in the model: its locations are fixed voxel centres and its
-// attention is 1) only d_value and d_dpt are produced.
+// attention is 1) only d_value and d_dpt are produced; with a null d_depth
+// (the 2D path: its uniform depth is a constant) the depth atomics are
+// skipped.  Where both are off (the 2D stage 1) nothing needs t, so DOT is
+// off too: the kernel reads no value row and does no warp reduction, and
+// only scatters (b * a * s) * g.
 //
 // What bounds it on this card: the scatter.  Per (query, head, point,
-// corner) the kernel re-gathers one c-channel value row and two depth bins,
-// and adds c + 2 f32 values by atomics into the (N, H, W, C) and
-// (N, H, W, D) buffers, which resolve in L2.  The counted rows past each
-// camera's visible count (most of them at the finest level) cost one
+// corner) the kernel gathers two depth bins and, with DOT, one c-channel
+// value row, and adds c (+ 2) f32 values by atomics into the (N, H, W, C)
+// (and (N, H, W, D)) buffers, which resolve in L2.  The counted rows past
+// each camera's visible count (most of them at the finest level) cost one
 // broadcast load of the count.
 //
 // Design: one warp per (view, query, head), lanes over the head's c
@@ -41,13 +52,14 @@
 // row is loaded once into registers; each corner's dot product t is one
 // warp reduction (every lane ends with the sum), so every lane carries the
 // location and attention gradients and lane 0 writes them once per point.
+// launch_sg turns DOT off only with SAMPLE_GRADS off and a null d_depth.
 // No pair/quad row images, no dquad/un-quad pass and no transposed windows
 // (those worked around Mosaic).
 #include "common.cuh"
 
 namespace {
 
-template <typename VT, typename DT, int VEC, bool SAMPLE_GRADS>
+template <typename VT, typename DT, int VEC, bool SAMPLE_GRADS, bool DOT>
 __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
     const VT* __restrict__ value,    // (N, H, W, heads*c)
     const DT* __restrict__ depth,    // (N, H, W, D)
@@ -56,7 +68,7 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
     const VT* __restrict__ g,        // (N, K, heads*c) incoming gradient
     float* __restrict__ d_value,     // (N, H, W, heads*c), zeroed by the caller
-    float* __restrict__ d_depth,     // (N, H, W, D), zeroed by the caller
+    float* __restrict__ d_depth,     // (N, H, W, D), zeroed by the caller, or null
     float* __restrict__ d_locs,      // (N, K, heads, P, 3) or null
     float* __restrict__ d_attn,      // (N, K, heads, P) or null
     int n, int h, int w, int heads, int dsize, int k, int p) {
@@ -87,7 +99,7 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
   const VT* vbase = value + cam * hw * cfull + head * C + lane * VEC;
   float* dvbase = d_value + cam * hw * cfull + head * C + lane * VEC;
   const DT* dbase = depth + cam * hw * dsize;
-  float* ddbase = d_depth + cam * hw * dsize;
+  float* ddbase = d_depth == nullptr ? nullptr : d_depth + cam * hw * dsize;
 
   for (int pt = 0; pt < p; ++pt) {
     const float u = sgc::clip_coord(lp[3 * pt] * w - 0.5f, -4.f, w + 4.f);
@@ -117,18 +129,18 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
       const float by = dy ? ly : 1.f - ly, bx = dx ? lx : 1.f - lx;
       const float b = by * bx;
       const float wgt = (b * a) * s;
+      float* dvrow = dvbase + pix * cfull;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) atomicAdd(dvrow + i, wgt * gv[i]);
+      if (!DOT) continue;
       float val[VEC];
       sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
       float t = 0.f;
-      float* dvrow = dvbase + pix * cfull;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        t += gv[i] * val[i];
-        atomicAdd(dvrow + i, wgt * gv[i]);
-      }
+      for (int i = 0; i < VEC; ++i) t += gv[i] * val[i];
       t = sgc::warp_sum(t);
       const float t_s = t * b * a;  // gradient of the depth score s
-      if (lane == 0) {
+      if (lane == 0 && ddbase != nullptr) {
         if (wd0 != 0.f) atomicAdd(ddbase + pix * dsize + d0c, t_s * wd0);
         if (wd1 != 0.f) atomicAdd(ddbase + pix * dsize + d1c, t_s * wd1);
       }
@@ -150,7 +162,7 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
   }
 }
 
-template <typename VT, typename DT, int VEC, bool SAMPLE_GRADS>
+template <typename VT, typename DT, int VEC, bool SAMPLE_GRADS, bool DOT>
 void launch(const void* value, const void* depth, const float* locs,
             const float* attn, const int* counts, const void* g, float* d_value,
             float* d_depth, float* d_locs, float* d_attn, int n, int h, int w,
@@ -158,7 +170,7 @@ void launch(const void* value, const void* depth, const float* locs,
   const long long warps = (long long)n * k * heads;
   const int threads = 256;
   const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
-  dfa3d_bwd_kernel<VT, DT, VEC, SAMPLE_GRADS><<<(unsigned)blocks, threads, 0, stream>>>(
+  dfa3d_bwd_kernel<VT, DT, VEC, SAMPLE_GRADS, DOT><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
       counts, static_cast<const VT*>(g), d_value, d_depth, d_locs, d_attn, n,
       h, w, heads, dsize, k, p);
@@ -171,9 +183,11 @@ void launch_sg(const void* value, const void* depth, const float* locs,
                int n, int h, int w, int heads, int dsize, int k, int p,
                cudaStream_t stream) {
   if (d_locs != nullptr)
-    launch<VT, DT, VEC, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
+    launch<VT, DT, VEC, true, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
+  else if (d_depth != nullptr)
+    launch<VT, DT, VEC, false, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
   else
-    launch<VT, DT, VEC, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
+    launch<VT, DT, VEC, false, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
 }
 
 template <typename VT, typename DT>
@@ -194,9 +208,10 @@ int dispatch_c(int c, const void* value, const void* depth, const float* locs,
 
 // value (N, H, W, heads*c) of type vdtype, depth (N, H, W, dsize) of type
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
-// (N,) int32 or null, g (N, K, heads*c) of type vdtype -> d_value, d_depth
-// (f32, zero-initialised by the caller) and, where both pointers are
-// non-null, d_locs and d_attn (f32, every element written).
+// (N,) int32 or null, g (N, K, heads*c) of type vdtype -> d_value (f32,
+// zero-initialised by the caller), d_depth (likewise, or null: not
+// computed) and, where both pointers are non-null, d_locs and d_attn (f32,
+// every element written).
 extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
                              const void* depth, const float* locs,
                              const float* attn, const int* counts,
@@ -206,8 +221,12 @@ extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
-  if (ddtype != sgc::kFloat32) return (int)cudaErrorInvalidValue;
   if ((d_locs == nullptr) != (d_attn == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ddtype == sgc::kBFloat16) {
+    if (vdtype != sgc::kBFloat16) return (int)cudaErrorInvalidValue;
+    return dispatch_c<__nv_bfloat16, __nv_bfloat16>(c, value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
+  }
+  if (ddtype != sgc::kFloat32) return (int)cudaErrorInvalidValue;
   if (vdtype == sgc::kBFloat16)
     return dispatch_c<__nv_bfloat16, float>(c, value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
   if (vdtype == sgc::kFloat32)

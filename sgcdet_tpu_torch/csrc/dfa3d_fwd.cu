@@ -1,11 +1,22 @@
-// Fused DFA3D sampling forward (kernels K2 `dfa3d_fwd_s1` and K3
-// `dfa3d_fwd_mh`): one template, one entry point; the wrapper counts the
-// stage-1 and stage-2 launches apart.
+// Fused DFA3D sampling forward (kernels K2 `dfa3d_fwd_s1`, K3
+// `dfa3d_fwd_mh` and their bf16-depth instances K2' `dfa3d_fwd_s1_bd`, K3'
+// `dfa3d_fwd_mh_bd`): one template, one entry point; the wrapper counts the
+// four apart.
 //
-// Replaces the TPU kernels sgcdet_tpu/ops/dfa3d_pallas.py::_fwd_kernel_s1
-// (stage 1: heads=1, P=1, attention 1, all C channels) and
-// sgcdet_tpu/ops/dfa3d_pallas2.py::_fwd_kernel_v2 (stage 2: heads x P
-// points, c channels per head).  For every (view n, query q, head h):
+// Replaces every Pallas DFA3D forward of sgcdet_tpu/ops, which compute one
+// function at different type pairs, head counts and counted or not:
+//   f32 depth (K2, K3): dfa3d_pallas.py::_fwd_kernel_s1 (stage 1: heads=1,
+//     P=1, attention 1, all C channels, counted), dfa3d_pallas2.py::
+//     _fwd_kernel_v2 (stage 2: heads x P points, c channels per head,
+//     counted or not), dfa3d_pallas.py::_fwd_kernel (v1 multi-head; it casts
+//     both inputs to f32) and dfa3d_pallas3.py::_fwd_kernel_q /
+//     _fwd_kernel_q_s1 (v3 f32 quad rows);
+//   bf16 value with bf16 depth (K2', K3'): dfa3d_pallas3.py::
+//     _fwd_kernel_pq_s1 (stage 1, counted or not: pq_s1 / pq_s1c, which the
+//     2D lifting path's stage 1 reaches with a uniform 2-bin depth) and
+//     ::_fwd_kernel_pq (multi-head packed quads; its function is the 2D
+//     path's stage 2 at bf16).
+// For every (view n, query q, head h):
 //
 //   out[n, q, h*c:(h+1)*c] = sum_p attn[n,q,h,p] * sum_corners bilinear(corner)
 //                            * depth_score(corner) * value[n, corner, h*c:(h+1)*c]
@@ -15,14 +26,16 @@
 // coordinates follow the spec of sgcdet_tpu/ops/msda.py (pixel = loc*size -
 // 0.5, zero padding per corner).  Queries at or past valid_counts[n] are
 // written as zeros, as the TPU kernels return.  Value and depth types are
-// independent template parameters, instantiated for what the model runs:
-// bf16 value with f32 depth (the main path) and f32/f32 (the f32 config),
-// at c = 256 (stage 1) and c = 32 (stage 2).  The math is f32 and the
-// output is written once, in the value type.
+// independent template parameters, instantiated for the pairs the TPU
+// kernels take: bf16 value with f32 depth (the DFA3D main path), f32/f32
+// (the f32 config) and bf16/bf16 (the 2D path at bf16; the packed-quad
+// kernels), at c = 256 (stage 1) and c = 32 (stage 2).  The math is f32
+// and the output is written once, in the value type.
 //
 // What bounds it on this card: gathered bytes.  Per (query, head, point)
 // the kernel reads four data-dependent value rows (c channels each) and two
-// depth bins per corner; the arithmetic is a few flops per byte.  The value
+// depth bins per corner (2 bytes each at bf16 depth, 4 at f32); the
+// arithmetic is a few flops per byte.  The value
 // maps of one call (40 x 59 x 80 x 256 bf16 = 97 MB at the finest level)
 // exceed the 50 MB L2, so the rows come from L2 where projections of nearby
 // queries overlap and from HBM otherwise.
@@ -138,6 +151,10 @@ extern "C" int sgc_dfa3d_fwd(int vdtype, int ddtype, const void* value,
                              int k, int p, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
+  if (ddtype == sgc::kBFloat16) {
+    if (vdtype != sgc::kBFloat16) return (int)cudaErrorInvalidValue;
+    return dispatch_c<__nv_bfloat16, __nv_bfloat16>(c, value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, s);
+  }
   if (ddtype != sgc::kFloat32) return (int)cudaErrorInvalidValue;
   if (vdtype == sgc::kBFloat16)
     return dispatch_c<__nv_bfloat16, float>(c, value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, s);

@@ -28,11 +28,18 @@ class SGCDet(nn.Module):
     ``cfg.compute_dtype`` ('bfloat16' or 'float32'); BatchNorm statistics,
     the depth softmax, sampling coordinates and the fused-op accumulation
     stay f32.  Weights come from ``generator`` (seeded init) and can be
-    replaced with ``load_state_dict``."""
+    replaced with ``load_state_dict``.  The model is built on ``device``,
+    the card unless the caller passes ``device="cpu"`` (where every op runs
+    its plain version); without a card the default raises."""
 
-    def __init__(self, cfg: ModelConfig, img_shape, device=None,
+    def __init__(self, cfg: ModelConfig, img_shape, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} requested but torch sees no CUDA device; pass "
+                "device='cpu' to run the plain PyTorch versions on the CPU")
         if cfg.head_type != "scannet":
             raise NotImplementedError("the port runs the ScanNet head only")
         # options of the JAX package's ModelConfig that the port does not run
@@ -60,8 +67,7 @@ class SGCDet(nn.Module):
                               else getattr(torch, cfg.compute_dtype))
         set_compute_dtype(self, self.compute_dtype)
         self.eval()
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(self, imgs, proj_img, proj_feat4, origin, generator=None):
         """imgs: (N, 3, Hp, Wp) normalized padded images; proj_img:

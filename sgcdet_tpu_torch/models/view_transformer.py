@@ -1,12 +1,16 @@
 """Geometry- and context-aware 2D->3D lifting (the view transformer), port of
-sgcdet_tpu/models/view_transformer.py (DFA3D path only).
+sgcdet_tpu/models/view_transformer.py: the DFA3D path (``use_depth=True``,
+every released config) and the 2D MSDA path (``use_depth=False``, reached
+at module level as in the JAX package: no config field selects it).
 
 Every (camera, query) pair is computed with static shapes and the
-visibility mask is applied at the inter-view fusion.  With a visibility
-budget each camera keeps its top-B queries by visibility (all visible ones
-first, ties in index order, as ``jax.lax.top_k`` orders them), both
-sampling stages run on that compacted set with ``valid_counts``, and the
-results are scattered back; the fusion masks with ``mask & sel``.
+visibility mask is applied at the inter-view fusion.  On the DFA3D path,
+with a visibility budget each camera keeps its top-B queries by visibility
+(all visible ones first, ties in index order, as ``jax.lax.top_k`` orders
+them), both sampling stages run on that compacted set with
+``valid_counts``, and the results are scattered back; the fusion masks
+with ``mask & sel``.  The 2D path never compacts (the JAX package compacts
+only with ``use_depth``) and adds its stage-2 output to stage 1's.
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.dfa3d import dfa3d_attend
+from ..ops.dfa3d import dfa3d_attend, msda_2d_attend
 from .layers import FFN, LayerNorm, Linear, MultiheadAttention
 
 
@@ -136,17 +140,70 @@ class MSDeformableAttention3D(nn.Module):
                             num_heads=h, valid_counts=valid_counts)
 
 
+class MSDeformableAttention2D(nn.Module):
+    """Plain 2D multi-scale deformable attention, no depth weighting
+    (deformable_cross_attention.py:119-340): the stage 2 of the 2D path.
+    Single level only: the JAX module's multi-level branch goes through the
+    flat sgcdet_tpu/ops/msda.py::msda_2d, which is not ported (no JAX path
+    reaches it: ``ViewTransformer`` lifts one level)."""
+
+    def __init__(self, embed_dims=256, num_heads=8, num_points=4, num_levels=1):
+        super().__init__()
+        if num_levels != 1:
+            raise NotImplementedError(
+                "MSDeformableAttention2D with num_levels > 1 needs "
+                "sgcdet_tpu/ops/msda.py::msda_2d, which is not ported")
+        self.embed_dims = embed_dims
+        self.num_heads = num_heads
+        self.num_levels = num_levels
+        self.num_points = num_points
+        h, l, p = num_heads, num_levels, num_points
+        self.sampling_offsets = Linear(embed_dims, h * l * p * 2)
+        self.attention_weights = Linear(embed_dims, h * l * p)
+        self.value_proj = Linear(embed_dims, embed_dims)
+
+    def reset_special_parameters(self, generator):
+        h, l, p = self.num_heads, self.num_levels, self.num_points
+        nn.init.xavier_uniform_(self.value_proj.weight, generator=generator)
+        self.value_proj.bias.zero_()
+        self.sampling_offsets.weight.zero_()
+        self.sampling_offsets.bias.copy_(torch.from_numpy(_uv_offset_bias(h, l, p)))
+        self.attention_weights.weight.zero_()
+        self.attention_weights.bias.zero_()
+
+    def forward(self, query, value, ref_points, spatial_shapes):
+        """query: (N, K, C); value: (N, H*W, C) flat; ref_points:
+        (N, K, 1, 2) normalized; spatial_shapes: ((H, W),).  Returns
+        (N, K, C)."""
+        n, k, c = query.shape
+        h, l, p = self.num_heads, self.num_levels, self.num_points
+        v = self.value_proj(value)
+        off = self.sampling_offsets(query).reshape(n, k, h, l, p, 2)
+        attn = self.attention_weights(query).reshape(n, k, h, l * p)
+        attn = torch.softmax(attn, -1).reshape(n, k, h, l, p)
+        normalizer = torch.tensor([[w_, h_] for (h_, w_) in spatial_shapes],
+                                  dtype=torch.float32, device=query.device)
+        locs = (ref_points[:, :, None, None, :, :]
+                + off / normalizer[None, None, None, :, None, :])
+        h_, w_ = spatial_shapes[0]
+        return msda_2d_attend([v.reshape(n, h_, w_, c)], locs, attn, num_heads=h)
+
+
 class DeformCrossAttention(nn.Module):
     """Two-stage per-view aggregation + masked-mean / attention inter-view
-    fusion (deformable_cross_attention.py:691-837), DFA3D path."""
+    fusion (deformable_cross_attention.py:691-837).  ``use_depth`` picks the
+    DFA3D path (stage 2 replaces stage 1) or the 2D path
+    (deformable_cross_attention.py:504-688: a bilinear grid-sample stage 1,
+    plain MSDA stage 2 added to it, no budget compaction)."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4,
-                 visibility_budget=None):
+                 visibility_budget=None, use_depth=True):
         super().__init__()
         self.embed_dims = embed_dims
         self.visibility_budget = visibility_budget
-        self.deformable_attention = MSDeformableAttention3D(
-            embed_dims, num_heads, num_points)
+        self.use_depth = use_depth
+        attention = MSDeformableAttention3D if use_depth else MSDeformableAttention2D
+        self.deformable_attention = attention(embed_dims, num_heads, num_points)
         self.output_proj = Linear(embed_dims, embed_dims)
         self.attention_pooling = MultiheadAttention(embed_dims, 8)
 
@@ -155,12 +212,45 @@ class DeformCrossAttention(nn.Module):
         self.output_proj.bias.zero_()
 
     def forward(self, query, value_img, dpt_img, ref_cam, mask, spatial_shapes):
-        """query: (K, C); value_img: (N, H, W, C); dpt_img: (N, H, W, D);
-        ref_cam: (N, K, 3); mask: (N, K) visibility.  Returns (K, C)."""
+        """query: (K, C); value_img: (N, H, W, C); dpt_img: (N, H, W, D)
+        (unused on the 2D path); ref_cam: (N, K, 3); mask: (N, K)
+        visibility.  Returns (K, C)."""
+        if self.use_depth:
+            queries, mask = self._sample_dfa3d(value_img, dpt_img, ref_cam, mask,
+                                               spatial_shapes)
+        else:
+            queries = self._sample_2d(value_img, ref_cam, spatial_shapes)
+
+        # inter-view fusion: masked mean over visible views ...
+        slots = queries * mask.to(queries.dtype)[..., None]
+        count = mask.sum(0)  # (K,)
+        mean = slots.sum(0) / torch.clamp(count, min=1)[..., None]
+        slots_mean = self.output_proj(mean)
+        # ... then attention pooling over views (query = mean, keys = views)
+        slots_mean = self.attention_pooling(slots_mean[None], slots, slots,
+                                            ~mask.T)[0]
+        # fully masked voxels: where, not a multiply (NaN-safe)
+        output = torch.where((count > 0)[:, None], slots_mean, 0.0)
+        return output + query
+
+    def _sample_2d(self, value_img, ref_cam, spatial_shapes):
+        """2D path, on every query (no compaction): bilinear sample of the
+        features at the projected point, plus plain MSDA around it."""
+        n, k = ref_cam.shape[:2]
+        locs1 = ref_cam[:, :, None, None, None, :2].float()  # (N, K, 1, 1, 1, 2)
+        attn1 = torch.ones((n, k, 1, 1, 1), dtype=torch.float32,
+                           device=ref_cam.device)
+        queries_per_image = msda_2d_attend([value_img], locs1, attn1, num_heads=1)
+        queries = self.deformable_attention(
+            queries_per_image, value_img.reshape(n, -1, self.embed_dims),
+            ref_cam[:, :, None, :2], spatial_shapes)
+        # stage 2 is a residual on stage 1 here (view_transformer.py:368)
+        return queries + queries_per_image
+
+    def _sample_dfa3d(self, value_img, dpt_img, ref_cam, mask, spatial_shapes):
+        """DFA3D path: (per-view queries (N, K, C), fusion mask)."""
         n, k = mask.shape
         c = self.embed_dims
-        inp_residual = query
-
         compact = compact_queries(mask, self.visibility_budget)
         valid_counts = None
         if compact is not None:
@@ -186,18 +276,7 @@ class DeformCrossAttention(nn.Module):
             queries = torch.zeros((n, k, c), dtype=queries.dtype,
                                   device=queries.device).scatter_(
                 1, sel_idx[..., None].expand(-1, -1, c), queries)
-
-        # inter-view fusion: masked mean over visible views ...
-        slots = queries * mask.to(queries.dtype)[..., None]
-        count = mask.sum(0)  # (K,)
-        mean = slots.sum(0) / torch.clamp(count, min=1)[..., None]
-        slots_mean = self.output_proj(mean)
-        # ... then attention pooling over views (query = mean, keys = views)
-        slots_mean = self.attention_pooling(slots_mean[None], slots, slots,
-                                            ~mask.T)[0]
-        # fully masked voxels: where, not a multiply (NaN-safe)
-        output = torch.where((count > 0)[:, None], slots_mean, 0.0)
-        return output + inp_residual
+        return queries, mask
 
 
 class VoxFormerLayer(nn.Module):
@@ -206,11 +285,11 @@ class VoxFormerLayer(nn.Module):
     ``ffns.0``, ``norms.{0,1}``."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4,
-                 visibility_budget=None, ffn_dropout=0.1):
+                 visibility_budget=None, ffn_dropout=0.1, use_depth=True):
         super().__init__()
         self.attentions = nn.ModuleList([DeformCrossAttention(
             embed_dims, num_heads, num_points,
-            visibility_budget=visibility_budget)])
+            visibility_budget=visibility_budget, use_depth=use_depth)])
         self.ffns = nn.ModuleList([FFN(embed_dims, embed_dims * 2, ffn_dropout)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims), LayerNorm(embed_dims)])
 
@@ -239,15 +318,16 @@ class _Transformer(nn.Module):
 class ViewTransformer(nn.Module):
     """One encoder pass of one layer over a set of voxel queries, as in every
     released config.  Parameters live under ``cross_transformer.encoder
-    .layers.0`` as in the reference's DenseHead."""
+    .layers.0`` as in the reference's DenseHead.  ``use_depth=False`` lifts
+    through the 2D path (the depth input is then unused)."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4,
-                 visibility_budget=None, ffn_dropout=0.1):
+                 visibility_budget=None, ffn_dropout=0.1, use_depth=True):
         super().__init__()
         self.embed_dims = embed_dims
         self.cross_transformer = _Transformer([
             VoxFormerLayer(embed_dims, num_heads, num_points, visibility_budget,
-                           ffn_dropout)])
+                           ffn_dropout, use_depth)])
 
     def forward(self, ref_points, origin, projection, feat, dpt, img_shape, dbound,
                 generator=None):

@@ -3,11 +3,16 @@ their plain PyTorch versions, and host-side NMS."""
 from ._cuda import LIBRARY, plain_ops
 from .dfa3d import (
     DFA3D_BWD_MH,
+    DFA3D_BWD_MH_BD,
     DFA3D_BWD_S1,
+    DFA3D_BWD_S1_BD,
     DFA3D_FWD_MH,
+    DFA3D_FWD_MH_BD,
     DFA3D_FWD_S1,
+    DFA3D_FWD_S1_BD,
     dfa3d_attend,
     dfa3d_attention_plain,
+    msda_2d_attend,
 )
 from .nms import aligned_3d_nms
 from .sweep import (
@@ -17,8 +22,8 @@ from .sweep import (
     plane_sweep_correlation_plain,
 )
 
-# every kernel of the serving and train paths, by the name chip_smoke.py
-# reports
+# every kernel of the serving, train and 2D lifting paths, by the name
+# chip_smoke.py reports ("_bd": the bf16-depth instances of the 2D path)
 KERNELS = {
     "sweep_fwd": SWEEP_FWD,
     "dfa3d_fwd_s1": DFA3D_FWD_S1,
@@ -26,9 +31,14 @@ KERNELS = {
     "sweep_bwd": SWEEP_BWD,
     "dfa3d_bwd_s1": DFA3D_BWD_S1,
     "dfa3d_bwd_mh": DFA3D_BWD_MH,
+    "dfa3d_fwd_s1_bd": DFA3D_FWD_S1_BD,
+    "dfa3d_fwd_mh_bd": DFA3D_FWD_MH_BD,
+    "dfa3d_bwd_s1_bd": DFA3D_BWD_S1_BD,
+    "dfa3d_bwd_mh_bd": DFA3D_BWD_MH_BD,
 }
 
 __all__ = [
     "KERNELS", "LIBRARY", "plain_ops", "dfa3d_attend", "dfa3d_attention_plain",
+    "msda_2d_attend",
     "aligned_3d_nms", "plane_sweep_correlation", "plane_sweep_correlation_plain",
 ]

@@ -1,7 +1,10 @@
 """Fused depth-weighted deformable attention (DFA3D) sampling — counterpart
-of sgcdet_tpu/ops/msda.py (the spec), ops/dfa3d_fast.py (the layout) and the
-Pallas kernels dfa3d_pallas.py::_fwd_kernel_s1 / _bwd_kernel_s1 (stage 1)
-and dfa3d_pallas2.py::_fwd_kernel_v2 / _bwd_kernel_v2 (stage 2).
+of sgcdet_tpu/ops/msda.py (the spec), ops/dfa3d_fast.py (the layout), the
+dispatcher ops/dfa3d.py (``dfa3d_attend``, ``msda_2d_attend``) and every
+Pallas DFA3D kernel of sgcdet_tpu/ops: dfa3d_pallas.py (v1), dfa3d_pallas2.py
+(v2), dfa3d_pallas3.py (v3 quad and packed-quad).  Those are one function
+at different combinations of value dtype, depth dtype, heads x points and
+counted or not; here one forward and one backward template serve them all.
 
 For every sampling location (u, v, d) the four bilinear corners of the
 camera feature map are each re-weighted by the depth distribution linearly
@@ -10,19 +13,24 @@ over points.  Conventions: pixel = loc * size - 0.5, zero padding per
 corner, depth lerp with validity per side.
 
 Where the port follows the TPU kernels rather than the JAX CPU path: the
-depth distribution is read in its own dtype (f32 on the model's path) and
-all math is f32, whereas ``dfa3d_fast`` casts depth to the value dtype
-before sampling.  Queries at or past ``valid_counts[cam]`` come back as
-exact zeros, in the plain version as in the kernels, and get zero
-gradients.
+depth distribution is read in its own dtype (f32 on the DFA3D model path,
+bf16 on the bf16 2D path) and all math is f32, whereas ``dfa3d_fast`` casts
+depth to the value dtype before sampling.  The kernels take f32 or bf16
+value with f32 depth, or bf16 value with bf16 depth (the packed-quad
+kernels' pair); f32 value with bf16 depth, which nothing runs, raises.
+Queries at or past ``valid_counts[cam]`` come back as exact zeros, in the
+plain version as in the kernels, and get zero gradients.
 
 * ``dfa3d_attention_plain`` — plain PyTorch, chunked over queries;
   ``dfa3d_bwd_plain`` — its VJP, recomputed under autograd.
 * ``dfa3d_fwd_cuda`` — kernels K2 (heads = P = 1) and K3 (multi-head),
-  one entry point of csrc/dfa3d_fwd.cu with a launch count each;
-  ``dfa3d_bwd_cuda`` — kernels K6 (stage 1) and K5 (stage 2), one entry
+  and their bf16-depth instances K2' and K3', one entry point of
+  csrc/dfa3d_fwd.cu with a launch count each; ``dfa3d_bwd_cuda`` — kernels
+  K6 (stage 1) and K5 (stage 2), and K6' / K5' at bf16 depth, one entry
   point of csrc/dfa3d_bwd.cu.
-* ``dfa3d_attend`` — the differentiable op the model calls.
+* ``dfa3d_attend`` — the differentiable op the model calls;
+  ``msda_2d_attend`` — 2D multi-scale deformable attention as DFA3D with a
+  uniform depth (the ``use_depth=False`` lifting path).
 """
 from __future__ import annotations
 
@@ -39,12 +47,18 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I]
 DFA3D_FWD_S1 = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)  # stage 1 launches (K2)
 DFA3D_FWD_MH = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)  # stage 2 launches (K3)
+# ... with bf16 value and bf16 depth (K2', K3')
+DFA3D_FWD_S1_BD = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
+DFA3D_FWD_MH_BD = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
 # sgc_dfa3d_bwd(vdtype, ddtype, value, depth, locs, attn, counts, g,
 #               d_value, d_depth, d_locs, d_attn,
 #               n, h, w, heads, c, dsize, k, p, stream)
 _BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 8
 DFA3D_BWD_S1 = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # stage 1 launches (K6)
 DFA3D_BWD_MH = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # stage 2 launches (K5)
+# ... with bf16 value and bf16 depth (K6', K5')
+DFA3D_BWD_S1_BD = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)
+DFA3D_BWD_MH_BD = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)
 
 # elements of one gathered corner tensor per query chunk of the plain version
 _PLAIN_CHUNK_ELEMS = 1 << 25
@@ -108,17 +122,27 @@ def dfa3d_attention_plain(value_img, dpt_img, locs, attn, num_heads,
 
 
 def dfa3d_bwd_plain(value_img, dpt_img, locs, attn, g, num_heads,
-                    valid_counts=None, sample_grads=True):
+                    valid_counts=None, sample_grads=True, depth_grad=True):
     """Plain version of K5/K6: the VJP of ``dfa3d_attention_plain``,
     recomputed under autograd.  Returns (d_value, d_dpt, d_locs, d_attn)
-    in the inputs' dtypes; the last two are None unless ``sample_grads``."""
+    in the inputs' dtypes; d_dpt is None unless ``depth_grad``, the last
+    two are None unless ``sample_grads``."""
+    wanted = (True, depth_grad, sample_grads, sample_grads)
     with torch.enable_grad():
-        ins = [t.detach().requires_grad_(i < 2 or sample_grads)
-               for i, t in enumerate((value_img, dpt_img, locs, attn))]
+        ins = [t.detach().requires_grad_(want)
+               for t, want in zip((value_img, dpt_img, locs, attn), wanted)]
         out = dfa3d_attention_plain(*ins, num_heads, valid_counts)
-        wrt = ins if sample_grads else ins[:2]
-        grads = torch.autograd.grad(out, wrt, g)
-    return tuple(grads) + (None, None) * (not sample_grads)
+        grads = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad], g))
+    return tuple(next(grads) if want else None for want in wanted)
+
+
+def check_dtypes(value_img, dpt_img):
+    """The kernels' type pairs: f32 or bf16 value with f32 depth, bf16 value
+    with bf16 depth.  f32 value with bf16 depth raises: no TPU kernel or
+    model path runs that pair."""
+    if dpt_img.dtype == torch.bfloat16 and value_img.dtype != torch.bfloat16:
+        raise TypeError(f"bf16 depth is taken with bf16 value only, got value "
+                        f"{value_img.dtype}")
 
 
 def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
@@ -126,7 +150,9 @@ def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
     dev = value_img.device
     value = check_cuda_input(value_img, "value_img",
                              (torch.float32, torch.bfloat16), 4, dev)
-    depth = check_cuda_input(dpt_img, "dpt_img", (torch.float32,), 4, dev)
+    depth = check_cuda_input(dpt_img, "dpt_img", (torch.float32, torch.bfloat16),
+                             4, dev)
+    check_dtypes(value, depth)
     n, h, w, cfull = value.shape
     if depth.shape[:3] != (n, h, w):
         raise ValueError(f"dpt_img {tuple(depth.shape)} does not match value_img {tuple(value.shape)}")
@@ -151,21 +177,28 @@ def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
     return value, depth, loc, att, counts, stage1, sizes
 
 
+def _pick(kernels, stage1, depth):
+    """The launch counter of this call: (stage 1 or multi-head) x (f32 or
+    bf16 depth)."""
+    return kernels[(not stage1) + 2 * (depth.dtype == torch.bfloat16)]
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
 def dfa3d_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
                    valid_counts=None):
-    """Kernels K2/K3 on CUDA tensors; same contract as the plain version,
-    for bf16 or f32 values with an f32 depth distribution (the model's
-    types).  heads = P = 1 counts as a stage-1 launch, anything else as
-    stage 2."""
+    """Kernels K2/K3 (f32 depth) and K2'/K3' (bf16 depth) on CUDA tensors;
+    same contract as the plain version, for the type pairs of
+    ``check_dtypes``.  heads = P = 1 counts as a stage-1 launch, anything
+    else as stage 2."""
     value, depth, loc, att, counts, stage1, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
-    kernel = DFA3D_FWD_S1 if stage1 else DFA3D_FWD_MH
+    kernel = _pick((DFA3D_FWD_S1, DFA3D_FWD_MH, DFA3D_FWD_S1_BD,
+                    DFA3D_FWD_MH_BD), stage1, depth)
     kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
            value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
            _ptr(counts), out.data_ptr(), *sizes)
@@ -173,11 +206,13 @@ def dfa3d_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
 
 
 def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
-                   valid_counts=None, sample_grads=True):
-    """Kernels K6 (heads = P = 1) / K5 (multi-head) on CUDA tensors; same
-    contract as ``dfa3d_bwd_plain``.  The kernels accumulate every
-    gradient in f32 (d_value and d_dpt by atomics) and write d_locs and
-    d_attn directly; each is cast once to its input's dtype."""
+                   valid_counts=None, sample_grads=True, depth_grad=True):
+    """Kernels K6 (heads = P = 1) / K5 (multi-head), or K6' / K5' at bf16
+    depth, on CUDA tensors; same contract as ``dfa3d_bwd_plain``.  The
+    kernels accumulate every gradient in f32 (d_value and d_dpt by
+    atomics) and write d_locs and d_attn directly; each is cast once to its
+    input's dtype.  Without ``depth_grad`` they skip the depth atomics, and
+    without ``sample_grads`` too the value gather and dot products."""
     value, depth, loc, att, counts, stage1, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     gg = check_cuda_input(g.to(value.dtype), "g", (value.dtype,), 3, value.device)
@@ -186,26 +221,28 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
         raise ValueError(f"g {tuple(gg.shape)} must be {(n, k, heads * c)}")
     f32 = dict(dtype=torch.float32, device=value.device)
     d_value = torch.zeros(value.shape, **f32)
-    d_depth = torch.zeros(depth.shape, **f32)
+    d_depth = torch.zeros(depth.shape, **f32) if depth_grad else None
     d_locs = torch.empty(loc.shape, **f32) if sample_grads else None
     d_attn = torch.empty(att.shape, **f32) if sample_grads else None
-    kernel = DFA3D_BWD_S1 if stage1 else DFA3D_BWD_MH
+    kernel = _pick((DFA3D_BWD_S1, DFA3D_BWD_MH, DFA3D_BWD_S1_BD,
+                    DFA3D_BWD_MH_BD), stage1, depth)
     kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
            value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
-           _ptr(counts), gg.data_ptr(), d_value.data_ptr(), d_depth.data_ptr(),
+           _ptr(counts), gg.data_ptr(), d_value.data_ptr(), _ptr(d_depth),
            _ptr(d_locs), _ptr(d_attn), *sizes)
-    if not sample_grads:
-        return d_value.to(value_img.dtype), d_depth.to(dpt_img.dtype), None, None
-    return (d_value.to(value_img.dtype), d_depth.to(dpt_img.dtype),
-            d_locs.to(locs.dtype), d_attn.to(attn.dtype))
+    return tuple(None if grad is None else grad.to(inp.dtype) for grad, inp in
+                 zip((d_value, d_depth, d_locs, d_attn),
+                     (value_img, dpt_img, locs, attn)))
 
 
 class _DFA3D(torch.autograd.Function):
-    """K2/K3 forward with K6/K5 backward on the card; the plain version and
-    its VJP on the CPU.  The route is fixed in the forward (the autograd
-    engine does not see ``plain_ops()``).  Location and attention gradients
-    are computed only where autograd asks for them: stage 1's locations are
-    fixed voxel centres and its attention is 1."""
+    """K2/K3 (K2'/K3') forward with K6/K5 (K6'/K5') backward on the card;
+    the plain version and its VJP on the CPU.  The route is fixed in the
+    forward (the autograd engine does not see ``plain_ops()``).  Location
+    and attention gradients are computed only where autograd asks for them
+    (stage 1's locations are fixed voxel centres and its attention is 1),
+    and so is the depth gradient (the 2D path's uniform depth is a
+    constant)."""
 
     @staticmethod
     def forward(ctx, value_img, dpt_img, locs, attn, valid_counts, num_heads):
@@ -221,12 +258,39 @@ class _DFA3D(torch.autograd.Function):
         bwd = dfa3d_bwd_cuda if ctx.kernel else dfa3d_bwd_plain
         sample_grads = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
         grads = bwd(value_img, dpt_img, locs, attn, g, ctx.num_heads,
-                    valid_counts, sample_grads=sample_grads)
+                    valid_counts, sample_grads=sample_grads,
+                    depth_grad=ctx.needs_input_grad[1])
         return (*grads, None, None)
 
 
 def dfa3d_attend(value_img, dpt_img, locs, attn, num_heads, valid_counts=None):
     """Fused DFA3D sampling, differentiable in value, depth, locations and
     attention: kernels for CUDA tensors, plain versions for CPU tensors (see
-    ``dfa3d_attention_plain`` for the contract)."""
+    ``dfa3d_attention_plain`` for the contract and ``check_dtypes`` for the
+    type pairs)."""
+    check_dtypes(value_img, dpt_img)
     return _DFA3D.apply(value_img, dpt_img, locs, attn, valid_counts, num_heads)
+
+
+def msda_2d_attend(value_img_list, sampling_locations, attention_weights,
+                   num_heads):
+    """2D multi-scale deformable attention (mmcv ``ms_deform_attn``
+    semantics) as DFA3D with a uniform depth: per level a 2-bin depth of
+    ones in the value dtype, sampled at d = 0.5, where the two lerp weights
+    are 1/2 each, so every in-image corner's depth score is exactly 1.
+    Counterpart of sgcdet_tpu/ops/dfa3d.py::msda_2d_attend
+    (dfa3d_fast.py::msda_2d_fast routed through the DFA3D dispatcher).
+
+    value_img_list: per level (N, H_l, W_l, heads*c); sampling_locations:
+    (N, K, heads, L, P, 2) normalized (u, v); attention_weights:
+    (N, K, heads, L, P).  Returns (N, K, heads*c) in the value dtype."""
+    out = None
+    for lvl, vimg in enumerate(value_img_list):
+        locs = sampling_locations[:, :, :, lvl]
+        locs3 = torch.cat([locs, torch.full_like(locs[..., :1], 0.5)], -1)
+        ones = torch.ones(vimg.shape[:-1] + (2,), dtype=vimg.dtype,
+                          device=vimg.device)
+        o = dfa3d_attend(vimg, ones, locs3, attention_weights[:, :, :, lvl],
+                         num_heads)
+        out = o if out is None else out + o
+    return out

@@ -22,9 +22,11 @@ _INPUTS = ("imgs", "proj_img", "proj_feat4", "origin")
 _TARGETS = ("gt_boxes", "gt_labels", "gt_mask", "gt_depth")
 
 
-def init_train_state(config, generator: torch.Generator, device=None):
+def init_train_state(config, generator: torch.Generator, device="cuda"):
     """The model of ``config`` with weights from ``generator`` (a CPU
-    generator: the seeded init), on ``device``, and its optimizer."""
+    generator: the seeded init), on ``device`` (the card unless the caller
+    passes ``device="cpu"``; without a card the default raises), and its
+    optimizer."""
     model = SGCDet(config.model, config.data.img_shape, device=device,
                    generator=generator)
     return model, make_optimizer(model, config.train)

@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-the forward kernels K1-K3, and the backward kernels K4-K6 through autograd
-(the ops' ``torch.autograd.Function``s) against the plain versions' VJPs.
+the forward kernels K1-K3 (and K2'/K3' at bf16 depth), and the backward
+kernels K4-K6 (K6'/K5') through autograd (the ops' ``torch.autograd.
+Function``s) against the plain versions' VJPs; the 2D lifting path
+(``ViewTransformer(use_depth=False)``) through the kernels against its plain
+run.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device: the hand-written kernels have no CPU mode.  The module imports no
@@ -12,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from sgcdet_tpu_torch.models.layers import init_weights, set_compute_dtype
+from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
 from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
 from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
 
@@ -37,6 +42,17 @@ def _rel(dtype):
     """Kernel and plain version both sum in f32 and round once to the output
     dtype, in different orders: one bf16 ulp, or f32 rounding noise."""
     return 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+
+
+# (value, depth) type pairs of the DFA3D kernels
+DFA3D_TYPES = [pytest.param(torch.bfloat16, torch.float32, id="bf16_f32"),
+               pytest.param(torch.float32, torch.float32, id="f32_f32"),
+               pytest.param(torch.bfloat16, torch.bfloat16, id="bf16_bf16")]
+
+
+def _dfa3d_kernel_name(direction, heads, p, ddtype):
+    stage = "s1" if heads == p == 1 else "mh"
+    return f"dfa3d_{direction}_{stage}" + ("_bd" if ddtype == torch.bfloat16 else "")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -76,15 +92,15 @@ def test_sweep_kernel_non_finite_coordinates_contribute_zero(cuda_device):
 
 @pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],
                          ids=["stage1", "stage2"])
-@pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float32])
-def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype):
+@pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
+def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype, ddtype):
     value, dpt, locs, attn = dfa3d_inputs(heads, p, c, n=4, h=14, w=20, d=12,
                                           k=300)
     counts = torch.tensor([0, 100, 299, 300], dtype=torch.int32,
                           device=cuda_device)
     args = [torch.from_numpy(a).to(cuda_device) for a in (value, dpt, locs, attn)]
-    args[0] = args[0].to(vdtype)
-    name = "dfa3d_fwd_s1" if heads == p == 1 else "dfa3d_fwd_mh"
+    args[0], args[1] = args[0].to(vdtype), args[1].to(ddtype)
+    name = _dfa3d_kernel_name("fwd", heads, p, ddtype)
     before = KERNELS[name].launches
     got = dfa3d_attend(*args, heads, valid_counts=counts)
     assert KERNELS[name].launches == before + 1
@@ -135,36 +151,101 @@ def test_sweep_backward_kernel_matches_plain(cuda_device, dtype):
 
 @pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],
                          ids=["stage1", "stage2"])
-@pytest.mark.parametrize("vdtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("sample_grads", [True, False], ids=["all", "value_depth"])
+@pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
+@pytest.mark.parametrize("sample_grads,depth_grad",
+                         [(True, True), (False, True), (True, False), (False, False)],
+                         ids=["all", "value_depth", "no_depth", "value_only"])
 def test_dfa3d_backward_kernel_matches_plain(cuda_device, heads, p, c, vdtype,
-                                             sample_grads):
+                                             ddtype, sample_grads, depth_grad):
     value, dpt, locs, attn = dfa3d_inputs(heads, p, c, n=4, h=14, w=20, d=12,
                                           k=300)
     counts = torch.tensor([0, 100, 299, 300], dtype=torch.int32,
                           device=cuda_device)
     args = [torch.from_numpy(a).to(cuda_device) for a in (value, dpt, locs, attn)]
-    args[0] = args[0].to(vdtype)
-    for i, a in enumerate(args):
-        a.requires_grad_(i < 2 or sample_grads)
+    args[0], args[1] = args[0].to(vdtype), args[1].to(ddtype)
+    for a, want in zip(args, (True, depth_grad, sample_grads, sample_grads)):
+        a.requires_grad_(want)
     g = torch.randn((4, 300, heads * c), device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(0)).to(vdtype)
     out = dfa3d_attend(*args, heads, valid_counts=counts)
     assert graph_has(out, "_DFA3DBackward")
-    name = "dfa3d_bwd_s1" if heads == p == 1 else "dfa3d_bwd_mh"
+    name = _dfa3d_kernel_name("bwd", heads, p, ddtype)
     before = KERNELS[name].launches
     got = _grads(out, args, g)
     assert KERNELS[name].launches == before + 1
     with plain_ops():
         expected = _grads(dfa3d_attend(*args, heads, valid_counts=counts), args, g)
     torch.cuda.synchronize()
-    for gname, a, b, inp in zip(("d_value", "d_dpt", "d_locs", "d_attn"), got,
-                                expected, args):
+    names = [n for n, a in zip(("d_value", "d_dpt", "d_locs", "d_attn"), args)
+             if a.requires_grad]
+    for gname, a, b, inp in zip(names, got, expected,
+                                [a for a in args if a.requires_grad]):
         assert a.dtype == inp.dtype
         # f32 gradients sum in another order (atomics): 1e-5 of the scale
-        rel = _rel(vdtype) if a.dtype == torch.bfloat16 else 1e-5
+        rel = _rel(a.dtype)
         assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
                             rel, f"dfa3d {gname}")
     if sample_grads:
+        by_name = dict(zip(names, got))
         for cam, cnt in enumerate(counts.tolist()):
-            assert (got[2][cam, cnt:] == 0).all() and (got[3][cam, cnt:] == 0).all()
+            assert (by_name["d_locs"][cam, cnt:] == 0).all()
+            assert (by_name["d_attn"][cam, cnt:] == 0).all()
+
+
+def test_dfa3d_kernel_refuses_f32_value_with_bf16_depth(cuda_device):
+    value, dpt, locs, attn = (torch.from_numpy(a).to(cuda_device)
+                              for a in dfa3d_inputs(8, 4, 32, k=8))
+    with pytest.raises(TypeError, match="bf16 depth"):
+        dfa3d_attend(value, dpt.bfloat16(), locs, attn, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_2d_lifting_kernels_match_plain(cuda_device, dtype):
+    """ViewTransformer(use_depth=False) at the ScanNet widths (embed 256,
+    8 heads x 4 points) on a small rig: output and the gradients of
+    sum(out * g) through the kernels vs the plain versions, and one stage-1
+    and one stage-2 launch each way, on the bf16-depth counters at bf16."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(5)
+    n, k, h, w = 3, 200, 15, 20
+    model = ViewTransformer(256, 8, 4, use_depth=False)
+    init_weights(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for p in model.parameters():  # exercise the zero-initialized offsets
+            p.add_(0.02 * torch.from_numpy(rng.randn(*p.shape).astype(np.float32)))
+    set_compute_dtype(model, dtype)
+    model = model.to(cuda_device).eval()
+    dev = dict(device=cuda_device)
+    ref = torch.from_numpy(rng.uniform(-1, 1, (k, 3)).astype(np.float32)).to(**dev)
+    proj = torch.from_numpy(np.tile(np.array(
+        [[300, 0, 320, 0], [0, 300, 240, 0], [0, 0, 1, 2.5]], np.float32),
+        (n, 1, 1))).to(**dev)
+    feat = torch.from_numpy(rng.randn(n, 256, h, w).astype(np.float32)).to(**dev)
+    feat = feat.to(dtype).requires_grad_()
+    g = torch.from_numpy(rng.randn(k, 256).astype(np.float32)).to(**dev)
+    dpt = torch.zeros((n, 12, h, w), **dev)  # unused on the 2D path
+    args = (ref, torch.zeros(3, **dev), proj, feat, dpt, (480, 640), (0.2, 8.0, 0.4))
+
+    def run():
+        out = model(*args)
+        grads = torch.autograd.grad((out.float() * g).sum(),
+                                    [feat] + list(model.parameters()))
+        return [out.detach()] + list(grads)
+
+    suffix = "_bd" if dtype == torch.bfloat16 else ""
+    names = [f"dfa3d_{d}_{s}{suffix}" for d in ("fwd", "bwd") for s in ("s1", "mh")]
+    before = [KERNELS[nm].launches for nm in names]
+    got = run()
+    assert [KERNELS[nm].launches - b for nm, b in zip(names, before)] == [1, 1, 1, 1]
+    with plain_ops():
+        expected = run()
+    torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    # f32: summation order (atomics) through softmax, MHA and LayerNorm;
+    # bf16: rounding of the bf16 activations between the two runs
+    rel = 1e-3 if dtype == torch.float32 else 5e-2
+    for i, (a, b) in enumerate(zip(got, expected)):
+        assert torch.isfinite(a.float()).all()
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(), rel,
+                            f"2D lifting tensor {i}")

@@ -62,7 +62,7 @@ def slice_setup():
     j_out = jax.jit(lambda p, s, *a: jm.apply(
         {"params": p, "batch_stats": s}, *a, train=False))(params, stats, *args)
 
-    model = SGCDet(mcfg, IMG_SHAPE)
+    model = SGCDet(mcfg, IMG_SHAPE, device="cpu")
     model.load_state_dict(state_dict_from_flax(params, stats), strict=True)
     return dict(mcfg=mcfg, scene=scene, params=params, stats=stats,
                 j_out=jax.tree_util.tree_map(np.asarray, j_out),
@@ -153,7 +153,7 @@ from sgcdet_tpu_torch.models import SGCDet
 from sgcdet_tpu_torch.scene import example_scene
 from torch_port_tiny import IMG_SHAPE, N_VIEWS, PAD, tiny_model_cfg
 for dtype in ("float32", "bfloat16"):
-    model = SGCDet(tiny_model_cfg(dtype, configs), IMG_SHAPE,
+    model = SGCDet(tiny_model_cfg(dtype, configs), IMG_SHAPE, device="cpu",
                    generator=torch.Generator().manual_seed(1))
     scene = example_scene(IMG_SHAPE, PAD, N_VIEWS, trajectory="indoor")
     out = forward_scene(model, scene)

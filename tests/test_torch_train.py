@@ -100,7 +100,7 @@ def test_train_step_matches_jax(templates, depth_loss):
     scene = example_train_scene(IMG_SHAPE, PAD, N_VIEWS, cfg.model.n_classes,
                                 cfg.model.downsample_factor, trajectory="ring")
 
-    model, optimizer = init_train_state(cfg, torch.Generator().manual_seed(0))
+    model, optimizer = init_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
     params, stats = _to_flax(model, templates)
     stats = randomize_batch_stats(stats, seed=3)
     model.load_state_dict(state_dict_from_flax(params, stats), strict=True)
@@ -164,7 +164,7 @@ def test_optimizer_matches_optax(templates):
     AdamW: 3 steps from the same numpy gradients, the first with a norm
     above the clip."""
     tcfg = dict(lr=1e-3, training_steps=40)
-    model = SGCDet(tiny_model_cfg(configs=configs), IMG_SHAPE,
+    model = SGCDet(tiny_model_cfg(configs=configs), IMG_SHAPE, device="cpu",
                    generator=torch.Generator().manual_seed(2))
     params, stats = _to_flax(model, templates)
     rng = np.random.RandomState(22)
@@ -219,7 +219,7 @@ def test_param_labels_match_jax(templates):
     j_labels = jax.tree_util.tree_leaves(
         jax.tree_util.tree_map_with_path(lambda p, _: joptim.param_label(p), params))
     sd = state_dict_from_flax(ids, stats)
-    model = SGCDet(tiny_model_cfg(configs=configs), IMG_SHAPE)
+    model = SGCDet(tiny_model_cfg(configs=configs), IMG_SHAPE, device="cpu")
     names = [n for n, _ in model.named_parameters()]
     assert len(names) == len(leaves)
     got = {n: param_label(n) for n in names}
