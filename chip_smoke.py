@@ -66,12 +66,40 @@ Phases, each fatal on failure:
               backward, finite, with the launches of the bf16-depth kernels
               (1 stage-1 and 1 stage-2, forward and backward, per level),
               warm milliseconds and peak memory per level.
+9. windowed — the windowed kernels of the sort_queries path (stage-1 and
+              multi-head forward, multi-head backward) at the three lifting
+              shapes on the indoor scene's sorted projections with the
+              model's initial sampling offsets, at every type pair, against
+              their plain versions and against the template kernels on the
+              same input; a random-location case at level 2 for the
+              global-memory branch.  Prints per level the share of chunks
+              and of samples served from a window and the windowed and
+              template kernels' warm times; at level 2 also the windowed
+              kernels at chunks of 32-256 queries, and the template kernels
+              on the same queries in sorted and in index order.  Fails
+              unless some case ran each branch.
+10. sorted  — the ScanNet config with sort_queries=True and the exact auto
+              budget: the f32 scene (TF32 off) through the kernels and the
+              plain versions (as phase 4) and against phase 4's unsorted
+              scene (identical `valid`, head outputs within 1e-4 of their
+              scale); 3 bf16 scenes through infer.detect (launches per
+              scene: 2 sweep, 3 windowed stage-1, 3 windowed multi-head, no
+              template forward) and 4 bf16 train steps (per step also 2
+              sweep bwd, 3 K6 and 3 windowed backward, no K5).
+11. probes  — the row gather/scatter probe kernels, each mode against its
+              plain version at the TPU probes' shapes (gathers exact; a
+              windowed scatter of a permutation bit-exact), then the probes'
+              own run (sgcdet_tpu_torch.experiments.probes.run_probes):
+              rows/s, GB/s, plain and bound ms beside torch.index_select and
+              index_add_.
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
 DFA3D and serving paths, the bf16 2D lifting run's for the bf16-depth
-instances), the card's name and power limit, and the device record (one
-JSON object).  The script imports torch and sgcdet_tpu_torch only.
+instances, the sorted train run's for the windowed kernels and the probes'
+run's for the probe kernels), the card's name and power limit, and the
+device record (one JSON object).  The script imports torch and
+sgcdet_tpu_torch only.
 """
 from __future__ import annotations
 
@@ -89,6 +117,7 @@ SERVE_SCENES = 3
 
 # TPU kernels each Hopper kernel replaces, and its source in this repo
 _OPS = "sgcdet_tpu/ops/"
+_EXP = "experiments/"
 KERNEL_INFO = {
     "sweep_fwd": ("sgcdet_tpu_torch/csrc/sweep_fwd.cu",
                   f"{_OPS}sweep_pallas.py:233; {_OPS}sweep_pallas.py:225"),
@@ -114,10 +143,25 @@ KERNEL_INFO = {
     "dfa3d_bwd_mh_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
                         f"{_OPS}dfa3d_pallas2.py:318 at bf16 depth (the 2D "
                         "path's stage 2)"),
+    "dfa3d_win_fwd_s1": ("sgcdet_tpu_torch/csrc/dfa3d_win_fwd.cu",
+                         f"{_EXP}dfa3d_pallas4.py:174"),
+    "dfa3d_win_fwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_win_fwd.cu",
+                         f"{_EXP}dfa3d_pallas4.py:130; {_EXP}dfa3d_pallas4.py:418; "
+                         f"{_EXP}dfa3d_pallas5.py:185"),
+    "dfa3d_win_bwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_win_bwd.cu",
+                         f"{_EXP}dfa3d_pallas4.py:432; {_EXP}dfa3d_pallas5.py:284"),
+    "row_gather": ("sgcdet_tpu_torch/csrc/rows.cu",
+                   f"{_EXP}probe_window_lowering.py:27; {_EXP}probe_window_matmul.py:27; "
+                   f"{_EXP}probe_gather_batch.py:31; {_EXP}probe_gather_batch.py:47; "
+                   f"{_EXP}probe_gather_batch.py:64; {_EXP}probe_gather_batch.py:85"),
+    "row_scatter_add": ("sgcdet_tpu_torch/csrc/rows.cu",
+                        f"{_EXP}probe_window_lowering.py:63; {_EXP}probe_f32_onehot.py:20"),
 }
 # the bf16-depth instances, launched by the 2D lifting path
 KERNELS_2D = ("dfa3d_fwd_s1_bd", "dfa3d_fwd_mh_bd", "dfa3d_bwd_s1_bd",
               "dfa3d_bwd_mh_bd")
+# the windowed kernels, launched by the sorted path
+KERNELS_SORTED = ("dfa3d_win_fwd_s1", "dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and f32 flop/s outside
 # the tensor cores, where every kernel here computes
 HBM_BYTES_PER_S = 3.35e12
@@ -127,6 +171,13 @@ LAUNCHES_PER_SCENE = {"sweep_fwd": 2, "dfa3d_fwd_s1": 3, "dfa3d_fwd_mh": 3}
 # ... and per step on the train path
 LAUNCHES_PER_STEP = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1": 3,
                      "dfa3d_bwd_s1": 3, "dfa3d_fwd_mh": 3, "dfa3d_bwd_mh": 3}
+# ... and on the sorted path (sort_queries): the windowed forwards, K6 for
+# stage 1's backward and the windowed multi-head backward
+LAUNCHES_PER_SCENE_SORTED = {"sweep_fwd": 2, "dfa3d_win_fwd_s1": 3,
+                             "dfa3d_win_fwd_mh": 3}
+LAUNCHES_PER_STEP_SORTED = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_win_fwd_s1": 3,
+                            "dfa3d_bwd_s1": 3, "dfa3d_win_fwd_mh": 3,
+                            "dfa3d_win_bwd_mh": 3}
 TRAIN_STEPS = 4
 
 
@@ -144,22 +195,12 @@ def log(msg):
 
 
 def cuda_ms(torch, fn, iters=10):
-    """Warm mean milliseconds of fn() on the card (CUDA events).
+    """Warm mean milliseconds of fn() on the card (``ops._cuda.cuda_ms``:
+    CUDA events, the stream held by a spin kernel while the host
+    enqueues)."""
+    from sgcdet_tpu_torch.ops._cuda import cuda_ms as device_ms
 
-    A spin kernel (about 50 ms) holds the stream while the host enqueues
-    every launch, so the events time the device work and not the host's
-    launch overhead, which exceeds a short kernel's own time."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return device_ms(fn, iters)
 
 
 def tolerance(torch, ref, f32_rel=1e-4):
@@ -461,7 +502,8 @@ def _timing(torch, report, name, kernel_name, run_kernel, run_plain, work,
             run_library=None, main=False):
     """Warm times of kernel, plain version and library call, and the bound
     from ``work(kernel outputs) -> (bytes, flops)``; the report keeps the
-    case at the shapes of the kernel's main path (``main``)."""
+    case at the shapes of the kernel's main path (``main``).  Returns the
+    kernel's time."""
     ms_k = cuda_ms(torch, run_kernel)
     ms_p = cuda_ms(torch, run_plain, iters=2)
     ms_l = None if run_library is None else cuda_ms(torch, run_library)
@@ -474,6 +516,7 @@ def _timing(torch, report, name, kernel_name, run_kernel, run_plain, work,
     if main:
         report[kernel_name].update(ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=ms_l)
+    return ms_k
 
 
 def _zeros_past_count(torch, counts, rows=0):
@@ -608,17 +651,36 @@ def phase_kernels(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 
-def phase_slice_f32(torch, dev):
+def _compare_heads(torch, tag, got, want, rel):
+    """Identical ``valid`` and every head output within ``rel`` of its
+    scale."""
+    check(torch.equal(got["valid"], want["valid"]), f"{tag}: valid differs")
+    log(f"[{tag}] valid identical ({int(got['valid'].sum())} voxels selected)")
+    for lvl, (a, b) in enumerate(zip(got["head_outs"], want["head_outs"])):
+        for name, x, y in zip(("centerness", "bbox", "cls"), a, b):
+            check(bool(torch.isfinite(x).all()), f"{tag}: non-finite {name} level {lvl}")
+            scale = max(1e-3, float(y.abs().max()))
+            err = float((x - y).abs().max())
+            tol = rel * scale
+            log(f"[{tag}] {name} level {lvl}: max_abs_err {err:.3e} (tol {tol:.3e})")
+            check(err <= tol, f"{tag}: {name} level {lvl} differs")
+
+
+def phase_slice_f32(torch, dev, sort_queries=False):
+    """The f32 scene through kernels and plain versions; returns the
+    kernels' outputs."""
     from sgcdet_tpu_torch.infer import forward_scene
     from sgcdet_tpu_torch.models import SGCDet
     from sgcdet_tpu_torch.ops import plain_ops
 
+    tag = "sorted slice f32" if sort_queries else "slice f32"
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, scene = _scene_and_cfg()
     mcfg = dataclasses.replace(cfg.model, compute_dtype="float32",
-                               visibility_budget=_auto_budget(cfg, scene))
+                               visibility_budget=_auto_budget(cfg, scene),
+                               sort_queries=sort_queries)
     model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
                    generator=torch.Generator().manual_seed(0))
     t0 = time.perf_counter()
@@ -629,43 +691,38 @@ def phase_slice_f32(torch, dev):
         out_p = forward_scene(model, scene)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    log(f"[slice f32] forward through kernels {t1 - t0:.3f} s (cold), "
+    log(f"[{tag}] forward through kernels {t1 - t0:.3f} s (cold), "
         f"through plain versions {t2 - t1:.3f} s")
-    check(torch.equal(out_k["valid"], out_p["valid"]), "valid differs")
-    log(f"[slice f32] valid identical ({int(out_k['valid'].sum())} voxels selected)")
     err = float((out_k["dpt_dist"] - out_p["dpt_dist"]).abs().max())
     tol = 1e-4
-    log(f"[slice f32] dpt_dist max_abs_err {err:.3e} (tol {tol:.0e})")
-    check(err <= tol, "dpt_dist differs")
-    for lvl, (a, b) in enumerate(zip(out_k["head_outs"], out_p["head_outs"])):
-        for name, x, y in zip(("centerness", "bbox", "cls"), a, b):
-            check(bool(torch.isfinite(x).all()), f"non-finite {name} level {lvl}")
-            scale = max(1e-3, float(y.abs().max()))
-            err = float((x - y).abs().max())
-            tol = 1e-3 * scale
-            log(f"[slice f32] {name} level {lvl}: max_abs_err {err:.3e} "
-                f"(tol {tol:.3e})")
-            check(err <= tol, f"{name} level {lvl} differs")
+    log(f"[{tag}] dpt_dist max_abs_err {err:.3e} (tol {tol:.0e})")
+    check(err <= tol, f"{tag}: dpt_dist differs")
+    _compare_heads(torch, tag, out_k, out_p, 1e-3)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    return out_k
 
 
-def phase_serving(torch, dev, kernels):
+def phase_serving(torch, dev, kernels, sort_queries=False):
     import numpy as np
 
     from sgcdet_tpu_torch.infer import detect
     from sgcdet_tpu_torch.models import SGCDet
     from sgcdet_tpu_torch.scene import example_scene
 
+    tag = "sorted serving" if sort_queries else "serving"
+    per_scene = LAUNCHES_PER_SCENE_SORTED if sort_queries else LAUNCHES_PER_SCENE
     cfg, _ = _scene_and_cfg()
     scenes = [example_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
                             rng=np.random.RandomState(i), trajectory="indoor")
               for i in range(SERVE_SCENES)]
-    mcfg = dataclasses.replace(cfg.model, visibility_budget=_auto_budget(cfg, scenes[0]))
-    log(f"[serving] config scannet, compute {mcfg.compute_dtype}, budget "
-        f"{[round(b, 4) for b in mcfg.visibility_budget]}, {N_VIEWS} views")
+    mcfg = dataclasses.replace(cfg.model, visibility_budget=_auto_budget(cfg, scenes[0]),
+                               sort_queries=sort_queries)
+    log(f"[{tag}] config scannet, compute {mcfg.compute_dtype}, budget "
+        f"{[round(b, 4) for b in mcfg.visibility_budget]}, sort_queries "
+        f"{sort_queries}, {N_VIEWS} views")
     model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
                    generator=torch.Generator().manual_seed(0))
-    log(f"[serving] parameters: {sum(p.numel() for p in model.parameters())}")
+    log(f"[{tag}] parameters: {sum(p.numel() for p in model.parameters())}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     for k in kernels.values():
@@ -676,16 +733,16 @@ def phase_serving(torch, dev, kernels):
         boxes, scores, labels = detect(model, scene)
         times.append(time.perf_counter() - t0)
         check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
-              f"scene {i}: non-finite detections")
-        log(f"[serving] scene {i}{' (warm-up)' if i == 0 else ''}: "
+              f"{tag} scene {i}: non-finite detections")
+        log(f"[{tag}] scene {i}{' (warm-up)' if i == 0 else ''}: "
             f"{len(boxes)} boxes, {times[-1]:.4f} s")
     launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"[serving] warm seconds per scene: {sum(times[1:]) / len(times[1:]):.4f}")
-    log(f"[serving] peak memory allocated: {peak / 2**30:.3f} GiB")
-    log(f"[serving] kernel launches over {SERVE_SCENES} scenes: {launches}")
+    log(f"[{tag}] warm seconds per scene: {sum(times[1:]) / len(times[1:]):.4f}")
+    log(f"[{tag}] peak memory allocated: {peak / 2**30:.3f} GiB")
+    log(f"[{tag}] kernel launches over {SERVE_SCENES} scenes: {launches}")
     for name in kernels:
-        want = LAUNCHES_PER_SCENE.get(name, 0) * SERVE_SCENES
+        want = per_scene.get(name, 0) * SERVE_SCENES
         check(launches[name] == want,
               f"{name}: {launches[name]} launches, expected {want}")
     return launches
@@ -965,13 +1022,16 @@ def phase_train_f32(torch, dev):
      torch.backends.cudnn.deterministic) = flags
 
 
-def phase_train(torch, dev, kernels):
+def phase_train(torch, dev, kernels, sort_queries=False):
     from sgcdet_tpu_torch.train import param_label
 
-    cfg, scene, model, step = _train_setup(torch, dev)
-    log(f"[train] config scannet, compute {cfg.model.compute_dtype}, ffn_dropout "
+    tag = "sorted train" if sort_queries else "train"
+    per_step = LAUNCHES_PER_STEP_SORTED if sort_queries else LAUNCHES_PER_STEP
+    cfg, scene, model, step = _train_setup(torch, dev, sort_queries=sort_queries)
+    log(f"[{tag}] config scannet, compute {cfg.model.compute_dtype}, ffn_dropout "
         f"{cfg.model.ffn_dropout}, depth loss on, budget "
-        f"{[round(b, 4) for b in cfg.model.visibility_budget]}, {N_VIEWS} views")
+        f"{[round(b, 4) for b in cfg.model.visibility_budget]}, sort_queries "
+        f"{sort_queries}, {N_VIEWS} views")
     before = {n: t.detach().clone() for n, t in model.state_dict().items()}
     gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
@@ -988,14 +1048,14 @@ def phase_train(torch, dev, kernels):
         times.append(time.perf_counter() - t0)
         for n, p in model.named_parameters():
             has_grad[n] = has_grad[n] or bool(p.grad.any())
-        per_step = {name: k.launches - counts0[name] for name, k in kernels.items()}
+        step_launches = {name: k.launches - counts0[name] for name, k in kernels.items()}
         vals = {k: float(v) for k, v in metrics.items()}
-        check(all(map(math.isfinite, vals.values())), f"step {i}: non-finite {vals}")
-        log(f"[train] step {i}{' (warm-up)' if i == 0 else ''}: {times[-1]:.4f} s, "
+        check(all(map(math.isfinite, vals.values())), f"{tag} step {i}: non-finite {vals}")
+        log(f"[{tag}] step {i}{' (warm-up)' if i == 0 else ''}: {times[-1]:.4f} s, "
             + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
-        expected = {name: LAUNCHES_PER_STEP.get(name, 0) for name in kernels}
-        check(per_step == expected,
-              f"step {i}: launches {per_step}, expected {expected}")
+        expected = {name: per_step.get(name, 0) for name in kernels}
+        check(step_launches == expected,
+              f"{tag} step {i}: launches {step_launches}, expected {expected}")
     launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     after = model.state_dict()
@@ -1012,14 +1072,14 @@ def phase_train(torch, dev, kernels):
                       and n.endswith(("running_mean", "running_var"))]
     check(all(torch.equal(before[n], after[n]) for n in backbone_stats),
           "a frozen backbone BN's running statistics moved")
-    log(f"[train] {sum(moved[n] for n in trainable)} of {len(trainable)} trainable "
+    log(f"[{tag}] {sum(moved[n] for n in trainable)} of {len(trainable)} trainable "
         f"parameter tensors moved (every one with a nonzero gradient; zero "
         f"gradient: {[n for n in trainable if not has_grad[n]]}); "
         f"{len(frozen)} frozen ones and {len(backbone_stats)} frozen BN "
         f"statistics did not")
-    log(f"[train] warm seconds per step: {sum(times[1:]) / len(times[1:]):.4f}")
-    log(f"[train] peak memory allocated: {peak / 2**30:.3f} GiB")
-    log(f"[train] kernel launches over {TRAIN_STEPS} steps: {launches}")
+    log(f"[{tag}] warm seconds per step: {sum(times[1:]) / len(times[1:]):.4f}")
+    log(f"[{tag}] peak memory allocated: {peak / 2**30:.3f} GiB")
+    log(f"[{tag}] kernel launches over {TRAIN_STEPS} steps: {launches}")
     return launches
 
 
@@ -1161,6 +1221,308 @@ def phase_lifting_2d(torch, dev, kernels):
     return {name: launches[name] for name in KERNELS_2D}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the windowed kernels of the sorted path
+# ---------------------------------------------------------------------------
+
+
+def _sorted_inputs(torch, dev, cfg, scene, level, budget, gen):
+    """Stage-1 and stage-2 operands of one level on the sorted path: the
+    queries compacted and ordered by the model's own rule (compact_queries
+    with sort_queries), stage-2 locations at a freshly built model's
+    sampling offsets (each head 1-4 pixels out along its own direction and
+    1-4 depth bins along (cos + sin) / 2), seeded softmax attention,
+    features and depth."""
+    from sgcdet_tpu_torch.models.view_transformer import (
+        MSDeformableAttention3D,
+        compact_queries,
+    )
+
+    m = cfg.model
+    h, w = _level_hw(cfg, level)
+    ref_cam, mask = _project(torch, dev, cfg, scene, level)
+    compact = compact_queries(mask, budget, True, ref_cam, ((h, w),))
+    check(compact is not None, f"level {level}: the sorted path compacts every level")
+    sel, counts = compact
+    kb = sel.shape[1]
+    ref_s = torch.gather(ref_cam, 1, sel[..., None].expand(-1, -1, 3))
+    # the same level compacted in index order, as without sort_queries
+    sel_i = compact_queries(mask, budget)[0]
+    ref_i = torch.gather(ref_cam, 1, sel_i[..., None].expand(-1, -1, 3))
+    heads, pts, dsize = m.num_heads, m.num_points, m.depth_channels
+    attention = MSDeformableAttention3D(m.embed_dims, heads, pts)
+    with torch.no_grad():
+        attention.reset_special_parameters(torch.Generator().manual_seed(0))
+    offsets = torch.cat([attention.sampling_offsets.bias.view(heads, pts, 2)
+                         / torch.tensor([w, h]),
+                         attention.sampling_offsets_depth.bias.view(heads, pts, 1) / dsize],
+                        -1).detach().to(dev)
+    return dict(
+        h=h, w=w, kb=kb, counts=counts, heads=heads,
+        locs1_index=ref_i[:, :, None, None, :].contiguous(),
+        locs2_index=(ref_i[:, :, None, None, :] + offsets).contiguous(),
+        value=torch.randn((N_VIEWS, h, w, m.embed_dims), device=dev, generator=gen),
+        vp=torch.randn((N_VIEWS, h, w, m.embed_dims), device=dev, generator=gen),
+        depth=torch.softmax(torch.randn((N_VIEWS, h, w, dsize), device=dev,
+                                        generator=gen), -1),
+        locs1=ref_s[:, :, None, None, :].contiguous(),
+        attn1=torch.ones((N_VIEWS, kb, 1, 1), device=dev),
+        locs2=(ref_s[:, :, None, None, :] + offsets).contiguous(),
+        attn2=torch.softmax(torch.randn((N_VIEWS, kb, heads, pts), device=dev,
+                                        generator=gen), -1),
+        g=torch.randn((N_VIEWS, kb, m.embed_dims), device=dev, generator=gen))
+
+
+def window_shares(torch, plan, locs, counts, h, w):
+    """(chunks served from their window, chunks that fall back to global
+    memory, share of the live samples served from a window).  A chunk is
+    live when a counted query of it has an in-image corner; a sample is
+    live when it has one itself."""
+    live_chunk = plan.span > 0
+    n_ok = int((plan.ok & live_chunk).sum())
+    n_fallback = int((~plan.ok & live_chunk).sum())
+
+    def cell(coord, size):
+        return (coord * size - 0.5).nan_to_num(nan=-4.0).clamp(-4, size + 4).floor()
+
+    x, y = cell(locs[..., 0], w), cell(locs[..., 1], h)
+    live = (x >= -1) & (x <= w - 1) & (y >= -1) & (y <= h - 1)  # (N, K, heads, P)
+    k = locs.shape[1]
+    q = torch.arange(k, device=locs.device)
+    if counts is not None:
+        live = live & (q[None, :] < counts[:, None])[..., None, None]
+    served = live & plan.ok[:, q // plan.qc, :, None]
+    return n_ok, n_fallback, float(served.sum()) / max(1, int(live.sum()))
+
+
+def phase_windowed(torch, dev, report):
+    from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_fwd_cuda
+    from sgcdet_tpu_torch.ops.dfa3d_windowed import (
+        dfa3d_win_bwd_cuda,
+        dfa3d_win_fwd_cuda,
+        dfa3d_windowed_bwd_plain,
+        dfa3d_windowed_plain,
+        kernel_plan,
+    )
+
+    cfg, scene = _scene_and_cfg()
+    budget = _auto_budget(cfg, scene)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    branches = {"window": 0, "fallback": 0}
+    grads = ("d_value", "d_dpt", "d_locs", "d_attn")
+
+    def shares(args, backward):
+        plan = kernel_plan(*args[:3], args[-1], backward)
+        n_ok, n_fb, samples = window_shares(torch, plan, args[2], args[-1],
+                                            args[0].shape[1], args[0].shape[2])
+        branches["window"] += n_ok
+        branches["fallback"] += n_fb
+        return f"{n_ok}/{n_ok + n_fb} chunks, {samples:.4f} of samples in a window"
+
+    def chunk_sizes(name, args, backward):
+        """A main case's kernel at chunks of 32-256 queries (each block finds
+        its own window) with the share of samples each serves from a
+        window, beside the time of the same windows as torch ops on the
+        card (``kernel_plan``: the plain version's)."""
+        value, depth, locs, counts = args[0], args[1], args[2], args[-1]
+        h, w = value.shape[1:3]
+        ms_plan = cuda_ms(torch, lambda: kernel_plan(value, depth, locs, counts, backward))
+        parts = []
+        for qc in (32, 64, 128, 256):
+            if backward:
+                ms = cuda_ms(torch, lambda: dfa3d_win_bwd_cuda(*args, qc=qc))
+            else:
+                ms = cuda_ms(torch, lambda: dfa3d_win_fwd_cuda(*args, qc=qc))
+            plan = kernel_plan(value, depth, locs, counts, backward, qc=qc)
+            samples = window_shares(torch, plan, locs, counts, h, w)[2]
+            parts.append(f"{qc} queries {ms:.4f} ms ({samples:.3f} of samples in a window)")
+        log(f"[windowed] {name}: chunks of " + ", ".join(parts)
+            + f"; the windows as torch ops {ms_plan:.4f} ms")
+
+    def fwd(name, kernel_name, args, timed=False, main=False):
+        """Windowed forward vs its plain version and the template kernel."""
+        got = dfa3d_win_fwd_cuda(*args)
+        want = dfa3d_windowed_plain(*args)
+        template = dfa3d_fwd_cuda(*args)
+        torch.cuda.synchronize()
+        err = compare_tensors(torch, f"{name} vs plain", got, want)
+        compare_tensors(torch, f"{name} vs template", got, template)
+        if args[-1] is not None:
+            _zeros_past_count(torch, args[-1])(got)
+        rec = report[kernel_name]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        line = f"[windowed] {name}: {shares(args, False)}"
+        if timed:
+            ms_t = cuda_ms(torch, lambda: dfa3d_fwd_cuda(*args))
+            ms_w = _timing(torch, report, name, kernel_name,
+                           lambda: dfa3d_win_fwd_cuda(*args),
+                           lambda: dfa3d_windowed_plain(*args),
+                           lambda outs: dfa3d_work(args[:4], outs, args[5], False),
+                           main=main)
+            line += f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms"
+        log(line)
+        if main:
+            chunk_sizes(name, args, False)
+
+    def bwd(name, args, timed=False, main=False):
+        """Windowed multi-head backward, every gradient (the train path's
+        stage 2), vs its plain version and the template kernel K5."""
+        kw = dict(sample_grads=True, depth_grad=True)
+        got = dfa3d_win_bwd_cuda(*args, **kw)
+        want = dfa3d_windowed_bwd_plain(*args, **kw)
+        template = dfa3d_bwd_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for label, a, b, t in zip(grads, got, want, template):
+            err = max(err, compare_tensors(torch, f"{name} {label} vs plain", a, b, 1e-5))
+            compare_tensors(torch, f"{name} {label} vs template", a, t, 1e-5)
+        if args[-1] is not None:
+            _zeros_past_count(torch, args[-1], rows=2)(got)
+        rec = report["dfa3d_win_bwd_mh"]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        fargs = args[:4] + args[5:]
+        line = f"[windowed] {name}: {shares(fargs, True)}"
+        if timed:
+            ms_t = cuda_ms(torch, lambda: dfa3d_bwd_cuda(*args, **kw))
+            ms_w = _timing(torch, report, name, "dfa3d_win_bwd_mh",
+                           lambda: dfa3d_win_bwd_cuda(*args, **kw),
+                           lambda: dfa3d_windowed_bwd_plain(*args, **kw),
+                           lambda outs: dfa3d_work(args[:5], outs, args[6], True),
+                           main=main)
+            line += f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms"
+        log(line)
+        if main:
+            chunk_sizes(name, args, True)
+
+    def query_order(x, s1, s2, shape):
+        """The template kernels on this level's queries in sorted and in
+        index order: what the order alone does to K2, K3, K6 and K5."""
+        g = x["g"].to(s1[0].dtype)
+        for order, l1, l2 in (("sorted", x["locs1"], x["locs2"]),
+                              ("index-order", x["locs1_index"], x["locs2_index"])):
+            a1, a2 = s1[:2] + (l1,) + s1[3:], s2[:2] + (l2,) + s2[3:]
+            times = [cuda_ms(torch, lambda: dfa3d_fwd_cuda(*a1)),
+                     cuda_ms(torch, lambda: dfa3d_fwd_cuda(*a2)),
+                     cuda_ms(torch, lambda: dfa3d_bwd_cuda(*a1[:4], g, *a1[4:],
+                                                           sample_grads=False)),
+                     cuda_ms(torch, lambda: dfa3d_bwd_cuda(*a2[:4], g, *a2[4:]))]
+            log(f"[windowed] templates on {order} queries {shape}: " + ", ".join(
+                f"{k} {t:.4f} ms" for k, t in zip(("K2", "K3", "K6", "K5"), times)))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for level in range(3):
+        x = _sorted_inputs(torch, dev, cfg, scene, level, budget[level], gen)
+        shape = f"({N_VIEWS},{x['h']},{x['w']}) K'={x['kb']}"
+        counts = x["counts"]
+        for vdt, ddt in ((bf16, f32), (f32, f32), (bf16, bf16)):
+            tag = f"{str(vdt)[6:]}/{str(ddt)[6:]}"
+            value, vp, depth = x["value"].to(vdt), x["vp"].to(vdt), x["depth"].to(ddt)
+            s1 = (value, depth, x["locs1"], x["attn1"], 1, counts)
+            s2 = (vp, depth, x["locs2"], x["attn2"], x["heads"], counts)
+            model_pair = (vdt, ddt) == (bf16, f32)
+            main = model_pair and level == 2
+            fwd(f"stage1 {tag} {shape} sorted", "dfa3d_win_fwd_s1", s1, model_pair, main)
+            fwd(f"stage2 {tag} {shape} sorted", "dfa3d_win_fwd_mh", s2, model_pair, main)
+            bwd(f"stage2 bwd {tag} {shape} sorted", s2[:4] + (x["g"].to(vdt),) + s2[4:],
+                model_pair, main)
+            if main:
+                query_order(x, s1, s2, shape)
+    # random locations (and some NaN) at level 2: chunks too wide for a
+    # window, the global-memory branch
+    x = _sorted_inputs(torch, dev, cfg, scene, 2, budget[2], gen)
+    shape = f"({N_VIEWS},{x['h']},{x['w']}) K'={x['kb']}"
+    locs = torch.rand(x["locs2"].shape, device=dev, generator=gen) * 1.3 - 0.15
+    locs.view(-1)[::997] = float("nan")
+    vp = x["vp"].to(bf16)
+    s2 = (vp, x["depth"], locs, x["attn2"], x["heads"], x["counts"])
+    fwd(f"stage2 bf16/f32 {shape} random locs", "dfa3d_win_fwd_mh", s2, timed=True)
+    bwd(f"stage2 bwd bf16/f32 {shape} random locs",
+        s2[:4] + (x["g"].to(bf16),) + s2[4:], timed=True)
+    log(f"[windowed] chunks run from a window: {branches['window']}, from global "
+        f"memory: {branches['fallback']}")
+    check(branches["window"] > 0, "no windowed case ran a chunk from its window")
+    check(branches["fallback"] > 0, "no windowed case ran the global-memory branch")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the sorted path (sort_queries=True)
+# ---------------------------------------------------------------------------
+
+
+def phase_sorted(torch, dev, kernels, unsorted_f32, serving, train):
+    """The sorted f32 scene against its plain run and the unsorted scene,
+    then the bf16 serving and train loops with their launch counts."""
+    out = phase_slice_f32(torch, dev, sort_queries=True)
+    # an exact permutation: only summation order and the coordinate
+    # arithmetic's rounding differ from the unsorted scene
+    _compare_heads(torch, "sorted vs unsorted f32", out, unsorted_f32, 1e-4)
+    del out
+    serving.update(phase_serving(torch, dev, kernels, sort_queries=True))
+    train.update(phase_train(torch, dev, kernels, sort_queries=True))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the row gather / scatter probes
+# ---------------------------------------------------------------------------
+
+# the probe kernels, and the case of each that the kernel line reports
+PROBE_MAIN = {"row_gather": "lowering bf16 row copies (4944, 1072), direct",
+              "row_scatter_add": "lowering scatter-add u (2^20, 1072) -> 4944 rows, "
+                                 "windowed 256"}
+
+
+def phase_probes(torch, dev, report):
+    from sgcdet_tpu_torch.experiments import probes
+
+    cases = probes.probe_cases(dev)
+    plain_ms = {}
+    for case in cases:
+        got, want = case.run(), case.run_plain()
+        torch.cuda.synchronize()
+        if case.kernel == "row_gather" and case.flops == 0:
+            check(torch.equal(got, want), f"probe {case.name}: gather is not exact")
+            err = 0.0
+            log(f"[probes] {case.name}: exact")
+        else:  # f32 sums in another order (atomics, the epilogue's FMAs)
+            err = compare_tensors(torch, f"probe {case.name}", got, want, f32_rel=1e-5)
+        del got, want
+        rec = report[case.kernel]
+        if "f32_onehot" not in case.name:  # its rows' scales reach 2^40
+            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        plain_ms[case.name] = cuda_ms(torch, case.run_plain, iters=2)
+    # probe_f32_onehot.py's point: a window row hit once is moved bit for bit
+    gen = torch.Generator(device=dev).manual_seed(3)
+    scale = torch.exp2(torch.randint(-40, 40, (256, 1), device=dev, generator=gen).float())
+    u = torch.randn((256, 1072), device=dev, generator=gen) * scale
+    perm = torch.randperm(256, device=dev, generator=gen)
+    got = probes.row_scatter_add(u, perm, 256, window=256)
+    want = torch.zeros_like(u).index_copy_(0, perm, u)
+    check(torch.equal(got, want), "windowed scatter of a permutation is not bit-exact")
+    log("[probes] windowed scatter-add of a permutation (adversarial f32 scales): "
+        "bit-exact")
+    del cases
+    # the probes' entry point, counted: every probe kernel must launch
+    for k in probes.KERNELS.values():
+        k.launches = 0
+    records = probes.run_probes(dev)
+    launches = {name: k.launches for name, k in probes.KERNELS.items()}
+    for r in records:
+        bound_ms, bound_by = bound(r["bytes"], r["flops"])
+        lib = ("" if r["library_ms"] is None else
+               f"; library {r['library_ms']:.4f} ms "
+               f"({r['bytes'] / r['library_ms'] / 1e6:.1f} GB/s)")
+        log(f"[probes] {r['name']}: {r['ms']:.4f} ms, {r['rows_per_s'] / 1e6:.1f} M "
+            f"rows/s, {r['gb_per_s']:.1f} GB/s; plain {plain_ms[r['name']]:.4f} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by}){lib}")
+        if PROBE_MAIN[r["kernel"]] == r["name"]:
+            report[r["kernel"]].update(ms=r["ms"], plain_ms=plain_ms[r["name"]],
+                                       bound_ms=bound_ms, bound_by=bound_by,
+                                       library_ms=r["library_ms"])
+    log(f"[probes] kernel launches of the probes' run: {launches}")
+    check(all(n > 0 for n in launches.values()), f"a probe kernel did not launch: {launches}")
+    return launches
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     if not (repo / "sgcdet_tpu_torch").is_dir():
@@ -1196,21 +1558,25 @@ def main() -> int:
         log(f"[build] ptxas: {len(regs)} kernel instances, at most {max(regs)} "
             f"registers per thread, {spills} bytes of spills")
 
-    report = {name: {} for name in KERNELS}
-    serving = {}
+    from sgcdet_tpu_torch.experiments import probes
 
-    def run_serving():
-        serving.update(phase_serving(torch, dev, KERNELS))
-
-    train, lifting_2d = {}, {}
-    for name, fn in (("kernels", lambda: phase_kernels(torch, dev, report)),
-                     ("backward", lambda: phase_backward(torch, dev, report)),
-                     ("slice f32", lambda: phase_slice_f32(torch, dev)),
-                     ("serving", run_serving),
-                     ("train f32", lambda: phase_train_f32(torch, dev)),
-                     ("train", lambda: train.update(phase_train(torch, dev, KERNELS))),
-                     ("2D lifting", lambda: lifting_2d.update(
-                         phase_lifting_2d(torch, dev, KERNELS)))):
+    check(set(KERNEL_INFO) == set(KERNELS) | set(probes.KERNELS),
+          "KERNEL_INFO does not list every launch counter")
+    report = {name: {} for name in KERNEL_INFO}
+    serving, train, lifting_2d, f32_scene = {}, {}, {}, {}
+    sorted_serving, sorted_train, probe_runs = {}, {}, {}
+    for name, fn in (
+            ("kernels", lambda: phase_kernels(torch, dev, report)),
+            ("backward", lambda: phase_backward(torch, dev, report)),
+            ("slice f32", lambda: f32_scene.update(phase_slice_f32(torch, dev))),
+            ("serving", lambda: serving.update(phase_serving(torch, dev, KERNELS))),
+            ("train f32", lambda: phase_train_f32(torch, dev)),
+            ("train", lambda: train.update(phase_train(torch, dev, KERNELS))),
+            ("2D lifting", lambda: lifting_2d.update(phase_lifting_2d(torch, dev, KERNELS))),
+            ("windowed", lambda: phase_windowed(torch, dev, report)),
+            ("sorted", lambda: phase_sorted(torch, dev, KERNELS, f32_scene,
+                                            sorted_serving, sorted_train)),
+            ("probes", lambda: probe_runs.update(phase_probes(torch, dev, report)))):
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
@@ -1219,14 +1585,25 @@ def main() -> int:
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = report[name]
         # launches: the main path of each kernel (the train step; the bf16
-        # 2D lifting run for the bf16-depth instances)
-        launches = lifting_2d[name] if name in KERNELS_2D else train[name]
+        # 2D lifting run for the bf16-depth instances; the sorted train
+        # step for the windowed kernels; the probes' run for theirs)
+        if name in KERNELS_2D:
+            launches, served = lifting_2d[name], 0
+        elif name in KERNELS_SORTED:
+            launches, served = sorted_train[name], sorted_serving[name]
+        elif name in PROBE_MAIN:
+            launches, served = probe_runs[name], 0
+        else:
+            launches, served = train[name], serving[name]
+        missing = [key for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms") if key not in rec]
+        check(not missing, f"{name}: no {missing} measured")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches,
                             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-                            serving_launches=serving.get(name, 0)))
+                            serving_launches=served))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

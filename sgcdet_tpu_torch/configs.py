@@ -48,6 +48,10 @@ class ModelConfig:
     # level, a tuple of per-level fractions (1.0 disables a level), or None
     # (off); see visibility.derive_visibility_budgets for an exact one
     visibility_budget: float | Tuple[float, ...] | None = None
+    # order each camera's compacted queries by projected pixel (no budget
+    # then compacts at B = K) and sample through the windowed DFA3D kernels;
+    # an exact permutation
+    sort_queries: bool = False
     # 3D neck and detection head
     neck3d_out_channels: int = 128
     neck3d_n_blocks: Tuple[int, ...] = (1, 1, 1)

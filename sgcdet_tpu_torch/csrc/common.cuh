@@ -55,6 +55,67 @@ __device__ __forceinline__ float clip_coord(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
+// A sample's pixel coordinate as the plain version's window plan computes
+// it in PyTorch (ops/dfa3d_windowed.py::plan_windows): loc * size and - 0.5
+// each rounded once (no fused multiply-add), then clipped, so the windowed
+// kernels and their plain version agree on every window.
+__device__ __forceinline__ float pixel_coord(float loc, int size) {
+  return clip_coord(__fsub_rn(__fmul_rn(loc, (float)size), 0.5f), -4.f,
+                    size + 4.f);
+}
+
+// The window of a windowed kernel's block, as ops/dfa3d_windowed.py::
+// plan_windows computes it: the lowest and the highest pixel y * w + x
+// that an in-image corner of the block's samples reads.  A sample's
+// in-image corners fill the box [max(x0, 0), min(x0 + 1, w - 1)] x [max(y0,
+// 0), min(y0 + 1, h - 1)].  lp: the block's first query's (u, v, d) at its
+// head, queries `stride` floats apart, p points each; nq counted queries.
+// Returns {lo, hi}, hi < 0 where no corner lies in the image.  Every
+// thread of the block calls it once; s_box is two shared ints.
+__device__ __forceinline__ int2 block_window(const float* lp, long long stride, int p,
+                                             int nq, int h, int w, int* s_box) {
+  if (threadIdx.x == 0) {
+    s_box[0] = 0x7fffffff;
+    s_box[1] = -1;
+  }
+  __syncthreads();
+  int lo = 0x7fffffff, hi = -1;
+  for (int i = threadIdx.x; i < nq * p; i += blockDim.x) {
+    const float* l = lp + (i / p) * stride + (i % p) * 3;
+    const int x0 = (int)floorf(pixel_coord(l[0], w));
+    const int y0 = (int)floorf(pixel_coord(l[1], h));
+    const int xlo = max(x0, 0), xhi = min(x0 + 1, w - 1);
+    const int ylo = max(y0, 0), yhi = min(y0 + 1, h - 1);
+    if (xlo <= xhi && ylo <= yhi) {
+      lo = min(lo, ylo * w + xlo);
+      hi = max(hi, yhi * w + xhi);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(s_box, lo);
+    atomicMax(s_box + 1, hi);
+  }
+  __syncthreads();
+  return make_int2(s_box[0], s_box[1]);
+}
+
+// 16 bytes from global to shared memory without a register round trip
+// (sm_80+); both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// Wait for every cp.async this thread issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);

@@ -43,10 +43,8 @@ class SGCDet(nn.Module):
         if cfg.head_type != "scannet":
             raise NotImplementedError("the port runs the ScanNet head only")
         # options of the JAX package's ModelConfig that the port does not run
-        if (getattr(cfg, "sort_queries", False) or getattr(cfg, "use_gt_dpt", False)
-                or getattr(cfg, "sweep_band", None) is not None):
-            raise NotImplementedError(
-                "sort_queries, sweep_band and use_gt_dpt are not ported")
+        if getattr(cfg, "use_gt_dpt", False) or getattr(cfg, "sweep_band", None) is not None:
+            raise NotImplementedError("sweep_band and use_gt_dpt are not ported")
         self.cfg = cfg
         self.img_shape = tuple(img_shape)
         self.backbone = ResNet50()
@@ -56,7 +54,8 @@ class SGCDet(nn.Module):
         self.voxel_head = AdaptiveSparseVolume(
             cfg.embed_dims, cfg.voxel_size_list, cfg.n_voxels_list,
             cfg.topk_list, cfg.num_heads, cfg.num_points,
-            visibility_budget=cfg.visibility_budget, ffn_dropout=cfg.ffn_dropout)
+            visibility_budget=cfg.visibility_budget, ffn_dropout=cfg.ffn_dropout,
+            sort_queries=cfg.sort_queries)
         self.neck_3d = FastIndoorImVoxelNeck(
             cfg.embed_dims, cfg.neck3d_out_channels, cfg.neck3d_n_blocks)
         self.bbox_head = ImVoxelHead(cfg.neck3d_out_channels, cfg.n_classes,

@@ -31,10 +31,12 @@ class AdaptiveSparseVolume(nn.Module):
                                               (0.16, 0.16, 0.2)),
                  n_voxels_list: Sequence = ((10, 10, 4), (20, 20, 8), (40, 40, 16)),
                  topk_list: Sequence = (800, 6400), num_heads=8, num_points=4,
-                 visibility_budget=None, ffn_dropout=0.1):
+                 visibility_budget=None, ffn_dropout=0.1, sort_queries=False):
         """visibility_budget: None, a fraction for every level, or one
         fraction per level (1.0 disables compaction at that level);
-        ffn_dropout: the rate of the lifting FFN's dropouts in train mode."""
+        ffn_dropout: the rate of the lifting FFN's dropouts in train mode;
+        sort_queries: order each level's compacted queries by projected
+        pixel and sample through the windowed kernels."""
         super().__init__()
         self.embed_dims = embed_dims
         self.voxel_size_list = tuple(voxel_size_list)
@@ -49,7 +51,8 @@ class AdaptiveSparseVolume(nn.Module):
                     vb = None
             heads.append(ViewTransformer(embed_dims, num_heads, num_points,
                                          visibility_budget=vb,
-                                         ffn_dropout=ffn_dropout))
+                                         ffn_dropout=ffn_dropout,
+                                         sort_queries=sort_queries))
         self.base_heads = nn.ModuleList(heads)
         self.occ_pred_heads = nn.ModuleList(
             [nn.Sequential(Linear(embed_dims, 1), nn.Sigmoid())

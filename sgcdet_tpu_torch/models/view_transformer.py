@@ -9,8 +9,12 @@ with a visibility budget each camera keeps its top-B queries by visibility
 (all visible ones first, ties in index order, as ``jax.lax.top_k`` orders
 them), both sampling stages run on that compacted set with
 ``valid_counts``, and the results are scattered back; the fusion masks
-with ``mask & sel``.  The 2D path never compacts (the JAX package compacts
-only with ``use_depth``) and adds its stage-2 output to stage 1's.
+with ``mask & sel``.  With ``sort_queries`` the compacted queries are
+ordered by their projected pixel (no budget then compacts at B = K) and
+both sampling stages go through the windowed kernels
+(``ops/dfa3d_windowed.py``); the order changes no result.  The 2D path never
+compacts (the JAX package compacts only with ``use_depth``), ignores
+``sort_queries`` and adds its stage-2 output to stage 1's.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.dfa3d import dfa3d_attend, msda_2d_attend
+from ..ops.dfa3d_windowed import dfa3d_attention_windowed
 from .layers import FFN, LayerNorm, Linear, MultiheadAttention
 
 
@@ -45,25 +50,43 @@ def point_sampling(ref_points, origin, projection, img_shape, dbound):
     return torch.stack([u, v, d_norm], -1), mask
 
 
-def compact_queries(mask, visibility_budget):
+def compact_queries(mask, visibility_budget, sort_queries=False, ref_cam=None,
+                    spatial_shapes=None):
     """Budget compaction of one level's queries.
 
     mask: (N, K) visibility; visibility_budget: a fraction of K, or None.
     Each camera keeps B = K * budget queries, rounded up to a multiple of 128
     (at least 128): its visible queries first, index order among ties (the
-    order of ``jax.lax.top_k``; ``torch.topk`` promises none).  Returns
-    (sel_idx (N, B) int64, valid_counts (N,) int32 = visible queries per
-    camera, capped at B), or None where the budget keeps every query.
+    order of ``jax.lax.top_k``; ``torch.topk`` promises none).
+
+    With ``sort_queries`` (ref_cam (N, K, 3) normalized, spatial_shapes
+    ((h0, w0),) the level's feature size) the kept queries are ordered by
+    the pixel their centre projects to, visible first, then row-major, with
+    JAX's f32 score (view_transformer.py:296-309): that makes the windowed
+    kernels' chunks pixel-coherent.  No budget then means B = K, and the
+    level is compacted all the same.
+
+    Returns (sel_idx (N, B) int64, valid_counts (N,) int32 = visible
+    queries per camera, capped at B), or None where nothing is compacted.
     """
-    if visibility_budget is None:
-        return None
     k = mask.shape[1]
-    budget = min(k, max(128, -(-int(k * visibility_budget) // 128) * 128))
-    if not 0 < budget < k:
+    if visibility_budget is None:
+        budget = k if sort_queries else None
+    else:
+        budget = min(k, max(128, -(-int(k * visibility_budget) // 128) * 128))
+    if budget is None or not (0 < budget < k or (sort_queries and budget == k)):
         return None
     valid_counts = torch.clamp(mask.sum(1), max=budget).to(torch.int32)
-    sel_idx = torch.sort(mask.float(), dim=1, descending=True,
-                         stable=True)[1][:, :budget]
+    scores = mask.float()
+    if sort_queries:
+        h0, w0 = spatial_shapes[0]
+        u_pix = torch.clamp(torch.floor(ref_cam[..., 0].float() * w0 - 0.5),
+                            -1.0, w0 - 1.0) + 1.0
+        v_pix = torch.clamp(torch.floor(ref_cam[..., 1].float() * h0 - 0.5),
+                            -1.0, h0 - 1.0) + 1.0
+        row_norm = (v_pix * (w0 + 1) + u_pix) / float((h0 + 1) * (w0 + 1) + 1)
+        scores = scores * 2.0 - row_norm
+    sel_idx = torch.sort(scores, dim=1, descending=True, stable=True)[1][:, :budget]
     return sel_idx, valid_counts
 
 
@@ -119,9 +142,10 @@ class MSDeformableAttention3D(nn.Module):
         self.attention_weights.bias.zero_()
 
     def forward(self, query, value_img, dpt_img, ref_points, spatial_shapes,
-                valid_counts=None):
+                valid_counts=None, windowed=False):
         """query: (N, K, C); value_img: (N, H, W, C); dpt_img: (N, H, W, D);
-        ref_points: (N, K, 1, 3) normalized; spatial_shapes: ((H, W),).
+        ref_points: (N, K, 1, 3) normalized; spatial_shapes: ((H, W),);
+        windowed: sample through the windowed kernels (sorted queries).
         Returns (N, K, C)."""
         n, k, c = query.shape
         h, l, p = self.num_heads, self.num_levels, self.num_points
@@ -136,8 +160,9 @@ class MSDeformableAttention3D(nn.Module):
                                   dtype=torch.float32, device=query.device)
         locs = (ref_points[:, :, None, None, :, :]
                 + offsets / normalizer[None, None, None, :, None, :])
-        return dfa3d_attend(v_img, dpt_img, locs[:, :, :, 0], attn[:, :, :, 0],
-                            num_heads=h, valid_counts=valid_counts)
+        attend = dfa3d_attention_windowed if windowed else dfa3d_attend
+        return attend(v_img, dpt_img, locs[:, :, :, 0], attn[:, :, :, 0],
+                      num_heads=h, valid_counts=valid_counts)
 
 
 class MSDeformableAttention2D(nn.Module):
@@ -194,14 +219,17 @@ class DeformCrossAttention(nn.Module):
     fusion (deformable_cross_attention.py:691-837).  ``use_depth`` picks the
     DFA3D path (stage 2 replaces stage 1) or the 2D path
     (deformable_cross_attention.py:504-688: a bilinear grid-sample stage 1,
-    plain MSDA stage 2 added to it, no budget compaction)."""
+    plain MSDA stage 2 added to it, no budget compaction).
+    ``sort_queries`` orders the compacted queries by projected pixel and
+    samples through the windowed kernels (DFA3D path only)."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4,
-                 visibility_budget=None, use_depth=True):
+                 visibility_budget=None, use_depth=True, sort_queries=False):
         super().__init__()
         self.embed_dims = embed_dims
         self.visibility_budget = visibility_budget
         self.use_depth = use_depth
+        self.sort_queries = sort_queries
         attention = MSDeformableAttention3D if use_depth else MSDeformableAttention2D
         self.deformable_attention = attention(embed_dims, num_heads, num_points)
         self.output_proj = Linear(embed_dims, embed_dims)
@@ -251,7 +279,8 @@ class DeformCrossAttention(nn.Module):
         """DFA3D path: (per-view queries (N, K, C), fusion mask)."""
         n, k = mask.shape
         c = self.embed_dims
-        compact = compact_queries(mask, self.visibility_budget)
+        compact = compact_queries(mask, self.visibility_budget, self.sort_queries,
+                                  ref_cam, spatial_shapes)
         valid_counts = None
         if compact is not None:
             sel_idx, valid_counts = compact
@@ -266,12 +295,13 @@ class DeformCrossAttention(nn.Module):
         kk = ref_cam_s.shape[1]
         locs1 = ref_cam_s[:, :, None, None, :].float()
         attn1 = torch.ones((n, kk, 1, 1), dtype=torch.float32, device=mask.device)
-        queries_per_image = dfa3d_attend(value_img, dpt_img, locs1, attn1,
-                                         num_heads=1, valid_counts=valid_counts)
+        attend = dfa3d_attention_windowed if self.sort_queries else dfa3d_attend
+        queries_per_image = attend(value_img, dpt_img, locs1, attn1,
+                                   num_heads=1, valid_counts=valid_counts)
         # stage 2 — context: REPLACES the stage-1 output (not a residual)
         queries = self.deformable_attention(
             queries_per_image, value_img, dpt_img, ref_cam_s[:, :, None, :],
-            spatial_shapes, valid_counts=valid_counts)
+            spatial_shapes, valid_counts=valid_counts, windowed=self.sort_queries)
         if compact is not None:
             queries = torch.zeros((n, k, c), dtype=queries.dtype,
                                   device=queries.device).scatter_(
@@ -285,11 +315,13 @@ class VoxFormerLayer(nn.Module):
     ``ffns.0``, ``norms.{0,1}``."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4,
-                 visibility_budget=None, ffn_dropout=0.1, use_depth=True):
+                 visibility_budget=None, ffn_dropout=0.1, use_depth=True,
+                 sort_queries=False):
         super().__init__()
         self.attentions = nn.ModuleList([DeformCrossAttention(
             embed_dims, num_heads, num_points,
-            visibility_budget=visibility_budget, use_depth=use_depth)])
+            visibility_budget=visibility_budget, use_depth=use_depth,
+            sort_queries=sort_queries)])
         self.ffns = nn.ModuleList([FFN(embed_dims, embed_dims * 2, ffn_dropout)])
         self.norms = nn.ModuleList([LayerNorm(embed_dims), LayerNorm(embed_dims)])
 
@@ -319,15 +351,18 @@ class ViewTransformer(nn.Module):
     """One encoder pass of one layer over a set of voxel queries, as in every
     released config.  Parameters live under ``cross_transformer.encoder
     .layers.0`` as in the reference's DenseHead.  ``use_depth=False`` lifts
-    through the 2D path (the depth input is then unused)."""
+    through the 2D path (the depth input is then unused); ``sort_queries``
+    orders the compacted queries by projected pixel and samples through the
+    windowed kernels."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4,
-                 visibility_budget=None, ffn_dropout=0.1, use_depth=True):
+                 visibility_budget=None, ffn_dropout=0.1, use_depth=True,
+                 sort_queries=False):
         super().__init__()
         self.embed_dims = embed_dims
         self.cross_transformer = _Transformer([
             VoxFormerLayer(embed_dims, num_heads, num_points, visibility_budget,
-                           ffn_dropout, use_depth)])
+                           ffn_dropout, use_depth, sort_queries)])
 
     def forward(self, ref_points, origin, projection, feat, dpt, img_shape, dbound,
                 generator=None):

@@ -1,4 +1,4 @@
-"""Build, load and launch the hand-written Hopper kernels of ``csrc/``.
+"""Build, load, launch and time the hand-written Hopper kernels of ``csrc/``.
 
 The CUDA sources are compiled at first use by ``nvcc`` for ``sm_90a``, one
 process per source started together, and linked into one shared library
@@ -153,6 +153,25 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA launch failed with error {err}")
         self.launches += 1
+
+
+def cuda_ms(fn, iters=10) -> float:
+    """Warm mean milliseconds of fn() on the card (CUDA events).
+
+    A spin kernel (about 50 ms) holds the stream while the host enqueues
+    every launch, so the events time the device work and not the host's
+    launch overhead, which exceeds a short kernel's own time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def check_cuda_input(t: torch.Tensor, name: str, dtypes, ndim: int,

@@ -72,12 +72,15 @@ def _count_mask(out, valid_counts, q0):
 
 
 def dfa3d_attention_plain(value_img, dpt_img, locs, attn, num_heads,
-                          valid_counts=None):
+                          valid_counts=None, remap=None):
     """Plain version.
 
     value_img: (N, H, W, heads*c); dpt_img: (N, H, W, D);
     locs: (N, K, heads, P, 3) normalized (u, v, d); attn: (N, K, heads, P);
-    valid_counts: optional (N,) int — queries at or past it return zeros.
+    valid_counts: optional (N,) int — queries at or past it return zeros;
+    remap: optional ``(flat, weight, q0) -> (flat, weight)`` applied to each
+    corner's pixel indices and bilinear weights (N, Kc, heads, P) of the
+    query chunk starting at q0 (the windowed version's window reads).
     Returns (N, K, heads*c) in value_img's dtype.
     """
     n, h, w, cfull = value_img.shape
@@ -107,6 +110,8 @@ def dfa3d_attention_plain(value_img, dpt_img, locs, attn, num_heads,
         acc = None
         for flat, wb in bilinear_corners(lc[..., 0] * w - 0.5,
                                          lc[..., 1] * h - 0.5, h, w):
+            if remap is not None:
+                flat, wb = remap(flat, wb, q0)
             drows = gather_rows(depth, flat.reshape(n, -1))  # (N, M, D)
             ds = (torch.gather(drows, 2, d0c)[..., 0] * wd0.reshape(n, -1)
                   + torch.gather(drows, 2, d1c)[..., 0] * wd1.reshape(n, -1))
@@ -122,16 +127,17 @@ def dfa3d_attention_plain(value_img, dpt_img, locs, attn, num_heads,
 
 
 def dfa3d_bwd_plain(value_img, dpt_img, locs, attn, g, num_heads,
-                    valid_counts=None, sample_grads=True, depth_grad=True):
-    """Plain version of K5/K6: the VJP of ``dfa3d_attention_plain``,
-    recomputed under autograd.  Returns (d_value, d_dpt, d_locs, d_attn)
-    in the inputs' dtypes; d_dpt is None unless ``depth_grad``, the last
-    two are None unless ``sample_grads``."""
+                    valid_counts=None, sample_grads=True, depth_grad=True,
+                    remap=None):
+    """Plain version of K5/K6: the VJP of ``dfa3d_attention_plain`` (with
+    its ``remap``), recomputed under autograd.  Returns (d_value, d_dpt,
+    d_locs, d_attn) in the inputs' dtypes; d_dpt is None unless
+    ``depth_grad``, the last two are None unless ``sample_grads``."""
     wanted = (True, depth_grad, sample_grads, sample_grads)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(want)
                for t, want in zip((value_img, dpt_img, locs, attn), wanted)]
-        out = dfa3d_attention_plain(*ins, num_heads, valid_counts)
+        out = dfa3d_attention_plain(*ins, num_heads, valid_counts, remap)
         grads = iter(torch.autograd.grad(out, [t for t in ins if t.requires_grad], g))
     return tuple(next(grads) if want else None for want in wanted)
 

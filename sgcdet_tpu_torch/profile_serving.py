@@ -1,8 +1,8 @@
 """Where the time of one serving forward, or of one train step, goes on a
 CUDA card.
 
-    python -m sgcdet_tpu_torch.profile_serving [--reps 3]
-    python -m sgcdet_tpu_torch.profile_serving --train [--reps 3]
+    python -m sgcdet_tpu_torch.profile_serving [--reps 3] [--sort-queries]
+    python -m sgcdet_tpu_torch.profile_serving --train [--reps 3] [--sort-queries]
 
 The serving configuration is chip_smoke.py's: ScanNet, bf16 compute, 40
 views of the indoor scene, the exact auto visibility budget, random weights
@@ -24,6 +24,9 @@ scene with bench.py's synthetic ground truth, depth loss on, FFN dropout
 * the stream milliseconds of forward + losses, backward and optimizer
   (CUDA events between the three, mean of 4 steps; host gaps included);
 * torch.profiler's table and idle share over 2 steps.
+
+``--sort-queries`` runs either with ``ModelConfig.sort_queries`` (the
+windowed DFA3D kernels).
 """
 from __future__ import annotations
 
@@ -98,7 +101,7 @@ def print_profile(prof, what):
                                     max_name_column_width=70))
 
 
-def profile_train(dev, reps):
+def profile_train(dev, reps, sort_queries):
     from torch.profiler import ProfilerActivity, profile
 
     cfg = scannet()
@@ -107,11 +110,12 @@ def profile_train(dev, reps):
     budget = derive_visibility_budgets([(scene["origin"], scene["proj_img"])],
                                        cfg.data.img_shape, cfg.model)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
-        cfg.model, visibility_budget=budget, depth_loss=True))
+        cfg.model, visibility_budget=budget, depth_loss=True, sort_queries=sort_queries))
     model, optimizer = init_train_state(cfg, torch.Generator().manual_seed(0), dev)
     step = make_train_step(model, cfg, optimizer)
     gen = torch.Generator(device=dev).manual_seed(1)
-    print(f"device: {torch.cuda.get_device_name(0)}; train; budget {budget}", flush=True)
+    print(f"device: {torch.cuda.get_device_name(0)}; train; budget {budget}; "
+          f"sort_queries {sort_queries}", flush=True)
     for _ in range(2):
         step(scene, gen)
     torch.cuda.synchronize()
@@ -158,21 +162,25 @@ def main():
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the serving forward")
+    ap.add_argument("--sort-queries", action="store_true",
+                    help="with ModelConfig.sort_queries (the windowed DFA3D kernels)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA device")
     dev = torch.device("cuda", 0)
     if args.train:
-        profile_train(dev, args.reps)
+        profile_train(dev, args.reps, args.sort_queries)
         return
     cfg = scannet()
     scene = example_scene(cfg.data.img_shape, cfg.data.pad_size, 40, trajectory="indoor")
     budget = derive_visibility_budgets([(scene["origin"], scene["proj_img"])],
                                        cfg.data.img_shape, cfg.model)
-    mcfg = dataclasses.replace(cfg.model, visibility_budget=budget)
+    mcfg = dataclasses.replace(cfg.model, visibility_budget=budget,
+                               sort_queries=args.sort_queries)
     model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
                    generator=torch.Generator().manual_seed(0))
-    print(f"device: {torch.cuda.get_device_name(0)}; budget {budget}", flush=True)
+    print(f"device: {torch.cuda.get_device_name(0)}; budget {budget}; "
+          f"sort_queries {args.sort_queries}", flush=True)
     for _ in range(3):
         forward_scene(model, scene)
     torch.cuda.synchronize()

@@ -3,7 +3,10 @@ the forward kernels K1-K3 (and K2'/K3' at bf16 depth), and the backward
 kernels K4-K6 (K6'/K5') through autograd (the ops' ``torch.autograd.
 Function``s) against the plain versions' VJPs; the 2D lifting path
 (``ViewTransformer(use_depth=False)``) through the kernels against its plain
-run.
+run; the windowed kernels of the ``sort_queries`` path against their plain
+versions and the template kernels, in the coherent and random regimes, and
+the sorted ``ViewTransformer`` through them; the row gather/scatter probe
+kernels against their plain versions.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device: the hand-written kernels have no CPU mode.  The module imports no
@@ -15,9 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from sgcdet_tpu_torch.experiments import probes
 from sgcdet_tpu_torch.models.layers import init_weights, set_compute_dtype
 from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
 from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
+from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_fwd_cuda
+from sgcdet_tpu_torch.ops.dfa3d_windowed import dfa3d_attention_windowed, plan_windows
 from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
 
 from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
@@ -26,6 +32,7 @@ from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     graph_has,
     keep_global_torch_rng,
     sweep_inputs,
+    windowed_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -249,3 +256,186 @@ def test_2d_lifting_kernels_match_plain(cuda_device, dtype):
         assert torch.isfinite(a.float()).all()
         assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(), rel,
                             f"2D lifting tensor {i}")
+
+
+REGIMES = [pytest.param(True, id="coherent"), pytest.param(False, id="random")]
+GRAD_FLAGS = [(True, True), (False, True), (True, False), (False, False)]
+GRAD_IDS = ["all", "value_depth", "no_depth", "value_only"]
+
+
+def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, coherent):
+    """A (4, 30, 40) map, 600 queries, 12 depth bins; counts 0, 200, 599
+    and 600.  Coherent locations keep their chunks in the window; random
+    ones do not."""
+    value, dpt, locs, attn = windowed_inputs(4, 30, 40, 600, heads, c, p, 12, coherent)
+    args = [value.to(vdtype), dpt.to(ddtype), locs, attn]
+    args = [a.to(cuda_device) for a in args]
+    counts = torch.tensor([0, 200, 599, 600], dtype=torch.int32, device=cuda_device)
+    plan = plan_windows(args[2], counts, 30, 40, 512)
+    live = plan.span > 0
+    share = float((plan.ok & live).sum() / live.sum())
+    assert share > 0.9 if coherent else share < 0.1
+    return args, counts
+
+
+@pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],
+                         ids=["stage1", "stage2"])
+@pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
+@pytest.mark.parametrize("coherent", REGIMES)
+def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vdtype,
+                                                    ddtype, coherent):
+    args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, coherent)
+    name = "dfa3d_win_fwd_s1" if heads == p == 1 else "dfa3d_win_fwd_mh"
+    before = KERNELS[name].launches
+    got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+    assert KERNELS[name].launches == before + 1
+    with plain_ops():
+        expected = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+    template = dfa3d_fwd_cuda(*args, heads, counts)
+    torch.cuda.synchronize()
+    assert got.dtype == vdtype
+    for want, what in ((expected, "plain"), (template, "template")):
+        assert_close_scaled(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                            _rel(vdtype), f"windowed fwd vs {what}")
+    for cam, cnt in enumerate(counts.tolist()):
+        assert (got[cam, cnt:] == 0).all()
+
+
+@pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
+@pytest.mark.parametrize("coherent", REGIMES)
+@pytest.mark.parametrize("sample_grads,depth_grad", GRAD_FLAGS, ids=GRAD_IDS)
+def test_windowed_backward_kernel_matches_plain_and_template(
+        cuda_device, vdtype, ddtype, coherent, sample_grads, depth_grad):
+    heads, p, c = 8, 4, 32
+    args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, coherent)
+    for a, want in zip(args, (True, depth_grad, sample_grads, sample_grads)):
+        a.requires_grad_(want)
+    g = torch.randn((4, 600, heads * c), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0)).to(vdtype)
+    out = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+    assert graph_has(out, "_DFA3DWindowedBackward")
+    before = KERNELS["dfa3d_win_bwd_mh"].launches
+    got = _grads(out, args, g)
+    assert KERNELS["dfa3d_win_bwd_mh"].launches == before + 1
+    with plain_ops():
+        expected = _grads(dfa3d_attention_windowed(*args, heads, valid_counts=counts),
+                          args, g)
+    template = dfa3d_bwd_cuda(*[a.detach() for a in args], g, heads, counts,
+                              sample_grads=sample_grads, depth_grad=depth_grad)
+    template = [t for t in template if t is not None]
+    torch.cuda.synchronize()
+    names = [n for n, a in zip(("d_value", "d_dpt", "d_locs", "d_attn"), args)
+             if a.requires_grad]
+    for gname, a, b, t in zip(names, got, expected, template):
+        for want, what in ((b, "plain"), (t, "template")):
+            assert_close_scaled(a.float().cpu().numpy(), want.float().cpu().numpy(),
+                                _rel(a.dtype), f"windowed {gname} vs {what}")
+    if sample_grads:
+        by_name = dict(zip(names, got))
+        for cam, cnt in enumerate(counts.tolist()):
+            assert (by_name["d_locs"][cam, cnt:] == 0).all()
+            assert (by_name["d_attn"][cam, cnt:] == 0).all()
+
+
+def test_windowed_stage1_backward_is_k6(cuda_device):
+    """The sorted path's stage-1 backward is the template's K6, as on the
+    TPU, whose windowed stage 1 has no backward."""
+    args, counts = _windowed_case(cuda_device, 1, 1, 256, torch.bfloat16, torch.float32,
+                                  True)
+    args[0].requires_grad_()
+    args[1].requires_grad_()
+    out = dfa3d_attention_windowed(*args, 1, valid_counts=counts)
+    before = {n: KERNELS[n].launches for n in ("dfa3d_bwd_s1", "dfa3d_win_bwd_mh")}
+    torch.autograd.grad(out, args[:2], torch.ones_like(out))
+    assert KERNELS["dfa3d_bwd_s1"].launches == before["dfa3d_bwd_s1"] + 1
+    assert KERNELS["dfa3d_win_bwd_mh"].launches == before["dfa3d_win_bwd_mh"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sorted_lifting_kernels_match_plain(cuda_device, dtype):
+    """ViewTransformer(sort_queries=True) at the ScanNet widths (embed 256,
+    8 heads x 4 points) on a small rig, no budget (B = K): output and the
+    gradients of sum(out * g) through the kernels vs the plain versions; one
+    launch each of the windowed forwards, K6 and the windowed backward."""
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(6)
+    n, k, h, w = 3, 300, 15, 20
+    model = ViewTransformer(256, 8, 4, sort_queries=True)
+    init_weights(model, torch.Generator().manual_seed(0))
+    set_compute_dtype(model, dtype)
+    model = model.to(cuda_device).eval()
+    dev = dict(device=cuda_device)
+    ref = torch.from_numpy(rng.uniform(-1, 1, (k, 3)).astype(np.float32)).to(**dev)
+    proj = torch.from_numpy(np.tile(np.array(
+        [[300, 0, 320, 0], [0, 300, 240, 0], [0, 0, 1, 2.5]], np.float32),
+        (n, 1, 1))).to(**dev)
+    feat = torch.from_numpy(rng.randn(n, 256, h, w).astype(np.float32)).to(**dev)
+    feat = feat.to(dtype).requires_grad_()
+    logits = torch.from_numpy(rng.randn(n, 12, h, w).astype(np.float32)).to(**dev)
+    dpt = torch.softmax(logits, 1).requires_grad_()
+    g = torch.from_numpy(rng.randn(k, 256).astype(np.float32)).to(**dev)
+    args = (ref, torch.zeros(3, **dev), proj, feat, dpt, (480, 640), (0.2, 5.0, 0.4))
+
+    def run():
+        out = model(*args)
+        grads = torch.autograd.grad((out.float() * g).sum(),
+                                    [feat, dpt] + list(model.parameters()))
+        return [out.detach()] + list(grads)
+
+    names = ["dfa3d_win_fwd_s1", "dfa3d_win_fwd_mh", "dfa3d_bwd_s1", "dfa3d_win_bwd_mh",
+             "dfa3d_fwd_s1", "dfa3d_fwd_mh", "dfa3d_bwd_mh"]
+    before = [KERNELS[nm].launches for nm in names]
+    got = run()
+    assert [KERNELS[nm].launches - b for nm, b in zip(names, before)] == [1, 1, 1, 1, 0, 0, 0]
+    with plain_ops():
+        expected = run()
+    torch.cuda.synchronize()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    rel = 1e-3 if dtype == torch.float32 else 5e-2
+    for i, (a, b) in enumerate(zip(got, expected)):
+        assert torch.isfinite(a.float()).all()
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(), rel,
+                            f"sorted lifting tensor {i}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [None, 64], ids=["direct", "windowed"])
+def test_row_gather_kernel_matches_plain(cuda_device, dtype, window):
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    img = torch.randn((500, 1072), device=cuda_device, generator=gen).to(dtype)
+    rows = torch.sort(torch.randint(0, 500, (20000,), device=cuda_device, generator=gen))[0]
+    before = probes.KERNELS["row_gather"].launches
+    got = probes.row_gather(img, rows, window)
+    assert probes.KERNELS["row_gather"].launches == before + 1
+    if window:
+        assert probes.plan_rows(rows[None], probes.CM, window)[2].all()
+    assert torch.equal(got, probes.row_gather_plain(img, rows, window))
+    assert torch.equal(got, img[rows])
+
+
+@pytest.mark.parametrize("window", [None, 512], ids=["direct", "windowed"])
+def test_gather_epilogue_kernel_matches_plain(cuda_device, window):
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    img = torch.randn((400, 176), device=cuda_device, generator=gen)
+    rows = torch.randint(0, 400, (4, 3000), device=cuda_device, generator=gen)
+    winfo = torch.rand((4, 3000, 8), device=cuda_device, generator=gen)
+    winfo[..., 6:8] = torch.floor(winfo[..., 6:8] * 12)
+    got = probes.gather_epilogue(img, rows, winfo, window)
+    want = probes.gather_epilogue_plain(img, rows, winfo, window)
+    torch.cuda.synchronize()
+    assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "p4+epi")
+
+
+@pytest.mark.parametrize("window", [None, 64], ids=["direct", "windowed"])
+def test_row_scatter_add_kernel_matches_plain(cuda_device, window):
+    gen = torch.Generator(cuda_device).manual_seed(2)
+    u = torch.randn((20000, 1072), device=cuda_device, generator=gen)
+    rows = torch.sort(torch.randint(0, 500, (20000,), device=cuda_device, generator=gen))[0]
+    before = probes.KERNELS["row_scatter_add"].launches
+    got = probes.row_scatter_add(u, rows, 500, window)
+    assert probes.KERNELS["row_scatter_add"].launches == before + 1
+    want = probes.row_scatter_add_plain(u, rows, 500, window)
+    torch.cuda.synchronize()
+    # f32 sums in another order (atomics): 1e-5 of the scale
+    assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "row scatter-add")

@@ -114,6 +114,27 @@ def dfa3d_inputs(heads, p, c, n=3, h=6, w=9, d=8, k=40, seed=0):
     return value, dpt.astype(np.float32), locs, attn
 
 
+def windowed_inputs(n, h, w, k, heads, c, p, d, coherent, seed=0):
+    """tests/test_dfa3d_windowed.py's DFA3D operands, made with numpy:
+    bf16-rounded value (n, h, w, heads*c) and depth distribution (n, h, w,
+    d) as torch tensors, locations that either sweep the image coherently
+    with a small jitter (the sorted-queries regime) or scatter at random
+    off every side, and softmaxed attention weights."""
+    rng = np.random.RandomState(seed)
+    value = torch.from_numpy(rng.randn(n, h, w, heads * c).astype(np.float32)).bfloat16()
+    logits = rng.randn(n, h, w, d).astype(np.float32)
+    dpt = torch.from_numpy(np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).bfloat16()
+    if coherent:
+        t = np.arange(k, dtype=np.float32) / max(k - 1, 1)
+        base = np.stack([(t * 7.0) % 1.0, t, t], -1)
+        locs = base[None, :, None, None, :] + rng.uniform(-0.03, 0.03, (n, k, heads, p, 3))
+    else:
+        locs = rng.uniform(-0.15, 1.15, (n, k, heads, p, 3))
+    a = rng.randn(n, k, heads, p).astype(np.float32)
+    attn = np.exp(a) / np.exp(a).sum(-1, keepdims=True)
+    return value, dpt, torch.from_numpy(locs.astype(np.float32)), torch.from_numpy(attn)
+
+
 def graph_has(t, name):
     """True when the autograd graph behind tensor ``t`` holds a node of
     type ``name`` (e.g. the ``_DFA3DBackward`` of the port's Function)."""
