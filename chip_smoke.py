@@ -32,9 +32,19 @@ Phases, each fatal on failure:
               path's shapes and with a 12-bin depth, uncounted f32), and
               aten's grid_sampler_2d_backward, the library call that
               computes the 2D stage 1's d_value, against the kernel at f32.
+              The contention cases of the scatter-bound kernels K4 and K5:
+              sweeps whose 8 x 16 reference tiles each sample one src point,
+              a 13 x 21 sweep with integer and edge coordinates and a plane
+              behind the source camera, a DFA3D stage 2 at level 2 whose
+              heads and points all sample one pixel centre per query with a
+              view counted to 0, and operands that are views breaking
+              16-byte alignment.  aten's grid_sampler_2d_backward, the
+              library call that computes K4's d_src, against K4 at f32.
               Prints each gradient's max abs error, its worst ratio to the
-              per-element tolerance, and the warm time of kernel and plain
-              version.
+              per-element tolerance, the warm time of kernel, plain version
+              and library call, and the global atomic operations of K4, K5
+              and K6 (vector and scalar, counted from the design) with their
+              rate.
 4. slice    — the ScanNet forward at compute_dtype=float32 with TF32 off, on
               the indoor 40-view scene, once through the kernels and once
               through the plain versions: identical `valid`, matching
@@ -766,6 +776,133 @@ def _edge_locs(locs, w, h):
     return locs
 
 
+def sweep_library_bwd(torch, src, ref, x_eff, y_eff, g):
+    """The library call that computes K4's d_src (not d_ref), its operands
+    built here, outside the call: aten's grid_sampler_2d_backward of
+    F.grid_sample on the (N, C, H, W) src (in f32: the values of a bf16 src
+    are exact there) at the grid (N, D*H, W, 2), normalised for
+    align_corners=False from the sample coordinates clipped as the kernels
+    clip them, for the incoming gradient g * ref / sqrt(C) as (N, C, D*H,
+    W); output_mask (True, False), since the sweep has no coordinate
+    gradient.  Returns a function of no arguments giving d_src as (N, C, H,
+    W)."""
+    n, h, w, c = src.shape
+    d = x_eff.shape[1]
+    src_nchw = src.float().permute(0, 3, 1, 2).contiguous()
+    grad = g.view(n, d, h, w, 1) * ref.float().view(n, 1, h, w, c) / math.sqrt(c)
+    grad = grad.permute(0, 4, 1, 2, 3).reshape(n, c, d * h, w).contiguous()
+
+    def norm(coord, size):  # pixel = ((norm + 1) * size - 1) / 2
+        return (2 * coord.nan_to_num(nan=-4.0).clamp(-4, size + 4) + 1) / size - 1
+
+    grid = torch.stack([norm(x_eff, w), norm(y_eff, h)], -1).view(n, d * h, w, 2)
+    return lambda: torch.ops.aten.grid_sampler_2d_backward(
+        grad, src_nchw, grid, 0, 0, False, [True, False])[0]
+
+
+def in_image_corners(x, y, h, w, live=None):
+    """The in-image bilinear corners of samples at pixel coordinates x, y,
+    clipped and floored as the kernels do, over the samples ``live`` lets
+    through (None: all)."""
+    x0 = x.nan_to_num(nan=-4.0).clamp(-4, w + 4).floor()
+    y0 = y.nan_to_num(nan=-4.0).clamp(-4, h + 4).floor()
+    total = 0
+    for dy in (0, 1):
+        for dx in (0, 1):
+            ok = (x0 + dx >= 0) & (x0 + dx <= w - 1) & (y0 + dy >= 0) & (y0 + dy <= h - 1)
+            total += int((ok if live is None else ok & live).sum())
+    return total
+
+
+def log_atomics(name, ms, vector, scalar, earlier_scalar):
+    """The global atomic operations of one call, counted from the design:
+    16-byte vector reductions and scalar f32 atomics apart, their rate at
+    the kernel's time, and the scalar count of the design before vector
+    reductions (one atomicAdd per channel)."""
+    log(f"[kernels] {name}: global atomics {vector:.4e} vector (16 B) + "
+        f"{scalar:.4e} scalar, {(vector + scalar) / (ms * 1e-3):.4e} operations/s; "
+        f"scalar-only design {earlier_scalar:.4e}")
+
+
+def dfa3d_atomics(locs, counts, h, w, dsize, c, depth_grad=True):
+    """(vector, scalar, earlier scalar) global atomics of one DFA3D backward
+    call: per in-image corner of a counted sample c / 4 vector d_value
+    reductions (c scalar ones before), and one scalar d_dpt atomic per
+    depth bin of the lerp that lies in range with a nonzero weight."""
+    import torch
+
+    live = None
+    if counts is not None:
+        q = torch.arange(locs.shape[1], device=locs.device)
+        live = (q[None, :, None, None] < counts[:, None, None, None]).expand(locs.shape[:4])
+    x, y = locs[..., 0] * w - 0.5, locs[..., 1] * h - 0.5
+    corners = in_image_corners(x, y, h, w, live)
+    depth = 0
+    if depth_grad:  # a bin in range with a nonzero lerp weight
+        dd = (locs[..., 2] * dsize - 0.5).nan_to_num(nan=-4.0).clamp(-4, dsize + 4)
+        d0 = dd.floor()
+        for bin_, weighted in ((d0, True), (d0 + 1, dd != d0)):
+            ok = (bin_ >= 0) & (bin_ <= dsize - 1) & weighted
+            depth += in_image_corners(x, y, h, w, ok if live is None else ok & live)
+    return corners * c // 4, depth, corners * c + depth
+
+
+def _exact_centres(size):
+    """Pixels p whose centre location (p + 0.5) / size is exact in f32, so
+    that loc * size - 0.5 is p under any rounding (fused or not)."""
+    import numpy as np
+
+    return [p for p in range(size)
+            if float(np.float32((p + 0.5) / size)) * size == p + 0.5]
+
+
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` starting one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    check(view.data_ptr() % 16 != 0, "the misaligned view is aligned")
+    return view
+
+
+def _sweep_contention_cases(torch, dev, gen, n, h, w, d):
+    """Sweep inputs that pile samples onto few src rows: at the depth net's
+    shape, every 8 x 16 tile of reference pixels samples one fractional src
+    point per plane; on a 13 x 21 map, integer coordinates from -1 to the
+    size (first and last row and column included) on all planes but the
+    first, which lies behind the source camera (z < 0 at every pixel)."""
+    c = 128
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                            indexing="ij")
+    tile = ((ys // 8) * -(-w // 16) + xs // 16).reshape(-1)
+    ntiles = int(tile.max()) + 1
+    px = torch.rand((n, d, ntiles), device=dev, generator=gen) * w - 0.5
+    py = torch.rand((n, d, ntiles), device=dev, generator=gen) * h - 0.5
+    cases = [("tile collapse", (n, h, w), px[..., tile].contiguous(),
+              py[..., tile].contiguous())]
+    h2, w2 = 13, 21
+    x = torch.randint(-1, w2 + 1, (n, d, h2 * w2), device=dev, generator=gen).float()
+    y = torch.randint(-1, h2 + 1, (n, d, h2 * w2), device=dev, generator=gen).float()
+    x[..., ::5], y[..., 1::5], x[..., 2::7], y[..., 3::7] = w2 - 1, h2 - 1, 0, 0
+    # plane 0 at depth 0.5 behind a source camera 1.0 ahead: z = -0.5
+    yy, xx = torch.meshgrid(torch.arange(h2, device=dev), torch.arange(w2, device=dev),
+                            indexing="ij")
+    z = -0.5
+    x[:, 0] = (xx.reshape(-1) * 0.5 + 0.3) / z * (w2 / (w2 - 1)) - 0.5
+    y[:, 0] = (yy.reshape(-1) * 0.5 - 0.2) / z * (h2 / (h2 - 1)) - 0.5
+    cases.append(("integer grid, plane 0 behind the camera", (n, h2, w2), x, y))
+    out = []
+    for name, (nn, hh, ww), xe, ye in cases:
+        g = torch.randn(xe.shape, device=dev, generator=gen)
+        for dt in (torch.bfloat16, torch.float32):
+            src = torch.randn((nn, hh, ww, c), device=dev, generator=gen).to(dt)
+            ref = torch.randn((nn, hh, ww, c), device=dev, generator=gen).to(dt)
+            out.append((f"sweep bwd {str(dt)[6:]} ({nn},{hh},{ww},{c}) D={d} {name}",
+                        (src, ref, xe, ye, g)))
+    return out
+
+
 def phase_backward(torch, dev, report):
     from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_bwd_plain
     from sgcdet_tpu_torch.ops.sweep import sweep_bwd_cuda, sweep_bwd_plain
@@ -808,10 +945,14 @@ def phase_backward(torch, dev, report):
                 + ("" if depth_grad else ", no depth grad"))
         compare(name, kernel_name, run_k, run_p, names, extra)
         if time:
-            _timing(torch, report, name, kernel_name, run_k, run_p,
-                    lambda outs: dfa3d_work(args[:5], outs, args[6], True,
-                                            dot=sample_grads or depth_grad),
-                    run_library, main=time == "main")
+            ms = _timing(torch, report, name, kernel_name, run_k, run_p,
+                         lambda outs: dfa3d_work(args[:5], outs, args[6], True,
+                                                 dot=sample_grads or depth_grad),
+                         run_library, main=time == "main")
+            value, depth, locs = args[:3]
+            log_atomics(name, ms, *dfa3d_atomics(
+                locs, args[6], value.shape[1], value.shape[2], depth.shape[-1],
+                value.shape[-1] // args[5], depth_grad))
 
     for name, src, ref, xe, ye in _sweep_cases(torch, dev, cfg, scene, gen):
         g = torch.randn(xe.shape, device=dev, generator=gen)
@@ -819,10 +960,28 @@ def phase_backward(torch, dev, report):
         name = name.replace("sweep", "sweep bwd")
         compare(name, "sweep_bwd", lambda: sweep_bwd_cuda(*args),
                 lambda: sweep_bwd_plain(*args), ("d_src", "d_ref"))
-        _timing(torch, report, name, "sweep_bwd", lambda: sweep_bwd_cuda(*args),
-                lambda: sweep_bwd_plain(*args),
-                lambda outs: sweep_work(args, outs, True),
-                main=src.dtype == torch.bfloat16)
+        # aten's grid_sampler_2d_backward computes d_src (checked at f32)
+        library = sweep_library_bwd(torch, *args)
+        if src.dtype == torch.float32:
+            compare_tensors(torch, f"grid_sampler_2d_backward vs {name} d_src",
+                            library().permute(0, 2, 3, 1).contiguous(),
+                            sweep_bwd_cuda(*args)[0], f32_rel=1e-5)
+        ms = _timing(torch, report, name, "sweep_bwd", lambda: sweep_bwd_cuda(*args),
+                     lambda: sweep_bwd_plain(*args),
+                     lambda outs: sweep_work(args, outs, True), library,
+                     main=src.dtype == torch.bfloat16)
+        del library
+        h, w, c = src.shape[1:]
+        corners = in_image_corners(xe, ye, h, w)
+        log_atomics(name, ms, corners * c // 4, 0, corners * c)
+        if src.dtype == torch.bfloat16:
+            mis = (_misaligned(torch, src), _misaligned(torch, ref)) + args[2:]
+            compare(f"{name}, src and ref misaligned views", "sweep_bwd",
+                    lambda: sweep_bwd_cuda(*mis), lambda: sweep_bwd_plain(*mis),
+                    ("d_src", "d_ref"))
+    for name, args in _sweep_contention_cases(torch, dev, gen, N_VIEWS, 60, 80, 12):
+        compare(name, "sweep_bwd", lambda: sweep_bwd_cuda(*args),
+                lambda: sweep_bwd_plain(*args), ("d_src", "d_ref"))
 
     for level in range(3):
         x = _lifting_inputs(torch, dev, cfg, scene, level, budget[level], gen)
@@ -853,6 +1012,31 @@ def phase_backward(torch, dev, report):
                 locs_nan.view(-1)[::997] = float("nan")
                 dfa3d(f"stage2 bwd {tag} {shape} uncounted, NaN locs", "dfa3d_bwd_mh",
                       (vp, x["depth"], locs_nan, x["attn2"], g1, x["heads"], None))
+                dfa3d(f"stage2 bwd {tag} {shape} counted, value and g misaligned views",
+                      "dfa3d_bwd_mh", (_misaligned(torch, vp), x["depth"], locs2,
+                                       x["attn2"], _misaligned(torch, g1)) + s2[5:],
+                      extra=past_zero)
+            if level == 2:
+                # contention: all heads and points of a query on one pixel
+                # centre (an exact one, so every rounding floors it alike),
+                # a few centres per view; view 0 counted to 0
+                cx = torch.tensor(_exact_centres(x["w"]), device=dev)
+                cy = torch.tensor(_exact_centres(x["h"]), device=dev)
+                pick = torch.randint(0, cx.numel() * cy.numel(), (N_VIEWS, x["kb"]),
+                                     device=dev, generator=gen)
+                one = locs2.clone()
+                one[..., 0] = ((cx[pick % cx.numel()] + 0.5) / x["w"])[:, :, None, None]
+                one[..., 1] = ((cy[pick // cx.numel()] + 0.5) / x["h"])[:, :, None, None]
+                c0 = counts.clone()
+                c0[0] = 0
+                ddt = [x["depth"]] + ([x["depth"].to(vdt)] if vdt == torch.bfloat16 else [])
+                for dpt in ddt:
+                    dtag = tag if dpt.dtype == torch.float32 else "bf16/bf16"
+                    dfa3d(f"stage2 bwd {dtag} {shape} one pixel centre per query "
+                          f"({cx.numel() * cy.numel()} centres), view 0 counted to 0",
+                          "dfa3d_bwd_mh" if dpt.dtype == torch.float32 else "dfa3d_bwd_mh_bd",
+                          (vp, dpt, one, x["attn2"], g1, x["heads"], c0),
+                          extra=_zeros_past_count(torch, c0, rows=2))
             if level == 2 and vdt == torch.float32:
                 # the v1 (_bwd_kernel) and v3 (_bwd_kernel_q / _q_s1) rows:
                 # uncounted f32

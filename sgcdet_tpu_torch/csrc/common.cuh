@@ -116,10 +116,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float s) {
+// Sum over each aligned group of LANES lanes (a power of two up to 32);
+// every lane of the warp must call it, and every lane ends with its group's
+// sum.
+template <int LANES>
+__device__ __forceinline__ float group_sum(float s) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  for (int o = LANES / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
   return s;
+}
+
+__device__ __forceinline__ float warp_sum(float s) { return group_sum<32>(s); }
+
+// Add VEC f32 values to p[0, VEC) in global memory by 16-byte vector
+// reductions (atomicAdd on float4: compute capability 9.x, global memory
+// only), one L2 operation per four values where scalar atomicAdds take
+// four.  p is 16-byte aligned: the wrappers allocate the accumulation
+// buffers with ops/_cuda.py::zeros_f32 and their rows are multiples of
+// four f32.
+template <int VEC>
+__device__ __forceinline__ void atomic_add_f32(float* p, const float (&v)[VEC]) {
+  static_assert(VEC % 4 == 0, "vector reductions add four f32 at a time");
+#pragma unroll
+  for (int i = 0; i < VEC; i += 4)
+    atomicAdd(reinterpret_cast<float4*>(p + i),
+              make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
 }
 
 }  // namespace sgc

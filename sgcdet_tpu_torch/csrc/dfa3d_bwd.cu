@@ -47,11 +47,24 @@
 // each camera's visible count (most of them at the finest level) cost one
 // broadcast load of the count.
 //
-// Design: one warp per (view, query, head), lanes over the head's c
-// channels (c / 32 per lane), exactly as the forward.  The incoming gradient
-// row is loaded once into registers; each corner's dot product t is one
-// warp reduction (every lane ends with the sum), so every lane carries the
-// location and attention gradients and lane 0 writes them once per point.
+// Design: eight contiguous channels per lane (one 16-byte load of a bf16
+// row piece, two of f32), so a head of c channels takes LANES = c / 8
+// lanes and a warp takes 32 / LANES heads of one (view, query): at c = 32
+// (stage 2) a warp is one query's eight heads, four lanes each; at c = 256
+// (stage 1) a warp is one head, as the forward.  The incoming gradient row
+// is loaded once into registers, in 16-byte pieces; each corner's dot
+// product t is a reduction over the head's lanes (2 shuffle steps at
+// c = 32, 5 at c = 256), after which every lane of the head carries the
+// location and attention gradients; its first lane writes them once per
+// point, and its first two lanes add the two d_dpt bins in one instruction
+// (a single L2 request for the pair).  d_value takes two 16-byte vector
+// reductions per lane per corner, laid out so that each instruction adds
+// four whole 128-byte rows (a lane takes its target head's weight and
+// pixel by shuffle): at c = 32 that is eight vector operations and two
+// line requests per head and corner where the one-head-per-warp layout
+// issued 32 scalar ones, and a warp walks its eight heads' samples side by
+// side instead of one after another.  Counted-out queries are per warp:
+// zero location and attention gradients for its heads, nothing scattered.
 // launch_sg turns DOT off only with SAMPLE_GRADS off and a null d_depth.
 // No pair/quad row images, no dquad/un-quad pass and no transposed windows
 // (those worked around Mosaic).
@@ -59,7 +72,7 @@
 
 namespace {
 
-template <typename VT, typename DT, int VEC, bool SAMPLE_GRADS, bool DOT>
+template <typename VT, typename DT, int C, bool SAMPLE_GRADS, bool DOT>
 __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
     const VT* __restrict__ value,    // (N, H, W, heads*c)
     const DT* __restrict__ depth,    // (N, H, W, D)
@@ -72,32 +85,59 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
     float* __restrict__ d_locs,      // (N, K, heads, P, 3) or null
     float* __restrict__ d_attn,      // (N, K, heads, P) or null
     int n, int h, int w, int heads, int dsize, int k, int p) {
-  constexpr int C = 32 * VEC;  // channels per head
+  constexpr int VEC = 8;           // channels per lane
+  constexpr int LANES = C / VEC;   // lanes per head
+  constexpr int HPW = 32 / LANES;  // heads per warp
   const int lane = threadIdx.x & 31;
+  const int sub = lane % LANES;
+  const int hgroups = (heads + HPW - 1) / HPW;
   const long long warp_id =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (warp_id >= (long long)n * k * heads) return;
-  const int head = (int)(warp_id % heads);
-  const long long nq = warp_id / heads;  // cam * k + q
+  if (warp_id >= (long long)n * k * hgroups) return;
+  const int head0 = (int)(warp_id % hgroups) * HPW;
+  const long long nq = warp_id / hgroups;  // cam * k + q
   const int q = (int)(nq % k);
   const int cam = (int)(nq / k);
   const int cfull = heads * C;
 
   if (counts != nullptr && q >= counts[cam]) {
     if (SAMPLE_GRADS) {
-      for (int i = lane; i < 3 * p; i += 32) d_locs[warp_id * p * 3 + i] = 0.f;
-      for (int i = lane; i < p; i += 32) d_attn[warp_id * p + i] = 0.f;
+      const long long row = nq * heads + head0;  // first (query, head) of the warp
+      const int nh = min(HPW, heads - head0);
+      for (int i = lane; i < nh * p * 3; i += 32) d_locs[row * p * 3 + i] = 0.f;
+      for (int i = lane; i < nh * p; i += 32) d_attn[row * p + i] = 0.f;
     }
     return;
   }
 
+  // lanes of a head past the last (heads not a multiple of HPW) read the
+  // last head's operands, take part in the shuffles and write nothing
+  const bool active = head0 + lane / LANES < heads;
+  const int head = min(head0 + lane / LANES, heads - 1);
+  const bool first = active && sub == 0;
   float gv[VEC];
-  sgc::load_f32<VT, VEC>(g + nq * cfull + head * C + lane * VEC, gv);
+  sgc::load_f32<VT, VEC>(g + nq * cfull + head * C + sub * VEC, gv);
   const long long hw = (long long)h * w;
-  const float* lp = locs + warp_id * p * 3;
-  const float* ap = attn + warp_id * p;
-  const VT* vbase = value + cam * hw * cfull + head * C + lane * VEC;
-  float* dvbase = d_value + cam * hw * cfull + head * C + lane * VEC;
+  const long long qh = nq * heads + head;  // (query, head) row of locs / attn
+  const float* lp = locs + qh * p * 3;
+  const float* ap = attn + qh * p;
+  const VT* vbase = value + cam * hw * cfull + head * C + sub * VEC;
+  // d_value is written in SLOTS instructions per corner; slot s covers the
+  // warp's channels [128 s, 128 s + 128) in head order, four per lane, so
+  // each instruction adds four whole 128-byte rows.  A lane therefore
+  // writes for the head whose sample sits in lane wsrc[s], and holds that
+  // head's incoming gradient at its four channels.
+  constexpr int SLOTS = VEC / 4;
+  int wsrc[SLOTS], woff[SLOTS];
+  float gw[SLOTS][4];
+#pragma unroll
+  for (int sl = 0; sl < SLOTS; ++sl) {
+    const int f = 128 * sl + 4 * lane, hiw = f / C;
+    wsrc[sl] = hiw * LANES;
+    woff[sl] = min(head0 + hiw, heads - 1) * C + f % C;
+    sgc::load_f32<VT, 4>(g + nq * cfull + woff[sl], gw[sl]);
+  }
+  float* dvcam = d_value + cam * hw * cfull;
   const DT* dbase = depth + cam * hw * dsize;
   float* ddbase = d_depth == nullptr ? nullptr : d_depth + cam * hw * dsize;
 
@@ -121,28 +161,42 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
     for (int corner = 0; corner < 4; ++corner) {
       const int dy = corner >> 1, dx = corner & 1;
       const int yi = y0 + dy, xi = x0 + dx;
-      if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
+      // uniform over a head's lanes; the shuffles below take every lane
+      const bool in = active && yi >= 0 && yi <= h - 1 && xi >= 0 && xi <= w - 1;
       const long long pix = (long long)yi * w + xi;
-      const DT* drow = dbase + pix * dsize;
-      const float dp0 = sgc::to_f32(drow[d0c]), dp1 = sgc::to_f32(drow[d1c]);
-      const float s = dp0 * wd0 + dp1 * wd1;
       const float by = dy ? ly : 1.f - ly, bx = dx ? lx : 1.f - lx;
       const float b = by * bx;
-      const float wgt = (b * a) * s;
-      float* dvrow = dvbase + pix * cfull;
+      float dp0 = 0.f, dp1 = 0.f, t = 0.f, wgt = 0.f;
+      if (in) {
+        const DT* drow = dbase + pix * dsize;
+        dp0 = sgc::to_f32(drow[d0c]);
+        dp1 = sgc::to_f32(drow[d1c]);
+        wgt = (b * a) * (dp0 * wd0 + dp1 * wd1);
+        if (DOT) {
+          float val[VEC];
+          sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) atomicAdd(dvrow + i, wgt * gv[i]);
+          for (int i = 0; i < VEC; ++i) t += gv[i] * val[i];
+        }
+      }
+#pragma unroll
+      for (int sl = 0; sl < SLOTS; ++sl) {
+        const float ws = __shfl_sync(0xffffffffu, wgt, wsrc[sl]);
+        const int ps = __shfl_sync(0xffffffffu, (int)pix, wsrc[sl]);
+        if (!__shfl_sync(0xffffffffu, (int)in, wsrc[sl])) continue;
+        float upd[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) upd[i] = ws * gw[sl][i];
+        sgc::atomic_add_f32<4>(dvcam + (long long)ps * cfull + woff[sl], upd);
+      }
       if (!DOT) continue;
-      float val[VEC];
-      sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
-      float t = 0.f;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) t += gv[i] * val[i];
-      t = sgc::warp_sum(t);
+      t = sgc::group_sum<LANES>(t);
+      if (!in) continue;
+      const float s = dp0 * wd0 + dp1 * wd1;
       const float t_s = t * b * a;  // gradient of the depth score s
-      if (lane == 0 && ddbase != nullptr) {
-        if (wd0 != 0.f) atomicAdd(ddbase + pix * dsize + d0c, t_s * wd0);
-        if (wd1 != 0.f) atomicAdd(ddbase + pix * dsize + d1c, t_s * wd1);
+      if (active && sub < 2 && ddbase != nullptr) {  // one instruction, both bins
+        const float wd = sub == 0 ? wd0 : wd1;
+        if (wd != 0.f) atomicAdd(ddbase + pix * dsize + (sub == 0 ? d0c : d1c), t_s * wd);
       }
       if (SAMPLE_GRADS) {
         const float t_b = t * a * s;  // gradient of the bilinear weight b
@@ -152,42 +206,43 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
         g_ld += t_s * ((dv1 ? dp1 : 0.f) - (dv0 ? dp0 : 0.f));
       }
     }
-    if (SAMPLE_GRADS && lane == 0) {
-      float* dl = d_locs + (warp_id * p + pt) * 3;
+    if (SAMPLE_GRADS && first) {
+      float* dl = d_locs + (qh * p + pt) * 3;
       dl[0] = g_lx * w;
       dl[1] = g_ly * h;
       dl[2] = g_ld * dsize;
-      d_attn[warp_id * p + pt] = g_a;
+      d_attn[qh * p + pt] = g_a;
     }
   }
 }
 
-template <typename VT, typename DT, int VEC, bool SAMPLE_GRADS, bool DOT>
+template <typename VT, typename DT, int C, bool SAMPLE_GRADS, bool DOT>
 void launch(const void* value, const void* depth, const float* locs,
             const float* attn, const int* counts, const void* g, float* d_value,
             float* d_depth, float* d_locs, float* d_attn, int n, int h, int w,
             int heads, int dsize, int k, int p, cudaStream_t stream) {
-  const long long warps = (long long)n * k * heads;
+  constexpr int HPW = 32 / (C / 8);  // heads per warp
+  const long long warps = (long long)n * k * ((heads + HPW - 1) / HPW);
   const int threads = 256;
   const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
-  dfa3d_bwd_kernel<VT, DT, VEC, SAMPLE_GRADS, DOT><<<(unsigned)blocks, threads, 0, stream>>>(
+  dfa3d_bwd_kernel<VT, DT, C, SAMPLE_GRADS, DOT><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
       counts, static_cast<const VT*>(g), d_value, d_depth, d_locs, d_attn, n,
       h, w, heads, dsize, k, p);
 }
 
-template <typename VT, typename DT, int VEC>
+template <typename VT, typename DT, int C>
 void launch_sg(const void* value, const void* depth, const float* locs,
                const float* attn, const int* counts, const void* g,
                float* d_value, float* d_depth, float* d_locs, float* d_attn,
                int n, int h, int w, int heads, int dsize, int k, int p,
                cudaStream_t stream) {
   if (d_locs != nullptr)
-    launch<VT, DT, VEC, true, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
+    launch<VT, DT, C, true, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
   else if (d_depth != nullptr)
-    launch<VT, DT, VEC, false, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
+    launch<VT, DT, C, false, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
   else
-    launch<VT, DT, VEC, false, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
+    launch<VT, DT, C, false, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream);
 }
 
 template <typename VT, typename DT>
@@ -197,8 +252,8 @@ int dispatch_c(int c, const void* value, const void* depth, const float* locs,
                int n, int h, int w, int heads, int dsize, int k, int p,
                cudaStream_t stream) {
   switch (c) {
-    case 32: launch_sg<VT, DT, 1>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream); break;
-    case 256: launch_sg<VT, DT, 8>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream); break;
+    case 32: launch_sg<VT, DT, 32>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream); break;
+    case 256: launch_sg<VT, DT, 256>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

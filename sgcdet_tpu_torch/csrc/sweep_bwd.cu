@@ -17,18 +17,26 @@
 //
 // What bounds it on this card: the d_src scatter.  Every (n, d, p) adds C
 // f32 values at each of up to four data-dependent corner rows: 40 x 12 x
-// 4800 x 4 x 128 = 1.2e9 atomic adds per call at the ScanNet width, which
-// resolve in L2 (the 40 x 60 x 80 x 128 f32 d_src buffer is 98 MB, twice the
-// 50 MB L2, but neighbouring pixels hit neighbouring rows).  The corner
-// re-gather for d_ref is the forward's traffic again.
+// 4800 x 4 x 128 = 1.2e9 f32 additions per call at the ScanNet width,
+// which resolve in L2 (the 40 x 60 x 80 x 128 f32 d_src buffer is 98 MB,
+// twice the 50 MB L2, but neighbouring pixels hit neighbouring rows).  The
+// corner re-gather for d_ref is the forward's traffic again.
 //
 // Design: one warp per (view, reference pixel), lanes over the C channels
-// (C / 32 contiguous channels per lane), as in the forward.  The warp keeps
-// its ref row and its d_ref accumulator in registers and walks the D planes,
-// so d_ref is written once with no atomics; d_src takes one f32 atomicAdd per
-// channel per in-image corner straight into (N, H, W, C) — no quad rows and
-// no un-quad pass (those worked around Mosaic).  Off-image corners are
-// skipped.
+// (C / 32 = 4 contiguous channels per lane), as in the forward.  The warp
+// keeps its ref row and its d_ref accumulator in registers and walks the D
+// planes, so d_ref is written once with no atomics.  d_src takes one
+// 16-byte vector reduction per lane per in-image corner straight into
+// (N, H, W, C): a warp's corner update is one instruction over one
+// contiguous 512-byte row (sixteen full 32-byte sectors), where four
+// scalar atomicAdds per lane took four instructions, each touching the
+// same sixteen sectors with two floats apiece.  That cuts the L2 atomic
+// operations 4x, to at most 2.9e8 per call (1.9e8 on the indoor rig, whose
+// other corners fall off the image).  Fewer reductions bought nothing once
+// they cost parallelism: a warp per run of pixels merging shared corner
+// rows, and planes split over more warps, were both slower on the card.
+// Off-image corners are skipped; no quad rows and no un-quad pass (those
+// worked around Mosaic).
 #include "common.cuh"
 
 namespace {
@@ -74,13 +82,14 @@ __global__ void __launch_bounds__(256) sweep_bwd_kernel(
       if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
       const float cw = gs * ((dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx));
       const long long row = ((long long)yi * w + xi) * C;
-      float v[VEC];
+      float v[VEC], upd[VEC];
       sgc::load_f32<T, VEC>(sbase + row, v);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         dr[i] += cw * v[i];
-        atomicAdd(dsbase + row + i, cw * r[i]);
+        upd[i] = cw * r[i];
       }
+      sgc::atomic_add_f32<VEC>(dsbase + row, upd);
     }
   }
   sgc::store_from_f32<float, VEC>(d_ref + (cam * hw + pix) * C + lane * VEC, dr);

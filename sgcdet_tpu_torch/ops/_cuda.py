@@ -188,3 +188,14 @@ def check_cuda_input(t: torch.Tensor, name: str, dtypes, ndim: int,
     if t.data_ptr() % 16:
         t = t.clone()
     return t
+
+
+def zeros_f32(shape, device: torch.device) -> torch.Tensor:
+    """A zeroed f32 buffer that a kernel accumulates into by 16-byte vector
+    reductions (``common.cuh::atomic_add_f32``), which need a 16-byte-aligned
+    base; raises where the allocator gave another."""
+    t = torch.zeros(shape, dtype=torch.float32, device=device)
+    if t.data_ptr() % 16:
+        raise RuntimeError(f"f32 accumulation buffer at {t.data_ptr():#x} is not "
+                           "16-byte aligned")
+    return t

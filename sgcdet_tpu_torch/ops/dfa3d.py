@@ -38,7 +38,7 @@ import ctypes
 
 import torch
 
-from ._cuda import DTYPE_CODE, Kernel, check_cuda_input, use_kernel
+from ._cuda import DTYPE_CODE, Kernel, check_cuda_input, use_kernel, zeros_f32
 from .sampling import bilinear_corners, clip_coord, gather_rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -215,8 +215,9 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
                    valid_counts=None, sample_grads=True, depth_grad=True):
     """Kernels K6 (heads = P = 1) / K5 (multi-head), or K6' / K5' at bf16
     depth, on CUDA tensors; same contract as ``dfa3d_bwd_plain``.  The
-    kernels accumulate every gradient in f32 (d_value and d_dpt by
-    atomics) and write d_locs and d_attn directly; each is cast once to its
+    kernels accumulate every gradient in f32 (d_value by 16-byte vector
+    atomics into an aligned buffer, d_dpt by scalar ones) and write d_locs
+    and d_attn directly; each is cast once to its
     input's dtype.  Without ``depth_grad`` they skip the depth atomics, and
     without ``sample_grads`` too the value gather and dot products."""
     value, depth, loc, att, counts, stage1, sizes = _check(
@@ -226,7 +227,7 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     if gg.shape != (n, k, heads * c):
         raise ValueError(f"g {tuple(gg.shape)} must be {(n, k, heads * c)}")
     f32 = dict(dtype=torch.float32, device=value.device)
-    d_value = torch.zeros(value.shape, **f32)
+    d_value = zeros_f32(value.shape, value.device)
     d_depth = torch.zeros(depth.shape, **f32) if depth_grad else None
     d_locs = torch.empty(loc.shape, **f32) if sample_grads else None
     d_attn = torch.empty(att.shape, **f32) if sample_grads else None

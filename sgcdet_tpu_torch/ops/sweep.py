@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from ._cuda import DTYPE_CODE, Kernel, check_cuda_input, use_kernel
+from ._cuda import DTYPE_CODE, Kernel, check_cuda_input, use_kernel, zeros_f32
 from .sampling import bilinear_corners, gather_rows
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -100,15 +100,16 @@ def sweep_fwd_cuda(src_img, ref_img, x_eff, y_eff):
 def sweep_bwd_cuda(src_img, ref_img, x_eff, y_eff, g):
     """Kernel K4 on CUDA tensors: (d_src, d_ref) of the correlation for its
     incoming gradient ``g`` (N, D, H*W); same contract as
-    ``sweep_bwd_plain``.  K4 accumulates both in f32 (d_src by atomics);
-    they are cast once to the input dtype."""
+    ``sweep_bwd_plain``.  K4 accumulates both in f32 (d_src by 16-byte
+    vector atomics into an aligned buffer); they are cast once to the input
+    dtype."""
     src, ref, xe, ye = _check(src_img, ref_img, x_eff, y_eff)
     n, h, w, c = src.shape
     d = xe.shape[1]
     gg = check_cuda_input(g.float(), "g", (torch.float32,), 3, src.device)
     if gg.shape != xe.shape:
         raise ValueError(f"g {tuple(gg.shape)} must be {tuple(xe.shape)}")
-    d_src = torch.zeros((n, h, w, c), dtype=torch.float32, device=src.device)
+    d_src = zeros_f32((n, h, w, c), src.device)
     d_ref = torch.empty((n, h, w, c), dtype=torch.float32, device=src.device)
     SWEEP_BWD(src.device, DTYPE_CODE[src.dtype], src.data_ptr(), ref.data_ptr(),
               xe.data_ptr(), ye.data_ptr(), gg.data_ptr(), d_src.data_ptr(),

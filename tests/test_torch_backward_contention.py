@@ -1,0 +1,163 @@
+"""The contention cases of the port's scatter-bound backward kernels, on the
+CPU: the plain versions of the sweep backward (K4's) and of the DFA3D
+stage-2 backward at c = 32 per head (K5's) against ``jax.vjp`` of the JAX
+package, at f32, on inputs made with numpy (``tests/torch_port_tiny.py``,
+whose same cases ``tests/test_torch_cuda.py`` runs through the kernels on a
+card):
+
+* sweeps whose coordinates pile many reference pixels onto one src pixel
+  (a tile's, a whole image's, and a homography that collapses the image),
+  on a 13 x 21 map that no tile divides; integer coordinates on the first
+  and last row and column; a plane behind the source camera;
+* a DFA3D stage 2 whose heads and points all sample one pixel centre per
+  query; counted queries with a view of count 0.
+
+The plain versions are what the kernels are held to, so a case that the
+JAX package and the plain version agree on pins the kernels' contract too.
+Tolerance: f32 on both sides, so only the summation order differs: 1e-5 of
+each gradient's largest magnitude.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sgcdet_tpu.models import depth_net as jdepth
+from sgcdet_tpu.ops.dfa3d_fast import bilinear_sample_patch
+from sgcdet_tpu.ops.msda import dfa3d_attention as jax_oracle
+
+from sgcdet_tpu_torch.ops import dfa3d_attend
+from sgcdet_tpu_torch.ops._cuda import check_cuda_input
+from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
+
+from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
+    DFA3D_CONTENTION,
+    SWEEP_CONTENTION,
+    assert_close_scaled,
+    dfa3d_contention_case,
+    graph_has,
+    keep_global_torch_rng,
+    sweep_contention_case,
+)
+
+REL = 1e-5
+GRAD_NAMES = ("d_value", "d_dpt", "d_locs", "d_attn")
+
+
+def _jax_sweep(src, ref, x_eff, y_eff):
+    """The JAX package's plane sweep off the TPU (``depth_net.
+    plane_sweep_correlation``'s XLA path: one ``bilinear_sample_patch`` per
+    plane, dot with the reference row, / sqrt(C)) at given sample
+    coordinates.  (N, D, H*W)."""
+    n, h, w, c = src.shape
+    ref_flat = ref.reshape(n, h * w, c)
+    planes = []
+    for d in range(x_eff.shape[1]):
+        warped = jax.vmap(bilinear_sample_patch)(src, x_eff[:, d], y_eff[:, d])
+        planes.append((warped * ref_flat).sum(-1) / jnp.sqrt(jnp.float32(c)))
+    return jnp.stack(planes, 1)
+
+
+def _torch_grads(fn, arrays, g, wrt):
+    ts = [torch.from_numpy(a).requires_grad_(i in wrt) for i, a in enumerate(arrays)]
+    out = fn(*ts)
+    grads = torch.autograd.grad(out, [ts[i] for i in wrt], torch.from_numpy(g))
+    return out, [x.numpy() for x in grads]
+
+
+@pytest.mark.parametrize("case", SWEEP_CONTENTION)
+def test_sweep_backward_contention_matches_jax(case):
+    src, ref, x_eff, y_eff, g = sweep_contention_case(case)
+    out, (d_src, d_ref) = _torch_grads(sweep_fwd, (src, ref, x_eff, y_eff), g, (0, 1))
+    assert graph_has(out, "_SweepBackward")
+    _, vjp = jax.vjp(lambda s, r: _jax_sweep(s, r, jnp.asarray(x_eff), jnp.asarray(y_eff)),
+                     jnp.asarray(src), jnp.asarray(ref))
+    j_src, j_ref = vjp(jnp.asarray(g))
+    assert np.abs(d_src).max() > 0
+    assert_close_scaled(d_src, np.asarray(j_src), REL, f"{case} d_src")
+    assert_close_scaled(d_ref, np.asarray(j_ref), REL, f"{case} d_ref")
+
+
+def test_sweep_backward_homography_collapse_matches_jax():
+    """A homography that sends every reference pixel of a plane to one src
+    point (no rotation, the source ray fixed by the translation alone):
+    through both packages' plane_sweep_correlation, projections in."""
+    rng = np.random.RandomState(3)
+    n, c, h, w = 2, 128, 13, 21
+    src = rng.randn(n, c, h, w).astype(np.float32)
+    ref = rng.randn(n, c, h, w).astype(np.float32)
+    ref_proj = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    src_proj = np.tile(np.array([[0, 0, 0, 7.3], [0, 0, 0, 4.1], [0, 0, 1, 0],
+                                 [0, 0, 0, 1]], np.float32), (n, 1, 1))
+    dv = np.array([1.0, 1.7, 2.9, 4.1], np.float32)
+    g = rng.randn(n, len(dv), h, w).astype(np.float32)
+    out, (d_src, d_ref) = _torch_grads(plane_sweep_correlation,
+                                       (src, ref, src_proj, ref_proj, dv), g, (0, 1))
+    assert graph_has(out, "_SweepBackward")
+
+    def corr(s, r):
+        return jdepth.plane_sweep_correlation(s, r, jnp.asarray(src_proj),
+                                              jnp.asarray(ref_proj), jnp.asarray(dv))
+
+    _, vjp = jax.vjp(corr, jnp.asarray(src), jnp.asarray(ref))
+    j_src, j_ref = vjp(jnp.asarray(g))
+    # every plane's updates land on the four src pixels around one point
+    assert (np.abs(d_src).sum(1) > 0).sum() <= 4 * len(dv) * n
+    assert_close_scaled(d_src, np.asarray(j_src), REL, "collapse d_src")
+    assert_close_scaled(d_ref, np.asarray(j_ref), REL, "collapse d_ref")
+
+
+def _oracle_grads(value, dpt, locs, attn, heads, g):
+    n, h, w, cfull = value.shape
+
+    def attend(v, d, lo, at):
+        out, _ = jax_oracle(v.reshape(n, h * w, heads, cfull // heads),
+                            d.reshape(n, h * w, -1), ((h, w),),
+                            lo[:, :, :, None], at[:, :, :, None])
+        return out
+
+    _, vjp = jax.vjp(attend, *map(jnp.asarray, (value, dpt, locs, attn)))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("case", DFA3D_CONTENTION)
+def test_dfa3d_stage2_backward_contention_matches_jax(case):
+    value, dpt, locs, attn, g, counts = dfa3d_contention_case(case)
+    heads = locs.shape[2]
+    vc = None if counts is None else torch.from_numpy(counts)
+    out, got = _torch_grads(lambda *a: dfa3d_attend(*a, heads, valid_counts=vc),
+                            (value, dpt, locs, attn), g, (0, 1, 2, 3))
+    assert graph_has(out, "_DFA3DBackward")
+    g_live = g
+    if counts is not None:  # counted-out queries pass no gradient
+        g_live = g * (np.arange(g.shape[1])[None, :] < counts[:, None])[..., None]
+    want = _oracle_grads(value, dpt, locs, attn, heads, g_live)
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        assert np.isfinite(a).all(), name
+        assert_close_scaled(a, b, REL, f"{case} {name}")
+    if case == "one_corner":  # three value rows per view take every update
+        assert ((np.abs(got[0]).sum(-1) > 0).sum((1, 2)) <= 3).all()
+    if counts is not None:
+        for cam, cnt in enumerate(counts):
+            assert (got[2][cam, cnt:] == 0).all() and (got[3][cam, cnt:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_operands_are_copied_to_16_byte_alignment(dtype):
+    """The kernels read 16 bytes a lane: a contiguous view at an element
+    offset that breaks 16-byte alignment reaches them as an aligned copy
+    with the same values (the check the wrappers run before every launch,
+    here on the CPU device)."""
+    base = torch.arange(2 * 3 * 128 + 8, dtype=torch.float32).to(dtype)
+    assert base.data_ptr() % 16 == 0
+    view = base[1:1 + 768].view(2, 3, 128)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    got = check_cuda_input(view, "src_img", (dtype,), 3, view.device)
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got, view)
+    step = 16 // base.element_size()  # an aligned view is passed as it is
+    aligned = base[step:step + 768].view(2, 3, 128)
+    assert check_cuda_input(aligned, "src_img", (dtype,), 3,
+                            view.device).data_ptr() == aligned.data_ptr()

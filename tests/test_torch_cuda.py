@@ -3,7 +3,10 @@ the forward kernels K1-K3 (and K2'/K3' at bf16 depth), and the backward
 kernels K4-K6 (K6'/K5') through autograd (the ops' ``torch.autograd.
 Function``s) against the plain versions' VJPs; the 2D lifting path
 (``ViewTransformer(use_depth=False)``) through the kernels against its plain
-run; the windowed kernels of the ``sort_queries`` path against their plain
+run; the backward kernels K4 and K5 on the contention cases of
+``torch_port_tiny`` (many samples on one row, untiled sizes, integer and
+edge coordinates, a plane behind the camera, counted views of count 0) and
+on operands that are views at an offset breaking 16-byte alignment; the windowed kernels of the ``sort_queries`` path against their plain
 versions and the template kernels, in the coherent and random regimes, and
 the sorted ``ViewTransformer`` through them; the row gather/scatter probe
 kernels against their plain versions.
@@ -22,15 +25,22 @@ from sgcdet_tpu_torch.experiments import probes
 from sgcdet_tpu_torch.models.layers import init_weights, set_compute_dtype
 from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
 from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
-from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_fwd_cuda
+from sgcdet_tpu_torch.ops.dfa3d import (dfa3d_attention_plain, dfa3d_bwd_cuda,
+                                        dfa3d_bwd_plain, dfa3d_fwd_cuda)
 from sgcdet_tpu_torch.ops.dfa3d_windowed import dfa3d_attention_windowed, plan_windows
-from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
+from sgcdet_tpu_torch.ops.sweep import (plane_sweep_correlation, sweep_bwd_cuda,
+                                        sweep_bwd_plain, sweep_fwd, sweep_fwd_cuda,
+                                        sweep_fwd_plain)
 
 from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
+    DFA3D_CONTENTION,
+    SWEEP_CONTENTION,
     assert_close_scaled,
+    dfa3d_contention_case,
     dfa3d_inputs,
     graph_has,
     keep_global_torch_rng,
+    sweep_contention_case,
     sweep_inputs,
     windowed_inputs,
 )
@@ -154,6 +164,81 @@ def test_sweep_backward_kernel_matches_plain(cuda_device, dtype):
         assert a.dtype == dtype
         assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
                             _rel(dtype), f"sweep {name}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SWEEP_CONTENTION)
+def test_sweep_backward_kernel_contention(cuda_device, case, dtype):
+    """K4's vector reductions where many samples add into one src row."""
+    src, ref, x, y, g = (torch.from_numpy(a).to(cuda_device)
+                         for a in sweep_contention_case(case))
+    src, ref = src.to(dtype), ref.to(dtype)
+    before = KERNELS["sweep_bwd"].launches
+    got = sweep_bwd_cuda(src, ref, x, y, g)
+    assert KERNELS["sweep_bwd"].launches == before + 1
+    want = sweep_bwd_plain(src, ref, x, y, g)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_src", "d_ref"), got, want):
+        assert a.dtype == dtype
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                            _rel(dtype), f"{case} {name}")
+
+
+@pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
+@pytest.mark.parametrize("case", DFA3D_CONTENTION)
+def test_dfa3d_stage2_backward_kernel_contention(cuda_device, case, vdtype, ddtype):
+    """K5 (K5' at bf16 depth): a query's eight heads on one warp, all on one
+    pixel; counted views of count 0."""
+    value, dpt, locs, attn, g, counts = (
+        None if a is None else torch.from_numpy(a).to(cuda_device)
+        for a in dfa3d_contention_case(case))
+    value, dpt, g = value.to(vdtype), dpt.to(ddtype), g.to(vdtype)
+    heads = locs.shape[2]
+    name = _dfa3d_kernel_name("bwd", heads, locs.shape[3], ddtype)
+    before = KERNELS[name].launches
+    got = dfa3d_bwd_cuda(value, dpt, locs, attn, g, heads, counts)
+    assert KERNELS[name].launches == before + 1
+    want = dfa3d_bwd_plain(value, dpt, locs, attn, g, heads, counts)
+    torch.cuda.synchronize()
+    for gname, a, b in zip(("d_value", "d_dpt", "d_locs", "d_attn"), got, want):
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                            _rel(a.dtype), f"{case} {gname}")
+    if counts is not None:
+        for cam, cnt in enumerate(counts.tolist()):
+            assert (got[2][cam, cnt:] == 0).all() and (got[3][cam, cnt:] == 0).all()
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernels_take_misaligned_views(cuda_device, dtype):
+    """The 16-byte loads never see a misaligned operand: the wrappers copy
+    a view that breaks the alignment, so the sweep and the DFA3D stage 2,
+    forward and backward, give the plain versions' results on it."""
+    src, ref, x, y, g = (torch.from_numpy(a).to(cuda_device)
+                         for a in sweep_contention_case("tile_collapse"))
+    src, ref = _misaligned(src.to(dtype)), _misaligned(ref.to(dtype))
+    pairs = [(sweep_fwd_cuda(src, ref, x, y), sweep_fwd_plain(src, ref, x, y))]
+    pairs += zip(sweep_bwd_cuda(src, ref, x, y, g), sweep_bwd_plain(src, ref, x, y, g))
+    value, dpt, locs, attn, g2, _ = (None if a is None else torch.from_numpy(a).to(cuda_device)
+                                     for a in dfa3d_contention_case("counted"))
+    value, g2 = _misaligned(value.to(dtype)), _misaligned(g2.to(dtype))
+    pairs.append((dfa3d_fwd_cuda(value, dpt, locs, attn, 8),
+                  dfa3d_attention_plain(value, dpt, locs, attn, 8)))
+    pairs += zip(dfa3d_bwd_cuda(value, dpt, locs, attn, g2, 8),
+                 dfa3d_bwd_plain(value, dpt, locs, attn, g2, 8))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(pairs):
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                            _rel(a.dtype), f"misaligned output {i}")
 
 
 @pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],

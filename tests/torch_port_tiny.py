@@ -148,3 +148,91 @@ def graph_has(t, name):
         seen.add(fn)
         todo.extend(f for f, _ in fn.next_functions)
     return False
+
+
+# The contention cases of the backward kernels: tests/test_torch_backward_
+# contention.py holds the plain versions against JAX on them (CPU), and
+# tests/test_torch_cuda.py the kernels against the plain versions (card).
+SWEEP_CONTENTION = ("tile_collapse", "image_collapse", "integer_grid", "plane_behind")
+DFA3D_CONTENTION = ("one_corner", "counted")
+
+
+def sweep_contention_case(name, n=2, h=13, w=21, c=128, d=4, seed=0):
+    """(src, ref, x_eff, y_eff, g) as f32 NumPy for one contention case of
+    the sweep backward, on a map that no 8 x 16 tile divides:
+
+    * ``tile_collapse``: every 8 x 16 tile of reference pixels samples one
+      fractional src point per plane, so the tile's pixels all add into the
+      same four src rows (the last tile onto the last column);
+    * ``image_collapse``: every pixel of a plane samples one point;
+    * ``integer_grid``: integer coordinates from -1 to the size, the first
+      and last row and column included (one corner of weight 1);
+    * ``plane_behind``: the coordinates of a rig whose first plane lies
+      behind the source camera (z < 0 at every pixel), by the homography of
+      ``models/depth_net.py::_warp_grid``.
+    """
+    rng = np.random.RandomState(seed)
+    src = rng.randn(n, h, w, c).astype(np.float32)
+    ref = rng.randn(n, h, w, c).astype(np.float32)
+    g = rng.randn(n, d, h * w).astype(np.float32)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    if name == "tile_collapse":
+        tile = ((ys // 8) * -(-w // 16) + xs // 16).ravel()
+        ntiles = int(tile.max()) + 1
+        px = rng.uniform(-0.5, w - 0.5, (n, d, ntiles))
+        py = rng.uniform(-0.5, h - 0.5, (n, d, ntiles))
+        px[..., -1] = w - 1.0
+        x, y = px[..., tile], py[..., tile]
+    elif name == "image_collapse":
+        x = np.broadcast_to(rng.uniform(0, w - 1, (n, d, 1)), (n, d, h * w))
+        y = np.broadcast_to(rng.uniform(0, h - 1, (n, d, 1)), (n, d, h * w))
+    elif name == "integer_grid":
+        x = rng.randint(-1, w + 1, (n, d, h * w))
+        y = rng.randint(-1, h + 1, (n, d, h * w))
+        x[:, :, ::5], y[:, :, 1::5] = w - 1, h - 1
+        x[:, :, 2::7], y[:, :, 3::7] = 0, 0
+    elif name == "plane_behind":
+        rot = np.eye(3) + rng.uniform(-1e-3, 1e-3, (n, 3, 3))
+        trans = np.array([0.3, -0.2, -1.0])
+        depths = np.array([0.5, 1.5, 2.5, 3.5])[:d]
+        xyz = np.stack([xs.ravel(), ys.ravel(), np.ones(h * w)], 0)
+        p = (np.einsum("nij,jk->nik", rot, xyz)[:, :, None] * depths[None, None, :, None]
+             + trans[None, :, None, None])
+        assert (p[:, 2, 0] < 0).all() and (p[:, 2, 1:] > 0).all()
+        x = p[:, 0] / p[:, 2] * (w / (w - 1)) - 0.5
+        y = p[:, 1] / p[:, 2] * (h / (h - 1)) - 0.5
+    else:
+        raise ValueError(name)
+    return (src, ref, np.ascontiguousarray(x, np.float32),
+            np.ascontiguousarray(y, np.float32), g)
+
+
+def dfa3d_contention_case(name, n=3, h=8, w=16, d=8, k=20, heads=8, p=4, c=32,
+                          seed=0):
+    """(value, depth, locs, attn, g, valid_counts) as NumPy for one
+    contention case of the DFA3D stage-2 backward at c channels per head;
+    valid_counts is None or (n,) int32.  h and w are powers of two, so a
+    pixel centre's location times the size is exact in f32 and every
+    implementation floors it alike (the location gradient jumps there):
+
+    * ``one_corner``: all heads and points of a query sample one pixel
+      centre (loc * size - 0.5 an integer: one corner of weight 1), and
+      the queries share three pixels, the last row and column's among them;
+    * ``counted``: ``dfa3d_inputs``' spread of locations, valid_counts 0 for
+      the first view, k // 3 for the second and k for the rest.
+    """
+    value, dpt, locs, attn = dfa3d_inputs(heads, p, c, n=n, h=h, w=w, d=d, k=k,
+                                          seed=seed)
+    rng = np.random.RandomState(seed + 1)
+    g = rng.randn(n, k, heads * c).astype(np.float32)
+    counts = None
+    if name == "one_corner":
+        pix = np.array([[0, 0], [h // 2, w // 3], [h - 1, w - 1]])[rng.randint(0, 3, (n, k))]
+        locs[..., 0] = ((pix[..., 1] + 0.5) / w)[:, :, None, None]
+        locs[..., 1] = ((pix[..., 0] + 0.5) / h)[:, :, None, None]
+    elif name == "counted":
+        counts = np.full(n, k, np.int32)
+        counts[0], counts[1] = 0, k // 3
+    else:
+        raise ValueError(name)
+    return value, dpt, locs, attn, g, counts
