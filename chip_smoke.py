@@ -20,9 +20,15 @@ Phases, each fatal on failure:
               uncounted bf16/bf16 multi-head with a 12-bin depth (packed
               quads), uncounted f32/f32 and bf16/f32 stage 1 and multi-head
               (v1, v3); and F.grid_sample, the library call that computes the
-              2D stage 1, against the kernel at f32.  Prints each max abs
-              error with its worst ratio to the per-element tolerance, and
-              the warm time of kernel, plain version and library call.
+              2D stage 1, against the kernel at f32.  At a small size: a
+              sweep whose 7 x 9 map and 5 planes fill no tile or plane group
+              of K1 (with NaN / inf coordinates), and DFA3D stage 2 with 1,
+              2 and 6 heads x 4 points and 8 heads x 3 points (head groups
+              that fill part of a warp), every type pair, counted and
+              uncounted.  Prints each max abs error with its worst ratio to
+              the per-element tolerance, and the warm time of kernel, plain
+              version and library call, with the earlier times of K1, K2,
+              K3, K2' and K3' (PERF.md) beside this run's.
 3b. backward — every backward kernel against its plain version (the VJP of
               the plain forward) on the card, at the train path's shapes:
               bf16 and f32 value with f32 depth; out-of-image, behind-camera,
@@ -40,6 +46,7 @@ Phases, each fatal on failure:
               view counted to 0, and operands that are views breaking
               16-byte alignment.  aten's grid_sampler_2d_backward, the
               library call that computes K4's d_src, against K4 at f32.
+              The partial head groups of phase 3 through K5.
               Prints each gradient's max abs error, its worst ratio to the
               per-element tolerance, the warm time of kernel, plain version
               and library call, and the global atomic operations of K4, K5
@@ -189,6 +196,16 @@ LAUNCHES_PER_STEP_SORTED = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_win_fwd_s1": 
                             "dfa3d_bwd_s1": 3, "dfa3d_win_fwd_mh": 3,
                             "dfa3d_win_bwd_mh": 3}
 TRAIN_STEPS = 4
+# the forward kernels' earlier times (PERF.md section 6, rows 1, 2, 4, 5,
+# 8-10, 12, 13: this script on an H100 80GB HBM3 at 700 W), printed beside
+# this run's: K1 and K3 before their 16-byte-lane layouts, K2 before the
+# one-point case had a kernel of its own
+EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
+              "K2' 2D": 0.1157, "K3' 2D": 1.2694, "K3 f32/f32 uncounted": 0.9651,
+              "K2 f32/f32 uncounted": 0.1146}
+# small DFA3D stage-2 shapes whose head groups fill only part of a warp of
+# eight 4-lane heads at c = 32: (heads, points)
+PARTIAL_HEADS = ((1, 4), (2, 4), (6, 4), (8, 3))
 
 
 class SmokeFailure(Exception):
@@ -392,6 +409,44 @@ def _sweep_cases(torch, dev, cfg, scene, gen):
     return cases
 
 
+def _sweep_edge_cases(torch, dev, gen, n=2, h=7, w=9, d=5):
+    """Sweeps whose H * W = 63 fills no tile of K1's reference pixels and
+    whose D = 5 planes no group of planes it loads together, bf16 and f32:
+    coordinates from 2 pixels outside the map to 1 past it, with NaN, inf
+    and far-off ones injected.  Yields (name, (src, ref, x, y))."""
+    x = torch.rand((n, d, h * w), device=dev, generator=gen) * (w + 3) - 2
+    y = torch.rand((n, d, h * w), device=dev, generator=gen) * (h + 3) - 2
+    x.view(-1)[::11] = float("nan")
+    y.view(-1)[5::13] = float("inf")
+    x.view(-1)[7::17] = -float("inf")
+    y.view(-1)[3::19] = 1e30
+    for dt in (torch.bfloat16, torch.float32):
+        src = torch.randn((n, h, w, 128), device=dev, generator=gen).to(dt)
+        ref = torch.randn((n, h, w, 128), device=dev, generator=gen).to(dt)
+        yield f"sweep {str(dt)[6:]} ({n},{h},{w},128) D={d}, ragged tile", (src, ref, x, y)
+
+
+def _partial_head_cases(torch, dev, gen, n=4, h=14, w=20, k=300, dsize=12):
+    """DFA3D stage-2 operands at a small size whose head groups fill only
+    part of a warp of eight 4-lane heads at c = 32 (PARTIAL_HEADS), with
+    locations spilling off every side: every type pair, counted (views of
+    count 0, 100, 299 and all 300 queries) and uncounted.  Yields (name,
+    (value, depth, locs, attn, heads, counts))."""
+    counted = torch.tensor([0, 100, 299, 300], dtype=torch.int32, device=dev)
+    for heads, p in PARTIAL_HEADS:
+        value = torch.randn((n, h, w, heads * 32), device=dev, generator=gen)
+        depth = torch.softmax(torch.randn((n, h, w, dsize), device=dev, generator=gen), -1)
+        locs = torch.rand((n, k, heads, p, 3), device=dev, generator=gen) * 1.4 - 0.2
+        attn = torch.rand((n, k, heads, p), device=dev, generator=gen)
+        for vdt, ddt in ((torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+                         (torch.bfloat16, torch.bfloat16)):
+            tag = f"{str(vdt)[6:]}/{str(ddt)[6:]}"
+            for counts in (counted, None):
+                yield (f"{tag} ({n},{h},{w}) K={k}, {heads} heads x {p} points, "
+                       + ("counted" if counts is not None else "uncounted"),
+                       (value.to(vdt), depth.to(ddt), locs, attn, heads, counts))
+
+
 def _level_voxels(torch, dev, cfg, level):
     """The voxel centres one lifting level takes: all of them at level 0, a
     seeded sorted subset of top-k size above (the occupancy top-k's count
@@ -509,11 +564,12 @@ def grid_sample_stage1_bwd(torch, g, value, grid):
 
 
 def _timing(torch, report, name, kernel_name, run_kernel, run_plain, work,
-            run_library=None, main=False):
+            run_library=None, main=False, earlier=None):
     """Warm times of kernel, plain version and library call, and the bound
     from ``work(kernel outputs) -> (bytes, flops)``; the report keeps the
-    case at the shapes of the kernel's main path (``main``).  Returns the
-    kernel's time."""
+    case at the shapes of the kernel's main path (``main``).  ``earlier``:
+    a key of EARLIER_MS, printed beside the time.  Returns the kernel's
+    time."""
     ms_k = cuda_ms(torch, run_kernel)
     ms_p = cuda_ms(torch, run_plain, iters=2)
     ms_l = None if run_library is None else cuda_ms(torch, run_library)
@@ -522,7 +578,9 @@ def _timing(torch, report, name, kernel_name, run_kernel, run_plain, work,
     bound_ms, bound_by = bound(*work(outs))
     log(f"[kernels] {name}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
         + (f"library {ms_l:.4f} ms, " if ms_l is not None else "")
-        + f"bound {bound_ms:.4f} ms ({bound_by})")
+        + f"bound {bound_ms:.4f} ms ({bound_by})"
+        + ("" if earlier is None else
+           f", earlier {EARLIER_MS[earlier]:.4f} ms ({earlier}, PERF.md)"))
     if main:
         report[kernel_name].update(ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
                                    bound_by=bound_by, library_ms=ms_l)
@@ -562,7 +620,8 @@ def phase_kernels(torch, dev, report):
         rec = report[kernel_name]
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
 
-    def dfa3d(name, kernel_name, args, extra=None, time=None, run_library=None):
+    def dfa3d(name, kernel_name, args, extra=None, time=None, run_library=None,
+              earlier=None):
         """time: None, "log" (print the times) or "main" (and report them)."""
         compare(name, kernel_name, lambda: dfa3d_fwd_cuda(*args),
                 lambda: dfa3d_attention_plain(*args), extra)
@@ -570,16 +629,20 @@ def phase_kernels(torch, dev, report):
             _timing(torch, report, name, kernel_name, lambda: dfa3d_fwd_cuda(*args),
                     lambda: dfa3d_attention_plain(*args),
                     lambda outs: dfa3d_work(args[:4], outs, args[5], False),
-                    run_library, main=time == "main")
+                    run_library, main=time == "main", earlier=earlier)
 
     for name, src, ref, xe, ye in _sweep_cases(torch, dev, cfg, scene, gen):
         args = (src, ref, xe, ye)
         compare(name, "sweep_fwd", lambda: sweep_fwd_cuda(*args),
                 lambda: sweep_fwd_plain(*args))
+        bf16 = src.dtype == torch.bfloat16
         _timing(torch, report, name, "sweep_fwd", lambda: sweep_fwd_cuda(*args),
                 lambda: sweep_fwd_plain(*args),
-                lambda outs: sweep_work(args, outs, False),
-                main=src.dtype == torch.bfloat16)
+                lambda outs: sweep_work(args, outs, False), main=bf16,
+                earlier="K1 bf16" if bf16 else "K1 f32")
+    for name, args in _sweep_edge_cases(torch, dev, gen):
+        compare(name, "sweep_fwd", lambda: sweep_fwd_cuda(*args),
+                lambda: sweep_fwd_plain(*args))
 
     for level in range(3):
         x = _lifting_inputs(torch, dev, cfg, scene, level, budget[level], gen)
@@ -589,14 +652,17 @@ def phase_kernels(torch, dev, report):
             tag = "bf16/f32" if vdt == torch.bfloat16 else "f32/f32"
             counts = x["counts"]
             s1 = (value, x["depth"], x["locs1"], x["attn1"], 1, counts)
-            timed = level == 2 and ("main" if vdt == torch.bfloat16 else "log")
+            bf16 = vdt == torch.bfloat16
+            timed = level == 2 and ("main" if bf16 else "log")
             dfa3d(f"stage1 {tag} {shape} counted", "dfa3d_fwd_s1", s1,
-                  _zeros_past_count(torch, counts), time=timed)
+                  _zeros_past_count(torch, counts), time=timed,
+                  earlier="K2" if bf16 else None)
             vp = torch.randn((N_VIEWS, x["h"], x["w"], value.shape[-1]),
                              device=dev, generator=gen).to(vdt)
             s2 = (vp, x["depth"], x["locs2"], x["attn2"], x["heads"], counts)
             dfa3d(f"stage2 {tag} {shape} counted", "dfa3d_fwd_mh", s2,
-                  _zeros_past_count(torch, counts), time=timed)
+                  _zeros_past_count(torch, counts), time=timed,
+                  earlier="K3" if bf16 else None)
             if level == 2 and vdt == torch.bfloat16:
                 locs_nan = x["locs2"].clone()
                 locs_nan.view(-1)[::997] = float("nan")
@@ -606,9 +672,11 @@ def phase_kernels(torch, dev, report):
                 # the v1 (_fwd_kernel) and v3 (_fwd_kernel_q / _q_s1) rows:
                 # uncounted, f32 and bf16 value with f32 depth
                 dfa3d(f"stage1 {tag} {shape} uncounted (v3 q_s1)", "dfa3d_fwd_s1",
-                      s1[:5] + (None,), time="log")
+                      s1[:5] + (None,), time="log",
+                      earlier=None if bf16 else "K2 f32/f32 uncounted")
                 dfa3d(f"stage2 {tag} {shape} uncounted (v1, v3 q)", "dfa3d_fwd_mh",
-                      s2[:5] + (None,), time="log")
+                      s2[:5] + (None,), time="log",
+                      earlier=None if bf16 else "K3 f32/f32 uncounted")
         # the packed-quad rows with a real 12-bin depth in bf16: counted
         # stage 1 (pq_s1c) and uncounted multi-head (pq)
         if level == 2:
@@ -622,6 +690,14 @@ def phase_kernels(torch, dev, report):
                   "dfa3d_fwd_mh_bd", (vp.to(bf), dpt_bf, x["locs2"], x["attn2"],
                                       x["heads"], None), time="log")
 
+    # stage 2 with head groups that fill only part of a warp, every type
+    # pair, counted and uncounted
+    for name, args in _partial_head_cases(torch, dev, gen):
+        counts = args[-1]
+        dfa3d(f"stage2 {name}", "dfa3d_fwd_mh_bd" if args[1].dtype == torch.bfloat16
+              else "dfa3d_fwd_mh", args,
+              None if counts is None else _zeros_past_count(torch, counts))
+
     # the 2D lifting path: bf16 value with bf16 (uniform) depth, uncounted
     for level in range(3):
         y = _lifting_2d_inputs(torch, dev, cfg, scene, level, gen)
@@ -632,9 +708,9 @@ def phase_kernels(torch, dev, report):
         grid = stage1_grid(y["locs1"], torch.bfloat16)
         library = (lambda: grid_sample_stage1(torch, s1[0], grid)) if last else None
         dfa3d(f"2D stage1 bf16/bf16 {shape}", "dfa3d_fwd_s1_bd", s1,
-              time=last and "main", run_library=library)
+              time=last and "main", run_library=library, earlier="K2' 2D")
         dfa3d(f"2D stage2 bf16/bf16 {shape}", "dfa3d_fwd_mh_bd", s2,
-              time=last and "main")
+              time=last and "main", earlier="K3' 2D")
         if last:
             locs_nan = y["locs2"].clone()
             locs_nan.view(-1)[::997] = float("nan")
@@ -1054,6 +1130,16 @@ def phase_backward(torch, dev, report):
                 dfa3d(f"stage2 bwd bf16/bf16 {shape} uncounted, 12-bin depth",
                       "dfa3d_bwd_mh_bd", (vp, dpt_bf) + s2[2:6] + (None,),
                       time="log")
+
+    # stage 2 with head groups that fill only part of a warp (the lanes K5
+    # masks past the last head), every type pair, counted and uncounted
+    for name, (value, dpt, locs, attn, heads, counts) in _partial_head_cases(
+            torch, dev, gen):
+        g = torch.randn(locs.shape[:2] + value.shape[-1:], device=dev,
+                        generator=gen).to(value.dtype)
+        dfa3d(f"stage2 bwd {name}", "dfa3d_bwd_mh_bd" if dpt.dtype == torch.bfloat16
+              else "dfa3d_bwd_mh", (value, dpt, locs, attn, g, heads, counts),
+              extra=None if counts is None else _zeros_past_count(torch, counts, rows=2))
 
     # the 2D lifting path: bf16 value with bf16 (uniform) depth, uncounted;
     # as the module runs it: no depth gradient (the uniform depth is a

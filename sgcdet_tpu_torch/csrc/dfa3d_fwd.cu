@@ -1,7 +1,7 @@
 // Fused DFA3D sampling forward (kernels K2 `dfa3d_fwd_s1`, K3
 // `dfa3d_fwd_mh` and their bf16-depth instances K2' `dfa3d_fwd_s1_bd`, K3'
-// `dfa3d_fwd_mh_bd`): one template, one entry point; the wrapper counts the
-// four apart.
+// `dfa3d_fwd_mh_bd`): a one-point template (stage 1) and a multi-head one,
+// behind one entry point; the wrapper counts the four apart.
 //
 // Replaces every Pallas DFA3D forward of sgcdet_tpu/ops, which compute one
 // function at different type pairs, head counts and counted or not:
@@ -32,28 +32,52 @@
 // kernels), at c = 256 (stage 1) and c = 32 (stage 2).  The math is f32
 // and the output is written once, in the value type.
 //
-// What bounds it on this card: gathered bytes.  Per (query, head, point)
-// the kernel reads four data-dependent value rows (c channels each) and two
-// depth bins per corner (2 bytes each at bf16 depth, 4 at f32); the
-// arithmetic is a few flops per byte.  The value
-// maps of one call (40 x 59 x 80 x 256 bf16 = 97 MB at the finest level)
-// exceed the 50 MB L2, so the rows come from L2 where projections of nearby
-// queries overlap and from HBM otherwise.
+// What bounds it on this card: bytes.  Per (query, head, point) the kernel
+// reads four data-dependent value rows (c channels each) and two depth
+// bins per corner, and it streams the per-query locations and attention
+// in and the output row out; at stage 2 those streamed bytes are most of
+// the bound.  The value maps of one call (40 x 59 x 80 x 256 bf16 = 97 MB
+// at the finest level) exceed the 50 MB L2, so the rows come from L2 where
+// projections of nearby queries overlap and from HBM otherwise.
 //
-// Design: one warp per (view, query, head); its lanes spread over the c
-// channels of that head (c / 32 contiguous channels per lane: one 16-byte
-// load per corner row at stage 1's c=256 bf16).  The sample coordinates,
-// corner weights and depth scores are computed inline by every lane from
-// the same scalars (broadcast loads), so nothing is staged in shared memory
-// and no pair/quad row images are built (those worked around Mosaic).
-// Corners outside the image are skipped, never loaded.  Accumulation is in
-// f32 registers; the output row is stored once.
+// Design of the multi-head case (K3, K3'; K5's lane layout, csrc/
+// dfa3d_bwd.cu): eight contiguous channels per lane (one 16-byte load of a
+// bf16 row piece, two of f32), so a head of c channels takes LANES = c / 8
+// lanes and a warp takes HPW = 32 / LANES heads of one (view, query): at
+// c = 32 a warp is one query's eight heads, four lanes each.  Any c that
+// is a multiple of 8 up to 256 fits the layout.
+//   1. The sample quantities are computed once per (head, point), not once
+//      per lane: lane i of the warp takes the group's i-th (head, point)
+//      sample (at 8 heads x 4 points the 32 lanes are exactly the 32
+//      samples; otherwise the samples are walked in chunks of 32), loads
+//      its location and attention (contiguous across the warp, so the loads
+//      coalesce), computes the four corner pixels (-1 off the image) and
+//      bilinear x attention weights, and issues the loads of its two depth
+//      bins per corner.
+//   2. A head's lanes take each point's corner pixels by shuffle and issue
+//      the corner loads of two points (8 loads of 16 bytes) before any
+//      multiply-add.  Only then are the depth scores folded into the
+//      weights and the weights shuffled over, so the value and depth loads
+//      are in flight together: location, then value and depth, is the whole
+//      chain of dependent loads.
+//   3. The group's output row is stored by one coalesced instruction (8
+//      heads x 32 channels = 512 bytes at c = 32).
+// Counted-out queries are per warp: the warp writes its zeros and returns.
+// Lanes past the last head of a partial group (heads not a multiple of
+// HPW) take part in the shuffles and write nothing.
+// The one-point case (stage 1, K2 and K2') keeps the earlier design: a
+// warp per (view, query, head), c / 32 channels a lane, every lane
+// computing the sample itself.  Off-image corners are never loaded.  No
+// pair/quad row images (those worked around Mosaic).
 #include "common.cuh"
 
 namespace {
 
-template <typename VT, typename DT, int VEC>
-__global__ void __launch_bounds__(256) dfa3d_fwd_kernel(
+// The multi-head layout (P > 1), PG points a round.  Three blocks an SM
+// (at most 85 registers a thread) measured faster for K3 than the
+// compiler's own choice.
+template <typename VT, typename DT, int C, int PG>
+__global__ void __launch_bounds__(256, 3) dfa3d_fwd_kernel(
     const VT* __restrict__ value,    // (N, H, W, heads*c)
     const DT* __restrict__ depth,    // (N, H, W, D)
     const float* __restrict__ locs,  // (N, K, heads, P, 3) normalized (u, v, d)
@@ -61,6 +85,137 @@ __global__ void __launch_bounds__(256) dfa3d_fwd_kernel(
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
     VT* __restrict__ out,            // (N, K, heads*c)
     int n, int h, int w, int heads, int dsize, int k, int p) {
+  static_assert(C % 8 == 0 && C <= 256, "a head is 1-32 lanes of 8 channels");
+  constexpr int VEC = 8;                      // channels per lane
+  constexpr int LANES = C / VEC;              // lanes per head
+  constexpr int HPW = 32 / LANES;             // heads per warp
+  const int lane = threadIdx.x & 31;
+  const int hgroups = (heads + HPW - 1) / HPW;
+  const long long warp_id =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (warp_id >= (long long)n * k * hgroups) return;
+  const int head0 = (int)(warp_id % hgroups) * HPW;
+  const long long nq = warp_id / hgroups;  // cam * k + q
+  const int q = (int)(nq % k);
+  const int cam = (int)(nq / k);
+  const int cfull = heads * C;
+  const int nh = min(HPW, heads - head0);  // heads of this warp
+  const int hl = lane / LANES;             // this lane's head in the group
+  const bool active = hl < nh;
+  const int sub = lane % LANES;
+  VT* orow = out + nq * cfull + (head0 + hl) * C + sub * VEC;
+
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+
+  if (counts == nullptr || q < counts[cam]) {
+    const long long hw = (long long)h * w;
+    const long long s_row = (nq * heads + head0) * p;  // the group's first (head, point)
+    const VT* vbase = value + cam * hw * cfull + (head0 + min(hl, nh - 1)) * C + sub * VEC;
+    const DT* dbase = depth + cam * hw * dsize;
+    int cpix[4];
+    float bw[4], dp0[4], dp1[4], wd0, wd1;
+    const int ns = nh * p;  // samples of the group
+    for (int s0 = 0; s0 < ns; s0 += 32) {
+      // 1. sample s0 + lane, and the loads of its depth bins
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner) {
+        cpix[corner] = -1;
+        bw[corner] = dp0[corner] = dp1[corner] = 0.f;
+      }
+      wd0 = wd1 = 0.f;
+      if (s0 + lane < ns) {
+        const float* l = locs + (s_row + s0 + lane) * 3;
+        const float u = sgc::clip_coord(l[0] * w - 0.5f, -4.f, w + 4.f);
+        const float v = sgc::clip_coord(l[1] * h - 0.5f, -4.f, h + 4.f);
+        const float dd = sgc::clip_coord(l[2] * dsize - 0.5f, -4.f, dsize + 4.f);
+        const float a = attn[s_row + s0 + lane];
+        const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
+        const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
+        const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
+        wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
+        wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
+        const int d0c = min(max(d0, 0), dsize - 1);
+        const int d1c = min(max(d0 + 1, 0), dsize - 1);
+#pragma unroll
+        for (int corner = 0; corner < 4; ++corner) {
+          const int dy = corner >> 1, dx = corner & 1;
+          const int yi = y0 + dy, xi = x0 + dx;
+          const bool in = yi >= 0 && yi <= h - 1 && xi >= 0 && xi <= w - 1;
+          cpix[corner] = in ? yi * w + xi : -1;
+          bw[corner] = (dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a;
+          if (in) {
+            const DT* drow = dbase + (long long)cpix[corner] * dsize;
+            dp0[corner] = sgc::to_f32(drow[d0c]);
+            dp1[corner] = sgc::to_f32(drow[d1c]);
+          }
+        }
+      }
+      // 2. this lane's head's points of the chunk, PG at a time: the corner
+      // pixels by shuffle, every corner load of the PG points, then the
+      // weights (which wait on the depth loads) and the multiply-adds
+      for (int pt0 = 0; pt0 < p; pt0 += PG) {
+        int pix[PG][4];
+#pragma unroll
+        for (int i = 0; i < PG; ++i) {
+          const int src = hl * p + pt0 + i - s0;  // lane holding the sample
+          const bool mine = active && pt0 + i < p && src >= 0 && src < 32;
+#pragma unroll
+          for (int corner = 0; corner < 4; ++corner) {
+            const int ps = __shfl_sync(0xffffffffu, cpix[corner], src & 31);
+            pix[i][corner] = mine ? ps : -1;
+          }
+        }
+        sgc::Vec<VT, VEC> raw[PG][4];
+#pragma unroll
+        for (int i = 0; i < PG; ++i)
+#pragma unroll
+          for (int corner = 0; corner < 4; ++corner) {
+            if (pix[i][corner] >= 0) {
+              raw[i][corner] = *reinterpret_cast<const sgc::Vec<VT, VEC>*>(
+                  vbase + (long long)pix[i][corner] * cfull);
+            } else {
+#pragma unroll
+              for (int j = 0; j < VEC; ++j) raw[i][corner].v[j] = sgc::from_f32<VT>(0.f);
+            }
+          }
+        float cw[4];
+#pragma unroll
+        for (int corner = 0; corner < 4; ++corner)
+          cw[corner] = bw[corner] * (dp0[corner] * wd0 + dp1[corner] * wd1);
+#pragma unroll
+        for (int i = 0; i < PG; ++i) {
+          const int src = hl * p + pt0 + i - s0;
+#pragma unroll
+          for (int corner = 0; corner < 4; ++corner) {
+            const float wgt = __shfl_sync(0xffffffffu, cw[corner], src & 31);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j)
+              acc[j] += wgt * sgc::to_f32(raw[i][corner].v[j]);
+          }
+        }
+      }
+    }
+  }
+  if (active) sgc::store_from_f32<VT, VEC>(orow, acc);
+}
+
+// One point a head (stage 1: heads = P = 1, K2 and K2'): a warp per
+// (view, query, head), C / 32 channels a lane; every lane computes the
+// sample from broadcast loads and walks the corners one after another.  A
+// warp has a single sample, so sharing its arithmetic gains nothing, and
+// the multi-head layout ran this case slower in f32 (PERF.md).
+template <typename VT, typename DT, int VEC>
+__global__ void __launch_bounds__(256) dfa3d_fwd_one_point_kernel(
+    const VT* __restrict__ value,    // (N, H, W, heads*c)
+    const DT* __restrict__ depth,    // (N, H, W, D)
+    const float* __restrict__ locs,  // (N, K, heads, 1, 3) normalized (u, v, d)
+    const float* __restrict__ attn,  // (N, K, heads, 1)
+    const int* __restrict__ counts,  // (N,) visible-query counts, or null
+    VT* __restrict__ out,            // (N, K, heads*c)
+    int n, int h, int w, int heads, int dsize, int k) {
+  static_assert(VEC >= 1, "the one-point kernel takes c = 32 * VEC channels");
   constexpr int C = 32 * VEC;  // channels per head
   const int lane = threadIdx.x & 31;
   const long long warp_id =
@@ -78,51 +233,55 @@ __global__ void __launch_bounds__(256) dfa3d_fwd_kernel(
 
   if (counts == nullptr || q < counts[cam]) {
     const long long hw = (long long)h * w;
-    const float* lp = locs + warp_id * p * 3;
-    const float* ap = attn + warp_id * p;
+    const float* lp = locs + warp_id * 3;
     const VT* vbase = value + cam * hw * cfull + head * C + lane * VEC;
     const DT* dbase = depth + cam * hw * dsize;
-    for (int pt = 0; pt < p; ++pt) {
-      const float u = sgc::clip_coord(lp[3 * pt] * w - 0.5f, -4.f, w + 4.f);
-      const float v = sgc::clip_coord(lp[3 * pt + 1] * h - 0.5f, -4.f, h + 4.f);
-      const float dd = sgc::clip_coord(lp[3 * pt + 2] * dsize - 0.5f, -4.f,
-                                       dsize + 4.f);
-      const float a = ap[pt];
-      const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
-      const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
-      const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
-      const float wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
-      const float wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
-      const int d0c = min(max(d0, 0), dsize - 1);
-      const int d1c = min(max(d0 + 1, 0), dsize - 1);
+    const float u = sgc::clip_coord(lp[0] * w - 0.5f, -4.f, w + 4.f);
+    const float v = sgc::clip_coord(lp[1] * h - 0.5f, -4.f, h + 4.f);
+    const float dd = sgc::clip_coord(lp[2] * dsize - 0.5f, -4.f, dsize + 4.f);
+    const float a = attn[warp_id];
+    const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
+    const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
+    const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
+    const float wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
+    const float wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
+    const int d0c = min(max(d0, 0), dsize - 1);
+    const int d1c = min(max(d0 + 1, 0), dsize - 1);
 #pragma unroll
-      for (int corner = 0; corner < 4; ++corner) {
-        const int dy = corner >> 1, dx = corner & 1;
-        const int yi = y0 + dy, xi = x0 + dx;
-        if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
-        const long long pix = (long long)yi * w + xi;
-        const DT* drow = dbase + pix * dsize;
-        const float ds = sgc::to_f32(drow[d0c]) * wd0 + sgc::to_f32(drow[d1c]) * wd1;
-        const float wgt =
-            ((dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a) * ds;
-        float val[VEC];
-        sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
+    for (int corner = 0; corner < 4; ++corner) {
+      const int dy = corner >> 1, dx = corner & 1;
+      const int yi = y0 + dy, xi = x0 + dx;
+      if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
+      const long long pix = (long long)yi * w + xi;
+      const DT* drow = dbase + pix * dsize;
+      const float ds = sgc::to_f32(drow[d0c]) * wd0 + sgc::to_f32(drow[d1c]) * wd1;
+      const float wgt = ((dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a) * ds;
+      float val[VEC];
+      sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] += wgt * val[i];
-      }
+      for (int i = 0; i < VEC; ++i) acc[i] += wgt * val[i];
     }
   }
   sgc::store_from_f32<VT, VEC>(out + nq * cfull + head * C + lane * VEC, acc);
 }
 
-template <typename VT, typename DT, int VEC>
+template <typename VT, typename DT, int C>
 void launch(const void* value, const void* depth, const float* locs,
             const float* attn, const int* counts, void* out, int n, int h,
             int w, int heads, int dsize, int k, int p, cudaStream_t stream) {
-  const long long warps = (long long)n * k * heads;
   const int threads = 256;
+  if (p == 1) {
+    const long long warps = (long long)n * k * heads;
+    const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
+    dfa3d_fwd_one_point_kernel<VT, DT, C / 32><<<(unsigned)blocks, threads, 0, stream>>>(
+        static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
+        counts, static_cast<VT*>(out), n, h, w, heads, dsize, k);
+    return;
+  }
+  constexpr int HPW = 32 / (C / 8);  // heads per warp
+  const long long warps = (long long)n * k * ((heads + HPW - 1) / HPW);
   const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
-  dfa3d_fwd_kernel<VT, DT, VEC><<<(unsigned)blocks, threads, 0, stream>>>(
+  dfa3d_fwd_kernel<VT, DT, C, 2><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
       counts, static_cast<VT*>(out), n, h, w, heads, dsize, k, p);
 }
@@ -132,8 +291,8 @@ int dispatch_c(int c, const void* value, const void* depth, const float* locs,
                const float* attn, const int* counts, void* out, int n, int h,
                int w, int heads, int dsize, int k, int p, cudaStream_t stream) {
   switch (c) {
-    case 32: launch<VT, DT, 1>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, stream); break;
-    case 256: launch<VT, DT, 8>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, stream); break;
+    case 32: launch<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, stream); break;
+    case 256: launch<VT, DT, 256>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -45,6 +45,10 @@ class SGCDet(nn.Module):
         # options of the JAX package's ModelConfig that the port does not run
         if getattr(cfg, "use_gt_dpt", False) or getattr(cfg, "sweep_band", None) is not None:
             raise NotImplementedError("sweep_band and use_gt_dpt are not ported")
+        if getattr(cfg, "depth_remat", False):
+            raise NotImplementedError(
+                "depth_remat is not ported: the depth net would keep its "
+                "activations, which the JAX package recomputes in the backward")
         self.cfg = cfg
         self.img_shape = tuple(img_shape)
         self.backbone = ResNet50()

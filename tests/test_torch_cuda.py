@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
 the forward kernels K1-K3 (and K2'/K3' at bf16 depth), and the backward
 kernels K4-K6 (K6'/K5') through autograd (the ops' ``torch.autograd.
-Function``s) against the plain versions' VJPs; the 2D lifting path
+Function``s) against the plain versions' VJPs, the DFA3D ones counted and
+uncounted, also with head groups that fill only part of a warp, and K1 on a
+map and plane count that no tile or plane group divides; the 2D lifting path
 (``ViewTransformer(use_depth=False)``) through the kernels against its plain
 run; the backward kernels K4 and K5 on the contention cases of
 ``torch_port_tiny`` (many samples on one row, untiled sizes, integer and
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from sgcdet_tpu_torch.experiments import probes
+from sgcdet_tpu_torch.models.depth_net import _warp_grid
 from sgcdet_tpu_torch.models.layers import init_weights, set_compute_dtype
 from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
 from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
@@ -41,6 +44,7 @@ from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     graph_has,
     keep_global_torch_rng,
     sweep_contention_case,
+    sweep_edge_rig,
     sweep_inputs,
     windowed_inputs,
 )
@@ -107,14 +111,51 @@ def test_sweep_kernel_non_finite_coordinates_contribute_zero(cuda_device):
         assert torch.equal(out[~bad], clean[~bad])
 
 
-@pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],
-                         ids=["stage1", "stage2"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sweep_kernel_ragged_tile_and_plane_group(cuda_device, dtype):
+    """K1 where H * W = 63 fills no tile of reference pixels and D = 5 no
+    group of planes loaded together, on a rig with planes behind, through
+    (inf and NaN coordinates) and in front of the source camera, and with
+    more NaN / inf / far-off coordinates injected."""
+    src, ref, src_proj, ref_proj, dv = (torch.from_numpy(a).to(cuda_device)
+                                        for a in sweep_edge_rig())
+    n, c, h, w = src.shape
+    x, y = _warp_grid(src_proj, ref_proj, dv, h, w)
+    x.view(-1)[::11] = float("nan")
+    y.view(-1)[5::13] = -float("inf")
+    x.view(-1)[7::17] = 1e30
+    src, ref = (t.permute(0, 2, 3, 1).to(dtype) for t in (src, ref))
+    before = KERNELS["sweep_fwd"].launches
+    got = sweep_fwd_cuda(src, ref, x, y)
+    assert KERNELS["sweep_fwd"].launches == before + 1
+    want = sweep_fwd_plain(src, ref, x, y)
+    torch.cuda.synchronize()
+    assert got.shape == (n, len(dv), h * w) and torch.isfinite(got).all()
+    off = ~(torch.isfinite(x) & torch.isfinite(y))
+    assert off.any() and (got[off] == 0).all()
+    assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "sweep 7x9 D=5")
+
+
+# (heads, points, channels per head): stage 1, stage 2, and stage 2 with
+# head groups that do not fill a warp of eight 4-lane heads (1, 2, 6 heads;
+# 8 heads x 3 points, 24 samples for 32 lanes)
+DFA3D_SHAPES = [pytest.param(1, 1, 256, id="stage1"), pytest.param(8, 4, 32, id="stage2"),
+                pytest.param(1, 4, 32, id="stage2_h1"), pytest.param(2, 4, 32, id="stage2_h2"),
+                pytest.param(6, 4, 32, id="stage2_h6"), pytest.param(8, 3, 32, id="stage2_p3")]
+
+
+def _counts(counted, device):
+    return (torch.tensor([0, 100, 299, 300], dtype=torch.int32, device=device)
+            if counted else None)
+
+
+@pytest.mark.parametrize("heads,p,c", DFA3D_SHAPES)
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
-def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype, ddtype):
+@pytest.mark.parametrize("counted", [True, False], ids=["counted", "uncounted"])
+def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype, ddtype, counted):
     value, dpt, locs, attn = dfa3d_inputs(heads, p, c, n=4, h=14, w=20, d=12,
                                           k=300)
-    counts = torch.tensor([0, 100, 299, 300], dtype=torch.int32,
-                          device=cuda_device)
+    counts = _counts(counted, cuda_device)
     args = [torch.from_numpy(a).to(cuda_device) for a in (value, dpt, locs, attn)]
     args[0], args[1] = args[0].to(vdtype), args[1].to(ddtype)
     name = _dfa3d_kernel_name("fwd", heads, p, ddtype)
@@ -127,7 +168,7 @@ def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype, ddtype):
     assert got.dtype == vdtype
     assert_close_scaled(got.float().cpu().numpy(), expected.float().cpu().numpy(),
                         _rel(vdtype), "dfa3d kernel")
-    for cam, cnt in enumerate(counts.tolist()):
+    for cam, cnt in enumerate(counts.tolist() if counted else []):
         assert (got[cam, cnt:] == 0).all()
 
 
@@ -241,18 +282,17 @@ def test_kernels_take_misaligned_views(cuda_device, dtype):
                             _rel(a.dtype), f"misaligned output {i}")
 
 
-@pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],
-                         ids=["stage1", "stage2"])
+@pytest.mark.parametrize("heads,p,c", DFA3D_SHAPES)
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
 @pytest.mark.parametrize("sample_grads,depth_grad",
                          [(True, True), (False, True), (True, False), (False, False)],
                          ids=["all", "value_depth", "no_depth", "value_only"])
+@pytest.mark.parametrize("counted", [True, False], ids=["counted", "uncounted"])
 def test_dfa3d_backward_kernel_matches_plain(cuda_device, heads, p, c, vdtype,
-                                             ddtype, sample_grads, depth_grad):
+                                             ddtype, sample_grads, depth_grad, counted):
     value, dpt, locs, attn = dfa3d_inputs(heads, p, c, n=4, h=14, w=20, d=12,
                                           k=300)
-    counts = torch.tensor([0, 100, 299, 300], dtype=torch.int32,
-                          device=cuda_device)
+    counts = _counts(counted, cuda_device)
     args = [torch.from_numpy(a).to(cuda_device) for a in (value, dpt, locs, attn)]
     args[0], args[1] = args[0].to(vdtype), args[1].to(ddtype)
     for a, want in zip(args, (True, depth_grad, sample_grads, sample_grads)):
@@ -277,7 +317,7 @@ def test_dfa3d_backward_kernel_matches_plain(cuda_device, heads, p, c, vdtype,
         rel = _rel(a.dtype)
         assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
                             rel, f"dfa3d {gname}")
-    if sample_grads:
+    if sample_grads and counted:
         by_name = dict(zip(names, got))
         for cam, cnt in enumerate(counts.tolist()):
             assert (by_name["d_locs"][cam, cnt:] == 0).all()

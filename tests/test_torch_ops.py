@@ -2,9 +2,11 @@
 
 * plane sweep: the port's plain version vs ``depth_net.plane_sweep_correlation``
   (the XLA path the JAX package runs off-TPU), on a rig whose sweep planes
-  fall behind the neighbour camera, plus NaN / inf coordinates;
+  fall behind the neighbour camera, and on a 7 x 9 map with 5 planes, one
+  through the source camera, plus NaN / inf coordinates;
 * DFA3D: the port's plain version vs the oracle ``msda.dfa3d_attention`` at
-  stage-1 (heads = P = 1) and stage-2 (heads 4, P 2) shapes, with
+  stage-1 (heads = P = 1) and stage-2 (heads 4, P 2; c = 32 with 1, 2, 6
+  heads x 4 points and 8 heads x 3 points) shapes, with
   out-of-range locations, counted-out queries and NaN locations;
 * the depth dtype rule: depth is read in f32 even with bf16 values;
 * host NMS vs the JAX package's copy.
@@ -35,6 +37,7 @@ from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     assert_close_scaled,
     dfa3d_inputs,
     keep_global_torch_rng,
+    sweep_edge_rig,
     sweep_inputs,
 )
 
@@ -100,6 +103,32 @@ def test_plain_sweep_non_finite_coordinates_contribute_zero():
                                       sweep_fwd_plain(src, ref, x, y)[~bad].numpy())
 
 
+def test_plain_sweep_matches_jax_on_ragged_tiles_and_a_plane_through_the_camera():
+    """H * W = 63 and D = 5, the shape of K1's ragged-edge card cases: the
+    plain version agrees with the JAX package wherever the coordinates are
+    finite (in and off the image, behind and in front of the camera), and
+    where the source camera's own plane gives inf and NaN coordinates it
+    gives exact zeros, as the TPU kernel clips them (the JAX XLA path has
+    no clip there and returns NaN)."""
+    from sgcdet_tpu_torch.models.depth_net import _warp_grid
+
+    rig = sweep_edge_rig()
+    src, ref, src_proj, ref_proj, dv = rig
+    n, c, h, w = src.shape
+    expected = np.asarray(jax_sweep(*map(jnp.asarray, rig)))
+    got = plane_sweep_correlation_plain(*map(torch.from_numpy, rig))
+    assert got.shape == (n, len(dv), h, w) and torch.isfinite(got).all()
+    x, y = _warp_grid(*map(torch.from_numpy, (src_proj, ref_proj, dv)), h, w)
+    finite = (torch.isfinite(x) & torch.isfinite(y)).reshape(got.shape).numpy()
+    assert 0 < finite.sum() < finite.size and np.isnan(x.numpy()).any()
+    assert (got.numpy()[~finite] == 0).all()
+    assert_close_scaled(got.numpy()[finite], expected[finite], 1e-5, "sweep 7x9 D=5")
+    np.testing.assert_array_equal(
+        sweep_fwd_plain(torch.from_numpy(src).permute(0, 2, 3, 1),
+                        torch.from_numpy(ref).permute(0, 2, 3, 1), x, y).numpy(),
+        got.reshape(n, len(dv), h * w).numpy())
+
+
 def _oracle(value, dpt, locs, attn, heads):
     n, h, w, cfull = value.shape
     out, _ = jax_oracle(
@@ -109,8 +138,15 @@ def _oracle(value, dpt, locs, attn, heads):
     return np.asarray(out)
 
 
+# stage 1, stage 2, and stage 2 at c = 32 with head groups that do not
+# fill the kernels' warps (8 heads of 4 lanes): 1, 2 and 6 heads, and 8
+# heads x 3 points (24 samples of a warp's 32 lanes)
 STAGES = [pytest.param(1, 1, 64, id="stage1_h1_p1"),
-          pytest.param(4, 2, 8, id="stage2_h4_p2")]
+          pytest.param(4, 2, 8, id="stage2_h4_p2"),
+          pytest.param(1, 4, 32, id="stage2_h1_p4"),
+          pytest.param(2, 4, 32, id="stage2_h2_p4"),
+          pytest.param(6, 4, 32, id="stage2_h6_p4"),
+          pytest.param(8, 3, 32, id="stage2_h8_p3")]
 
 
 @pytest.mark.parametrize("heads,p,c", STAGES)

@@ -8,6 +8,7 @@
 * the port imports and serves with JAX made unimportable;
 * ``chip_smoke.py`` refuses to run without a GPU, and without the repo.
 """
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -164,6 +165,15 @@ assert not any(m == "jax" or m.startswith(("jax.", "flax", "sgcdet_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("NO_JAX_OK")
 """
+
+
+def test_sgcdet_refuses_depth_remat():
+    """A JAX ModelConfig with depth_remat=True is refused, not run without
+    the rematerialisation the JAX package applies to the depth net."""
+    mcfg = dataclasses.replace(tiny_model_cfg(), depth_remat=True)
+    assert mcfg.depth_remat
+    with pytest.raises(NotImplementedError, match="depth_remat is not ported"):
+        SGCDet(mcfg, IMG_SHAPE, device="cpu")
 
 
 def test_port_serves_without_jax():

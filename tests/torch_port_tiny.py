@@ -152,6 +152,28 @@ def graph_has(t, name):
 
 # The contention cases of the backward kernels: tests/test_torch_backward_
 # contention.py holds the plain versions against JAX on them (CPU), and
+def sweep_edge_rig(n=2, h=7, w=9, c=128, seed=0):
+    """(src, ref, src_proj, ref_proj, depth_values) as NumPy for a sweep
+    whose H * W = 63 pixels no 32- or 64-pixel tile divides and whose D = 5
+    planes no group of 2 or 4 planes divides.  ref_proj is the identity and
+    each view's source camera passes through one plane (plane 1 in view 0,
+    plane 3 in view 1): z = 0 on that whole plane, so its coordinates are
+    inf, and 0 / 0 = NaN in x at column 2; the planes before it lie behind
+    the camera and the ones after it in front, partly off the image."""
+    rng = np.random.RandomState(seed)
+    src = rng.randn(n, c, h, w).astype(np.float32)
+    ref = rng.randn(n, c, h, w).astype(np.float32)
+    dv = np.arange(0.4, 2.1, 0.4, dtype=np.float32)[:5]
+    ref_proj = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+    src_proj = ref_proj.copy()
+    for view in range(n):
+        through = dv[1 + 2 * (view % 2)]
+        src_proj[view, 0, 3] = -2 * through  # x numerator 0 at column 2
+        src_proj[view, 1, 3] = 0.3
+        src_proj[view, 2, 3] = -through      # z = depth - through
+    return src, ref, src_proj, ref_proj, dv
+
+
 # tests/test_torch_cuda.py the kernels against the plain versions (card).
 SWEEP_CONTENTION = ("tile_collapse", "image_collapse", "integer_grid", "plane_behind")
 DFA3D_CONTENTION = ("one_corner", "counted")
