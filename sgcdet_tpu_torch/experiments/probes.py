@@ -20,16 +20,18 @@ shared memory (the plan: ``plan_rows``); the plain version then reads those
 chunks' rows through the window only, so a planning fault shows as a wrong
 number.
 
-    python -m sgcdet_tpu_torch.experiments.probes
+    python -m sgcdet_tpu_torch.experiments.probes [--attribute]
 
 prints this card's rows/s and GB/s at the TPU probes' shapes, beside
 ``torch.index_select`` and ``Tensor.index_add_`` on the same data (needs a
-CUDA card; it refuses to run without one).
+CUDA card; it refuses to run without one); with ``--attribute``, where
+the device time of the windowed probes' calls goes (``attribute_probes``).
 """
 from __future__ import annotations
 
 import ctypes
 import subprocess
+import sys
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -146,7 +148,9 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _gather_cuda(img, rows, winfo, window, chunk):
+def _gather_prepare(img, rows, winfo, window, chunk):
+    """The wrapper's work before its launch: operands checked, indices and
+    plan made, output allocated; returns (launch, out)."""
     dev = img.device
     im = check_cuda_input(img, "img", (torch.float32, torch.bfloat16), 2, dev)
     l = im.shape[1]
@@ -167,8 +171,16 @@ def _gather_cuda(img, rows, winfo, window, chunk):
         wwin = _window_rows(l * im.element_size(), window, winfo is not None)
         meta = _meta(rw, chunk, wwin)
     out = torch.empty((m, l), dtype=im.dtype, device=dev)
-    ROW_GATHER(dev, DTYPE_CODE[im.dtype], im.data_ptr(), rw.data_ptr(), _ptr(wi),
-               _ptr(meta), out.data_ptr(), l, m, p, chunk, wwin, *quad_widths(l))
+
+    def launch():
+        ROW_GATHER(dev, DTYPE_CODE[im.dtype], im.data_ptr(), rw.data_ptr(), _ptr(wi),
+                   _ptr(meta), out.data_ptr(), l, m, p, chunk, wwin, *quad_widths(l))
+    return launch, out
+
+
+def _gather_cuda(img, rows, winfo, window, chunk):
+    launch, out = _gather_prepare(img, rows, winfo, window, chunk)
+    launch()
     return out
 
 
@@ -194,6 +206,13 @@ def row_scatter_add(u, rows, n_rows, window=None, chunk=CM):
     ``window``) for a CUDA ``u``; the plain version for a CPU one."""
     if not use_kernel(u):
         return row_scatter_add_plain(u, rows, n_rows, window, chunk)
+    launch, out = _scatter_prepare(u, rows, n_rows, window, chunk)
+    launch()
+    return out
+
+
+def _scatter_prepare(u, rows, n_rows, window, chunk):
+    """As ``_gather_prepare``, for ``row_scatter_add``."""
     dev = u.device
     uu = check_cuda_input(u.float(), "u", (torch.float32,), 2, dev)
     rw = check_cuda_input(rows.to(torch.int32), "rows", (torch.int32,), 1, dev)
@@ -205,9 +224,11 @@ def row_scatter_add(u, rows, n_rows, window=None, chunk=CM):
         wwin = _window_rows(l * 4, window, False)
         meta = _meta(rw[None], chunk, wwin)
     out = torch.zeros((n_rows, l), dtype=torch.float32, device=dev)
-    ROW_SCATTER_ADD(dev, uu.data_ptr(), rw.data_ptr(), _ptr(meta), out.data_ptr(),
-                    l, m, chunk, wwin)
-    return out
+
+    def launch():
+        ROW_SCATTER_ADD(dev, uu.data_ptr(), rw.data_ptr(), _ptr(meta), out.data_ptr(),
+                        l, m, chunk, wwin)
+    return launch, out
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +254,7 @@ class ProbeCase(NamedTuple):
     bytes: float
     flops: float
     rows: int
+    prepare: Optional[Callable] = None
 
 
 def probe_cases(dev, seed=0):
@@ -240,7 +262,7 @@ def probe_cases(dev, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     cases = []
 
-    def add_gather(name, img, rows, window, chunk=CM):
+    def add_gather(name, img, rows, window, chunk=CM, attribute=False):
         distinct = torch.unique(rows).numel()
         nbytes = (distinct * img.shape[1] * img.element_size() + rows.numel() * 4
                   + rows.numel() * img.shape[1] * img.element_size())
@@ -248,16 +270,19 @@ def probe_cases(dev, seed=0):
                                lambda: row_gather(img, rows, window, chunk),
                                lambda: row_gather_plain(img, rows, window, chunk),
                                lambda: torch.index_select(img, 0, rows),
-                               nbytes, 0.0, rows.numel()))
+                               nbytes, 0.0, rows.numel(),
+                               (lambda: _gather_prepare(img, rows[None], None, window, chunk)[0])
+                               if attribute else None))
 
-    def add_scatter(name, u, rows, n_rows, window):
+    def add_scatter(name, u, rows, n_rows, window, attribute=False):
         cases.append(ProbeCase(
             name, "row_scatter_add",
             lambda: row_scatter_add(u, rows, n_rows, window),
             lambda: row_scatter_add_plain(u, rows, n_rows, window),
             lambda: torch.zeros((n_rows, u.shape[1]), device=dev).index_add_(0, rows, u),
             u.numel() * 4 + rows.numel() * 4 + n_rows * u.shape[1] * 4, float(u.numel()),
-            rows.numel()))
+            rows.numel(),
+            (lambda: _scatter_prepare(u, rows, n_rows, window, CM)[0]) if attribute else None))
 
     # probe_window_lowering.py: 2^20 sorted rows of the (4944, 1072) image
     rows = torch.sort(torch.randint(0, RQ, (M_LOWERING,), device=dev, generator=gen))[0]
@@ -274,14 +299,15 @@ def probe_cases(dev, seed=0):
     # (about 1.2 rows each) and keeps the SM's occupancy of the direct path
     for window in (None, 256, 8):
         add_scatter(f"lowering scatter-add u (2^20, 1072) -> 4944 rows, "
-                    f"{f'windowed {window}' if window else 'direct'}", u, rows, RQ, window)
+                    f"{f'windowed {window}' if window else 'direct'}", u, rows, RQ, window,
+                    attribute=window == 256)
     # probe_window_matmul.py: jittered monotone rows, windowed gathers
     t = torch.arange(M_LOWERING, device=dev, dtype=torch.float32) / (M_LOWERING - 1)
     jit = torch.randint(-40, 40, (M_LOWERING,), device=dev, generator=gen)
     rows_j = ((t * (RQ - 1)).long() + jit).clamp(0, RQ - 1)
     for window, chunk in ((256, 256), (128, 128), (512, 512)):
         add_gather(f"window_matmul bf16 (4944, 1072), w{window} cm{chunk}", imgb, rows_j,
-                   window, chunk)
+                   window, chunk, attribute=True)
     # probe_gather_batch.py: random rows of narrow f32 images
     for width in (88, 128, 176, 256):
         img = torch.randn((RQ, width), device=dev, generator=gen)
@@ -306,7 +332,7 @@ def probe_cases(dev, seed=0):
     u1 = torch.randn((2048, LANES), device=dev, generator=gen) * scale
     r1 = torch.randint(0, 256, (2048,), device=dev, generator=gen)
     add_scatter("f32_onehot scatter-add (2048, 1072) -> 256 rows, windowed 256", u1, r1,
-                256, 256)
+                256, 256, attribute=True)
     return cases
 
 
@@ -324,6 +350,24 @@ def run_probes(dev, iters=10):
     return records
 
 
+def attribute_probes(dev, cases=None, iters=10):
+    """Where a probe call's device time goes, for the cases with a
+    ``prepare``: the whole wrapper call, its launch alone (operands, plan
+    and output made in advance) and the wrapper's work before the launch
+    alone, each the warm mean of ``iters`` calls (CUDA events)."""
+    records = []
+    for case in cases if cases is not None else probe_cases(dev):
+        if case.prepare is None:
+            continue
+        launch = case.prepare()
+        records.append(dict(name=case.name, kernel=case.kernel,
+                            whole_ms=cuda_ms(case.run, iters),
+                            kernel_ms=cuda_ms(launch, iters),
+                            torch_ms=cuda_ms(case.prepare, iters),
+                            library_ms=cuda_ms(case.run_library, iters)))
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("probes: no CUDA device (torch.cuda.is_available() is False)")
@@ -332,6 +376,11 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
+    if "--attribute" in sys.argv[1:]:
+        for r in attribute_probes(dev):
+            print(f"{r['name']:66s} whole {r['whole_ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms, "
+                  f"torch ops {r['torch_ms']:.4f} ms, library {r['library_ms']:.4f} ms", flush=True)
+        return
     for r in run_probes(dev):
         lib = ("" if r["library_ms"] is None else
                f"; library {r['library_ms']:.4f} ms ({r['bytes'] / r['library_ms'] / 1e6:.1f} GB/s)")
