@@ -1,6 +1,6 @@
-// Row gather and row scatter-add, each direct or through a shared-memory
-// window (counters `row_gather`, `row_scatter_add`): the Hopper
-// counterparts of the TPU probes the windowed DFA3D kernels were built on.
+// Row gather and row scatter-add, each direct or through a window
+// (counters `row_gather`, `row_scatter_add`): the Hopper counterparts of
+// the TPU probes the windowed DFA3D kernels were built on.
 //
 // Replaces:
 //   row_gather, out[i] = img[rows[i]]:
@@ -18,48 +18,106 @@
 //     and experiments/probe_f32_onehot.py::_kernel (f32 one-hot scatter into
 //     one window).
 //
-// Design.  A block takes a chunk of cm consecutive rows of the output
-// (gather) or of u (scatter) and a 256-byte column tile (the epilogue takes
-// whole rows).  Direct: each thread moves 16 bytes (gather) or adds one f32
-// by a global atomic (scatter).  Windowed: the plan (per chunk the lowest
-// row its indices name and the span to the highest, or -1 where the span
-// exceeds the window; sgcdet_tpu_torch/experiments/probes.py::plan_rows)
-// lets the block stage the window's rows of its tile in shared memory with
-// cp.async and gather from there, or sum u into an f32 window with shared
-// atomics and add each nonzero element to global memory with one atomic.
-// A chunk whose span exceeds the window runs the direct path.
+// Indices are read at the caller's type (int32 or int64).  The window plan
+// of a chunk of cm consecutive indices (its lowest row and the span to the
+// highest, sgcdet_tpu_torch/experiments/probes.py::plan_rows) is computed
+// by the kernels themselves; a chunk whose span exceeds the window takes
+// the direct path.
 //
-// What bounds them on this card: bytes.  The gather writes every output
-// row and reads each distinct source row (from L2 after its first reader);
-// the scatter reads every u row and resolves its atomics in L2.  The window
-// cuts the L2 transactions of repeated rows; whether that shows against
-// L2's own rate is what these probes measure.
+// Gather.  Direct, and with the epilogue: a block takes a chunk and a
+// 256-byte column tile (the epilogue whole rows); each thread moves 16
+// bytes; a windowed epilogue block stages its chunk's span in shared
+// memory with cp.async.  Windowed copies: persistent blocks walk the
+// chunks of one column tile with two stages of at most kStageRows rows,
+// staging chunk i+1's span while chunk i's rows are stored, so shared
+// memory is reserved for what a stage holds, not for the window.  Stores
+// stream (evict-first), so the image stays in L2 while the output passes.
+// What bounds it: the bytes written; the source rows come from L2.
+//
+// Scatter.  Three kernels: the plan (windowed only); the sum where the
+// output lives (each block owns 8 output rows x 128 columns, finds the
+// indices of the windowed chunks that name its rows by warp ballots, and
+// adds their u rows in index order by 16-byte loads, so every output
+// element is stored once, rows no index names as zeros, and the result
+// is the same from run to run); then the direct chunks (all of them
+// without a window), added by 16-byte vector reductions.  What bounds it:
+// the bytes of u, read once.
 #include "common.cuh"
+
+#include <climits>
 
 namespace {
 
-constexpr int kTileBytes = 256;  // column tile of a block
+constexpr int kTileBytes = 256;    // column tile of a gather block
 constexpr int kThreads = 256;
+constexpr int kStageRows = 96;     // rows of a column tile one gather stage holds
+constexpr int kScatterRows = 8;    // output rows of a scatter block, one a warp
+constexpr int kScatterTile = 2048; // indices a scatter block scans at a time
+constexpr int kScatterList = 64;   // matches a warp holds before it adds them
+constexpr int kBatch = 8;          // u rows a warp loads together
+
+// The lowest and the highest of at(0..n), each also written to s_idx[i]
+// where s_idx is not null.  Every thread of the block calls it; s_box is
+// two shared ints that no other call uses at the same time.
+template <typename F>
+__device__ __forceinline__ int2 chunk_bounds(int n, F at, int* s_idx, int* s_box) {
+  if (threadIdx.x == 0) {
+    s_box[0] = INT_MAX;
+    s_box[1] = -1;
+  }
+  __syncthreads();
+  int lo = INT_MAX, hi = -1;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int r = at(i);
+    if (s_idx != nullptr) s_idx[i] = r;
+    lo = min(lo, r);
+    hi = max(hi, r);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(s_box, lo);
+    atomicMax(s_box + 1, hi);
+  }
+  __syncthreads();
+  return make_int2(s_box[0], s_box[1]);
+}
+
+__device__ __forceinline__ void store16(void* p, uint4 x, bool stream) {
+  if (stream) __stcs(reinterpret_cast<uint4*>(p), x);
+  else *reinterpret_cast<uint4*>(p) = x;
+}
 
 // out[m, tile] = img[rows[m], tile] (EPI false; p = 1), or, with EPI (f32,
 // whole rows of width l = 4 (c + D)), for every output row m:
 //   out[m, :c] = sum_pt sum_j winfo[pt, m, j] * <row_j depth, dvec> * row_j value
 //   out[m, c:] = 0,  row = img[rows[pt, m]], dvec = the lerp bins of winfo.
-template <typename T, bool EPI>
+// wwin > 0: a chunk spanning at most wwin rows is staged in shared memory.
+template <typename T, typename I, bool EPI>
 __global__ void __launch_bounds__(kThreads) row_gather_kernel(
-    const T* __restrict__ img, const int* __restrict__ rows,
-    const float* __restrict__ winfo, const int* __restrict__ meta,
-    T* __restrict__ out, int l, int m, int p, int cm, int c, int dsize) {
+    const T* __restrict__ img, const I* __restrict__ rows,
+    const float* __restrict__ winfo, T* __restrict__ out, int l, int m, int p,
+    int cm, int wwin, int c, int dsize, int flags) {
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_box[2];
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte move
   const int row_bytes = l * (int)sizeof(T);
   const int col0 = EPI ? 0 : blockIdx.x * (kTileBytes / (int)sizeof(T));
   const int tile_vecs = EPI ? row_bytes / 16 : min(kTileBytes, row_bytes - col0 * (int)sizeof(T)) / 16;
   const int s_stride = EPI ? l : kTileBytes / (int)sizeof(T);  // smem row, elements
-  const int chunk = blockIdx.y;
-  const int m0 = chunk * cm, m1 = min(m, m0 + cm);
-  const int base = meta == nullptr ? 0 : meta[2 * chunk];
-  const int span = meta == nullptr ? -1 : meta[2 * chunk + 1];
+  const int m0 = blockIdx.y * cm, m1 = min(m, m0 + cm);
+  int base = 0, span = -1;
+  if (wwin > 0) {  // the chunk's plan, over all p rows of it
+    const int n = m1 - m0;
+    const int2 b = chunk_bounds(
+        p * n, [&](int i) { const int pt = i / n; return (int)rows[(long long)pt * m + m0 + i - pt * n]; },
+        nullptr, s_box);
+    base = b.x;
+    span = b.y - b.x + 1 <= wwin ? b.y - b.x + 1 : -1;
+  }
   T* s = reinterpret_cast<T*>(smem);
   if (span > 0) {
     for (int i = threadIdx.x; i < span * tile_vecs; i += kThreads) {
@@ -79,8 +137,8 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
   if constexpr (!EPI) {
     for (int i = threadIdx.x; i < (m1 - m0) * tile_vecs; i += kThreads) {
       const int mi = i / tile_vecs, v = i - mi * tile_vecs;
-      const uint4 x = reinterpret_cast<const uint4*>(src(rows[m0 + mi]))[v];
-      reinterpret_cast<uint4*>(out + (long long)(m0 + mi) * l + col0)[v] = x;
+      const uint4 x = reinterpret_cast<const uint4*>(src((int)rows[m0 + mi]))[v];
+      store16(out + (long long)(m0 + mi) * l + col0 + v * kVec, x, flags & 1);
     }
   } else {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -90,7 +148,7 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
         float acc = 0.f;
         for (int pt = 0; pt < p; ++pt) {
           const long long sm = (long long)pt * m + mi;
-          const float* row = reinterpret_cast<const float*>(src(rows[sm]));
+          const float* row = reinterpret_cast<const float*>(src((int)rows[sm]));
           const float* wi = winfo + sm * 8;
           const int d0 = (int)wi[6], d1 = (int)wi[7];
 #pragma unroll
@@ -108,98 +166,310 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
   }
 }
 
-// out[rows[i], tile] += u[i, tile], f32; out zeroed by the caller.
-__global__ void __launch_bounds__(kThreads) row_scatter_add_kernel(
-    const float* __restrict__ u, const int* __restrict__ rows,
-    const int* __restrict__ meta, float* __restrict__ out, int l, int m, int cm) {
+// The windowed copy: out[m, tile] = img[rows[m], tile], blocks persistent
+// over the chunks of their column tile (blockIdx.x), two stages of `stage`
+// rows each: chunk i+1's indices, plan and span (where it spans at most
+// `stage` rows) are brought in while chunk i's rows are stored.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads) row_gather_win_kernel(
+    const T* __restrict__ img, const I* __restrict__ rows, T* __restrict__ out,
+    int l, int m, int cm, int stage, int flags) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kTile = kTileBytes / 4;
+  __shared__ int s_box[2][2];
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kTile = kTileBytes / sizeof(T);  // elements of a tile row
   const int col0 = blockIdx.x * kTile;
-  const int tile = min(kTile, l - col0);
-  const int chunk = blockIdx.y;
-  const int m0 = chunk * cm, m1 = min(m, m0 + cm);
-  const int base = meta == nullptr ? 0 : meta[2 * chunk];
-  const int span = meta == nullptr ? -1 : meta[2 * chunk + 1];
-  float* s = reinterpret_cast<float*>(smem);  // [span][kTile]
-  const bool win = span > 0;
-  if (win) {
-    for (int i = threadIdx.x; i < span * kTile; i += kThreads) s[i] = 0.f;
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < (m1 - m0) * tile; i += kThreads) {
-    const int mi = i / tile, col = i - mi * tile;
-    const int row = rows[m0 + mi];
-    const float x = u[(long long)(m0 + mi) * l + col0 + col];
-    const int rel = row - base;
-    if (win && rel >= 0 && rel < span) atomicAdd(s + rel * kTile + col, x);
-    else atomicAdd(out + (long long)row * l + col0 + col, x);
-  }
-  if (win) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < span * tile; i += kThreads) {
-      const int r = i / tile, col = i - r * tile;
-      const float x = s[r * kTile + col];
-      if (x != 0.f) atomicAdd(out + (long long)(base + r) * l + col0 + col, x);
+  const int tile_vecs = min(kTileBytes, (l - col0) * (int)sizeof(T)) / 16;
+  T* buf = reinterpret_cast<T*>(smem);  // [2][stage][kTile]
+  int* s_idx = reinterpret_cast<int*>(smem + 2 * (size_t)stage * kTileBytes);  // [2][cm]
+  const int nchunks = (m + cm - 1) / cm;
+  // chunk ch into stage st; returns its base row, or -1 where not staged
+  auto prefetch = [&](int ch, int st) -> int {
+    const int m0 = ch * cm, n = min(cm, m - m0);
+    const I* r = rows + m0;
+    const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, s_idx + st * cm, s_box[st]);
+    const bool staged = b.y - b.x + 1 <= stage;
+    if (staged) {
+      T* s = buf + (size_t)st * stage * kTile;
+      for (int i = threadIdx.x; i < (b.y - b.x + 1) * tile_vecs; i += kThreads) {
+        const int rr = i / tile_vecs, v = i - rr * tile_vecs;
+        sgc::cp_async16(s + rr * kTile + v * kVec,
+                        img + (long long)(b.x + rr) * l + col0 + v * kVec);
+      }
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    return staged ? b.x : -1;
+  };
+  int ch = blockIdx.y;
+  if (ch >= nchunks) return;
+  int st = 0;
+  int base = prefetch(ch, 0);
+  for (;;) {
+    const int next = ch + gridDim.y;
+    int next_base = -1;
+    if (next < nchunks) {
+      next_base = prefetch(next, st ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const int m0 = ch * cm, n = min(cm, m - m0);
+    const int* si = s_idx + st * cm;
+    const T* s = buf + (size_t)st * stage * kTile;
+    for (int i = threadIdx.x; i < n * tile_vecs; i += kThreads) {
+      const int mi = i / tile_vecs, v = i - mi * tile_vecs;
+      const int row = si[mi];
+      const T* src = base >= 0 ? s + (row - base) * kTile : img + (long long)row * l + col0;
+      store16(out + (long long)(m0 + mi) * l + col0 + v * kVec,
+              reinterpret_cast<const uint4*>(src)[v], flags & 1);
+    }
+    __syncthreads();  // stage st is free for chunk next + gridDim.y
+    if (next >= nchunks) break;
+    ch = next;
+    base = next_base;
+    st ^= 1;
   }
 }
 
-template <typename T, bool EPI>
-int launch_gather(const void* img, const int* rows, const float* winfo,
-                  const int* meta, void* out, int l, int m, int p, int cm,
-                  int wwin, int c, int dsize, cudaStream_t stream) {
+// meta[ch] = {lowest row, span} of chunk ch's indices, span -1 where it
+// exceeds wwin.
+template <typename I>
+__global__ void __launch_bounds__(kThreads) scatter_plan_kernel(
+    const I* __restrict__ rows, int* __restrict__ meta, int m, int cm, int wwin) {
+  __shared__ int s_box[2];
+  const int m0 = blockIdx.x * cm, n = min(cm, m - m0);
+  const I* r = rows + m0;
+  const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, nullptr, s_box);
+  if (threadIdx.x == 0) {
+    const int span = b.y - b.x + 1;
+    meta[2 * blockIdx.x] = b.x;
+    meta[2 * blockIdx.x + 1] = span <= wwin ? span : -1;
+  }
+}
+
+// out[row, cols] for kScatterRows rows (a warp each) x 32 float4 columns
+// (a lane each): the sum, in index order, of u[i, cols] over the indices i
+// of the windowed chunks (meta; none where meta is null) with rows[i] ==
+// row; zeros where there is none.  Each element is stored once.
+template <typename I>
+__global__ void __launch_bounds__(kThreads) scatter_owner_kernel(
+    const float* __restrict__ u, const I* __restrict__ rows, const int* __restrict__ meta,
+    float* __restrict__ out, int l4, int m, int n_rows, int cm) {
+  __shared__ int s_row[kScatterTile];               // the tile's indices
+  __shared__ int s_sel[kThreads];                   // chunks of a group that touch the block's rows
+  __shared__ int s_list[kScatterRows][kScatterList];  // a warp's matches (u rows), in order
+  __shared__ int s_count[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = blockIdx.x * kScatterRows, r1 = min(n_rows, r0 + kScatterRows);
+  const int row = r0 + warp;
+  const int col = blockIdx.y * 32 + lane;  // float4 column
+  const bool live = row < n_rows && col < l4;
+  const float4* u4 = reinterpret_cast<const float4*>(u);
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int pending = 0;  // warp-uniform
+  auto flush = [&]() {
+    __syncwarp();
+    for (int q = 0; q < pending; q += kBatch) {
+      float4 x[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (live && q + j < pending) x[j] = u4[(long long)s_list[warp][q + j] * l4 + col];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (live && q + j < pending) {
+          acc.x += x[j].x;
+          acc.y += x[j].y;
+          acc.z += x[j].z;
+          acc.w += x[j].w;
+        }
+    }
+    pending = 0;
+    __syncwarp();
+  };
+  if (meta != nullptr) {
+    const int nchunks = (m + cm - 1) / cm;
+    const int per_tile = kScatterTile / cm;  // whole chunks a tile holds
+    for (int g = 0; g < nchunks; g += kThreads) {
+      // this group's windowed chunks whose window meets [r0, r1), in order
+      const int ch = g + threadIdx.x;
+      bool hit = false;
+      if (ch < nchunks) {
+        const int base = meta[2 * ch], span = meta[2 * ch + 1];
+        hit = span > 0 && base < r1 && base + span > r0;
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (lane == 0) s_count[warp] = __popc(mask);
+      __syncthreads();
+      int before = 0, nsel = 0;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) {
+        before += w < warp ? s_count[w] : 0;
+        nsel += s_count[w];
+      }
+      if (hit) s_sel[before + __popc(mask & ((1u << lane) - 1))] = ch;
+      __syncthreads();
+      for (int q0 = 0; q0 < nsel; q0 += per_tile) {
+        const int n = min(per_tile, nsel - q0) * cm;  // tile positions
+        int v[kScatterTile / kThreads];
+#pragma unroll
+        for (int j = 0; j < kScatterTile / kThreads; ++j) {
+          const int k = threadIdx.x + j * kThreads, q = k / cm;
+          const long long i = k < n ? (long long)s_sel[q0 + q] * cm + (k - q * cm) : m;
+          v[j] = i < m ? (int)rows[i] : -1;  // past the ragged last chunk: no row
+        }
+#pragma unroll
+        for (int j = 0; j < kScatterTile / kThreads; ++j) {
+          const int k = threadIdx.x + j * kThreads;
+          if (k < n) s_row[k] = v[j];
+        }
+        __syncthreads();
+        for (int k0 = 0; k0 < n; k0 += 32) {
+          const int k = k0 + lane;
+          const bool match = k < n && s_row[k] == row;
+          const unsigned mm = __ballot_sync(0xffffffffu, match);
+          if (mm == 0) continue;
+          if (pending + 32 > kScatterList) flush();
+          if (match) {
+            const int q = k / cm;
+            s_list[warp][pending + __popc(mm & ((1u << lane) - 1))] = s_sel[q0 + q] * cm + k - q * cm;
+          }
+          pending += __popc(mm);
+        }
+        __syncthreads();  // s_row and s_sel are rewritten next
+      }
+    }
+    flush();
+  }
+  if (live) reinterpret_cast<float4*>(out)[(long long)row * l4 + col] = acc;
+}
+
+// out[rows[i]] += u[i] for the indices of the direct chunks (every chunk
+// where meta is null), by 16-byte vector reductions.
+template <typename I>
+__global__ void __launch_bounds__(kThreads) scatter_direct_kernel(
+    const float* __restrict__ u, const I* __restrict__ rows, const int* __restrict__ meta,
+    float* __restrict__ out, int l4, int m, int cm) {
+  if (meta != nullptr && meta[2 * blockIdx.x + 1] > 0) return;  // summed by scatter_owner_kernel
+  const int m0 = blockIdx.x * cm, n = min(cm, m - m0);
+  const float4* u4 = reinterpret_cast<const float4*>(u);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int e = threadIdx.x; e < n * l4; e += kThreads) {
+    const int i = e / l4, v = e - i * l4;
+    atomicAdd(o4 + (long long)rows[m0 + i] * l4 + v, u4[(long long)(m0 + i) * l4 + v]);
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <typename T, typename I, bool EPI>
+int launch_gather(const void* img, const void* rows, const float* winfo, void* out,
+                  int l, int m, int p, int cm, int wwin, int c, int dsize, int flags,
+                  cudaStream_t stream) {
   const int row_bytes = l * (int)sizeof(T);
-  const size_t smem = meta == nullptr ? 0 : (size_t)wwin * (EPI ? row_bytes : kTileBytes);
-  auto kernel = row_gather_kernel<T, EPI>;
+  const int tiles = EPI ? 1 : (row_bytes + kTileBytes - 1) / kTileBytes;
+  const int nchunks = (m + cm - 1) / cm;
+  if (!EPI && wwin > 0 && !(flags & 2)) {
+    const int stage = min(wwin, kStageRows);
+    const size_t smem = 2 * ((size_t)stage * kTileBytes + (size_t)cm * sizeof(int));
+    auto kernel = row_gather_win_kernel<T, I>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = max(1, min(nchunks, max(1, per_sm) * sm_count() / tiles));
+    kernel<<<dim3(tiles, blocks), kThreads, smem, stream>>>(
+        static_cast<const T*>(img), static_cast<const I*>(rows), static_cast<T*>(out),
+        l, m, cm, stage, flags);
+    return (int)cudaGetLastError();
+  }
+  if (!EPI && wwin > 0) wwin = min(wwin, kStageRows);
+  const size_t smem = wwin > 0 ? (size_t)wwin * (EPI ? row_bytes : kTileBytes) : 0;
+  auto kernel = row_gather_kernel<T, I, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(EPI ? 1 : (row_bytes + kTileBytes - 1) / kTileBytes, (m + cm - 1) / cm);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(img), rows,
-                                           winfo, meta, static_cast<T*>(out),
-                                           l, m, p, cm, c, dsize);
+  kernel<<<dim3(tiles, nchunks), kThreads, smem, stream>>>(
+      static_cast<const T*>(img), static_cast<const I*>(rows), winfo,
+      static_cast<T*>(out), l, m, p, cm, wwin, c, dsize, flags);
+  return (int)cudaGetLastError();
+}
+
+template <typename I>
+int dispatch_gather(int dtype, const void* img, const void* rows, const float* winfo,
+                    void* out, int l, int m, int p, int cm, int wwin, int c, int dsize,
+                    int flags, cudaStream_t s) {
+  if (winfo != nullptr) {
+    if (dtype != sgc::kFloat32 || 4 * (c + dsize) != l) return (int)cudaErrorInvalidValue;
+    return launch_gather<float, I, true>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s);
+  }
+  if (p != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == sgc::kBFloat16)
+    return launch_gather<__nv_bfloat16, I, false>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s);
+  if (dtype == sgc::kFloat32)
+    return launch_gather<float, I, false>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename I>
+int launch_scatter(const float* u, const void* rows_v, int* meta, float* out, int l4,
+                   int m, int n_rows, int cm, int wwin, cudaStream_t s) {
+  const I* rows = static_cast<const I*>(rows_v);
+  const int nchunks = (m + cm - 1) / cm;
+  if (meta != nullptr) {
+    scatter_plan_kernel<I><<<nchunks, kThreads, 0, s>>>(rows, meta, m, cm, wwin);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((n_rows + kScatterRows - 1) / kScatterRows, (l4 + 31) / 32);
+  scatter_owner_kernel<I><<<grid, kThreads, 0, s>>>(u, rows, meta, out, l4, m, n_rows, cm);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || m == 0) return (int)err;
+  scatter_direct_kernel<I><<<nchunks, kThreads, 0, s>>>(u, rows, meta, out, l4, m, cm);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // img (R, L) of type dtype with L * sizeof(dtype) a multiple of 16; rows
-// (P, M) int32 in [0, R); winfo null (copy: P = 1, out (M, L) of type dtype)
-// or (P, M, 8) f32 (epilogue: f32 only, quad rows of c value and dsize
-// depth lanes per corner, L = 4 (c + dsize), out (M, L) f32); meta null
-// (direct) or (ceil(M / cm), 2) int32 [base, span or -1] with span <= wwin.
-extern "C" int sgc_row_gather(int dtype, const void* img, const int* rows,
-                              const float* winfo, const int* meta, void* out,
-                              int l, int m, int p, int cm, int wwin, int c,
-                              int dsize, void* stream) {
+// (P, M) int32 (idx64 0) or int64 (idx64 1) in [0, R); winfo null (copy:
+// P = 1, out (M, L) of type dtype) or (P, M, 8) f32 (epilogue: f32 only,
+// quad rows of c value and dsize depth lanes per corner, L = 4 (c +
+// dsize), out (M, L) f32); wwin 0 (direct) or the most rows a chunk of cm
+// indices may span to be served from shared memory.  flags: bit 0
+// streaming stores, bit 1 the one-stage windowed copy.
+extern "C" int sgc_row_gather(int dtype, const void* img, const void* rows, int idx64,
+                              const float* winfo, void* out, int l, int m, int p,
+                              int cm, int wwin, int c, int dsize, int flags, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return (int)cudaSuccess;
-  if (cm <= 0 || (meta != nullptr && wwin <= 0)) return (int)cudaErrorInvalidValue;
-  if (winfo != nullptr) {
-    if (dtype != sgc::kFloat32 || 4 * (c + dsize) != l) return (int)cudaErrorInvalidValue;
-    return launch_gather<float, true>(img, rows, winfo, meta, out, l, m, p, cm, wwin, c, dsize, s);
-  }
-  if (p != 1) return (int)cudaErrorInvalidValue;
-  if (dtype == sgc::kBFloat16)
-    return launch_gather<__nv_bfloat16, false>(img, rows, winfo, meta, out, l, m, p, cm, wwin, c, dsize, s);
-  if (dtype == sgc::kFloat32)
-    return launch_gather<float, false>(img, rows, winfo, meta, out, l, m, p, cm, wwin, c, dsize, s);
-  return (int)cudaErrorInvalidValue;
+  if (cm <= 0 || wwin < 0) return (int)cudaErrorInvalidValue;
+  return idx64 ? dispatch_gather<long long>(dtype, img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s)
+               : dispatch_gather<int>(dtype, img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s);
 }
 
-// u (M, L) f32, rows (M,) int32 in [0, R), meta as for the gather ->
-// out (R, L) f32, zeroed by the caller.
-extern "C" int sgc_row_scatter_add(const float* u, const int* rows,
-                                   const int* meta, float* out, int l, int m,
-                                   int cm, int wwin, void* stream) {
+// u (M, L) f32 with L a multiple of 4, rows (M,) int32 (idx64 0) or int64
+// (idx64 1) in [0, R) -> out (R, L) f32, every element written (no zeroing
+// by the caller); meta null (direct) or (ceil(M / cm), 2) int32 scratch for
+// the plan of a window of wwin rows, with cm <= 2048.
+extern "C" int sgc_row_scatter_add(const float* u, const void* rows, int idx64, int* meta,
+                                   float* out, int l, int m, int n_rows, int cm, int wwin,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m == 0) return (int)cudaSuccess;
-  if (cm <= 0 || (meta != nullptr && wwin <= 0)) return (int)cudaErrorInvalidValue;
-  const size_t smem = meta == nullptr ? 0 : (size_t)wwin * kTileBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      row_scatter_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((l + kTileBytes / 4 - 1) / (kTileBytes / 4), (m + cm - 1) / cm);
-  row_scatter_add_kernel<<<grid, kThreads, smem, s>>>(u, rows, meta, out, l, m, cm);
-  return (int)cudaGetLastError();
+  if (n_rows == 0 || l == 0) return (int)cudaSuccess;
+  if (l % 4 || cm <= 0 || (meta != nullptr && (wwin <= 0 || cm > kScatterTile)))
+    return (int)cudaErrorInvalidValue;
+  if (m == 0) meta = nullptr;
+  return idx64 ? launch_scatter<long long>(u, rows, meta, out, l / 4, m, n_rows, cm, wwin, s)
+               : launch_scatter<int>(u, rows, meta, out, l / 4, m, n_rows, cm, wwin, s);
 }

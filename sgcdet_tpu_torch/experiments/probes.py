@@ -43,12 +43,16 @@ CM = 256            # indices per chunk
 SMEM = 200 * 1024   # most shared memory a window may take
 TILE_BYTES = 256    # the kernels' column tile (csrc/rows.cu)
 
+INDEX_TYPES = (torch.int32, torch.int64)  # read as they come, with no cast
+SCATTER_TILE = 2048  # most indices a windowed scatter chunk may hold (csrc/rows.cu)
+FLAGS = 1            # sgc_row_gather flags: bit 0 streaming stores, bit 1 one-stage window
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# sgc_row_gather(dtype, img, rows, winfo, meta, out, l, m, p, cm, wwin, c,
-#                dsize, stream)
-ROW_GATHER = Kernel("sgc_row_gather", [_I] + [_P] * 5 + [_I] * 7)
-# sgc_row_scatter_add(u, rows, meta, out, l, m, cm, wwin, stream)
-ROW_SCATTER_ADD = Kernel("sgc_row_scatter_add", [_P] * 4 + [_I] * 4)
+# sgc_row_gather(dtype, img, rows, idx64, winfo, out, l, m, p, cm, wwin, c,
+#                dsize, flags, stream)
+ROW_GATHER = Kernel("sgc_row_gather", [_I, _P, _P, _I, _P, _P] + [_I] * 8)
+# sgc_row_scatter_add(u, rows, idx64, meta, out, l, m, n_rows, cm, wwin, stream)
+ROW_SCATTER_ADD = Kernel("sgc_row_scatter_add", [_P, _P, _I, _P, _P] + [_I] * 5)
 KERNELS = {"row_gather": ROW_GATHER, "row_scatter_add": ROW_SCATTER_ADD}
 
 
@@ -64,11 +68,6 @@ def plan_rows(rows, chunk, wwin):
     hi = F.pad(r, pad, value=-1).view(p, nchunk, chunk).amax((0, 2))
     span = hi - lo + 1
     return lo, span, span <= wwin
-
-
-def _meta(rows, chunk, wwin):
-    base, span, ok = plan_rows(rows, chunk, wwin)
-    return torch.stack([base, torch.where(ok, span, -1)], -1).to(torch.int32).contiguous()
 
 
 def _windowed(rows, chunk, wwin):
@@ -149,15 +148,15 @@ def _ptr(t):
 
 
 def _gather_prepare(img, rows, winfo, window, chunk):
-    """The wrapper's work before its launch: operands checked, indices and
-    plan made, output allocated; returns (launch, out)."""
+    """The wrapper's work before its launch: operands checked, output
+    allocated (no device work); returns (launch, out)."""
     dev = img.device
     im = check_cuda_input(img, "img", (torch.float32, torch.bfloat16), 2, dev)
     l = im.shape[1]
     if l * im.element_size() % 16:
         raise ValueError(f"row_gather takes rows of a multiple of 16 bytes, got {l} x "
                          f"{im.element_size()}")
-    rw = check_cuda_input(rows.to(torch.int32), "rows", (torch.int32,), 2, dev)
+    rw = check_cuda_input(rows, "rows", INDEX_TYPES, 2, dev)
     p, m = rw.shape
     wi = None
     if winfo is not None:
@@ -166,15 +165,14 @@ def _gather_prepare(img, rows, winfo, window, chunk):
         wi = check_cuda_input(winfo.float(), "winfo", (torch.float32,), 3, dev)
         if wi.shape != (p, m, 8):
             raise ValueError(f"winfo {tuple(wi.shape)} must be {(p, m, 8)}")
-    wwin, meta = 0, None
-    if window is not None:
-        wwin = _window_rows(l * im.element_size(), window, winfo is not None)
-        meta = _meta(rw, chunk, wwin)
+    wwin = 0 if window is None else _window_rows(l * im.element_size(), window,
+                                                 winfo is not None)
     out = torch.empty((m, l), dtype=im.dtype, device=dev)
 
     def launch():
-        ROW_GATHER(dev, DTYPE_CODE[im.dtype], im.data_ptr(), rw.data_ptr(), _ptr(wi),
-                   _ptr(meta), out.data_ptr(), l, m, p, chunk, wwin, *quad_widths(l))
+        ROW_GATHER(dev, DTYPE_CODE[im.dtype], im.data_ptr(), rw.data_ptr(),
+                   int(rw.dtype == torch.int64), _ptr(wi), out.data_ptr(), l, m, p, chunk,
+                   wwin, *quad_widths(l), FLAGS)
     return launch, out
 
 
@@ -212,22 +210,28 @@ def row_scatter_add(u, rows, n_rows, window=None, chunk=CM):
 
 
 def _scatter_prepare(u, rows, n_rows, window, chunk):
-    """As ``_gather_prepare``, for ``row_scatter_add``."""
+    """As ``_gather_prepare``, for ``row_scatter_add`` (the plan's scratch
+    is allocated here and filled by the kernel)."""
     dev = u.device
     uu = check_cuda_input(u.float(), "u", (torch.float32,), 2, dev)
-    rw = check_cuda_input(rows.to(torch.int32), "rows", (torch.int32,), 1, dev)
+    rw = check_cuda_input(rows, "rows", INDEX_TYPES, 1, dev)
     m, l = uu.shape
     if rw.shape[0] != m:
         raise ValueError(f"rows {tuple(rw.shape)} must be ({m},)")
+    if l % 4:
+        raise ValueError(f"row_scatter_add takes rows of a multiple of 4 f32, got {l}")
     wwin, meta = 0, None
     if window is not None:
+        if chunk > SCATTER_TILE:
+            raise ValueError(f"a windowed row_scatter_add takes chunks of at most "
+                             f"{SCATTER_TILE} indices, got {chunk}")
         wwin = _window_rows(l * 4, window, False)
-        meta = _meta(rw[None], chunk, wwin)
-    out = torch.zeros((n_rows, l), dtype=torch.float32, device=dev)
+        meta = torch.empty((-(-m // chunk), 2), dtype=torch.int32, device=dev)
+    out = torch.empty((n_rows, l), dtype=torch.float32, device=dev)
 
     def launch():
-        ROW_SCATTER_ADD(dev, uu.data_ptr(), rw.data_ptr(), _ptr(meta), out.data_ptr(),
-                        l, m, chunk, wwin)
+        ROW_SCATTER_ADD(dev, uu.data_ptr(), rw.data_ptr(), int(rw.dtype == torch.int64),
+                        _ptr(meta), out.data_ptr(), l, m, n_rows, chunk, wwin)
     return launch, out
 
 
@@ -257,6 +261,10 @@ class ProbeCase(NamedTuple):
     prepare: Optional[Callable] = None
 
 
+def nbytes_of(t):
+    return t.numel() * t.element_size()
+
+
 def probe_cases(dev, seed=0):
     """The probes at the TPU probes' shapes, as ``ProbeCase``s."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -264,7 +272,7 @@ def probe_cases(dev, seed=0):
 
     def add_gather(name, img, rows, window, chunk=CM, attribute=False):
         distinct = torch.unique(rows).numel()
-        nbytes = (distinct * img.shape[1] * img.element_size() + rows.numel() * 4
+        nbytes = (distinct * img.shape[1] * img.element_size() + nbytes_of(rows)
                   + rows.numel() * img.shape[1] * img.element_size())
         cases.append(ProbeCase(name, "row_gather",
                                lambda: row_gather(img, rows, window, chunk),
@@ -280,7 +288,7 @@ def probe_cases(dev, seed=0):
             lambda: row_scatter_add(u, rows, n_rows, window),
             lambda: row_scatter_add_plain(u, rows, n_rows, window),
             lambda: torch.zeros((n_rows, u.shape[1]), device=dev).index_add_(0, rows, u),
-            u.numel() * 4 + rows.numel() * 4 + n_rows * u.shape[1] * 4, float(u.numel()),
+            u.numel() * 4 + nbytes_of(rows) + n_rows * u.shape[1] * 4, float(u.numel()),
             rows.numel(),
             (lambda: _scatter_prepare(u, rows, n_rows, window, CM)[0]) if attribute else None))
 
@@ -325,7 +333,7 @@ def probe_cases(dev, seed=0):
         "gather_batch p4+epi f32 w=176", "row_gather",
         lambda: gather_epilogue(img, r4, winfo),
         lambda: gather_epilogue_plain(img, r4, winfo), None,
-        torch.unique(r4).numel() * 176 * 4 + r4.numel() * 4 + winfo.numel() * 4
+        torch.unique(r4).numel() * 176 * 4 + nbytes_of(r4) + winfo.numel() * 4
         + STEPS * QB * 176 * 4, float(r4.numel() * 4 * (2 * d + 6 + 2 * c)), r4.numel()))
     # probe_f32_onehot.py: adversarial f32 rows scattered into one window
     scale = torch.exp2(torch.randint(-40, 40, (2048, 1), device=dev, generator=gen).float())
@@ -376,6 +384,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
+    global FLAGS
+    if "--flags" in sys.argv[1:]:
+        FLAGS = int(sys.argv[sys.argv.index("--flags") + 1])
+        print(f"flags {FLAGS}", flush=True)
     if "--attribute" in sys.argv[1:]:
         for r in attribute_probes(dev):
             print(f"{r['name']:66s} whole {r['whole_ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms, "
