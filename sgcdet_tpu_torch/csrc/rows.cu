@@ -100,7 +100,7 @@ template <typename T, typename I, bool EPI>
 __global__ void __launch_bounds__(kThreads) row_gather_kernel(
     const T* __restrict__ img, const I* __restrict__ rows,
     const float* __restrict__ winfo, T* __restrict__ out, int l, int m, int p,
-    int cm, int wwin, int c, int dsize, int flags) {
+    int cm, int br, int wwin, int c, int dsize, int flags) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_box[2];
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte move
@@ -108,12 +108,15 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
   const int col0 = EPI ? 0 : blockIdx.x * (kTileBytes / (int)sizeof(T));
   const int tile_vecs = EPI ? row_bytes / 16 : min(kTileBytes, row_bytes - col0 * (int)sizeof(T)) / 16;
   const int s_stride = EPI ? l : kTileBytes / (int)sizeof(T);  // smem row, elements
-  const int m0 = blockIdx.y * cm, m1 = min(m, m0 + cm);
+  // the block's br output rows of its chunk
+  const int parts = (cm + br - 1) / br;
+  const int chunk = blockIdx.y / parts, c0 = chunk * cm, c1 = min(m, c0 + cm);
+  const int m0 = c0 + (blockIdx.y - chunk * parts) * br, m1 = min(c1, m0 + br);
   int base = 0, span = -1;
   if (wwin > 0) {  // the chunk's plan, over all p rows of it
-    const int n = m1 - m0;
+    const int n = c1 - c0;
     const int2 b = chunk_bounds(
-        p * n, [&](int i) { const int pt = i / n; return (int)rows[(long long)pt * m + m0 + i - pt * n]; },
+        p * n, [&](int i) { const int pt = i / n; return (int)rows[(long long)pt * m + c0 + i - pt * n]; },
         nullptr, s_box);
     base = b.x;
     span = b.y - b.x + 1 <= wwin ? b.y - b.x + 1 : -1;
@@ -232,12 +235,25 @@ __global__ void __launch_bounds__(kThreads) row_gather_win_kernel(
   }
 }
 
+// Programmatic dependent launch (sm_90): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
+// kernel ahead of it in the stream ends; it waits here before it reads
+// what that kernel writes or writes what it reads.
+__device__ __forceinline__ void wait_for_prerequisite() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+// Let the next kernel of the stream start launching.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // meta[ch] = {lowest row, span} of chunk ch's indices, span -1 where it
 // exceeds wwin.
 template <typename I>
 __global__ void __launch_bounds__(kThreads) scatter_plan_kernel(
     const I* __restrict__ rows, int* __restrict__ meta, int m, int cm, int wwin) {
   __shared__ int s_box[2];
+  launch_dependents();
   const int m0 = blockIdx.x * cm, n = min(cm, m - m0);
   const I* r = rows + m0;
   const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, nullptr, s_box);
@@ -250,14 +266,18 @@ __global__ void __launch_bounds__(kThreads) scatter_plan_kernel(
 
 // out[row, cols] for kScatterRows rows (a warp each) x 32 float4 columns
 // (a lane each): the sum, in index order, of u[i, cols] over the indices i
-// of the windowed chunks (meta; none where meta is null) with rows[i] ==
-// row; zeros where there is none.  Each element is stored once.
+// of the windowed chunks with rows[i] == row; zeros where there is none.
+// Each element is stored once.  The windowed chunks: none where wwin is 0
+// (direct); where meta is null (at most kScatterTile indices in at most
+// kThreads chunks), found by the block from all the indices it holds;
+// else read from meta (scatter_plan_kernel, ahead in the stream).
 template <typename I>
 __global__ void __launch_bounds__(kThreads) scatter_owner_kernel(
     const float* __restrict__ u, const I* __restrict__ rows, const int* __restrict__ meta,
-    float* __restrict__ out, int l4, int m, int n_rows, int cm) {
+    float* __restrict__ out, int l4, int m, int n_rows, int cm, int wwin) {
   __shared__ int s_row[kScatterTile];               // the tile's indices
   __shared__ int s_sel[kThreads];                   // chunks of a group that touch the block's rows
+  __shared__ int s_hi[kThreads];                    // (one tile: each chunk's highest row)
   __shared__ int s_list[kScatterRows][kScatterList];  // a warp's matches (u rows), in order
   __shared__ int s_count[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -287,7 +307,55 @@ __global__ void __launch_bounds__(kThreads) scatter_owner_kernel(
     pending = 0;
     __syncwarp();
   };
-  if (meta != nullptr) {
+  // a warp's matches among tile positions [0, n): position k holds s_row[k]
+  // and names u row at(k) where ok(k)
+  auto scan = [&](int n, auto at, auto ok) {
+    for (int k0 = 0; k0 < n; k0 += 32) {
+      const int k = k0 + lane;
+      const bool match = k < n && s_row[k] == r0 + warp && ok(k);
+      const unsigned mm = __ballot_sync(0xffffffffu, match);
+      if (mm == 0) continue;
+      if (pending + 32 > kScatterList) flush();
+      if (match) s_list[warp][pending + __popc(mm & ((1u << lane) - 1))] = at(k);
+      pending += __popc(mm);
+    }
+  };
+  constexpr int kPer = kScatterTile / kThreads;  // tile positions a thread loads
+  if (wwin > 0 && meta == nullptr) {  // every index in one tile; the plan from it
+    const int nchunks = (m + cm - 1) / cm;
+    if (threadIdx.x < nchunks) {
+      s_sel[threadIdx.x] = INT_MAX;
+      s_hi[threadIdx.x] = -1;
+    }
+    int v[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int k = threadIdx.x + j * kThreads;
+      v[j] = k < m ? (int)rows[k] : -1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int k = threadIdx.x + j * kThreads;
+      if (k < m) s_row[k] = v[j];
+      if (cm % 32 == 0) {  // a warp's 32 positions lie in one chunk
+        const int lo = __reduce_min_sync(0xffffffffu, k < m ? v[j] : INT_MAX);
+        const int hi = __reduce_max_sync(0xffffffffu, v[j]);
+        if (lane == 0 && k < m) {
+          atomicMin(s_sel + k / cm, lo);
+          atomicMax(s_hi + k / cm, hi);
+        }
+      } else if (k < m) {
+        atomicMin(s_sel + k / cm, v[j]);
+        atomicMax(s_hi + k / cm, v[j]);
+      }
+    }
+    __syncthreads();
+    scan(m, [](int k) { return k; },
+         [&](int k) { const int ch = k / cm; return s_hi[ch] - s_sel[ch] + 1 <= wwin; });
+    flush();
+  } else if (wwin > 0) {
+    wait_for_prerequisite();  // meta
     const int nchunks = (m + cm - 1) / cm;
     const int per_tile = kScatterTile / cm;  // whole chunks a tile holds
     for (int g = 0; g < nchunks; g += kThreads) {
@@ -311,53 +379,70 @@ __global__ void __launch_bounds__(kThreads) scatter_owner_kernel(
       __syncthreads();
       for (int q0 = 0; q0 < nsel; q0 += per_tile) {
         const int n = min(per_tile, nsel - q0) * cm;  // tile positions
-        int v[kScatterTile / kThreads];
+        int v[kPer];
 #pragma unroll
-        for (int j = 0; j < kScatterTile / kThreads; ++j) {
+        for (int j = 0; j < kPer; ++j) {
           const int k = threadIdx.x + j * kThreads, q = k / cm;
           const long long i = k < n ? (long long)s_sel[q0 + q] * cm + (k - q * cm) : m;
           v[j] = i < m ? (int)rows[i] : -1;  // past the ragged last chunk: no row
         }
 #pragma unroll
-        for (int j = 0; j < kScatterTile / kThreads; ++j) {
+        for (int j = 0; j < kPer; ++j) {
           const int k = threadIdx.x + j * kThreads;
           if (k < n) s_row[k] = v[j];
         }
         __syncthreads();
-        for (int k0 = 0; k0 < n; k0 += 32) {
-          const int k = k0 + lane;
-          const bool match = k < n && s_row[k] == row;
-          const unsigned mm = __ballot_sync(0xffffffffu, match);
-          if (mm == 0) continue;
-          if (pending + 32 > kScatterList) flush();
-          if (match) {
-            const int q = k / cm;
-            s_list[warp][pending + __popc(mm & ((1u << lane) - 1))] = s_sel[q0 + q] * cm + k - q * cm;
-          }
-          pending += __popc(mm);
-        }
+        scan(n, [&](int k) { const int q = k / cm; return s_sel[q0 + q] * cm + k - q * cm; },
+             [](int) { return true; });
         __syncthreads();  // s_row and s_sel are rewritten next
       }
     }
     flush();
   }
   if (live) reinterpret_cast<float4*>(out)[(long long)row * l4 + col] = acc;
+  launch_dependents();
 }
 
 // out[rows[i]] += u[i] for the indices of the direct chunks (every chunk
-// where meta is null), by 16-byte vector reductions.
+// where wwin is 0; else those spanning more than wwin rows), by 16-byte
+// vector reductions.  Launched behind scatter_owner_kernel, which stores
+// every element of out first.
 template <typename I>
 __global__ void __launch_bounds__(kThreads) scatter_direct_kernel(
-    const float* __restrict__ u, const I* __restrict__ rows, const int* __restrict__ meta,
-    float* __restrict__ out, int l4, int m, int cm) {
-  if (meta != nullptr && meta[2 * blockIdx.x + 1] > 0) return;  // summed by scatter_owner_kernel
+    const float* __restrict__ u, const I* __restrict__ rows, float* __restrict__ out,
+    int l4, int m, int cm, int wwin) {
+  __shared__ int s_box[2];
   const int m0 = blockIdx.x * cm, n = min(cm, m - m0);
+  const I* r = rows + m0;
+  if (wwin > 0) {
+    const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, nullptr, s_box);
+    if (b.y - b.x + 1 <= wwin) return;  // summed by scatter_owner_kernel
+  }
+  wait_for_prerequisite();  // out stored
   const float4* u4 = reinterpret_cast<const float4*>(u);
   float4* o4 = reinterpret_cast<float4*>(out);
   for (int e = threadIdx.x; e < n * l4; e += kThreads) {
     const int i = e / l4, v = e - i * l4;
-    atomicAdd(o4 + (long long)rows[m0 + i] * l4 + v, u4[(long long)(m0 + i) * l4 + v]);
+    atomicAdd(o4 + (long long)r[i] * l4 + v, u4[(long long)(m0 + i) * l4 + v]);
   }
+}
+
+// Launch kernel on grid x kThreads in stream s, allowed to start before
+// the kernel ahead of it ends where `early` (it then waits in
+// wait_for_prerequisite).
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool early,
+                   Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = early ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 int sm_count() {
@@ -377,7 +462,7 @@ int launch_gather(const void* img, const void* rows, const float* winfo, void* o
   const int row_bytes = l * (int)sizeof(T);
   const int tiles = EPI ? 1 : (row_bytes + kTileBytes - 1) / kTileBytes;
   const int nchunks = (m + cm - 1) / cm;
-  if (!EPI && wwin > 0 && !(flags & 2)) {
+  if (!EPI && wwin > 0 && (flags & 2)) {
     const int stage = min(wwin, kStageRows);
     const size_t smem = 2 * ((size_t)stage * kTileBytes + (size_t)cm * sizeof(int));
     auto kernel = row_gather_win_kernel<T, I>;
@@ -395,13 +480,14 @@ int launch_gather(const void* img, const void* rows, const float* winfo, void* o
   }
   if (!EPI && wwin > 0) wwin = min(wwin, kStageRows);
   const size_t smem = wwin > 0 ? (size_t)wwin * (EPI ? row_bytes : kTileBytes) : 0;
+  const int br = EPI ? cm : min(cm, flags & 4 ? 64 : 128);
   auto kernel = row_gather_kernel<T, I, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(tiles, nchunks), kThreads, smem, stream>>>(
+  kernel<<<dim3(tiles, nchunks * ((cm + br - 1) / br)), kThreads, smem, stream>>>(
       static_cast<const T*>(img), static_cast<const I*>(rows), winfo,
-      static_cast<T*>(out), l, m, p, cm, wwin, c, dsize, flags);
+      static_cast<T*>(out), l, m, p, cm, br, wwin, c, dsize, flags);
   return (int)cudaGetLastError();
 }
 
@@ -426,17 +512,20 @@ int launch_scatter(const float* u, const void* rows_v, int* meta, float* out, in
                    int m, int n_rows, int cm, int wwin, cudaStream_t s) {
   const I* rows = static_cast<const I*>(rows_v);
   const int nchunks = (m + cm - 1) / cm;
-  if (meta != nullptr) {
+  // the plan ahead of the owners where one block cannot hold every index
+  const bool plan = wwin > 0 && (m > kScatterTile || nchunks > kThreads);
+  cudaError_t err = cudaSuccess;
+  if (plan) {
     scatter_plan_kernel<I><<<nchunks, kThreads, 0, s>>>(rows, meta, m, cm, wwin);
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((n_rows + kScatterRows - 1) / kScatterRows, (l4 + 31) / 32);
-  scatter_owner_kernel<I><<<grid, kThreads, 0, s>>>(u, rows, meta, out, l4, m, n_rows, cm);
-  cudaError_t err = cudaGetLastError();
+  err = launch(scatter_owner_kernel<I>, grid, s, plan, u, rows,
+               static_cast<const int*>(plan ? meta : nullptr), out, l4, m, n_rows, cm, wwin);
   if (err != cudaSuccess || m == 0) return (int)err;
-  scatter_direct_kernel<I><<<nchunks, kThreads, 0, s>>>(u, rows, meta, out, l4, m, cm);
-  return (int)cudaGetLastError();
+  return (int)launch(scatter_direct_kernel<I>, dim3(nchunks), s, true, u, rows, out, l4, m,
+                     cm, wwin);
 }
 
 }  // namespace
@@ -447,7 +536,8 @@ int launch_scatter(const float* u, const void* rows_v, int* meta, float* out, in
 // quad rows of c value and dsize depth lanes per corner, L = 4 (c +
 // dsize), out (M, L) f32); wwin 0 (direct) or the most rows a chunk of cm
 // indices may span to be served from shared memory.  flags: bit 0
-// streaming stores, bit 1 the one-stage windowed copy.
+// streaming stores, bit 1 the two-stage windowed copy, bit 2 blocks of 64
+// output rows (else 128).
 extern "C" int sgc_row_gather(int dtype, const void* img, const void* rows, int idx64,
                               const float* winfo, void* out, int l, int m, int p,
                               int cm, int wwin, int c, int dsize, int flags, void* stream) {
@@ -460,16 +550,17 @@ extern "C" int sgc_row_gather(int dtype, const void* img, const void* rows, int 
 
 // u (M, L) f32 with L a multiple of 4, rows (M,) int32 (idx64 0) or int64
 // (idx64 1) in [0, R) -> out (R, L) f32, every element written (no zeroing
-// by the caller); meta null (direct) or (ceil(M / cm), 2) int32 scratch for
-// the plan of a window of wwin rows, with cm <= 2048.
+// by the caller); wwin 0 (direct) or the most rows a chunk of cm <= 2048
+// indices may span to be summed where the output lives, with meta
+// (ceil(M / cm), 2) int32 scratch for the plan.
 extern "C" int sgc_row_scatter_add(const float* u, const void* rows, int idx64, int* meta,
                                    float* out, int l, int m, int n_rows, int cm, int wwin,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_rows == 0 || l == 0) return (int)cudaSuccess;
-  if (l % 4 || cm <= 0 || (meta != nullptr && (wwin <= 0 || cm > kScatterTile)))
+  if (l % 4 || cm <= 0 || wwin < 0 || (wwin > 0 && (meta == nullptr || cm > kScatterTile)))
     return (int)cudaErrorInvalidValue;
-  if (m == 0) meta = nullptr;
+  if (m == 0) wwin = 0;
   return idx64 ? launch_scatter<long long>(u, rows, meta, out, l / 4, m, n_rows, cm, wwin, s)
                : launch_scatter<int>(u, rows, meta, out, l / 4, m, n_rows, cm, wwin, s);
 }

@@ -298,7 +298,8 @@ def probe_cases(dev, seed=0):
     imgb = imgf.to(torch.bfloat16)
     for window in (None, 256):
         tag = "windowed 256" if window else "direct"
-        add_gather(f"lowering bf16 row copies (4944, 1072), {tag}", imgb, rows, window)
+        add_gather(f"lowering bf16 row copies (4944, 1072), {tag}", imgb, rows, window,
+                   attribute=True)
         add_gather(f"lowering f32 row copies (4944, 536), {tag}", imgf[:, :LANES // 2].contiguous(),
                    rows, window)
         add_gather(f"lowering f32 row copies (4944, 1072), {tag}", imgf, rows, window)

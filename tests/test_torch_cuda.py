@@ -11,7 +11,11 @@ edge coordinates, a plane behind the camera, counted views of count 0) and
 on operands that are views at an offset breaking 16-byte alignment; the windowed kernels of the ``sort_queries`` path against their plain
 versions and the template kernels, in the coherent and random regimes, and
 the sorted ``ViewTransformer`` through them; the row gather/scatter probe
-kernels against their plain versions.
+kernels against their plain versions (int32 and int64 indices, ragged last
+chunks, chunks exceeding the window, the windows of probe_window_matmul.py),
+a permutation moved bit for bit, the scatter equal from run to run and
+within f32 summation error at probe_f32_onehot.py's shape, and the device
+work of a probe call counted by torch.profiler.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device: the hand-written kernels have no CPU mode.  The module imports no
@@ -564,3 +568,154 @@ def test_row_scatter_add_kernel_matches_plain(cuda_device, window):
     torch.cuda.synchronize()
     # f32 sums in another order (atomics): 1e-5 of the scale
     assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "row scatter-add")
+
+
+def _probe_rows(kind, m, r, dtype, device, chunk=probes.CM, seed=0):
+    """m indices into r rows: sorted, jittered monotone (probe_window_matmul.py's
+    regime), or mixed (sorted chunks alternating with chunks of random rows,
+    which exceed any window narrower than r)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    if kind == "jittered":
+        t = torch.arange(m, device=device) * (r - 1) // max(m - 1, 1)
+        rows = (t + torch.randint(-40, 40, (m,), device=device, generator=gen)).clamp(0, r - 1)
+    else:
+        rows = torch.sort(torch.randint(0, r, (m,), device=device, generator=gen))[0]
+        if kind == "mixed":
+            wild = (torch.arange(m, device=device) // chunk) % 2 == 1
+            rows = torch.where(wild, torch.randint(0, r, (m,), device=device, generator=gen),
+                               rows)
+    return rows.to(dtype)
+
+
+PROBE_INDEX_TYPES = [pytest.param(torch.int32, id="int32"),
+                     pytest.param(torch.int64, id="int64")]
+# (index order, M, chunk, window): every chunk windowed; ragged last chunks
+# (M not a multiple of the chunk); unsorted chunks exceeding the window
+PROBE_CASES = [pytest.param("sorted", 20000, 256, 64, id="sorted-w64"),
+               pytest.param("jittered", 9999, 128, 128, id="jittered-ragged-w128"),
+               pytest.param("mixed", 5000, 256, 200, id="mixed-ragged-w200"),
+               pytest.param("mixed", 4096, 64, 100, id="mixed-w100-cm64"),
+               pytest.param("mixed", 3000, 256, None, id="mixed-direct")]
+
+
+def _some_chunks_exceed(rows, chunk, window):
+    ok = probes.plan_rows(rows[None], chunk, window)[2]
+    return bool(ok.any()) and not bool(ok.all())
+
+
+@pytest.mark.parametrize("index_dtype", PROBE_INDEX_TYPES)
+@pytest.mark.parametrize("kind,m,chunk,window", PROBE_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_row_gather_kernel_indices_and_windows(cuda_device, kind, m, chunk, window,
+                                               index_dtype, dtype):
+    gen = torch.Generator(cuda_device).manual_seed(4)
+    img = torch.randn((700, 1072), device=cuda_device, generator=gen).to(dtype)
+    rows = _probe_rows(kind, m, 700, index_dtype, cuda_device, chunk)
+    if kind == "mixed" and window:
+        assert _some_chunks_exceed(rows, chunk, window)
+    got = probes.row_gather(img, rows, window, chunk)
+    assert torch.equal(got, img[rows.long()])
+    assert torch.equal(got, probes.row_gather_plain(img, rows, window, chunk))
+
+
+@pytest.mark.parametrize("window,chunk", [(128, 128), (256, 256), (512, 512)])
+def test_row_gather_kernel_window_matmul_windows(cuda_device, window, chunk):
+    """probe_window_matmul.py's jittered rows into the (4944, 1072) bf16
+    image, at each window it measures."""
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    img = torch.randn((4944, 1072), device=cuda_device, generator=gen).bfloat16()
+    rows = _probe_rows("jittered", 1 << 16, 4944, torch.int64, cuda_device)
+    assert probes.plan_rows(rows[None], chunk, window)[2].all()
+    assert torch.equal(probes.row_gather(img, rows, window, chunk), img[rows])
+
+
+@pytest.mark.parametrize("index_dtype", PROBE_INDEX_TYPES)
+@pytest.mark.parametrize("kind,m,chunk,window", PROBE_CASES)
+def test_row_scatter_add_kernel_indices_and_windows(cuda_device, kind, m, chunk, window,
+                                                    index_dtype):
+    gen = torch.Generator(cuda_device).manual_seed(6)
+    u = torch.randn((m, 1072), device=cuda_device, generator=gen)
+    rows = _probe_rows(kind, m, 700, index_dtype, cuda_device, chunk)
+    if kind == "mixed" and window:
+        assert _some_chunks_exceed(rows, chunk, window)
+    got = probes.row_scatter_add(u, rows, 705, window, chunk)
+    want = probes.row_scatter_add_plain(u, rows, 705, window, chunk)
+    torch.cuda.synchronize()
+    assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "row scatter-add")
+    named = torch.zeros(705, dtype=torch.bool, device=cuda_device)
+    named[rows.long()] = True
+    assert not named.all() and (got[~named] == 0).all()  # no index names them: zeros
+
+
+@pytest.mark.parametrize("window", [None, 256], ids=["direct", "windowed"])
+def test_row_scatter_add_kernel_moves_a_permutation_bit_for_bit(cuda_device, window):
+    gen = torch.Generator(cuda_device).manual_seed(7)
+    scale = torch.exp2(torch.randint(-40, 40, (1000, 1), device=cuda_device,
+                                     generator=gen).float())
+    u = torch.randn((1000, 1072), device=cuda_device, generator=gen) * scale
+    perm = torch.randperm(1000, device=cuda_device, generator=gen)
+    got = probes.row_scatter_add(u, perm, 1000, window=window)
+    assert torch.equal(got, torch.zeros_like(u).index_copy_(0, perm, u))
+
+
+@pytest.mark.parametrize("case", ["f32_onehot", "sorted-2^16"])
+def test_row_scatter_add_kernel_is_the_same_from_run_to_run(cuda_device, case):
+    gen = torch.Generator(cuda_device).manual_seed(8)
+    if case == "f32_onehot":
+        m, n_rows = 2048, 256
+        rows = torch.randint(0, n_rows, (m,), device=cuda_device, generator=gen)
+    else:
+        m, n_rows = 1 << 16, 4944
+        rows = _probe_rows("sorted", m, n_rows, torch.int64, cuda_device)
+    u = torch.randn((m, 1072), device=cuda_device, generator=gen)
+    first = probes.row_scatter_add(u, rows, n_rows, window=256)
+    for _ in range(3):
+        assert torch.equal(probes.row_scatter_add(u, rows, n_rows, window=256), first)
+
+
+def test_row_scatter_add_kernel_f32_onehot_shape(cuda_device):
+    """probe_f32_onehot.py: u (2048, 1072) with row scales 2^-40..2^40 into
+    one 256-row window; each element within f32 summation error (8 terms
+    on average) of its f64 sum."""
+    gen = torch.Generator(cuda_device).manual_seed(9)
+    scale = torch.exp2(torch.randint(-40, 40, (2048, 1), device=cuda_device,
+                                     generator=gen).float())
+    u = torch.randn((2048, 1072), device=cuda_device, generator=gen) * scale
+    rows = torch.randint(0, 256, (2048,), device=cuda_device, generator=gen)
+    got = probes.row_scatter_add(u, rows, 256, window=256)
+    want = torch.zeros((256, 1072), dtype=torch.float64, device=cuda_device)
+    want.index_add_(0, rows, u.double())
+    mag = torch.zeros_like(want).index_add_(0, rows, u.double().abs())
+    assert ((got.double() - want).abs() <= 2.0 ** -20 * mag).all()
+
+
+def _device_work(fn):
+    """Names of the device kernels, copies and fills one call of fn runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("index_dtype", PROBE_INDEX_TYPES)
+def test_probe_wrappers_launch_only_their_kernels(cuda_device, index_dtype):
+    """No torch op on the card's path: a windowed gather is one kernel, a
+    scatter-add at most three (plan, sum where the output lives, direct
+    chunks), for int32 and int64 indices alike."""
+    gen = torch.Generator(cuda_device).manual_seed(10)
+    img = torch.randn((4944, 1072), device=cuda_device, generator=gen).bfloat16()
+    rows = _probe_rows("jittered", 1 << 15, 4944, index_dtype, cuda_device)
+    work = _device_work(lambda: probes.row_gather(img, rows, 256))
+    assert len(work) == 1 and "row_gather" in work[0], work
+    u = torch.randn((2048, 1072), device=cuda_device, generator=gen)
+    for r, n_rows, window in ((torch.randint(0, 256, (2048,), device=cuda_device,
+                                             generator=gen), 256, 256),
+                              (rows, 4944, 256), (rows, 4944, None)):
+        uu = u if r.numel() == 2048 else torch.randn((r.numel(), 64), device=cuda_device)
+        r = r.to(index_dtype)
+        work = _device_work(lambda: probes.row_scatter_add(uu, r, n_rows, window))
+        assert 1 <= len(work) <= 3 and all("scatter_" in name for name in work), work
