@@ -108,7 +108,13 @@ Phases, each fatal on failure:
               windowed scatter of a permutation bit-exact), then the probes'
               own run (sgcdet_tpu_torch.experiments.probes.run_probes):
               rows/s, GB/s, plain and bound ms beside torch.index_select and
-              index_add_.
+              index_add_, with PERF.md rows 24 and 29 set beside their library
+              call; for the windowed gathers, the direct bf16 gather and the
+              windowed scatters, where a call's device time goes (whole call,
+              kernel alone, the wrapper's torch ops alone: probes.
+              attribute_probes) and the device work of one call by
+              torch.profiler, which must be the probe's own kernels only: one
+              for a gather, at most three for a scatter-add.
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
@@ -1739,6 +1745,11 @@ def phase_sorted(torch, dev, kernels, unsorted_f32, serving, train):
 PROBE_MAIN = {"row_gather": "lowering bf16 row copies (4944, 1072), direct",
               "row_scatter_add": "lowering scatter-add u (2^20, 1072) -> 4944 rows, "
                                  "windowed 256"}
+# PERF.md rows 24 and 29, the probe cases that lost to their library call
+PROBE_ROWS = {"24 w128": "window_matmul bf16 (4944, 1072), w128 cm128",
+              "24 w256": "window_matmul bf16 (4944, 1072), w256 cm256",
+              "24 w512": "window_matmul bf16 (4944, 1072), w512 cm512",
+              "29": "f32_onehot scatter-add (2048, 1072) -> 256 rows, windowed 256"}
 
 
 def phase_probes(torch, dev, report):
@@ -1790,7 +1801,41 @@ def phase_probes(torch, dev, report):
                                        library_ms=r["library_ms"])
     log(f"[probes] kernel launches of the probes' run: {launches}")
     check(all(n > 0 for n in launches.values()), f"a probe kernel did not launch: {launches}")
+    # the rows of PERF.md's table that lost to their library call before
+    by_name = {r["name"]: r for r in records}
+    for row, name in PROBE_ROWS.items():
+        r = by_name[name]
+        bound_ms, _ = bound(r["bytes"], r["flops"])
+        log(f"[probes] row {row} ({name}): {r['ms']:.4f} ms, bound {bound_ms:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms: "
+            f"{'no slower than' if r['ms'] <= r['library_ms'] else 'SLOWER than'} the library")
+    # where the device time of a call goes, and the device work of one call
+    attributed = [c for c in probes.probe_cases(dev) if c.prepare is not None]
+    for r in probes.attribute_probes(dev, attributed):
+        log(f"[probes] attribution {r['name']}: whole call {r['whole_ms']:.4f} ms, kernel "
+            f"alone {r['kernel_ms']:.4f} ms, torch ops {r['torch_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms")
+    for case in attributed:
+        work = device_work(torch, case.run)
+        most = 1 if case.kernel == "row_gather" else 3
+        log(f"[probes] device work of one call, {case.name}: {work}")
+        check(1 <= len(work) <= most and all(probes.KERNEL_SYMBOLS[case.kernel] in w
+                                                 for w in work),
+              f"probe {case.name}: one call ran {work}, not 1-{most} kernels of its own")
     return launches
+
+
+def device_work(torch, fn):
+    """Names of the device kernels, copies and fills one call of fn runs
+    (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def main() -> int:

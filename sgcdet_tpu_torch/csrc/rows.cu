@@ -24,24 +24,26 @@
 // by the kernels themselves; a chunk whose span exceeds the window takes
 // the direct path.
 //
-// Gather.  Direct, and with the epilogue: a block takes a chunk and a
-// 256-byte column tile (the epilogue whole rows); each thread moves 16
-// bytes; a windowed epilogue block stages its chunk's span in shared
-// memory with cp.async.  Windowed copies: persistent blocks walk the
-// chunks of one column tile with two stages of at most kStageRows rows,
-// staging chunk i+1's span while chunk i's rows are stored, so shared
-// memory is reserved for what a stage holds, not for the window.  Stores
-// stream (evict-first), so the image stays in L2 while the output passes.
-// What bounds it: the bytes written; the source rows come from L2.
+// Gather.  A block takes 64 output rows (direct), 128 (windowed) or a
+// whole chunk (with the epilogue) and a 256-byte column tile (the epilogue
+// whole rows); each thread moves 16 bytes.  Windowed, the block reduces its
+// chunk's indices to the plan and, where the chunk spans at most the
+// window and kStageRows rows, stages that span of its tile in shared
+// memory with cp.async and gathers from there: shared memory is reserved
+// for the rows a block stages (24 KB a block), not for the window, so the
+// window no longer sets the occupancy.  What bounds it: the bytes written;
+// the source rows come from L2.
 //
-// Scatter.  Three kernels: the plan (windowed only); the sum where the
-// output lives (each block owns 8 output rows x 128 columns, finds the
-// indices of the windowed chunks that name its rows by warp ballots, and
-// adds their u rows in index order by 16-byte loads, so every output
-// element is stored once, rows no index names as zeros, and the result
-// is the same from run to run); then the direct chunks (all of them
-// without a window), added by 16-byte vector reductions.  What bounds it:
-// the bytes of u, read once.
+// Scatter.  Up to three kernels: the plan, where one block cannot hold
+// every index; the sum where the output lives (each block owns 8 output
+// rows x 128 columns, finds the indices of the windowed chunks that name
+// its rows by warp ballots, and adds their u rows in index order by
+// 16-byte loads, so every output element is stored once, rows no index
+// names as zeros, and the result is the same from run to run); then the
+// direct chunks (all of them without a window), added by 16-byte vector
+// reductions.  The kernels after the first start while the one ahead
+// ends (programmatic dependent launch).  What bounds it: the bytes of u,
+// read once.
 #include "common.cuh"
 
 #include <climits>
@@ -50,7 +52,9 @@ namespace {
 
 constexpr int kTileBytes = 256;    // column tile of a gather block
 constexpr int kThreads = 256;
-constexpr int kStageRows = 96;     // rows of a column tile one gather stage holds
+constexpr int kStageRows = 96;     // most rows of a column tile a windowed gather stages
+constexpr int kWindowBlockRows = 128;  // output rows of a windowed gather block
+constexpr int kDirectBlockRows = 64;   // and of a direct one
 constexpr int kScatterRows = 8;    // output rows of a scatter block, one a warp
 constexpr int kScatterTile = 2048; // indices a scatter block scans at a time
 constexpr int kScatterList = 64;   // matches a warp holds before it adds them
@@ -86,11 +90,6 @@ __device__ __forceinline__ int2 chunk_bounds(int n, F at, int* s_idx, int* s_box
   return make_int2(s_box[0], s_box[1]);
 }
 
-__device__ __forceinline__ void store16(void* p, uint4 x, bool stream) {
-  if (stream) __stcs(reinterpret_cast<uint4*>(p), x);
-  else *reinterpret_cast<uint4*>(p) = x;
-}
-
 // out[m, tile] = img[rows[m], tile] (EPI false; p = 1), or, with EPI (f32,
 // whole rows of width l = 4 (c + D)), for every output row m:
 //   out[m, :c] = sum_pt sum_j winfo[pt, m, j] * <row_j depth, dvec> * row_j value
@@ -100,7 +99,7 @@ template <typename T, typename I, bool EPI>
 __global__ void __launch_bounds__(kThreads) row_gather_kernel(
     const T* __restrict__ img, const I* __restrict__ rows,
     const float* __restrict__ winfo, T* __restrict__ out, int l, int m, int p,
-    int cm, int br, int wwin, int c, int dsize, int flags) {
+    int cm, int br, int wwin, int c, int dsize) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_box[2];
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte move
@@ -141,7 +140,7 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
     for (int i = threadIdx.x; i < (m1 - m0) * tile_vecs; i += kThreads) {
       const int mi = i / tile_vecs, v = i - mi * tile_vecs;
       const uint4 x = reinterpret_cast<const uint4*>(src((int)rows[m0 + mi]))[v];
-      store16(out + (long long)(m0 + mi) * l + col0 + v * kVec, x, flags & 1);
+      reinterpret_cast<uint4*>(out + (long long)(m0 + mi) * l + col0)[v] = x;
     }
   } else {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -166,72 +165,6 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
       }
       for (int ch = c + lane; ch < l; ch += 32) orow[ch] = 0.f;
     }
-  }
-}
-
-// The windowed copy: out[m, tile] = img[rows[m], tile], blocks persistent
-// over the chunks of their column tile (blockIdx.x), two stages of `stage`
-// rows each: chunk i+1's indices, plan and span (where it spans at most
-// `stage` rows) are brought in while chunk i's rows are stored.
-template <typename T, typename I>
-__global__ void __launch_bounds__(kThreads) row_gather_win_kernel(
-    const T* __restrict__ img, const I* __restrict__ rows, T* __restrict__ out,
-    int l, int m, int cm, int stage, int flags) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_box[2][2];
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kTile = kTileBytes / sizeof(T);  // elements of a tile row
-  const int col0 = blockIdx.x * kTile;
-  const int tile_vecs = min(kTileBytes, (l - col0) * (int)sizeof(T)) / 16;
-  T* buf = reinterpret_cast<T*>(smem);  // [2][stage][kTile]
-  int* s_idx = reinterpret_cast<int*>(smem + 2 * (size_t)stage * kTileBytes);  // [2][cm]
-  const int nchunks = (m + cm - 1) / cm;
-  // chunk ch into stage st; returns its base row, or -1 where not staged
-  auto prefetch = [&](int ch, int st) -> int {
-    const int m0 = ch * cm, n = min(cm, m - m0);
-    const I* r = rows + m0;
-    const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, s_idx + st * cm, s_box[st]);
-    const bool staged = b.y - b.x + 1 <= stage;
-    if (staged) {
-      T* s = buf + (size_t)st * stage * kTile;
-      for (int i = threadIdx.x; i < (b.y - b.x + 1) * tile_vecs; i += kThreads) {
-        const int rr = i / tile_vecs, v = i - rr * tile_vecs;
-        sgc::cp_async16(s + rr * kTile + v * kVec,
-                        img + (long long)(b.x + rr) * l + col0 + v * kVec);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    return staged ? b.x : -1;
-  };
-  int ch = blockIdx.y;
-  if (ch >= nchunks) return;
-  int st = 0;
-  int base = prefetch(ch, 0);
-  for (;;) {
-    const int next = ch + gridDim.y;
-    int next_base = -1;
-    if (next < nchunks) {
-      next_base = prefetch(next, st ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    }
-    __syncthreads();
-    const int m0 = ch * cm, n = min(cm, m - m0);
-    const int* si = s_idx + st * cm;
-    const T* s = buf + (size_t)st * stage * kTile;
-    for (int i = threadIdx.x; i < n * tile_vecs; i += kThreads) {
-      const int mi = i / tile_vecs, v = i - mi * tile_vecs;
-      const int row = si[mi];
-      const T* src = base >= 0 ? s + (row - base) * kTile : img + (long long)row * l + col0;
-      store16(out + (long long)(m0 + mi) * l + col0 + v * kVec,
-              reinterpret_cast<const uint4*>(src)[v], flags & 1);
-    }
-    __syncthreads();  // stage st is free for chunk next + gridDim.y
-    if (next >= nchunks) break;
-    ch = next;
-    base = next_base;
-    st ^= 1;
   }
 }
 
@@ -445,65 +378,39 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool ea
   return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 template <typename T, typename I, bool EPI>
 int launch_gather(const void* img, const void* rows, const float* winfo, void* out,
-                  int l, int m, int p, int cm, int wwin, int c, int dsize, int flags,
+                  int l, int m, int p, int cm, int wwin, int c, int dsize,
                   cudaStream_t stream) {
   const int row_bytes = l * (int)sizeof(T);
   const int tiles = EPI ? 1 : (row_bytes + kTileBytes - 1) / kTileBytes;
   const int nchunks = (m + cm - 1) / cm;
-  if (!EPI && wwin > 0 && (flags & 2)) {
-    const int stage = min(wwin, kStageRows);
-    const size_t smem = 2 * ((size_t)stage * kTileBytes + (size_t)cm * sizeof(int));
-    auto kernel = row_gather_win_kernel<T, I>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = max(1, min(nchunks, max(1, per_sm) * sm_count() / tiles));
-    kernel<<<dim3(tiles, blocks), kThreads, smem, stream>>>(
-        static_cast<const T*>(img), static_cast<const I*>(rows), static_cast<T*>(out),
-        l, m, cm, stage, flags);
-    return (int)cudaGetLastError();
-  }
   if (!EPI && wwin > 0) wwin = min(wwin, kStageRows);
   const size_t smem = wwin > 0 ? (size_t)wwin * (EPI ? row_bytes : kTileBytes) : 0;
-  const int br = EPI ? cm : min(cm, flags & 4 ? 64 : 128);
+  const int br = EPI ? cm : min(cm, wwin > 0 ? kWindowBlockRows : kDirectBlockRows);
   auto kernel = row_gather_kernel<T, I, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<dim3(tiles, nchunks * ((cm + br - 1) / br)), kThreads, smem, stream>>>(
       static_cast<const T*>(img), static_cast<const I*>(rows), winfo,
-      static_cast<T*>(out), l, m, p, cm, br, wwin, c, dsize, flags);
+      static_cast<T*>(out), l, m, p, cm, br, wwin, c, dsize);
   return (int)cudaGetLastError();
 }
 
 template <typename I>
 int dispatch_gather(int dtype, const void* img, const void* rows, const float* winfo,
                     void* out, int l, int m, int p, int cm, int wwin, int c, int dsize,
-                    int flags, cudaStream_t s) {
+                    cudaStream_t s) {
   if (winfo != nullptr) {
     if (dtype != sgc::kFloat32 || 4 * (c + dsize) != l) return (int)cudaErrorInvalidValue;
-    return launch_gather<float, I, true>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s);
+    return launch_gather<float, I, true>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s);
   }
   if (p != 1) return (int)cudaErrorInvalidValue;
   if (dtype == sgc::kBFloat16)
-    return launch_gather<__nv_bfloat16, I, false>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s);
+    return launch_gather<__nv_bfloat16, I, false>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s);
   if (dtype == sgc::kFloat32)
-    return launch_gather<float, I, false>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s);
+    return launch_gather<float, I, false>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -535,17 +442,15 @@ int launch_scatter(const float* u, const void* rows_v, int* meta, float* out, in
 // P = 1, out (M, L) of type dtype) or (P, M, 8) f32 (epilogue: f32 only,
 // quad rows of c value and dsize depth lanes per corner, L = 4 (c +
 // dsize), out (M, L) f32); wwin 0 (direct) or the most rows a chunk of cm
-// indices may span to be served from shared memory.  flags: bit 0
-// streaming stores, bit 1 the two-stage windowed copy, bit 2 blocks of 64
-// output rows (else 128).
+// indices may span to be served from shared memory.
 extern "C" int sgc_row_gather(int dtype, const void* img, const void* rows, int idx64,
                               const float* winfo, void* out, int l, int m, int p,
-                              int cm, int wwin, int c, int dsize, int flags, void* stream) {
+                              int cm, int wwin, int c, int dsize, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return (int)cudaSuccess;
   if (cm <= 0 || wwin < 0) return (int)cudaErrorInvalidValue;
-  return idx64 ? dispatch_gather<long long>(dtype, img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s)
-               : dispatch_gather<int>(dtype, img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, flags, s);
+  return idx64 ? dispatch_gather<long long>(dtype, img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s)
+               : dispatch_gather<int>(dtype, img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s);
 }
 
 // u (M, L) f32 with L a multiple of 4, rows (M,) int32 (idx64 0) or int64

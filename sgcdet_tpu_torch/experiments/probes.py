@@ -16,9 +16,13 @@ each direct or through a shared-memory window:
 Each has a ``*_plain`` version; a wrapper launches its kernel for a CUDA
 tensor and runs the plain version for a CPU one.  ``window`` is the most
 rows a chunk of ``chunk`` consecutive indices may span to be served from
-shared memory (the plan: ``plan_rows``); the plain version then reads those
-chunks' rows through the window only, so a planning fault shows as a wrong
-number.
+shared memory (a gather) or summed where the output lives (a scatter-add);
+a wider chunk takes the direct path.  The plan (``plan_rows``) is the
+plain version's: the kernels compute it themselves, reading the indices at
+the type they come in (int32 or int64), so a call on the card runs the
+probe's kernels and no torch op.  The plain version reads the planned
+chunks' rows through their window only, so a planning fault shows as a
+wrong number.
 
     python -m sgcdet_tpu_torch.experiments.probes [--attribute]
 
@@ -45,15 +49,16 @@ TILE_BYTES = 256    # the kernels' column tile (csrc/rows.cu)
 
 INDEX_TYPES = (torch.int32, torch.int64)  # read as they come, with no cast
 SCATTER_TILE = 2048  # most indices a windowed scatter chunk may hold (csrc/rows.cu)
-FLAGS = 1            # sgc_row_gather flags: bit 0 streaming stores, bit 1 one-stage window
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # sgc_row_gather(dtype, img, rows, idx64, winfo, out, l, m, p, cm, wwin, c,
-#                dsize, flags, stream)
-ROW_GATHER = Kernel("sgc_row_gather", [_I, _P, _P, _I, _P, _P] + [_I] * 8)
+#                dsize, stream)
+ROW_GATHER = Kernel("sgc_row_gather", [_I, _P, _P, _I, _P, _P] + [_I] * 7)
 # sgc_row_scatter_add(u, rows, idx64, meta, out, l, m, n_rows, cm, wwin, stream)
 ROW_SCATTER_ADD = Kernel("sgc_row_scatter_add", [_P, _P, _I, _P, _P] + [_I] * 5)
 KERNELS = {"row_gather": ROW_GATHER, "row_scatter_add": ROW_SCATTER_ADD}
+# a part of the name of every device kernel behind each counter
+KERNEL_SYMBOLS = {"row_gather": "row_gather", "row_scatter_add": "scatter_"}
 
 
 def plan_rows(rows, chunk, wwin):
@@ -172,7 +177,7 @@ def _gather_prepare(img, rows, winfo, window, chunk):
     def launch():
         ROW_GATHER(dev, DTYPE_CODE[im.dtype], im.data_ptr(), rw.data_ptr(),
                    int(rw.dtype == torch.int64), _ptr(wi), out.data_ptr(), l, m, p, chunk,
-                   wwin, *quad_widths(l), FLAGS)
+                   wwin, *quad_widths(l))
     return launch, out
 
 
@@ -385,10 +390,6 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
-    global FLAGS
-    if "--flags" in sys.argv[1:]:
-        FLAGS = int(sys.argv[sys.argv.index("--flags") + 1])
-        print(f"flags {FLAGS}", flush=True)
     if "--attribute" in sys.argv[1:]:
         for r in attribute_probes(dev):
             print(f"{r['name']:66s} whole {r['whole_ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms, "
