@@ -360,15 +360,56 @@ __global__ void __launch_bounds__(kThreads) scatter_direct_kernel(
   }
 }
 
+// The earlier design, for comparison: a block per (windowed chunk, 16
+// float4 columns) sums its u rows into an f32 window in shared memory by
+// shared atomics and adds the window to out (zeroed ahead) by 16-byte
+// vector reductions.
+template <typename I>
+__global__ void __launch_bounds__(kThreads) scatter_chunk_sum_kernel(
+    const float* __restrict__ u, const I* __restrict__ rows, float* __restrict__ out,
+    int l4, int m, int cm, int wwin) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_box[2];
+  float4* s = reinterpret_cast<float4*>(smem);  // [span][16]
+  const int m0 = blockIdx.y * cm, n = min(cm, m - m0);
+  const int c0 = blockIdx.x * 16, tile = min(16, l4 - c0);
+  const I* r = rows + m0;
+  const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, nullptr, s_box);
+  const int span = b.y - b.x + 1;
+  if (span > wwin) return;
+  for (int i = threadIdx.x; i < span * 16; i += kThreads) s[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const float4* u4 = reinterpret_cast<const float4*>(u);
+  for (int i = threadIdx.x; i < n * tile; i += kThreads) {
+    const int mi = i / tile, v = i - mi * tile;
+    const float4 x = u4[(long long)(m0 + mi) * l4 + c0 + v];
+    float* d = reinterpret_cast<float*>(s + ((int)r[mi] - b.x) * 16 + v);
+    atomicAdd(d, x.x);
+    atomicAdd(d + 1, x.y);
+    atomicAdd(d + 2, x.z);
+    atomicAdd(d + 3, x.w);
+  }
+  __syncthreads();
+  wait_for_prerequisite();  // out zeroed
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int i = threadIdx.x; i < span * tile; i += kThreads) {
+    const int rr = i / tile, v = i - rr * tile;
+    const float4 x = s[rr * 16 + v];
+    if (x.x != 0.f || x.y != 0.f || x.z != 0.f || x.w != 0.f)
+      atomicAdd(o4 + (long long)(b.x + rr) * l4 + c0 + v, x);
+  }
+}
+
 // Launch kernel on grid x kThreads in stream s, allowed to start before
 // the kernel ahead of it ends where `early` (it then waits in
 // wait_for_prerequisite).
 template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool early,
-                   Args... args) {
+cudaError_t launch_smem(void (*kernel)(Params...), dim3 grid, size_t smem, cudaStream_t s,
+                        bool early, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -376,6 +417,12 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool ea
   cfg.attrs = attr;
   cfg.numAttrs = early ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool early,
+                   Args... args) {
+  return launch_smem(kernel, grid, 0, s, early, args...);
 }
 
 template <typename T, typename I, bool EPI>
@@ -435,6 +482,26 @@ int launch_scatter(const float* u, const void* rows_v, int* meta, float* out, in
                      cm, wwin);
 }
 
+template <typename I>
+int chunk_sum_scatter(const float* u, const void* rows_v, float* out, int l4, int m,
+                      int n_rows, int cm, int wwin, cudaStream_t s) {
+  const I* rows = static_cast<const I*>(rows_v);
+  const int nchunks = (m + cm - 1) / cm;
+  const size_t smem = (size_t)wwin * 16 * sizeof(float4);
+  cudaError_t err = cudaFuncSetAttribute(scatter_chunk_sum_kernel<I>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n_rows + kScatterRows - 1) / kScatterRows, (l4 + 31) / 32);
+  err = launch(scatter_owner_kernel<I>, grid, s, false, u, rows,
+               static_cast<const int*>(nullptr), out, l4, m, n_rows, cm, 0);  // zeros
+  if (err != cudaSuccess) return (int)err;
+  err = launch_smem(scatter_chunk_sum_kernel<I>, dim3((l4 + 15) / 16, nchunks), smem, s, true,
+                    u, rows, out, l4, m, cm, wwin);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch(scatter_direct_kernel<I>, dim3(nchunks), s, true, u, rows, out, l4, m,
+                     cm, wwin);
+}
+
 }  // namespace
 
 // img (R, L) of type dtype with L * sizeof(dtype) a multiple of 16; rows
@@ -468,4 +535,16 @@ extern "C" int sgc_row_scatter_add(const float* u, const void* rows, int idx64, 
   if (m == 0) wwin = 0;
   return idx64 ? launch_scatter<long long>(u, rows, meta, out, l / 4, m, n_rows, cm, wwin, s)
                : launch_scatter<int>(u, rows, meta, out, l / 4, m, n_rows, cm, wwin, s);
+}
+
+// The earlier design's windowed scatter-add (scatter_chunk_sum_kernel), for
+// comparison; the arguments of sgc_row_scatter_add less meta, wwin > 0.
+extern "C" int sgc_row_scatter_add_chunk_sum(const float* u, const void* rows, int idx64,
+                                             float* out, int l, int m, int n_rows, int cm,
+                                             int wwin, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_rows == 0 || l == 0 || m == 0 || l % 4 || cm <= 0 || wwin <= 0)
+    return (int)cudaErrorInvalidValue;
+  return idx64 ? chunk_sum_scatter<long long>(u, rows, out, l / 4, m, n_rows, cm, wwin, s)
+               : chunk_sum_scatter<int>(u, rows, out, l / 4, m, n_rows, cm, wwin, s);
 }
