@@ -31,8 +31,10 @@
 // window and kStageRows rows, stages that span of its tile in shared
 // memory with cp.async and gathers from there: shared memory is reserved
 // for the rows a block stages (24 KB a block), not for the window, so the
-// window no longer sets the occupancy.  What bounds it: the bytes written;
-// the source rows come from L2.
+// window no longer sets the occupancy (blocks that also staged the next
+// chunk while storing this one, two stages a block, ran 1.3x slower: fewer
+// blocks fit an SM).  What bounds it: the bytes written; the source rows
+// come from L2.
 //
 // Scatter.  Up to three kernels: the plan, where one block cannot hold
 // every index; the sum where the output lives (each block owns 8 output
@@ -60,11 +62,10 @@ constexpr int kScatterTile = 2048; // indices a scatter block scans at a time
 constexpr int kScatterList = 64;   // matches a warp holds before it adds them
 constexpr int kBatch = 8;          // u rows a warp loads together
 
-// The lowest and the highest of at(0..n), each also written to s_idx[i]
-// where s_idx is not null.  Every thread of the block calls it; s_box is
-// two shared ints that no other call uses at the same time.
+// The lowest and the highest of at(0..n).  Every thread of the block calls
+// it; s_box is two shared ints.
 template <typename F>
-__device__ __forceinline__ int2 chunk_bounds(int n, F at, int* s_idx, int* s_box) {
+__device__ __forceinline__ int2 chunk_bounds(int n, F at, int* s_box) {
   if (threadIdx.x == 0) {
     s_box[0] = INT_MAX;
     s_box[1] = -1;
@@ -73,7 +74,6 @@ __device__ __forceinline__ int2 chunk_bounds(int n, F at, int* s_idx, int* s_box
   int lo = INT_MAX, hi = -1;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int r = at(i);
-    if (s_idx != nullptr) s_idx[i] = r;
     lo = min(lo, r);
     hi = max(hi, r);
   }
@@ -107,16 +107,18 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
   const int col0 = EPI ? 0 : blockIdx.x * (kTileBytes / (int)sizeof(T));
   const int tile_vecs = EPI ? row_bytes / 16 : min(kTileBytes, row_bytes - col0 * (int)sizeof(T)) / 16;
   const int s_stride = EPI ? l : kTileBytes / (int)sizeof(T);  // smem row, elements
-  // the block's br output rows of its chunk
+  // the block's br output rows of its chunk (blocks along y, then z)
   const int parts = (cm + br - 1) / br;
-  const int chunk = blockIdx.y / parts, c0 = chunk * cm, c1 = min(m, c0 + cm);
-  const int m0 = c0 + (blockIdx.y - chunk * parts) * br, m1 = min(c1, m0 + br);
+  const int blk = blockIdx.z * gridDim.y + blockIdx.y;
+  if (blk >= (m + cm - 1) / cm * parts) return;
+  const int chunk = blk / parts, c0 = chunk * cm, c1 = min(m, c0 + cm);
+  const int m0 = c0 + (blk - chunk * parts) * br, m1 = min(c1, m0 + br);
   int base = 0, span = -1;
   if (wwin > 0) {  // the chunk's plan, over all p rows of it
     const int n = c1 - c0;
     const int2 b = chunk_bounds(
         p * n, [&](int i) { const int pt = i / n; return (int)rows[(long long)pt * m + c0 + i - pt * n]; },
-        nullptr, s_box);
+        s_box);
     base = b.x;
     span = b.y - b.x + 1 <= wwin ? b.y - b.x + 1 : -1;
   }
@@ -189,7 +191,7 @@ __global__ void __launch_bounds__(kThreads) scatter_plan_kernel(
   launch_dependents();
   const int m0 = blockIdx.x * cm, n = min(cm, m - m0);
   const I* r = rows + m0;
-  const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, nullptr, s_box);
+  const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, s_box);
   if (threadIdx.x == 0) {
     const int span = b.y - b.x + 1;
     meta[2 * blockIdx.x] = b.x;
@@ -348,7 +350,7 @@ __global__ void __launch_bounds__(kThreads) scatter_direct_kernel(
   const int m0 = blockIdx.x * cm, n = min(cm, m - m0);
   const I* r = rows + m0;
   if (wwin > 0) {
-    const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, nullptr, s_box);
+    const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, s_box);
     if (b.y - b.x + 1 <= wwin) return;  // summed by scatter_owner_kernel
   }
   wait_for_prerequisite();  // out stored
@@ -360,56 +362,15 @@ __global__ void __launch_bounds__(kThreads) scatter_direct_kernel(
   }
 }
 
-// The earlier design, for comparison: a block per (windowed chunk, 16
-// float4 columns) sums its u rows into an f32 window in shared memory by
-// shared atomics and adds the window to out (zeroed ahead) by 16-byte
-// vector reductions.
-template <typename I>
-__global__ void __launch_bounds__(kThreads) scatter_chunk_sum_kernel(
-    const float* __restrict__ u, const I* __restrict__ rows, float* __restrict__ out,
-    int l4, int m, int cm, int wwin) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_box[2];
-  float4* s = reinterpret_cast<float4*>(smem);  // [span][16]
-  const int m0 = blockIdx.y * cm, n = min(cm, m - m0);
-  const int c0 = blockIdx.x * 16, tile = min(16, l4 - c0);
-  const I* r = rows + m0;
-  const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, nullptr, s_box);
-  const int span = b.y - b.x + 1;
-  if (span > wwin) return;
-  for (int i = threadIdx.x; i < span * 16; i += kThreads) s[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncthreads();
-  const float4* u4 = reinterpret_cast<const float4*>(u);
-  for (int i = threadIdx.x; i < n * tile; i += kThreads) {
-    const int mi = i / tile, v = i - mi * tile;
-    const float4 x = u4[(long long)(m0 + mi) * l4 + c0 + v];
-    float* d = reinterpret_cast<float*>(s + ((int)r[mi] - b.x) * 16 + v);
-    atomicAdd(d, x.x);
-    atomicAdd(d + 1, x.y);
-    atomicAdd(d + 2, x.z);
-    atomicAdd(d + 3, x.w);
-  }
-  __syncthreads();
-  wait_for_prerequisite();  // out zeroed
-  float4* o4 = reinterpret_cast<float4*>(out);
-  for (int i = threadIdx.x; i < span * tile; i += kThreads) {
-    const int rr = i / tile, v = i - rr * tile;
-    const float4 x = s[rr * 16 + v];
-    if (x.x != 0.f || x.y != 0.f || x.z != 0.f || x.w != 0.f)
-      atomicAdd(o4 + (long long)(b.x + rr) * l4 + c0 + v, x);
-  }
-}
-
 // Launch kernel on grid x kThreads in stream s, allowed to start before
 // the kernel ahead of it ends where `early` (it then waits in
 // wait_for_prerequisite).
 template <typename... Params, typename... Args>
-cudaError_t launch_smem(void (*kernel)(Params...), dim3 grid, size_t smem, cudaStream_t s,
-                        bool early, Args... args) {
+cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool early,
+                   Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -417,12 +378,6 @@ cudaError_t launch_smem(void (*kernel)(Params...), dim3 grid, size_t smem, cudaS
   cfg.attrs = attr;
   cfg.numAttrs = early ? 1 : 0;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool early,
-                   Args... args) {
-  return launch_smem(kernel, grid, 0, s, early, args...);
 }
 
 template <typename T, typename I, bool EPI>
@@ -439,7 +394,9 @@ int launch_gather(const void* img, const void* rows, const float* winfo, void* o
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(tiles, nchunks * ((cm + br - 1) / br)), kThreads, smem, stream>>>(
+  const int blocks = nchunks * ((cm + br - 1) / br), max_y = 65535;
+  const dim3 grid(tiles, min(blocks, max_y), (blocks + max_y - 1) / max_y);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(img), static_cast<const I*>(rows), winfo,
       static_cast<T*>(out), l, m, p, cm, br, wwin, c, dsize);
   return (int)cudaGetLastError();
@@ -482,26 +439,6 @@ int launch_scatter(const float* u, const void* rows_v, int* meta, float* out, in
                      cm, wwin);
 }
 
-template <typename I>
-int chunk_sum_scatter(const float* u, const void* rows_v, float* out, int l4, int m,
-                      int n_rows, int cm, int wwin, cudaStream_t s) {
-  const I* rows = static_cast<const I*>(rows_v);
-  const int nchunks = (m + cm - 1) / cm;
-  const size_t smem = (size_t)wwin * 16 * sizeof(float4);
-  cudaError_t err = cudaFuncSetAttribute(scatter_chunk_sum_kernel<I>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n_rows + kScatterRows - 1) / kScatterRows, (l4 + 31) / 32);
-  err = launch(scatter_owner_kernel<I>, grid, s, false, u, rows,
-               static_cast<const int*>(nullptr), out, l4, m, n_rows, cm, 0);  // zeros
-  if (err != cudaSuccess) return (int)err;
-  err = launch_smem(scatter_chunk_sum_kernel<I>, dim3((l4 + 15) / 16, nchunks), smem, s, true,
-                    u, rows, out, l4, m, cm, wwin);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch(scatter_direct_kernel<I>, dim3(nchunks), s, true, u, rows, out, l4, m,
-                     cm, wwin);
-}
-
 }  // namespace
 
 // img (R, L) of type dtype with L * sizeof(dtype) a multiple of 16; rows
@@ -535,16 +472,4 @@ extern "C" int sgc_row_scatter_add(const float* u, const void* rows, int idx64, 
   if (m == 0) wwin = 0;
   return idx64 ? launch_scatter<long long>(u, rows, meta, out, l / 4, m, n_rows, cm, wwin, s)
                : launch_scatter<int>(u, rows, meta, out, l / 4, m, n_rows, cm, wwin, s);
-}
-
-// The earlier design's windowed scatter-add (scatter_chunk_sum_kernel), for
-// comparison; the arguments of sgc_row_scatter_add less meta, wwin > 0.
-extern "C" int sgc_row_scatter_add_chunk_sum(const float* u, const void* rows, int idx64,
-                                             float* out, int l, int m, int n_rows, int cm,
-                                             int wwin, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_rows == 0 || l == 0 || m == 0 || l % 4 || cm <= 0 || wwin <= 0)
-    return (int)cudaErrorInvalidValue;
-  return idx64 ? chunk_sum_scatter<long long>(u, rows, out, l / 4, m, n_rows, cm, wwin, s)
-               : chunk_sum_scatter<int>(u, rows, out, l / 4, m, n_rows, cm, wwin, s);
 }

@@ -390,24 +390,6 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
-    if "--chunk-sum" in sys.argv[1:]:  # the earlier windowed scatter design, flushed by float4
-        fn = Kernel("sgc_row_scatter_add_chunk_sum", [_P, _P, _I, _P] + [_I] * 5)
-        for case in probe_cases(dev):
-            if case.kernel != "row_scatter_add" or "windowed" not in case.name:
-                continue
-            env = dict(zip(case.run.__code__.co_freevars,
-                           (c.cell_contents for c in case.run.__closure__)))
-            u, rows, n_rows, window = env["u"], env["rows"], env["n_rows"], env["window"]
-            out = torch.empty((n_rows, u.shape[1]), device=dev)
-            wwin = _window_rows(u.shape[1] * 4, window, False)
-            run = lambda: fn(dev, u.data_ptr(), rows.data_ptr(), 1, out.data_ptr(), u.shape[1],
-                             u.shape[0], n_rows, CM, wwin)
-            run()
-            err = (out - case.run_plain()).abs().max().item()
-            print(f"{case.name:66s} chunk sum, float4 flush {cuda_ms(run):.4f} ms, "
-                  f"this design {cuda_ms(case.run):.4f} ms, max abs err vs plain {err:.3e}",
-                  flush=True)
-        return
     if "--attribute" in sys.argv[1:]:
         for r in attribute_probes(dev):
             print(f"{r['name']:66s} whole {r['whole_ms']:.4f} ms, kernel {r['kernel_ms']:.4f} ms, "
