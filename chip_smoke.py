@@ -1816,26 +1816,13 @@ def phase_probes(torch, dev, report):
             f"alone {r['kernel_ms']:.4f} ms, torch ops {r['torch_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms")
     for case in attributed:
-        work = device_work(torch, case.run)
+        work = probes.device_work(case.run)
         most = 1 if case.kernel == "row_gather" else 3
         log(f"[probes] device work of one call, {case.name}: {work}")
         check(1 <= len(work) <= most and all(probes.KERNEL_SYMBOLS[case.kernel] in w
                                                  for w in work),
               f"probe {case.name}: one call ran {work}, not 1-{most} kernels of its own")
     return launches
-
-
-def device_work(torch, fn):
-    """Names of the device kernels, copies and fills one call of fn runs
-    (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def main() -> int:

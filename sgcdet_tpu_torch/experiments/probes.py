@@ -366,9 +366,9 @@ def run_probes(dev, iters=10):
 
 def attribute_probes(dev, cases=None, iters=10):
     """Where a probe call's device time goes, for the cases with a
-    ``prepare``: the whole wrapper call, its launch alone (operands, plan
-    and output made in advance) and the wrapper's work before the launch
-    alone, each the warm mean of ``iters`` calls (CUDA events)."""
+    ``prepare``: the whole wrapper call, its launch alone (what the
+    wrapper does before it made in advance) and that work alone, each the
+    warm mean of ``iters`` calls (CUDA events)."""
     records = []
     for case in cases if cases is not None else probe_cases(dev):
         if case.prepare is None:
@@ -380,6 +380,19 @@ def attribute_probes(dev, cases=None, iters=10):
                             torch_ms=cuda_ms(case.prepare, iters),
                             library_ms=cuda_ms(case.run_library, iters)))
     return records
+
+
+def device_work(fn):
+    """Names of the device kernels, copies and fills one call of fn runs,
+    warm (torch.profiler; a CUDA card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def main():

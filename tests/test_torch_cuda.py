@@ -528,21 +528,6 @@ def test_sorted_lifting_kernels_match_plain(cuda_device, dtype):
                             f"sorted lifting tensor {i}")
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("window", [None, 64], ids=["direct", "windowed"])
-def test_row_gather_kernel_matches_plain(cuda_device, dtype, window):
-    gen = torch.Generator(cuda_device).manual_seed(0)
-    img = torch.randn((500, 1072), device=cuda_device, generator=gen).to(dtype)
-    rows = torch.sort(torch.randint(0, 500, (20000,), device=cuda_device, generator=gen))[0]
-    before = probes.KERNELS["row_gather"].launches
-    got = probes.row_gather(img, rows, window)
-    assert probes.KERNELS["row_gather"].launches == before + 1
-    if window:
-        assert probes.plan_rows(rows[None], probes.CM, window)[2].all()
-    assert torch.equal(got, probes.row_gather_plain(img, rows, window))
-    assert torch.equal(got, img[rows])
-
-
 @pytest.mark.parametrize("window", [None, 512], ids=["direct", "windowed"])
 def test_gather_epilogue_kernel_matches_plain(cuda_device, window):
     gen = torch.Generator(cuda_device).manual_seed(1)
@@ -554,20 +539,6 @@ def test_gather_epilogue_kernel_matches_plain(cuda_device, window):
     want = probes.gather_epilogue_plain(img, rows, winfo, window)
     torch.cuda.synchronize()
     assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "p4+epi")
-
-
-@pytest.mark.parametrize("window", [None, 64], ids=["direct", "windowed"])
-def test_row_scatter_add_kernel_matches_plain(cuda_device, window):
-    gen = torch.Generator(cuda_device).manual_seed(2)
-    u = torch.randn((20000, 1072), device=cuda_device, generator=gen)
-    rows = torch.sort(torch.randint(0, 500, (20000,), device=cuda_device, generator=gen))[0]
-    before = probes.KERNELS["row_scatter_add"].launches
-    got = probes.row_scatter_add(u, rows, 500, window)
-    assert probes.KERNELS["row_scatter_add"].launches == before + 1
-    want = probes.row_scatter_add_plain(u, rows, 500, window)
-    torch.cuda.synchronize()
-    # f32 sums in another order (atomics): 1e-5 of the scale
-    assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "row scatter-add")
 
 
 def _probe_rows(kind, m, r, dtype, device, chunk=probes.CM, seed=0):
@@ -591,7 +562,8 @@ PROBE_INDEX_TYPES = [pytest.param(torch.int32, id="int32"),
                      pytest.param(torch.int64, id="int64")]
 # (index order, M, chunk, window): every chunk windowed; ragged last chunks
 # (M not a multiple of the chunk); unsorted chunks exceeding the window
-PROBE_CASES = [pytest.param("sorted", 20000, 256, 64, id="sorted-w64"),
+PROBE_CASES = [pytest.param("sorted", 20000, 256, None, id="sorted-direct"),
+               pytest.param("sorted", 20000, 256, 64, id="sorted-w64"),
                pytest.param("jittered", 9999, 128, 128, id="jittered-ragged-w128"),
                pytest.param("mixed", 5000, 256, 200, id="mixed-ragged-w200"),
                pytest.param("mixed", 4096, 64, 100, id="mixed-w100-cm64"),
@@ -606,14 +578,16 @@ def _some_chunks_exceed(rows, chunk, window):
 @pytest.mark.parametrize("index_dtype", PROBE_INDEX_TYPES)
 @pytest.mark.parametrize("kind,m,chunk,window", PROBE_CASES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_row_gather_kernel_indices_and_windows(cuda_device, kind, m, chunk, window,
-                                               index_dtype, dtype):
+def test_row_gather_kernel_matches_plain(cuda_device, kind, m, chunk, window, index_dtype,
+                                         dtype):
     gen = torch.Generator(cuda_device).manual_seed(4)
     img = torch.randn((700, 1072), device=cuda_device, generator=gen).to(dtype)
     rows = _probe_rows(kind, m, 700, index_dtype, cuda_device, chunk)
-    if kind == "mixed" and window:
-        assert _some_chunks_exceed(rows, chunk, window)
+    if window:
+        assert _some_chunks_exceed(rows, chunk, window) == (kind == "mixed")
+    before = probes.KERNELS["row_gather"].launches
     got = probes.row_gather(img, rows, window, chunk)
+    assert probes.KERNELS["row_gather"].launches == before + 1
     assert torch.equal(got, img[rows.long()])
     assert torch.equal(got, probes.row_gather_plain(img, rows, window, chunk))
 
@@ -631,16 +605,19 @@ def test_row_gather_kernel_window_matmul_windows(cuda_device, window, chunk):
 
 @pytest.mark.parametrize("index_dtype", PROBE_INDEX_TYPES)
 @pytest.mark.parametrize("kind,m,chunk,window", PROBE_CASES)
-def test_row_scatter_add_kernel_indices_and_windows(cuda_device, kind, m, chunk, window,
-                                                    index_dtype):
+def test_row_scatter_add_kernel_matches_plain(cuda_device, kind, m, chunk, window,
+                                              index_dtype):
     gen = torch.Generator(cuda_device).manual_seed(6)
     u = torch.randn((m, 1072), device=cuda_device, generator=gen)
     rows = _probe_rows(kind, m, 700, index_dtype, cuda_device, chunk)
-    if kind == "mixed" and window:
-        assert _some_chunks_exceed(rows, chunk, window)
+    if window:
+        assert _some_chunks_exceed(rows, chunk, window) == (kind == "mixed")
+    before = probes.KERNELS["row_scatter_add"].launches
     got = probes.row_scatter_add(u, rows, 705, window, chunk)
+    assert probes.KERNELS["row_scatter_add"].launches == before + 1
     want = probes.row_scatter_add_plain(u, rows, 705, window, chunk)
     torch.cuda.synchronize()
+    # f32 sums in another order (the direct chunks' atomics): 1e-5 of the scale
     assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "row scatter-add")
     named = torch.zeros(705, dtype=torch.bool, device=cuda_device)
     named[rows.long()] = True
@@ -689,18 +666,6 @@ def test_row_scatter_add_kernel_f32_onehot_shape(cuda_device):
     assert ((got.double() - want).abs() <= 2.0 ** -20 * mag).all()
 
 
-def _device_work(fn):
-    """Names of the device kernels, copies and fills one call of fn runs."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
 @pytest.mark.parametrize("index_dtype", PROBE_INDEX_TYPES)
 def test_probe_wrappers_launch_only_their_kernels(cuda_device, index_dtype):
     """No torch op on the card's path: a windowed gather is one kernel, a
@@ -709,7 +674,7 @@ def test_probe_wrappers_launch_only_their_kernels(cuda_device, index_dtype):
     gen = torch.Generator(cuda_device).manual_seed(10)
     img = torch.randn((4944, 1072), device=cuda_device, generator=gen).bfloat16()
     rows = _probe_rows("jittered", 1 << 15, 4944, index_dtype, cuda_device)
-    work = _device_work(lambda: probes.row_gather(img, rows, 256))
+    work = probes.device_work(lambda: probes.row_gather(img, rows, 256))
     assert len(work) == 1 and probes.KERNEL_SYMBOLS["row_gather"] in work[0], work
     u = torch.randn((2048, 1072), device=cuda_device, generator=gen)
     for r, n_rows, window in ((torch.randint(0, 256, (2048,), device=cuda_device,
@@ -717,6 +682,6 @@ def test_probe_wrappers_launch_only_their_kernels(cuda_device, index_dtype):
                               (rows, 4944, 256), (rows, 4944, None)):
         uu = u if r.numel() == 2048 else torch.randn((r.numel(), 64), device=cuda_device)
         r = r.to(index_dtype)
-        work = _device_work(lambda: probes.row_scatter_add(uu, r, n_rows, window))
+        work = probes.device_work(lambda: probes.row_scatter_add(uu, r, n_rows, window))
         assert 1 <= len(work) <= 3 and all(probes.KERNEL_SYMBOLS["row_scatter_add"] in name
                                           for name in work), work
