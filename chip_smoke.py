@@ -91,10 +91,18 @@ Phases, each fatal on failure:
               same input; a random-location case at level 2 for the
               global-memory branch.  Prints per level the share of chunks
               and of samples served from a window and the windowed and
-              template kernels' warm times; at level 2 also the windowed
-              kernels at chunks of 32-256 queries, and the template kernels
-              on the same queries in sorted and in index order.  Fails
-              unless some case ran each branch.
+              template kernels' warm times (with the earlier windowed
+              times of PERF.md beside them); per level the windows' spans
+              (p50 / p90 / max, per head and the union of a chunk's heads
+              that a block stages) and the share of unions small enough to
+              hold a chunk's d_value in shared memory; each windowed
+              kernel's registers, spill bytes, shared memory a block and
+              blocks an SM (CUDA runtime), and the registers and spills of
+              K3, K5 and the windowed kernels from ptxas; at level 2 also
+              the windowed kernels at chunks of 8-64 queries and three
+              window lengths, and the template kernels on the same queries
+              in sorted and in index order.  Fails unless some case ran
+              each branch.
 10. sorted  — the ScanNet config with sort_queries=True and the exact auto
               budget: the f32 scene (TF32 off) through the kernels and the
               plain versions (as phase 4) and against phase 4's unsorted
@@ -115,6 +123,9 @@ Phases, each fatal on failure:
               attribute_probes) and the device work of one call by
               torch.profiler, which must be the probe's own kernels only: one
               for a gather, at most three for a scatter-add.
+
+``--only PHASE[,PHASE...]`` (e.g. ``--only windowed``) runs phases 1, 2 and
+the named ones alone and prints no report.
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
@@ -208,7 +219,12 @@ TRAIN_STEPS = 4
 # one-point case had a kernel of its own
 EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
               "K2' 2D": 0.1157, "K3' 2D": 1.2694, "K3 f32/f32 uncounted": 0.9651,
-              "K2 f32/f32 uncounted": 0.1146}
+              "K2 f32/f32 uncounted": 0.1146,
+              # the windowed kernels at level 2 before their redesign (PERF.md
+              # section 6, rows 16-21: PR 7's proof run of this script)
+              "win s1 sorted": 0.2398, "win mh sorted": 0.3878,
+              "win mh random": 0.4341, "win bwd sorted": 1.2569,
+              "win bwd random": 1.2202}
 # small DFA3D stage-2 shapes whose head groups fill only part of a warp of
 # eight 4-lane heads at c = 32: (heads, points)
 PARTIAL_HEADS = ((1, 4), (2, 4), (6, 4), (8, 3))
@@ -1567,13 +1583,98 @@ def window_shares(torch, plan, locs, counts, h, w):
     q = torch.arange(k, device=locs.device)
     if counts is not None:
         live = live & (q[None, :] < counts[:, None])[..., None, None]
-    served = live & plan.ok[:, q // plan.qc, :, None]
+    served = live & plan.ok[:, q // plan.qc, None, None]
     return n_ok, n_fallback, float(served.sum()) / max(1, int(live.sum()))
+
+
+def window_spans(torch, locs, counts, h, w, qc):
+    """p50 / p90 / max of the live windows' spans in pixels at chunks of qc
+    queries: each head's own window (``plan_windows`` over that head) and
+    the union of a chunk's heads (the window a multi-head block stages),
+    and the union spans themselves."""
+    from sgcdet_tpu_torch.ops.dfa3d_windowed import plan_windows
+
+    def stats(span):
+        span = span[span > 0].float()
+        q = torch.quantile(span, torch.tensor([0.5, 0.9], device=span.device))
+        return f"{q[0]:.0f} / {q[1]:.0f} / {span.max():.0f}"
+
+    heads = locs.shape[2]
+    per_head = torch.cat([plan_windows(locs[:, :, i:i + 1], counts, h, w, 1, qc).span
+                          .flatten() for i in range(heads)])
+    union = plan_windows(locs, counts, h, w, 1, qc).span
+    return (f"per head {stats(per_head)}" if heads > 1 else "") + \
+        f"{', ' if heads > 1 else ''}union {stats(union)}", union
+
+
+# a chunk's d_value for 8 heads x 32 channels in f32 takes 1 KB a pixel: the
+# most pixels one block's shared memory (227 KB) could sum it for
+DVALUE_WINDOW_PIXELS = 227 * 1024 // 1024
+
+
+def ptxas_resources(log):
+    """{mangled kernel name: (registers, spill store bytes)} from the
+    ``-Xptxas -v`` lines of the build log."""
+    found, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            found[name] = [0, 0]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            found[name][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found[name][0] = int(m.group(1))
+    return found
+
+
+# ptxas names of the bf16/f32 instances of K3, K5 (every gradient) and the
+# windowed kernels
+PTXAS_KERNELS = {"K3": "dfa3d_fwd_kernelI13__nv_bfloat16fLi32ELi2E",
+                 "K5": "dfa3d_bwd_kernelI13__nv_bfloat16fLi32ELb1ELb1E",
+                 "dfa3d_win_fwd_s1": "dfa3d_win_fwd_s1_kernelI13__nv_bfloat16fE",
+                 "dfa3d_win_fwd_mh": "dfa3d_win_fwd_mh_kernelI13__nv_bfloat16fLi32E",
+                 "dfa3d_win_bwd_mh": "dfa3d_win_bwd_kernelI13__nv_bfloat16fLb1ELb1E"}
+
+
+def log_resources(torch, x):
+    """Each windowed kernel's resources at level 2 (CUDA runtime), and
+    ptxas's registers and spills of its bf16/f32 instance beside K3's and
+    K5's."""
+    from sgcdet_tpu_torch.ops import LIBRARY
+    from sgcdet_tpu_torch.ops.dfa3d_windowed import kernel_resources, window_length
+
+    dsize = x["depth"].shape[-1]
+    for vdt, ddt in ((torch.bfloat16, torch.float32), (torch.float32, torch.float32),
+                     (torch.bfloat16, torch.bfloat16)):
+        value, depth = x["value"].to(vdt), x["depth"].to(ddt)
+        parts = []
+        for name, stage1, backward in (("dfa3d_win_fwd_s1", True, False),
+                                       ("dfa3d_win_fwd_mh", False, False),
+                                       ("dfa3d_win_bwd_mh", False, True)):
+            wwin = window_length(value, depth, stage1, backward)
+            r = kernel_resources(name, vdt, ddt, dsize, wwin, 256 if stage1 else 32)
+            parts.append(f"{name} {r['registers']} registers, {r['spill_bytes']} B "
+                         f"local, {r['smem_bytes']} B shared a block ({wwin} pixels), "
+                         f"{r['blocks_per_sm']} blocks of {r['threads']} an SM")
+        log(f"[windowed] resources {str(vdt)[6:]}/{str(ddt)[6:]}: " + "; ".join(parts))
+    found = ptxas_resources(LIBRARY.log)
+    if found:
+        parts = []
+        for label, key in PTXAS_KERNELS.items():
+            hits = [v for k, v in found.items() if key in k]
+            if hits:
+                parts.append(f"{label} {hits[0][0]} registers, {hits[0][1]} B spill stores")
+        log("[windowed] ptxas, bf16/f32: " + "; ".join(parts))
 
 
 def phase_windowed(torch, dev, report):
     from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_fwd_cuda
     from sgcdet_tpu_torch.ops.dfa3d_windowed import (
+        QC_FWD,
+        QC_S1,
         dfa3d_win_bwd_cuda,
         dfa3d_win_fwd_cuda,
         dfa3d_windowed_bwd_plain,
@@ -1593,29 +1694,46 @@ def phase_windowed(torch, dev, report):
                                             args[0].shape[1], args[0].shape[2])
         branches["window"] += n_ok
         branches["fallback"] += n_fb
-        return f"{n_ok}/{n_ok + n_fb} chunks, {samples:.4f} of samples in a window"
+        return (f"{n_ok}/{n_ok + n_fb} chunks (window {plan.wwin} pixels), "
+                f"{samples:.4f} of samples in a window")
+
+    def spans(name, args, qcs):
+        """The windows' spans of a case at each chunk size."""
+        locs, counts = args[2], args[-1]
+        h, w = args[0].shape[1:3]
+        parts = []
+        for qc in qcs:
+            text, union = window_spans(torch, locs, counts, h, w, qc)
+            live = union[union > 0]
+            small = float((live <= DVALUE_WINDOW_PIXELS).float().mean())
+            parts.append(f"{qc} queries: {text}; {small:.3f} of unions within "
+                         f"{DVALUE_WINDOW_PIXELS} pixels")
+        log(f"[windowed] {name} spans (p50 / p90 / max pixels), chunks of "
+            + "; ".join(parts))
 
     def chunk_sizes(name, args, backward):
-        """A main case's kernel at chunks of 32-256 queries (each block finds
-        its own window) with the share of samples each serves from a
-        window, beside the time of the same windows as torch ops on the
-        card (``kernel_plan``: the plain version's)."""
+        """A main case's kernel at chunks of 8-64 queries and windows of 384,
+        768 pixels and the default length (each block finds its own window)
+        with the share of samples each serves from a window, beside the
+        time of the default windows as torch ops on the card
+        (``kernel_plan``: the plain version's)."""
         value, depth, locs, counts = args[0], args[1], args[2], args[-1]
         h, w = value.shape[1:3]
         ms_plan = cuda_ms(torch, lambda: kernel_plan(value, depth, locs, counts, backward))
         parts = []
-        for qc in (32, 64, 128, 256):
-            if backward:
-                ms = cuda_ms(torch, lambda: dfa3d_win_bwd_cuda(*args, qc=qc))
-            else:
-                ms = cuda_ms(torch, lambda: dfa3d_win_fwd_cuda(*args, qc=qc))
-            plan = kernel_plan(value, depth, locs, counts, backward, qc=qc)
-            samples = window_shares(torch, plan, locs, counts, h, w)[2]
-            parts.append(f"{qc} queries {ms:.4f} ms ({samples:.3f} of samples in a window)")
-        log(f"[windowed] {name}: chunks of " + ", ".join(parts)
-            + f"; the windows as torch ops {ms_plan:.4f} ms")
+        for qc in (8, 16, 32, 64):
+            for wwin in (384, 768, None):
+                if backward:
+                    ms = cuda_ms(torch, lambda: dfa3d_win_bwd_cuda(*args, qc=qc, wwin=wwin))
+                else:
+                    ms = cuda_ms(torch, lambda: dfa3d_win_fwd_cuda(*args, qc=qc, wwin=wwin))
+                plan = kernel_plan(value, depth, locs, counts, backward, qc=qc, wwin=wwin)
+                samples = window_shares(torch, plan, locs, counts, h, w)[2]
+                parts.append(f"{qc} q x {plan.wwin} px {ms:.4f} ms ({samples:.3f})")
+        log(f"[windowed] {name}: chunks x windows (share of samples in a window): "
+            + ", ".join(parts) + f"; the windows as torch ops {ms_plan:.4f} ms")
 
-    def fwd(name, kernel_name, args, timed=False, main=False):
+    def fwd(name, kernel_name, args, timed=False, main=False, earlier=None):
         """Windowed forward vs its plain version and the template kernel."""
         got = dfa3d_win_fwd_cuda(*args)
         want = dfa3d_windowed_plain(*args)
@@ -1634,13 +1752,13 @@ def phase_windowed(torch, dev, report):
                            lambda: dfa3d_win_fwd_cuda(*args),
                            lambda: dfa3d_windowed_plain(*args),
                            lambda outs: dfa3d_work(args[:4], outs, args[5], False),
-                           main=main)
+                           main=main, earlier=earlier)
             line += f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms"
         log(line)
         if main:
             chunk_sizes(name, args, False)
 
-    def bwd(name, args, timed=False, main=False):
+    def bwd(name, args, timed=False, main=False, earlier=None):
         """Windowed multi-head backward, every gradient (the train path's
         stage 2), vs its plain version and the template kernel K5."""
         kw = dict(sample_grads=True, depth_grad=True)
@@ -1664,7 +1782,7 @@ def phase_windowed(torch, dev, report):
                            lambda: dfa3d_win_bwd_cuda(*args, **kw),
                            lambda: dfa3d_windowed_bwd_plain(*args, **kw),
                            lambda outs: dfa3d_work(args[:5], outs, args[6], True),
-                           main=main)
+                           main=main, earlier=earlier)
             line += f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms"
         log(line)
         if main:
@@ -1697,12 +1815,18 @@ def phase_windowed(torch, dev, report):
             s2 = (vp, depth, x["locs2"], x["attn2"], x["heads"], counts)
             model_pair = (vdt, ddt) == (bf16, f32)
             main = model_pair and level == 2
-            fwd(f"stage1 {tag} {shape} sorted", "dfa3d_win_fwd_s1", s1, model_pair, main)
-            fwd(f"stage2 {tag} {shape} sorted", "dfa3d_win_fwd_mh", s2, model_pair, main)
+            if model_pair:
+                spans(f"stage1 {shape}", s1, (QC_S1,))
+                spans(f"stage2 {shape}", s2, (8, 16, 32, 64, 128, 256) if main else (QC_FWD,))
+            fwd(f"stage1 {tag} {shape} sorted", "dfa3d_win_fwd_s1", s1, model_pair, main,
+                "win s1 sorted" if main else None)
+            fwd(f"stage2 {tag} {shape} sorted", "dfa3d_win_fwd_mh", s2, model_pair, main,
+                "win mh sorted" if main else None)
             bwd(f"stage2 bwd {tag} {shape} sorted", s2[:4] + (x["g"].to(vdt),) + s2[4:],
-                model_pair, main)
+                model_pair, main, "win bwd sorted" if main else None)
             if main:
                 query_order(x, s1, s2, shape)
+                log_resources(torch, x)
     # random locations (and some NaN) at level 2: chunks too wide for a
     # window, the global-memory branch
     x = _sorted_inputs(torch, dev, cfg, scene, 2, budget[2], gen)
@@ -1711,9 +1835,10 @@ def phase_windowed(torch, dev, report):
     locs.view(-1)[::997] = float("nan")
     vp = x["vp"].to(bf16)
     s2 = (vp, x["depth"], locs, x["attn2"], x["heads"], x["counts"])
-    fwd(f"stage2 bf16/f32 {shape} random locs", "dfa3d_win_fwd_mh", s2, timed=True)
+    fwd(f"stage2 bf16/f32 {shape} random locs", "dfa3d_win_fwd_mh", s2, timed=True,
+        earlier="win mh random")
     bwd(f"stage2 bwd bf16/f32 {shape} random locs",
-        s2[:4] + (x["g"].to(bf16),) + s2[4:], timed=True)
+        s2[:4] + (x["g"].to(bf16),) + s2[4:], timed=True, earlier="win bwd random")
     log(f"[windowed] chunks run from a window: {branches['window']}, from global "
         f"memory: {branches['fallback']}")
     check(branches["window"] > 0, "no windowed case ran a chunk from its window")
@@ -1826,6 +1951,12 @@ def phase_probes(torch, dev, report):
 
 
 def main() -> int:
+    only = None  # --only PHASE[,PHASE]: those phases alone, and no report
+    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
+        only = set(sys.argv[2].split(","))
+    elif len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--only PHASE[,PHASE...]]", file=sys.stderr)
+        return 2
     repo = Path(__file__).resolve().parent
     if not (repo / "sgcdet_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1879,9 +2010,14 @@ def main() -> int:
             ("sorted", lambda: phase_sorted(torch, dev, KERNELS, f32_scene,
                                             sorted_serving, sorted_train)),
             ("probes", lambda: probe_runs.update(phase_probes(torch, dev, report)))):
+        if only is not None and name not in only:
+            continue
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    if only is not None:
+        log(f"[done] phases {sorted(only)} only: no kernel report")
+        return 0
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():

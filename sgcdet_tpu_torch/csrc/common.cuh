@@ -143,4 +143,40 @@ __device__ __forceinline__ void atomic_add_f32(float* p, const float (&v)[VEC]) 
               make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]));
 }
 
+// Run f(VT{}, DT{}) at the value and depth types of the dtype codes: the
+// DFA3D kernels' pairs bf16/f32, f32/f32 and bf16/bf16.
+template <typename F>
+int dispatch_types(int vdtype, int ddtype, F&& f) {
+  if (ddtype == kBFloat16) {
+    if (vdtype != kBFloat16) return (int)cudaErrorInvalidValue;
+    return f(__nv_bfloat16{}, __nv_bfloat16{});
+  }
+  if (ddtype != kFloat32) return (int)cudaErrorInvalidValue;
+  if (vdtype == kBFloat16) return f(__nv_bfloat16{}, float{});
+  if (vdtype == kFloat32) return f(float{}, float{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// A kernel's resources at `threads` threads and `smem` bytes of dynamic
+// shared memory a block: out = {registers a thread, local memory bytes a
+// thread (spills), shared memory bytes a block (static + dynamic), blocks
+// an SM can hold, threads a block}.
+template <typename Kernel>
+int kernel_attributes(Kernel kernel, int threads, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes a;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)(a.sharedSizeBytes + smem);
+  out[3] = blocks;
+  out[4] = threads;
+  return (int)cudaSuccess;
+}
+
 }  // namespace sgc

@@ -47,10 +47,12 @@
 // each camera's visible count (most of them at the finest level) cost one
 // broadcast load of the count.
 //
-// Design: eight contiguous channels per lane (one 16-byte load of a bf16
-// row piece, two of f32), so a head of c channels takes LANES = c / 8
-// lanes and a warp takes 32 / LANES heads of one (view, query): at c = 32
-// (stage 2) a warp is one query's eight heads, four lanes each; at c = 256
+// Design (the warp's code is sgc::mh_bwd_warp in csrc/dfa3d_mh.cuh, which
+// the windowed backward of the sorted path shares): eight contiguous
+// channels per lane (one 16-byte load of a bf16 row piece, two of f32), so
+// a head of c channels takes LANES = c / 8 lanes and a warp takes 32 /
+// LANES heads of one (view, query): at c = 32 (stage 2) a warp is one
+// query's eight heads, four lanes each; at c = 256
 // (stage 1) a warp is one head, as the forward.  The incoming gradient row
 // is loaded once into registers, in 16-byte pieces; each corner's dot
 // product t is a reduction over the head's lanes (2 shuffle steps at
@@ -68,7 +70,7 @@
 // launch_sg turns DOT off only with SAMPLE_GRADS off and a null d_depth.
 // No pair/quad row images, no dquad/un-quad pass and no transposed windows
 // (those worked around Mosaic).
-#include "common.cuh"
+#include "dfa3d_mh.cuh"
 
 namespace {
 
@@ -85,11 +87,7 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
     float* __restrict__ d_locs,      // (N, K, heads, P, 3) or null
     float* __restrict__ d_attn,      // (N, K, heads, P) or null
     int n, int h, int w, int heads, int dsize, int k, int p) {
-  constexpr int VEC = 8;           // channels per lane
-  constexpr int LANES = C / VEC;   // lanes per head
-  constexpr int HPW = 32 / LANES;  // heads per warp
-  const int lane = threadIdx.x & 31;
-  const int sub = lane % LANES;
+  constexpr int HPW = 32 / (C / 8);  // heads per warp
   const int hgroups = (heads + HPW - 1) / HPW;
   const long long warp_id =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -98,122 +96,13 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
   const long long nq = warp_id / hgroups;  // cam * k + q
   const int q = (int)(nq % k);
   const int cam = (int)(nq / k);
-  const int cfull = heads * C;
-
-  if (counts != nullptr && q >= counts[cam]) {
-    if (SAMPLE_GRADS) {
-      const long long row = nq * heads + head0;  // first (query, head) of the warp
-      const int nh = min(HPW, heads - head0);
-      for (int i = lane; i < nh * p * 3; i += 32) d_locs[row * p * 3 + i] = 0.f;
-      for (int i = lane; i < nh * p; i += 32) d_attn[row * p + i] = 0.f;
-    }
-    return;
-  }
-
-  // lanes of a head past the last (heads not a multiple of HPW) read the
-  // last head's operands, take part in the shuffles and write nothing
-  const bool active = head0 + lane / LANES < heads;
-  const int head = min(head0 + lane / LANES, heads - 1);
-  const bool first = active && sub == 0;
-  float gv[VEC];
-  sgc::load_f32<VT, VEC>(g + nq * cfull + head * C + sub * VEC, gv);
-  const long long hw = (long long)h * w;
-  const long long qh = nq * heads + head;  // (query, head) row of locs / attn
-  const float* lp = locs + qh * p * 3;
-  const float* ap = attn + qh * p;
-  const VT* vbase = value + cam * hw * cfull + head * C + sub * VEC;
-  // d_value is written in SLOTS instructions per corner; slot s covers the
-  // warp's channels [128 s, 128 s + 128) in head order, four per lane, so
-  // each instruction adds four whole 128-byte rows.  A lane therefore
-  // writes for the head whose sample sits in lane wsrc[s], and holds that
-  // head's incoming gradient at its four channels.
-  constexpr int SLOTS = VEC / 4;
-  int wsrc[SLOTS], woff[SLOTS];
-  float gw[SLOTS][4];
-#pragma unroll
-  for (int sl = 0; sl < SLOTS; ++sl) {
-    const int f = 128 * sl + 4 * lane, hiw = f / C;
-    wsrc[sl] = hiw * LANES;
-    woff[sl] = min(head0 + hiw, heads - 1) * C + f % C;
-    sgc::load_f32<VT, 4>(g + nq * cfull + woff[sl], gw[sl]);
-  }
-  float* dvcam = d_value + cam * hw * cfull;
-  const DT* dbase = depth + cam * hw * dsize;
-  float* ddbase = d_depth == nullptr ? nullptr : d_depth + cam * hw * dsize;
-
-  for (int pt = 0; pt < p; ++pt) {
-    const float u = sgc::clip_coord(lp[3 * pt] * w - 0.5f, -4.f, w + 4.f);
-    const float v = sgc::clip_coord(lp[3 * pt + 1] * h - 0.5f, -4.f, h + 4.f);
-    const float dd = sgc::clip_coord(lp[3 * pt + 2] * dsize - 0.5f, -4.f,
-                                     dsize + 4.f);
-    const float a = ap[pt];
-    const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
-    const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
-    const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
-    const bool dv0 = d0 >= 0 && d0 <= dsize - 1;
-    const bool dv1 = d0 + 1 >= 0 && d0 + 1 <= dsize - 1;
-    const float wd0 = dv0 ? 1.f - ld : 0.f;
-    const float wd1 = dv1 ? ld : 0.f;
-    const int d0c = min(max(d0, 0), dsize - 1);
-    const int d1c = min(max(d0 + 1, 0), dsize - 1);
-    float g_lx = 0.f, g_ly = 0.f, g_ld = 0.f, g_a = 0.f;
-#pragma unroll
-    for (int corner = 0; corner < 4; ++corner) {
-      const int dy = corner >> 1, dx = corner & 1;
-      const int yi = y0 + dy, xi = x0 + dx;
-      // uniform over a head's lanes; the shuffles below take every lane
-      const bool in = active && yi >= 0 && yi <= h - 1 && xi >= 0 && xi <= w - 1;
-      const long long pix = (long long)yi * w + xi;
-      const float by = dy ? ly : 1.f - ly, bx = dx ? lx : 1.f - lx;
-      const float b = by * bx;
-      float dp0 = 0.f, dp1 = 0.f, t = 0.f, wgt = 0.f;
-      if (in) {
-        const DT* drow = dbase + pix * dsize;
-        dp0 = sgc::to_f32(drow[d0c]);
-        dp1 = sgc::to_f32(drow[d1c]);
-        wgt = (b * a) * (dp0 * wd0 + dp1 * wd1);
-        if (DOT) {
-          float val[VEC];
-          sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
-#pragma unroll
-          for (int i = 0; i < VEC; ++i) t += gv[i] * val[i];
-        }
-      }
-#pragma unroll
-      for (int sl = 0; sl < SLOTS; ++sl) {
-        const float ws = __shfl_sync(0xffffffffu, wgt, wsrc[sl]);
-        const int ps = __shfl_sync(0xffffffffu, (int)pix, wsrc[sl]);
-        if (!__shfl_sync(0xffffffffu, (int)in, wsrc[sl])) continue;
-        float upd[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) upd[i] = ws * gw[sl][i];
-        sgc::atomic_add_f32<4>(dvcam + (long long)ps * cfull + woff[sl], upd);
-      }
-      if (!DOT) continue;
-      t = sgc::group_sum<LANES>(t);
-      if (!in) continue;
-      const float s = dp0 * wd0 + dp1 * wd1;
-      const float t_s = t * b * a;  // gradient of the depth score s
-      if (active && sub < 2 && ddbase != nullptr) {  // one instruction, both bins
-        const float wd = sub == 0 ? wd0 : wd1;
-        if (wd != 0.f) atomicAdd(ddbase + pix * dsize + (sub == 0 ? d0c : d1c), t_s * wd);
-      }
-      if (SAMPLE_GRADS) {
-        const float t_b = t * a * s;  // gradient of the bilinear weight b
-        g_a += t * b * s;
-        g_lx += t_b * (dx ? by : -by);
-        g_ly += t_b * (dy ? bx : -bx);
-        g_ld += t_s * ((dv1 ? dp1 : 0.f) - (dv0 ? dp0 : 0.f));
-      }
-    }
-    if (SAMPLE_GRADS && first) {
-      float* dl = d_locs + (qh * p + pt) * 3;
-      dl[0] = g_lx * w;
-      dl[1] = g_ly * h;
-      dl[2] = g_ld * dsize;
-      d_attn[qh * p + pt] = g_a;
-    }
-  }
+  const long long hw = (long long)h * w, vstride = hw * heads * C;
+  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize,
+                                 d_depth == nullptr ? nullptr : d_depth + cam * hw * dsize,
+                                 dsize};
+  sgc::mh_bwd_warp<VT, DT, C, SAMPLE_GRADS, DOT>(
+      value + cam * vstride, locs, attn, g, d_value + cam * vstride, d_locs, d_attn, nq,
+      counts == nullptr || q < counts[cam], head0, h, w, heads, dsize, p, dep);
 }
 
 template <typename VT, typename DT, int C, bool SAMPLE_GRADS, bool DOT>

@@ -41,11 +41,13 @@
 // projections of nearby queries overlap and from HBM otherwise.
 //
 // Design of the multi-head case (K3, K3'; K5's lane layout, csrc/
-// dfa3d_bwd.cu): eight contiguous channels per lane (one 16-byte load of a
-// bf16 row piece, two of f32), so a head of c channels takes LANES = c / 8
-// lanes and a warp takes HPW = 32 / LANES heads of one (view, query): at
-// c = 32 a warp is one query's eight heads, four lanes each.  Any c that
-// is a multiple of 8 up to 256 fits the layout.
+// dfa3d_bwd.cu; the warp's code is sgc::mh_fwd_warp in csrc/dfa3d_mh.cuh,
+// which the windowed forward of the sorted path shares): eight contiguous
+// channels per lane (one 16-byte load of a bf16 row piece, two of f32), so
+// a head of c channels takes LANES = c / 8 lanes and a warp takes HPW = 32
+// / LANES heads of one (view, query): at c = 32 a warp is one query's eight
+// heads, four lanes each.  Any c that is a multiple of 8 up to 256 fits the
+// layout.
 //   1. The sample quantities are computed once per (head, point), not once
 //      per lane: lane i of the warp takes the group's i-th (head, point)
 //      sample (at 8 heads x 4 points the 32 lanes are exactly the 32
@@ -69,7 +71,7 @@
 // warp per (view, query, head), c / 32 channels a lane, every lane
 // computing the sample itself.  Off-image corners are never loaded.  No
 // pair/quad row images (those worked around Mosaic).
-#include "common.cuh"
+#include "dfa3d_mh.cuh"
 
 namespace {
 
@@ -85,11 +87,7 @@ __global__ void __launch_bounds__(256, 3) dfa3d_fwd_kernel(
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
     VT* __restrict__ out,            // (N, K, heads*c)
     int n, int h, int w, int heads, int dsize, int k, int p) {
-  static_assert(C % 8 == 0 && C <= 256, "a head is 1-32 lanes of 8 channels");
-  constexpr int VEC = 8;                      // channels per lane
-  constexpr int LANES = C / VEC;              // lanes per head
-  constexpr int HPW = 32 / LANES;             // heads per warp
-  const int lane = threadIdx.x & 31;
+  constexpr int HPW = 32 / (C / 8);  // heads per warp
   const int hgroups = (heads + HPW - 1) / HPW;
   const long long warp_id =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -98,107 +96,11 @@ __global__ void __launch_bounds__(256, 3) dfa3d_fwd_kernel(
   const long long nq = warp_id / hgroups;  // cam * k + q
   const int q = (int)(nq % k);
   const int cam = (int)(nq / k);
-  const int cfull = heads * C;
-  const int nh = min(HPW, heads - head0);  // heads of this warp
-  const int hl = lane / LANES;             // this lane's head in the group
-  const bool active = hl < nh;
-  const int sub = lane % LANES;
-  VT* orow = out + nq * cfull + (head0 + hl) * C + sub * VEC;
-
-  float acc[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-
-  if (counts == nullptr || q < counts[cam]) {
-    const long long hw = (long long)h * w;
-    const long long s_row = (nq * heads + head0) * p;  // the group's first (head, point)
-    const VT* vbase = value + cam * hw * cfull + (head0 + min(hl, nh - 1)) * C + sub * VEC;
-    const DT* dbase = depth + cam * hw * dsize;
-    int cpix[4];
-    float bw[4], dp0[4], dp1[4], wd0, wd1;
-    const int ns = nh * p;  // samples of the group
-    for (int s0 = 0; s0 < ns; s0 += 32) {
-      // 1. sample s0 + lane, and the loads of its depth bins
-#pragma unroll
-      for (int corner = 0; corner < 4; ++corner) {
-        cpix[corner] = -1;
-        bw[corner] = dp0[corner] = dp1[corner] = 0.f;
-      }
-      wd0 = wd1 = 0.f;
-      if (s0 + lane < ns) {
-        const float* l = locs + (s_row + s0 + lane) * 3;
-        const float u = sgc::clip_coord(l[0] * w - 0.5f, -4.f, w + 4.f);
-        const float v = sgc::clip_coord(l[1] * h - 0.5f, -4.f, h + 4.f);
-        const float dd = sgc::clip_coord(l[2] * dsize - 0.5f, -4.f, dsize + 4.f);
-        const float a = attn[s_row + s0 + lane];
-        const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
-        const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
-        const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
-        wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
-        wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
-        const int d0c = min(max(d0, 0), dsize - 1);
-        const int d1c = min(max(d0 + 1, 0), dsize - 1);
-#pragma unroll
-        for (int corner = 0; corner < 4; ++corner) {
-          const int dy = corner >> 1, dx = corner & 1;
-          const int yi = y0 + dy, xi = x0 + dx;
-          const bool in = yi >= 0 && yi <= h - 1 && xi >= 0 && xi <= w - 1;
-          cpix[corner] = in ? yi * w + xi : -1;
-          bw[corner] = (dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a;
-          if (in) {
-            const DT* drow = dbase + (long long)cpix[corner] * dsize;
-            dp0[corner] = sgc::to_f32(drow[d0c]);
-            dp1[corner] = sgc::to_f32(drow[d1c]);
-          }
-        }
-      }
-      // 2. this lane's head's points of the chunk, PG at a time: the corner
-      // pixels by shuffle, every corner load of the PG points, then the
-      // weights (which wait on the depth loads) and the multiply-adds
-      for (int pt0 = 0; pt0 < p; pt0 += PG) {
-        int pix[PG][4];
-#pragma unroll
-        for (int i = 0; i < PG; ++i) {
-          const int src = hl * p + pt0 + i - s0;  // lane holding the sample
-          const bool mine = active && pt0 + i < p && src >= 0 && src < 32;
-#pragma unroll
-          for (int corner = 0; corner < 4; ++corner) {
-            const int ps = __shfl_sync(0xffffffffu, cpix[corner], src & 31);
-            pix[i][corner] = mine ? ps : -1;
-          }
-        }
-        sgc::Vec<VT, VEC> raw[PG][4];
-#pragma unroll
-        for (int i = 0; i < PG; ++i)
-#pragma unroll
-          for (int corner = 0; corner < 4; ++corner) {
-            if (pix[i][corner] >= 0) {
-              raw[i][corner] = *reinterpret_cast<const sgc::Vec<VT, VEC>*>(
-                  vbase + (long long)pix[i][corner] * cfull);
-            } else {
-#pragma unroll
-              for (int j = 0; j < VEC; ++j) raw[i][corner].v[j] = sgc::from_f32<VT>(0.f);
-            }
-          }
-        float cw[4];
-#pragma unroll
-        for (int corner = 0; corner < 4; ++corner)
-          cw[corner] = bw[corner] * (dp0[corner] * wd0 + dp1[corner] * wd1);
-#pragma unroll
-        for (int i = 0; i < PG; ++i) {
-          const int src = hl * p + pt0 + i - s0;
-#pragma unroll
-          for (int corner = 0; corner < 4; ++corner) {
-            const float wgt = __shfl_sync(0xffffffffu, cw[corner], src & 31);
-#pragma unroll
-            for (int j = 0; j < VEC; ++j)
-              acc[j] += wgt * sgc::to_f32(raw[i][corner].v[j]);
-          }
-        }
-      }
-    }
-  }
-  if (active) sgc::store_from_f32<VT, VEC>(orow, acc);
+  const long long hw = (long long)h * w;
+  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize, nullptr, dsize};
+  sgc::mh_fwd_warp<VT, DT, C, PG>(value + cam * hw * heads * C, locs, attn, out, nq,
+                                  counts == nullptr || q < counts[cam], head0, h, w,
+                                  heads, dsize, p, dep);
 }
 
 // One point a head (stage 1: heads = P = 1, K2 and K2'): a warp per

@@ -11,42 +11,49 @@
 // path stays K6 (dfa3d_bwd.cu), as on the TPU, whose windowed stage 1 has
 // no backward.
 //
-// Design: the blocks and windows of dfa3d_win_fwd.cu, one block per (head,
-// chunk of qc queries, view).  With a window [base, base + span) the block
-// stages the head's 32 value channels (cp.async; only where a dot product
-// is needed) and the depth bins (f32) of the window's pixels, and zeroes
-// two f32 accumulators in shared memory: d_value (32 channels per pixel)
-// and d_depth (D bins per pixel).  Each warp takes queries of the chunk,
-// lanes over the head's channels, and per sample and corner computes what
-// K5 computes in registers (the dot product t by a warp reduction, the
-// location and attention gradients, written once per point by lane 0); the
-// d_value and d_depth updates of in-window corners go to the shared
-// accumulators by shared-memory atomics (native f32 on sm_90), those of
-// other corners to global memory by global atomics, as in K5.  At the end
-// each nonzero accumulator element is added to global memory by one atomic:
-// neighbouring chunks' windows overlap, and the heads share the depth.
-// Without a window the block runs K5's global path.  K5's flags stay: no
-// depth atomics without d_depth, no value gather or dot product without
-// sample or depth gradients (DOT).
+// Design: the blocks and windows of dfa3d_win_fwd.cu's multi-head kernel,
+// one block of 256 threads per (chunk of qc = 8 queries, view) over all
+// heads, the window the union of its heads' bands (sgc::union_window).
+// Where the window fits the wwin pixels the launch reserves, the block
+// zeroes an f32 d_depth sum of the window in shared memory (48 B a pixel at
+// 12 bins).  Each warp then takes a (query, head group) item of the chunk
+// (one at 8 heads) and runs K5's warp (sgc::mh_bwd_warp, csrc/
+// dfa3d_mh.cuh): a query's eight heads in 8-channel lanes, the incoming
+// gradient in registers, 16-byte value loads, the dot product in 2
+// shuffle steps, d_value by 16-byte vector reductions into global memory
+// in K5's slot layout, and the location and attention gradients written
+// once per point.  Only the depth gradient goes through the window: each
+// in-window corner's pair of d_depth updates is a shared-memory atomic
+// instead of an L2 request.  After a sync the block adds its sums to
+// global memory by 16-byte vector reductions, skipping all-zero quads (a
+// pixel's 12 bins are three).  Corners outside the window (none, when plan
+// and kernel agree), and every corner of a chunk whose union is wider than
+// wwin, take K5's global branch as they are: such a chunk costs what K5
+// costs.  K5's flags stay: no depth atomics without d_depth (and then no
+// window), no value read or dot product without sample or depth gradients
+// (DOT); counted-out queries get zero location and attention gradients
+// and scatter nothing.
 //
-// What bounds it on this card: the scatter.  Per window the kernel turns
-// every in-window corner's 32 + 2 global atomics into shared ones, and adds
-// at most span * (32 + D) global atomics at the flush; at 8 heads x 4
-// points a chunk of 64 queries has 1024 corners per head against a window
-// of up to ~700 pixels.  Shared memory (bf16 value, f32 depth with 12 bins,
-// every gradient): 64 + 48 + 128 + 48 = 288 bytes a pixel, so the plan's
-// window (ops/dfa3d_windowed.py::window_pixels) is ~700 pixels in ~200 KB,
-// one block per SM; it has 1024 threads (32 warps, at most 64 registers a
-// thread) to keep enough gathers and atomics in flight.
-#include "common.cuh"
+// What bounds it on this card, as K5: the d_value reductions and the value
+// gathers.  The d_depth atomics the window takes out of L2 were ~2 % of
+// K5's time (PERF.md, PR 8).  Measured choices (H100 80GB HBM3): the depth
+// bins are read from global memory as K5 reads them, not staged: staging
+// them too (96 B a pixel) left two blocks an SM and ran 8-16 % slower; chunks of 8
+// queries, a query a warp (16 and 32 queries, two and four a warp, ran 6
+// and 19 % slower); three blocks an SM (80 registers).  d_value is not
+// summed in shared memory: at 8 heads x 32 channels it takes 1 KB a pixel,
+// so a block could hold ~227 pixels, and no union at level 2 is that
+// narrow at any chunk of 8-256 queries (the heads' offsets alone span ~9
+// image rows).
+#include "dfa3d_mh.cuh"
 
 namespace {
 
-constexpr int kC = 32;  // channels per head: one per lane
-constexpr int kThreads = 1024;
+constexpr int kC = 32;  // channels per head
+constexpr int kThreads = 256;
 
 template <typename VT, typename DT, bool SAMPLE_GRADS, bool DOT>
-__global__ void __launch_bounds__(kThreads) dfa3d_win_bwd_kernel(
+__global__ void __launch_bounds__(kThreads, 3) dfa3d_win_bwd_kernel(
     const VT* __restrict__ value,    // (N, H, W, heads*32)
     const DT* __restrict__ depth,    // (N, H, W, D)
     const float* __restrict__ locs,  // (N, K, heads, P, 3) normalized (u, v, d)
@@ -59,148 +66,46 @@ __global__ void __launch_bounds__(kThreads) dfa3d_win_bwd_kernel(
     float* __restrict__ d_attn,      // (N, K, heads, P) or null
     int h, int w, int heads, int dsize, int k, int p, int qc, int wwin) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_box[2];
-  const bool dgrad = d_depth != nullptr;
-  // the value window first (cp.async wants 16-byte alignment; a row is 64
-  // or 128 bytes), then the f32 arrays
-  VT* s_val = reinterpret_cast<VT*>(smem);                  // [wwin][32] if DOT
-  float* s_dv = reinterpret_cast<float*>(smem + (DOT ? (size_t)wwin * kC * sizeof(VT) : 0));
-  float* s_dpt = s_dv + (size_t)wwin * kC;                  // [wwin][D]
-  float* s_dd = s_dpt + (size_t)wwin * dsize;               // [wwin][D] if dgrad
-  const int head = blockIdx.x, chunk = blockIdx.y, cam = blockIdx.z;
-  const int cfull = heads * kC;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ int2 s_warp[kThreads / 32];
+  float* s_dd = reinterpret_cast<float*>(smem);  // [wwin][D] d_depth sums
+  constexpr int HPW = 32 / (kC / 8);             // heads per warp
+  const int hgroups = (heads + HPW - 1) / HPW;
+  const int chunk = blockIdx.x, cam = blockIdx.y;
   const int count = counts == nullptr ? k : counts[cam];
   const int q0 = chunk * qc, q1 = min(k, q0 + qc);
-  const int2 box = sgc::block_window(
-      locs + (((long long)cam * k + q0) * heads + head) * p * 3, (long long)heads * p * 3,
-      p, max(0, min(q1, count) - q0), h, w, s_box);
+  const int nqc = max(0, min(q1, count) - q0);  // counted queries of the chunk
+  int2 box = make_int2(0, -1);
+  if (nqc > 0 && wwin > 0 && d_depth != nullptr)  // uniform; wwin is 0 without d_depth
+    box = sgc::union_window<kThreads>(locs + ((long long)cam * k + q0) * heads * p * 3,
+                                      nqc * heads * p, h, w, s_warp);
   const int base = box.x, span = box.y >= 0 ? box.y - box.x + 1 : 0;
-  const long long hw = (long long)h * w;
-  const VT* vmap = value + cam * hw * cfull + head * kC;  // pixel stride cfull
-  float* dvmap = d_value + cam * hw * cfull + head * kC;
-  const DT* dmap = depth + cam * hw * dsize;
-  float* ddmap = dgrad ? d_depth + cam * hw * dsize : nullptr;
   const bool staged = span > 0 && span <= wwin;
-
-  if (staged) {
-    if (DOT) {
-      constexpr int kVec = 16 / sizeof(VT);
-      constexpr int kParts = kC / kVec;
-      for (int i = threadIdx.x; i < span * kParts; i += kThreads) {
-        const int r = i / kParts, part = i - r * kParts;
-        sgc::cp_async16(s_val + r * kC + part * kVec,
-                        vmap + (long long)(base + r) * cfull + part * kVec);
-      }
-    }
-    const DT* dsrc = dmap + (long long)base * dsize;
-    for (int i = threadIdx.x; i < span * dsize; i += kThreads) {
-      s_dpt[i] = sgc::to_f32(dsrc[i]);
-      if (dgrad) s_dd[i] = 0.f;
-    }
-    for (int i = threadIdx.x; i < span * kC; i += kThreads) s_dv[i] = 0.f;
-    if (DOT) sgc::cp_async_wait_all();
+  const long long hw = (long long)h * w, vstride = hw * heads * kC;
+  float* ddmap = d_depth == nullptr ? nullptr : d_depth + cam * hw * dsize;
+  if (staged) {  // uniform over the block
+    sgc::zero_shared(s_dd, span * dsize);
+    __syncthreads();
   }
-  __syncthreads();
 
-  for (int q = q0 + warp; q < q1; q += kThreads / 32) {
-    const long long sid = ((long long)cam * k + q) * heads + head;
-    if (q >= count) {
-      if (SAMPLE_GRADS) {
-        for (int i = lane; i < 3 * p; i += 32) d_locs[sid * p * 3 + i] = 0.f;
-        for (int i = lane; i < p; i += 32) d_attn[sid * p + i] = 0.f;
-      }
-      continue;
-    }
-    const float gv = sgc::to_f32(g[((long long)cam * k + q) * cfull + head * kC + lane]);
-    const float* lp = locs + sid * p * 3;
-    const float* ap = attn + sid * p;
-    for (int pt = 0; pt < p; ++pt) {
-      const float u = sgc::pixel_coord(lp[3 * pt], w);
-      const float v = sgc::pixel_coord(lp[3 * pt + 1], h);
-      const float dd = sgc::pixel_coord(lp[3 * pt + 2], dsize);
-      const float a = ap[pt];
-      const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
-      const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
-      const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
-      const bool dv0 = d0 >= 0 && d0 <= dsize - 1;
-      const bool dv1 = d0 + 1 >= 0 && d0 + 1 <= dsize - 1;
-      const float wd0 = dv0 ? 1.f - ld : 0.f;
-      const float wd1 = dv1 ? ld : 0.f;
-      const int d0c = min(max(d0, 0), dsize - 1);
-      const int d1c = min(max(d0 + 1, 0), dsize - 1);
-      float g_lx = 0.f, g_ly = 0.f, g_ld = 0.f, g_a = 0.f;
-#pragma unroll
-      for (int corner = 0; corner < 4; ++corner) {
-        const int dy = corner >> 1, dx = corner & 1;
-        const int yi = y0 + dy, xi = x0 + dx;
-        if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
-        const int pix = yi * w + xi;
-        const int rel = pix - base;
-        const bool in_win = staged && rel >= 0 && rel < span;
-        float dp0, dp1;
-        if (in_win) {
-          dp0 = s_dpt[rel * dsize + d0c];
-          dp1 = s_dpt[rel * dsize + d1c];
-        } else {
-          const DT* dr = dmap + (long long)pix * dsize;
-          dp0 = sgc::to_f32(dr[d0c]);
-          dp1 = sgc::to_f32(dr[d1c]);
-        }
-        const float s = dp0 * wd0 + dp1 * wd1;
-        const float by = dy ? ly : 1.f - ly, bx = dx ? lx : 1.f - lx;
-        const float b = by * bx;
-        const float wgt = (b * a) * s;
-        // explicit branches, so shared and global atomics compile as such
-        if (in_win) atomicAdd(s_dv + rel * kC + lane, wgt * gv);
-        else atomicAdd(dvmap + (long long)pix * cfull + lane, wgt * gv);
-        if (!DOT) continue;
-        const float val = sgc::to_f32(in_win ? s_val[rel * kC + lane]
-                                             : vmap[(long long)pix * cfull + lane]);
-        const float t = sgc::warp_sum(gv * val);
-        const float t_s = t * b * a;  // gradient of the depth score s
-        if (lane == 0 && dgrad) {
-          if (in_win) {
-            if (wd0 != 0.f) atomicAdd(s_dd + rel * dsize + d0c, t_s * wd0);
-            if (wd1 != 0.f) atomicAdd(s_dd + rel * dsize + d1c, t_s * wd1);
-          } else {
-            float* drow = ddmap + (long long)pix * dsize;
-            if (wd0 != 0.f) atomicAdd(drow + d0c, t_s * wd0);
-            if (wd1 != 0.f) atomicAdd(drow + d1c, t_s * wd1);
-          }
-        }
-        if (SAMPLE_GRADS) {
-          const float t_b = t * a * s;  // gradient of the bilinear weight b
-          g_a += t * b * s;
-          g_lx += t_b * (dx ? by : -by);
-          g_ly += t_b * (dy ? bx : -bx);
-          g_ld += t_s * ((dv1 ? dp1 : 0.f) - (dv0 ? dp0 : 0.f));
-        }
-      }
-      if (SAMPLE_GRADS && lane == 0) {
-        float* dl = d_locs + (sid * p + pt) * 3;
-        dl[0] = g_lx * w;
-        dl[1] = g_ly * h;
-        dl[2] = g_ld * dsize;
-        d_attn[sid * p + pt] = g_a;
-      }
-    }
+  const sgc::WindowDepth<DT, false> dep{{depth + cam * hw * dsize, ddmap, dsize}, nullptr,
+                                        s_dd, base, staged ? span : 0};
+  for (int item = threadIdx.x >> 5; item < (q1 - q0) * hgroups; item += kThreads / 32) {
+    const int q = q0 + item / hgroups;
+    sgc::mh_bwd_warp<VT, DT, kC, SAMPLE_GRADS, DOT>(
+        value + cam * vstride, locs, attn, g, d_value + cam * vstride, d_locs, d_attn,
+        (long long)cam * k + q, q < count, (item % hgroups) * HPW, h, w, heads, dsize, p,
+        dep);
   }
-  __syncthreads();
+  if (staged) {  // uniform over the block
+    __syncthreads();
+    sgc::flush_add(ddmap + (long long)base * dsize, s_dd, span * dsize);
+  }
+}
 
-  if (staged) {  // one global atomic per nonzero accumulated element
-    for (int i = threadIdx.x; i < span * kC; i += kThreads) {
-      const float x = s_dv[i];
-      if (x != 0.f) atomicAdd(dvmap + (long long)(base + i / kC) * cfull + (i % kC), x);
-    }
-    if (dgrad) {
-      float* dd = ddmap + (long long)base * dsize;
-      for (int i = threadIdx.x; i < span * dsize; i += kThreads) {
-        const float x = s_dd[i];
-        if (x != 0.f) atomicAdd(dd + i, x);
-      }
-    }
-  }
+// Dynamic shared memory of a block (ops/dfa3d_windowed.py::window_bytes
+// computes the same): the d_depth sums, with depth_grad.
+size_t bwd_smem(int dsize, int wwin, bool depth_grad) {
+  return depth_grad ? (size_t)wwin * dsize * sizeof(float) : 0;
 }
 
 template <typename VT, typename DT, bool SAMPLE_GRADS, bool DOT>
@@ -209,15 +114,12 @@ int launch(const void* value, const void* depth, const float* locs,
            float* d_depth, float* d_locs, float* d_attn, int n, int h, int w,
            int heads, int dsize, int k, int p, int qc, int wwin,
            cudaStream_t stream) {
-  const size_t per_pixel = kC * sizeof(float) + dsize * sizeof(float)
-                           + (d_depth != nullptr ? dsize * sizeof(float) : 0)
-                           + (DOT ? kC * sizeof(VT) : 0);
-  const size_t smem = (size_t)wwin * per_pixel;
+  const size_t smem = bwd_smem(dsize, wwin, d_depth != nullptr);
   auto kernel = dfa3d_win_bwd_kernel<VT, DT, SAMPLE_GRADS, DOT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(heads, (k + qc - 1) / qc, n);
+  const dim3 grid((k + qc - 1) / qc, n);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
       counts, static_cast<const VT*>(g), d_value, d_depth, d_locs, d_attn,
@@ -225,27 +127,15 @@ int launch(const void* value, const void* depth, const float* locs,
   return (int)cudaGetLastError();
 }
 
-template <typename VT, typename DT>
-int launch_flags(const void* value, const void* depth, const float* locs,
-                 const float* attn, const int* counts, const void* g,
-                 float* d_value, float* d_depth, float* d_locs,
-                 float* d_attn, int n, int h, int w, int heads, int dsize, int k,
-                 int p, int qc, int wwin, cudaStream_t stream) {
-  if (d_locs != nullptr)
-    return launch<VT, DT, true, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, stream);
-  if (d_depth != nullptr)
-    return launch<VT, DT, false, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, stream);
-  return launch<VT, DT, false, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, stream);
-}
-
 }  // namespace
 
 // value (N, H, W, heads*32) of type vdtype, depth (N, H, W, dsize) of type
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
 // (N,) int32 or null, g (N, K, heads*32) of type vdtype, chunks of qc
-// queries, windows of at most wwin pixels -> d_value (f32, zeroed by the caller),
-// d_depth (likewise, or null: not computed) and, where both pointers are
-// non-null, d_locs and d_attn (f32, every element written).
+// queries, windows of at most wwin pixels -> d_value (f32, zeroed by the
+// caller, 16-byte aligned), d_depth (likewise, or null: not computed) and,
+// where both pointers are non-null, d_locs and d_attn (f32, every element
+// written).
 extern "C" int sgc_dfa3d_win_bwd(int vdtype, int ddtype, const void* value,
                                  const void* depth, const float* locs,
                                  const float* attn, const int* counts,
@@ -255,16 +145,32 @@ extern "C" int sgc_dfa3d_win_bwd(int vdtype, int ddtype, const void* value,
                                  int k, int p, int qc, int wwin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
-  if ((d_locs == nullptr) != (d_attn == nullptr) || qc <= 0 || wwin <= 0)
+  if ((d_locs == nullptr) != (d_attn == nullptr) || qc <= 0 || wwin < 0)
     return (int)cudaErrorInvalidValue;
-  if (ddtype == sgc::kBFloat16) {
-    if (vdtype != sgc::kBFloat16) return (int)cudaErrorInvalidValue;
-    return launch_flags<__nv_bfloat16, __nv_bfloat16>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
-  }
-  if (ddtype != sgc::kFloat32) return (int)cudaErrorInvalidValue;
-  if (vdtype == sgc::kBFloat16)
-    return launch_flags<__nv_bfloat16, float>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
-  if (vdtype == sgc::kFloat32)
-    return launch_flags<float, float>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
-  return (int)cudaErrorInvalidValue;
+  return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
+    using VT = decltype(v);
+    using DT = decltype(d);
+    if (d_locs != nullptr)
+      return launch<VT, DT, true, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
+    if (d_depth != nullptr)
+      return launch<VT, DT, false, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
+    return launch<VT, DT, false, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
+  });
+}
+
+// The resources of the kernel that sgc_dfa3d_win_bwd launches for these
+// types and flags (sample_grads implies the dot products; depth_grad), at
+// dsize and wwin: out[5] as sgc::kernel_attributes writes it.
+extern "C" int sgc_dfa3d_win_bwd_attributes(int vdtype, int ddtype, int sample_grads,
+                                            int depth_grad, int dsize, int wwin, int* out) {
+  return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
+    using VT = decltype(v);
+    using DT = decltype(d);
+    const size_t smem = bwd_smem(dsize, wwin, depth_grad);
+    if (sample_grads)
+      return sgc::kernel_attributes(dfa3d_win_bwd_kernel<VT, DT, true, true>, kThreads, smem, out);
+    if (depth_grad)
+      return sgc::kernel_attributes(dfa3d_win_bwd_kernel<VT, DT, false, true>, kThreads, smem, out);
+    return sgc::kernel_attributes(dfa3d_win_bwd_kernel<VT, DT, false, false>, kThreads, smem, out);
+  });
 }

@@ -12,43 +12,50 @@
 // chunk of consecutive sorted queries fall in a narrow band of pixels
 // y * W + x, so that band can sit in fast memory.
 //
-// Design: one block per (32-channel slice of the value row, chunk of qc
-// queries, view).  A multi-head slice is one head (c = 32); stage 1's
-// c = 256 is eight slices, each recomputing the sample's depth score.  The
-// block first finds its window [base, base + span): the lowest and highest
-// pixel an in-image corner of its counted samples reads (block_window, a
-// block-wide min/max over the chunk's coordinates; the plain version's
-// ops/dfa3d_windowed.py::plan_windows computes the same windows in PyTorch).
-// Where the span fits the wwin pixels of shared memory, the block copies
-// the slice's value channels of its pixels
-// (cp.async, 16 bytes a copy) and their depth bins (converted to f32) into
-// shared memory, then each warp computes queries of the chunk, lanes over
-// the 32 channels, exactly as dfa3d_fwd.cu does but reading the corners from
-// shared memory; a corner outside the window (none, when plan and kernel
-// agree, which pixel_coord ensures) is read from global memory.  Without a
-// window the block reads global memory as the template does: that branch is
-// exact and part of the kernel.  Queries at or past valid_counts[n] are
-// written as zeros; a chunk past the count stages nothing.
+// Multi-head (dfa3d_win_fwd_mh_kernel): one block of 256 threads per
+// (chunk of qc = 16 queries, view), all heads.  The block first finds its
+// window [base, base + span): the lowest and highest pixel an in-image
+// corner of its counted samples reads, over every head and point
+// (sgc::union_window, one sync; the plain version's ops/dfa3d_windowed.py::
+// plan_windows computes the same union in PyTorch).  Where the span fits
+// the wwin pixels the launch reserves, it copies the window's depth bins
+// into shared memory as f32 (cp.async, 16 bytes a copy, for f32 depth).
+// Then each warp takes (query, head group) items of the chunk and runs K3's
+// warp (sgc::mh_fwd_warp, csrc/dfa3d_mh.cuh): eight channels a lane, the
+// sample computed once per (head, point), the value rows gathered from
+// global memory (L2) in 16-byte loads, one 512-byte store a query.  Only
+// the depth bins come from the window; a corner outside it (none, when
+// plan and kernel agree, which pixel_coord ensures), and every corner of a
+// chunk whose window is wider than wwin, is read from global memory as K3
+// reads it.  Queries at or past valid_counts[n] are written as zeros; a
+// chunk past the count finds no window and stages nothing.
 //
-// What bounds it on this card: the staged bytes and the gathers.  A window
-// of 1024 pixels at bf16 value and f32 depth with 12 bins is 112 KB, so two
-// blocks of 512 threads share an SM (32 warps: the gathers are latency
-// bound, and 256 threads, 16 warps, ran them several times slower than the
-// template); the plan's window length follows the shared memory a pixel
-// takes (ops/dfa3d_windowed.py::window_pixels).  Staging reads each
-// band pixel once per block, while the template reads every corner of every
-// sample (neighbouring queries share corners; L2 holds most of them): the
-// window wins only where the samples reuse the band's pixels more than the
-// L2 already lets them.
-#include "common.cuh"
+// What bounds it on this card: as K3, the value gathers and the zeros of
+// the counted-out rows; the window only moves the depth bins from L2 to
+// shared memory, and those gathers were in flight beside the value rows'
+// (PERF.md, PR 8).  What the block adds is a prologue: the union (one sync)
+// and the staging (an L2 round trip, ~48 B a pixel, before any value load
+// of the block).  Measured choices (H100 80GB HBM3): chunks of 16 (32 and 8
+// ran 2 and 12 % slower); one point a round (PG = 1: 76 registers, no
+// spill, where K3's two spill 16 bytes at this kernel's few extra registers
+// and ran 16 % slower); three blocks an SM.  The value rows are not staged: at level 2 a
+// chunk-head reads about 1.8 value rows per pixel of its band, so staging
+// them would move as many bytes as the gathers they replace.
+//
+// Stage 1 (heads = P = 1, c = 256: dfa3d_win_fwd_s1_kernel) keeps the
+// earlier design: one block per (32-channel slice of the value row, chunk,
+// view) that stages the slice's value channels and the depth bins of its
+// window and computes a query per warp, a channel per lane.
+#include "dfa3d_mh.cuh"
 
 namespace {
 
-constexpr int kSlice = 32;  // value channels per block: one per lane
-constexpr int kThreads = 512;
+constexpr int kSlice = 32;  // stage 1: value channels per block, one per lane
+constexpr int kS1Threads = 512;
+constexpr int kMhThreads = 256;
 
 template <typename VT, typename DT>
-__global__ void __launch_bounds__(kThreads) dfa3d_win_fwd_kernel(
+__global__ void __launch_bounds__(kS1Threads) dfa3d_win_fwd_s1_kernel(
     const VT* __restrict__ value,    // (N, H, W, heads*c)
     const DT* __restrict__ depth,    // (N, H, W, D)
     const float* __restrict__ locs,  // (N, K, heads, P, 3) normalized (u, v, d)
@@ -78,19 +85,19 @@ __global__ void __launch_bounds__(kThreads) dfa3d_win_fwd_kernel(
   if (staged) {
     constexpr int kVec = 16 / sizeof(VT);      // elements per 16-byte copy
     constexpr int kParts = kSlice / kVec;      // copies per pixel
-    for (int i = threadIdx.x; i < span * kParts; i += kThreads) {
+    for (int i = threadIdx.x; i < span * kParts; i += kS1Threads) {
       const int r = i / kParts, part = i - r * kParts;
       sgc::cp_async16(s_val + r * kSlice + part * kVec,
                       vmap + (long long)(base + r) * cfull + part * kVec);
     }
     const DT* dsrc = dmap + (long long)base * dsize;
-    for (int i = threadIdx.x; i < span * dsize; i += kThreads)
+    for (int i = threadIdx.x; i < span * dsize; i += kS1Threads)
       s_dpt[i] = sgc::to_f32(dsrc[i]);
     sgc::cp_async_wait_all();
   }
   __syncthreads();
 
-  for (int q = q0 + warp; q < q1; q += kThreads / 32) {
+  for (int q = q0 + warp; q < q1; q += kS1Threads / 32) {
     float acc = 0.f;
     if (q < count) {
       const long long sid = ((long long)cam * k + q) * heads + head;
@@ -137,20 +144,88 @@ __global__ void __launch_bounds__(kThreads) dfa3d_win_fwd_kernel(
   }
 }
 
+template <typename VT, typename DT, int C>
+__global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
+    const VT* __restrict__ value,    // (N, H, W, heads*c)
+    const DT* __restrict__ depth,    // (N, H, W, D)
+    const float* __restrict__ locs,  // (N, K, heads, P, 3) normalized (u, v, d)
+    const float* __restrict__ attn,  // (N, K, heads, P)
+    const int* __restrict__ counts,  // (N,) visible-query counts, or null
+    VT* __restrict__ out,            // (N, K, heads*c)
+    int h, int w, int heads, int dsize, int k, int p, int qc, int wwin) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int2 s_warp[kMhThreads / 32];
+  constexpr int HPW = 32 / (C / 8);  // heads per warp
+  const int hgroups = (heads + HPW - 1) / HPW;
+  const int chunk = blockIdx.x, cam = blockIdx.y;
+  const int count = counts == nullptr ? k : counts[cam];
+  const int q0 = chunk * qc, q1 = min(k, q0 + qc);
+  const int nqc = max(0, min(q1, count) - q0);  // counted queries of the chunk
+  int2 box = make_int2(0, -1);
+  if (nqc > 0 && wwin > 0)  // uniform over the block
+    box = sgc::union_window<kMhThreads>(locs + ((long long)cam * k + q0) * heads * p * 3,
+                                        nqc * heads * p, h, w, s_warp);
+  const int span = box.y >= 0 ? box.y - box.x + 1 : 0;
+  const bool staged = span > 0 && span <= wwin;
+  const long long hw = (long long)h * w;
+  const DT* dmap = depth + cam * hw * dsize;
+  float* s_dpt = reinterpret_cast<float*>(smem);  // [wwin][D]
+  if (staged) {  // uniform over the block
+    sgc::stage_depth(s_dpt, dmap, box.x, span, dsize);
+    __syncthreads();
+  }
+
+  const sgc::WindowDepth<DT> dep{{dmap, nullptr, dsize}, s_dpt, nullptr, box.x,
+                                 staged ? span : 0};
+  const VT* vmap = value + cam * hw * heads * C;
+  for (int item = threadIdx.x >> 5; item < (q1 - q0) * hgroups; item += kMhThreads / 32) {
+    const int q = q0 + item / hgroups;
+    sgc::mh_fwd_warp<VT, DT, C, 1>(vmap, locs, attn, out, (long long)cam * k + q,
+                                   q < count, (item % hgroups) * HPW, h, w, heads,
+                                   dsize, p, dep);
+  }
+}
+
+// Dynamic shared memory of each kernel's block (ops/dfa3d_windowed.py::
+// window_bytes computes the same).
+template <typename VT>
+size_t s1_smem(int dsize, int wwin) {
+  return (size_t)wwin * (kSlice * sizeof(VT) + dsize * sizeof(float));
+}
+size_t mh_smem(int dsize, int wwin) { return (size_t)wwin * dsize * sizeof(float); }
+
 template <typename VT, typename DT>
-int launch(const void* value, const void* depth, const float* locs,
-           const float* attn, const int* counts, void* out, int n, int h,
-           int w, int heads, int c, int dsize, int k, int p, int qc, int wwin,
-           cudaStream_t stream) {
-  const size_t smem = (size_t)wwin * (kSlice * sizeof(VT) + dsize * sizeof(float));
-  auto kernel = dfa3d_win_fwd_kernel<VT, DT>;
+int launch_s1(const void* value, const void* depth, const float* locs,
+              const float* attn, const int* counts, void* out, int n, int h,
+              int w, int heads, int c, int dsize, int k, int p, int qc, int wwin,
+              cudaStream_t stream) {
+  if (c % kSlice != 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = s1_smem<VT>(dsize, wwin);
+  auto kernel = dfa3d_win_fwd_s1_kernel<VT, DT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(heads * c / kSlice, (k + qc - 1) / qc, n);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kS1Threads, smem, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
       counts, static_cast<VT*>(out), h, w, heads, c, dsize, k, p, qc, wwin);
+  return (int)cudaGetLastError();
+}
+
+template <typename VT, typename DT, int C>
+int launch_mh(const void* value, const void* depth, const float* locs,
+              const float* attn, const int* counts, void* out, int n, int h,
+              int w, int heads, int dsize, int k, int p, int qc, int wwin,
+              cudaStream_t stream) {
+  const size_t smem = mh_smem(dsize, wwin);
+  auto kernel = dfa3d_win_fwd_mh_kernel<VT, DT, C>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((k + qc - 1) / qc, n);
+  kernel<<<grid, kMhThreads, smem, stream>>>(
+      static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
+      counts, static_cast<VT*>(out), h, w, heads, dsize, k, p, qc, wwin);
   return (int)cudaGetLastError();
 }
 
@@ -158,8 +233,9 @@ int launch(const void* value, const void* depth, const float* locs,
 
 // value (N, H, W, heads*c) of type vdtype, depth (N, H, W, dsize) of type
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
-// (N,) int32 or null -> out (N, K, heads*c) of type vdtype.  c is a
-// multiple of 32; chunks of qc queries; windows of at most wwin pixels.
+// (N,) int32 or null -> out (N, K, heads*c) of type vdtype.  heads = P = 1
+// (stage 1) takes c a multiple of 32, multi-head c = 32 or 256; chunks of
+// qc queries; windows of at most wwin pixels.
 extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
                                  const void* depth, const float* locs,
                                  const float* attn, const int* counts,
@@ -168,15 +244,37 @@ extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
                                  int wwin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
-  if (c % kSlice != 0 || qc <= 0 || wwin <= 0) return (int)cudaErrorInvalidValue;
-  if (ddtype == sgc::kBFloat16) {
-    if (vdtype != sgc::kBFloat16) return (int)cudaErrorInvalidValue;
-    return launch<__nv_bfloat16, __nv_bfloat16>(value, depth, locs, attn, counts, out, n, h, w, heads, c, dsize, k, p, qc, wwin, s);
-  }
-  if (ddtype != sgc::kFloat32) return (int)cudaErrorInvalidValue;
-  if (vdtype == sgc::kBFloat16)
-    return launch<__nv_bfloat16, float>(value, depth, locs, attn, counts, out, n, h, w, heads, c, dsize, k, p, qc, wwin, s);
-  if (vdtype == sgc::kFloat32)
-    return launch<float, float>(value, depth, locs, attn, counts, out, n, h, w, heads, c, dsize, k, p, qc, wwin, s);
-  return (int)cudaErrorInvalidValue;
+  if (qc <= 0 || wwin < 0) return (int)cudaErrorInvalidValue;
+  return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
+    using VT = decltype(v);
+    using DT = decltype(d);
+    if (heads == 1 && p == 1)
+      return launch_s1<VT, DT>(value, depth, locs, attn, counts, out, n, h, w, heads, c, dsize, k, p, qc, wwin, s);
+    if (c == 32)
+      return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
+    if (c == 256)
+      return launch_mh<VT, DT, 256>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
+    return (int)cudaErrorInvalidValue;
+  });
+}
+
+// The resources of the kernel that sgc_dfa3d_win_fwd launches for these
+// types, stage (stage1: heads = P = 1), c, dsize and wwin: out[5] as
+// sgc::kernel_attributes writes it.
+extern "C" int sgc_dfa3d_win_fwd_attributes(int vdtype, int ddtype, int stage1,
+                                            int c, int dsize, int wwin, int* out) {
+  return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
+    using VT = decltype(v);
+    using DT = decltype(d);
+    if (stage1)
+      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT>, kS1Threads,
+                                    s1_smem<VT>(dsize, wwin), out);
+    if (c == 32)
+      return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 32>, kMhThreads,
+                                    mh_smem(dsize, wwin), out);
+    if (c == 256)
+      return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 256>, kMhThreads,
+                                    mh_smem(dsize, wwin), out);
+    return (int)cudaErrorInvalidValue;
+  });
 }

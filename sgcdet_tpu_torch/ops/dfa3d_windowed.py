@@ -11,20 +11,26 @@ has no gather, moves the rows: a one-hot selection matrix per chunk of
 samples, multiplied on the MXU with a window of image rows.  What carries
 over to Hopper is the idea.  With ``sort_queries`` each camera's compacted
 queries are ordered by their projected pixel, so the samples of a chunk of
-consecutive queries fall in a narrow band of pixels ``y * W + x``; a block
-stages that band of the raw ``(N, H, W, ·)`` value and depth maps in shared
-memory once and gathers from there (the backward also sums ``d_value`` and
-``d_depth`` there and writes each touched element back with one atomic).
+consecutive queries fall in a narrow band of pixels ``y * W + x``.  The
+multi-head kernels take a chunk's heads in one block, whose window is the
+union of its heads' bands, and run the templates' warps (K3, K5) with the
+window in shared memory: the forward stages the window's depth bins, the
+backward sums its ``d_depth`` there and adds it back by 16-byte
+reductions; stage 1 stages a 32-channel value slice and the depth bins of
+its own window.
 
 * ``plan_windows`` — counterpart of ``_chunk_meta`` (dfa3d_pallas4.py:83-96)
   and ``_ws_prep`` (dfa3d_pallas5.py:80-120): per (view, chunk of ``qc``
-  consecutive queries, head) the window base (the lowest pixel a live
-  corner of the chunk reads), its span and the ``ok`` flag (every live
-  corner lies in ``[base, base + wwin)``).  A live corner is an in-image
-  corner of a query inside ``valid_counts``, whatever its weight: the
-  kernels read it.  The kernels find the same windows themselves, each
-  block over its own chunk (csrc/common.cuh::block_window); these torch
-  ops serve the plain version and reports.
+  consecutive queries) the window base (the lowest pixel a live corner of
+  the chunk reads, over every head and point), its span and the ``ok``
+  flag (every live corner lies in ``[base, base + wwin)``).  A live corner
+  is an in-image corner of a query inside ``valid_counts``, whatever its
+  weight: the kernels read it.  The kernels find the same windows
+  themselves, each block over its own chunk (csrc/dfa3d_mh.cuh::
+  union_window; stage 1 csrc/common.cuh::block_window); these torch ops
+  serve the plain version and reports.
+  ``window_length`` is the most pixels a kernel's window holds, from the
+  shared memory a pixel takes (``window_bytes``, the kernels' reservation).
 * ``dfa3d_windowed_plain`` / ``dfa3d_windowed_bwd_plain`` — the plain
   version: ``ok`` chunks read their corners from their window only (an
   index relative to the window, clipped into it, and a zero weight for a
@@ -32,13 +38,14 @@ memory once and gathers from there (the backward also sums ``d_value`` and
   therefore shows up on the CPU as a wrong number.
 * ``dfa3d_win_fwd_cuda`` (counters ``dfa3d_win_fwd_s1``, ``dfa3d_win_fwd_mh``)
   and ``dfa3d_win_bwd_cuda`` (``dfa3d_win_bwd_mh``) — the kernels of
-  csrc/dfa3d_win_fwd.cu and csrc/dfa3d_win_bwd.cu.
+  csrc/dfa3d_win_fwd.cu and csrc/dfa3d_win_bwd.cu; ``kernel_resources``
+  reads their registers, spills, shared memory and blocks an SM.
 * ``dfa3d_attention_windowed`` — the differentiable op of the sorted path.
   Its stage-1 backward is K6 (``dfa3d_bwd_s1``), as on the TPU, where the
   windowed stage 1 has no VJP and the sorted path takes ``pallas_c``'s.
 
 Type pairs and counted zeros are those of ``ops/dfa3d.py``
-(``check_dtypes``); ``c`` is 32 or 256 per head.
+(``check_dtypes``); ``c`` is 32 or 256 per head (the backward 32).
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from typing import NamedTuple
 
 import torch
 
-from ._cuda import DTYPE_CODE, Kernel, check_cuda_input, use_kernel
+from ._cuda import DTYPE_CODE, LIBRARY, Kernel, check_cuda_input, use_kernel, zeros_f32
 from .dfa3d import (
     _check,
     _ptr,
@@ -58,13 +65,22 @@ from .dfa3d import (
 )
 from .sampling import clip_coord
 
-QC = 64           # queries per chunk (the TPU kernels' ``_QC``)
-WWIN = 1024       # most pixels a window holds
-SLICE = 32        # value channels a block stages and computes
-# shared memory a block may take: the forward's blocks of 512 threads two
-# per SM (228 KB), the backward's of 1024 threads one
-SMEM_FWD = 112 * 1024
-SMEM_BWD = 200 * 1024
+SLICE = 32        # value channels of a head (multi-head) or a stage-1 block
+# stage 1 (heads = P = 1): chunks of the TPU kernels' ``_QC``, a 32-channel
+# value slice and the depth bins staged per pixel, blocks of 512 threads
+# two an SM (228 KB)
+QC_S1 = 64
+WWIN_S1 = 1024
+SMEM_S1 = 112 * 1024
+# multi-head: chunks over all heads, the forward's of 16 queries, the
+# backward's of 8 (PERF.md, PR 8); a window of at most WIN_CAP pixels,
+# above the 90th percentile of the unions' spans at the sorted level 2,
+# holds the depth bins in f32 (forward) or their f32 d_depth sums
+# (backward), 54 KB, in at most SMEM_MH bytes
+QC_FWD = 16
+QC_BWD = 8
+WIN_CAP = 1152
+SMEM_MH = 56 * 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # sgc_dfa3d_win_fwd(vdtype, ddtype, value, depth, locs, attn, counts, out,
@@ -80,10 +96,10 @@ DFA3D_WIN_BWD_MH = Kernel("sgc_dfa3d_win_bwd", _BWD_ARGS)
 
 
 class WindowPlan(NamedTuple):
-    """Per (view, chunk of ``qc`` queries, head), each (N, nchunk, heads):
-    the window's first pixel ``base`` and its length ``span`` (int32, 0
-    where the chunk has no live corner of that head), and ``ok`` (bool):
-    every live corner lies in ``[base, base + span)`` with ``span <= wwin``."""
+    """Per (view, chunk of ``qc`` queries), each (N, nchunk): the window's
+    first pixel ``base`` and its length ``span`` (int32, 0 where the chunk
+    has no live corner), and ``ok`` (bool): every live corner of every head
+    lies in ``[base, base + span)`` with ``span <= wwin``."""
     base: torch.Tensor
     span: torch.Tensor
     ok: torch.Tensor
@@ -91,43 +107,60 @@ class WindowPlan(NamedTuple):
     wwin: int
 
 
-def window_length(value_img, dpt_img, backward=False, dot=True, depth_grad=True):
-    """The most pixels a windowed kernel's window holds on these operands:
-    at most ``WWIN``, the whole map where it is smaller, and what the
-    shared memory one pixel takes allows.  The forward stages a 32-channel
-    value slice in its own type and the depth bins in f32; the backward
-    stages the value slice only for the dot products (``dot``) and adds
-    the f32 sums of ``d_value`` and, with ``depth_grad``, ``d_depth``."""
+def window_bytes(wwin, value_img, dpt_img, stage1=False, backward=False,
+                 depth_grad=True):
+    """The dynamic shared memory a windowed kernel's block reserves for a
+    window of ``wwin`` pixels (csrc/dfa3d_win_fwd.cu::s1_smem / mh_smem,
+    dfa3d_win_bwd.cu::bwd_smem): stage 1 a 32-channel value slice in its
+    own type and the depth bins in f32; the multi-head forward the bins in
+    f32; the backward, with ``depth_grad``, the bins' f32 d_depth sums."""
+    d = dpt_img.shape[-1]
+    if stage1:
+        return wwin * (SLICE * value_img.element_size() + 4 * d)
+    return 0 if backward and not depth_grad else 4 * wwin * d
+
+
+def window_length(value_img, dpt_img, stage1=False, backward=False, depth_grad=True):
+    """The most pixels a windowed kernel's window holds on these operands
+    (the ``wwin`` it is launched with): at most ``WWIN_S1`` (stage 1) or
+    ``WIN_CAP`` (multi-head), the whole map where it is smaller, and what
+    the kernel's shared memory budget allows at ``window_bytes`` a
+    window; 0 for a backward without ``depth_grad``, whose window would
+    hold nothing."""
+    if backward and not depth_grad:
+        return 0
     h, w = value_img.shape[1:3]
-    d4 = 4 * dpt_img.shape[-1]
-    vbytes = SLICE * value_img.element_size()
-    if backward:
-        per_pixel = (vbytes if dot else 0) + d4 + 4 * SLICE + (d4 if depth_grad else 0)
-        smem = SMEM_BWD
-    else:
-        per_pixel, smem = vbytes + d4, SMEM_FWD
-    return max(1, min(h * w, WWIN, smem // per_pixel))
+    cap, smem = (WWIN_S1, SMEM_S1) if stage1 else (WIN_CAP, SMEM_MH)
+    per_pixel = window_bytes(1, value_img, dpt_img, stage1, backward, depth_grad)
+    return max(1, min(h * w, cap, smem // per_pixel))
+
+
+def _is_stage1(locs):
+    return locs.shape[2] == 1 and locs.shape[3] == 1
 
 
 def kernel_plan(value_img, dpt_img, locs, valid_counts, backward=False,
-                dot=True, depth_grad=True, qc=QC):
+                depth_grad=True, qc=None, wwin=None):
     """The windows a windowed kernel finds on these operands (each block
-    computes its own, csrc/common.cuh::block_window), for the plain
-    version and for reports."""
+    computes its own), for the plain version and for reports; ``qc`` and
+    ``wwin`` default to the kernels'."""
     h, w = value_img.shape[1:3]
-    wwin = window_length(value_img, dpt_img, backward, dot, depth_grad)
-    return plan_windows(locs, valid_counts, h, w, wwin, qc)
+    stage1 = _is_stage1(locs)
+    if wwin is None:
+        wwin = window_length(value_img, dpt_img, stage1, backward, depth_grad)
+    if qc is None:
+        qc = QC_S1 if stage1 else QC_BWD if backward else QC_FWD
+    return plan_windows(locs, counts=valid_counts, h=h, w=w, wwin=wwin, qc=qc)
 
 
-def plan_windows(locs, counts, h, w, wwin, qc=QC):
-    """The windows of one call, per (view, chunk of ``qc`` queries, head):
-    a block stages one head's channels, and each head samples around the
-    projected point in its own direction.  locs: (N, K, heads, P, 3)
-    normalized; counts: (N,) visible-query counts or None; (h, w): the map.
-    Pixel coordinates are computed as the kernels do (loc * size - 0.5,
-    clipped to [-4, size + 4], NaN to -4, then floor), so plan and kernel
-    agree on every corner."""
-    n, k, heads = locs.shape[:3]
+def plan_windows(locs, counts, h, w, wwin, qc=QC_FWD):
+    """The windows of one call, per (view, chunk of ``qc`` queries): a block
+    takes every head of its chunk, so its window is the union of its heads'
+    bands.  locs: (N, K, heads, P, 3) normalized; counts: (N,) visible-query
+    counts or None; (h, w): the map.  Pixel coordinates are computed as the
+    kernels do (loc * size - 0.5, clipped to [-4, size + 4], NaN to -4,
+    then floor), so plan and kernel agree on every corner."""
+    n, k = locs.shape[:2]
     dev = locs.device
     x0 = torch.floor(clip_coord(locs[..., 0].float() * w - 0.5, w)).int()
     y0 = torch.floor(clip_coord(locs[..., 1].float() * h - 0.5, h)).int()
@@ -139,12 +172,12 @@ def plan_windows(locs, counts, h, w, wwin, qc=QC):
     if counts is not None:
         live &= (torch.arange(k, device=dev) < counts.to(dev)[:, None])[:, :, None, None]
     big = h * w
-    lo = torch.where(live, ylo * w + xlo, big).amin(-1)  # (N, K, heads)
-    hi = torch.where(live, yhi * w + xhi, -1).amax(-1)
+    lo = torch.where(live, ylo * w + xlo, big).flatten(2).amin(-1)  # (N, K)
+    hi = torch.where(live, yhi * w + xhi, -1).flatten(2).amax(-1)
     nchunk = -(-k // qc)
-    pad = (0, 0, 0, nchunk * qc - k)
-    lo = torch.nn.functional.pad(lo, pad, value=big).view(n, nchunk, qc, heads).amin(2)
-    hi = torch.nn.functional.pad(hi, pad, value=-1).view(n, nchunk, qc, heads).amax(2)
+    pad = (0, nchunk * qc - k)
+    lo = torch.nn.functional.pad(lo, pad, value=big).view(n, nchunk, qc).amin(2)
+    hi = torch.nn.functional.pad(hi, pad, value=-1).view(n, nchunk, qc).amax(2)
     empty = hi < 0
     base = torch.where(empty, 0, lo)
     span = torch.where(empty, 0, hi - lo + 1)
@@ -158,7 +191,7 @@ def window_remap(plan):
     def remap(flat, wb, q0):
         kc = flat.shape[1]
         chunk = torch.arange(q0, q0 + kc, device=flat.device) // plan.qc
-        base, span, ok = (t.to(flat.device)[:, chunk, :, None]  # (N, Kc, heads, 1)
+        base, span, ok = (t.to(flat.device)[:, chunk, None, None]  # (N, Kc, 1, 1)
                           for t in (plan.base.long(), plan.span.long(), plan.ok))
         rel = flat - base
         inside = (rel >= 0) & (rel < span)
@@ -185,19 +218,19 @@ def dfa3d_windowed_bwd_plain(value_img, dpt_img, locs, attn, g, num_heads,
     ``dfa3d_windowed_plain`` with ``plan`` (by default the backward kernel's
     own); the contract of ``dfa3d_bwd_plain``."""
     if plan is None:
-        plan = kernel_plan(value_img, dpt_img, locs, valid_counts, True,
-                           sample_grads or depth_grad, depth_grad)
+        plan = kernel_plan(value_img, dpt_img, locs, valid_counts, True, depth_grad)
     return dfa3d_bwd_plain(value_img, dpt_img, locs, attn, g, num_heads,
                            valid_counts, sample_grads, depth_grad,
                            remap=window_remap(plan))
 
 
 def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
-                       valid_counts=None, qc=QC):
+                       valid_counts=None, qc=None, wwin=None):
     """The windowed forward kernel on CUDA tensors; same contract as the
-    plain version (whose windows are those of chunks of ``QC`` queries; a
-    measurement may ask for other chunks).  heads = P = 1 counts as a
-    stage-1 launch (``dfa3d_win_fwd_s1``), anything else as multi-head."""
+    plain version, whose windows are the kernels' own (``kernel_plan``;
+    a measurement may ask for other chunks ``qc`` and window lengths
+    ``wwin``).  heads = P = 1 counts as a stage-1 launch
+    (``dfa3d_win_fwd_s1``), anything else as multi-head."""
     value, depth, loc, att, counts, stage1, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
@@ -205,18 +238,18 @@ def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
     kernel = DFA3D_WIN_FWD_S1 if stage1 else DFA3D_WIN_FWD_MH
     kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
            value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
-           _ptr(counts), out.data_ptr(), *sizes, qc, window_length(value, depth))
+           _ptr(counts), out.data_ptr(), *sizes, qc or (QC_S1 if stage1 else QC_FWD),
+           window_length(value, depth, stage1) if wwin is None else wwin)
     return out
 
 
 def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
                        valid_counts=None, sample_grads=True, depth_grad=True,
-                       qc=QC):
+                       qc=None, wwin=None):
     """The windowed multi-head backward kernel on CUDA tensors (c = 32 per
-    head: the sample gradients need a head's whole dot product in one
-    block); same contract as ``dfa3d_bwd_cuda``, and ``qc`` as for the
-    forward.  Every gradient is summed in f32 and cast once to its input's
-    dtype."""
+    head); same contract as ``dfa3d_bwd_cuda``, and ``qc``, ``wwin`` as for
+    the forward.  Every gradient is summed in f32 and cast once to its
+    input's dtype."""
     value, depth, loc, att, counts, _, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, h, w, heads, c, dsize, k, p = sizes
@@ -225,20 +258,46 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     gg = check_cuda_input(g.to(value.dtype), "g", (value.dtype,), 3, value.device)
     if gg.shape != (n, k, heads * c):
         raise ValueError(f"g {tuple(gg.shape)} must be {(n, k, heads * c)}")
-    wwin = window_length(value, depth, True, sample_grads or depth_grad, depth_grad)
+    if wwin is None:
+        wwin = window_length(value, depth, False, True, depth_grad)
     f32 = dict(dtype=torch.float32, device=value.device)
-    d_value = torch.zeros(value.shape, **f32)
-    d_depth = torch.zeros(depth.shape, **f32) if depth_grad else None
+    d_value = zeros_f32(value.shape, value.device)
+    d_depth = zeros_f32(depth.shape, value.device) if depth_grad else None
     d_locs = torch.empty(loc.shape, **f32) if sample_grads else None
     d_attn = torch.empty(att.shape, **f32) if sample_grads else None
     DFA3D_WIN_BWD_MH(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
                      value.data_ptr(), depth.data_ptr(), loc.data_ptr(),
                      att.data_ptr(), _ptr(counts), gg.data_ptr(),
                      d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs),
-                     _ptr(d_attn), n, h, w, heads, dsize, k, p, qc, wwin)
+                     _ptr(d_attn), n, h, w, heads, dsize, k, p, qc or QC_BWD, wwin)
     return tuple(None if grad is None else grad.to(inp.dtype) for grad, inp in
                  zip((d_value, d_depth, d_locs, d_attn),
                      (value_img, dpt_img, locs, attn)))
+
+
+RESOURCE_KEYS = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm", "threads")
+
+
+def kernel_resources(name, value_dtype, depth_dtype, dsize, wwin, c=SLICE,
+                     depth_grad=True):
+    """Registers and local (spill) bytes a thread, shared memory bytes a
+    block and blocks an SM of the kernel behind counter ``name`` (the
+    backward with every gradient, or without d_depth) at these types, bins
+    and window length, as the CUDA runtime reports them.  Launches
+    nothing."""
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    types = DTYPE_CODE[value_dtype], DTYPE_CODE[depth_dtype]
+    if name == "dfa3d_win_bwd_mh":
+        fn = LIBRARY.get().sgc_dfa3d_win_bwd_attributes
+        args = (1, int(depth_grad), dsize, wwin)
+    else:
+        fn = LIBRARY.get().sgc_dfa3d_win_fwd_attributes
+        args = (int(name == "dfa3d_win_fwd_s1"), c, dsize, wwin)
+    fn.argtypes, fn.restype = [_I] * 6 + [_P], _I
+    err = fn(*types, *args, out)
+    if err:
+        raise RuntimeError(f"{name}: kernel attributes failed with CUDA error {err}")
+    return dict(zip(RESOURCE_KEYS, out))
 
 
 class _DFA3DWindowed(torch.autograd.Function):

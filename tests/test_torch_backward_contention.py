@@ -10,7 +10,10 @@ card):
   on a 13 x 21 map that no tile divides; integer coordinates on the first
   and last row and column; a plane behind the source camera;
 * a DFA3D stage 2 whose heads and points all sample one pixel centre per
-  query; counted queries with a view of count 0.
+  query; counted queries with a view of count 0; the same cases through
+  the plain version of the windowed backward of the sorted path (K5's
+  warp with the chunk's depth in a window), with the kernel's own window
+  plan and with a narrow one that leaves some chunks out of their window.
 
 The plain versions are what the kernels are held to, so a case that the
 JAX package and the plain version agree on pins the kernels' contract too.
@@ -30,6 +33,8 @@ from sgcdet_tpu.ops.msda import dfa3d_attention as jax_oracle
 
 from sgcdet_tpu_torch.ops import dfa3d_attend
 from sgcdet_tpu_torch.ops._cuda import check_cuda_input
+from sgcdet_tpu_torch.ops.dfa3d_windowed import (dfa3d_windowed_bwd_plain, kernel_plan,
+                                                 plan_windows)
 from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
 
 from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
@@ -139,6 +144,42 @@ def test_dfa3d_stage2_backward_contention_matches_jax(case):
         assert_close_scaled(a, b, REL, f"{case} {name}")
     if case == "one_corner":  # three value rows per view take every update
         assert ((np.abs(got[0]).sum(-1) > 0).sum((1, 2)) <= 3).all()
+    if counts is not None:
+        for cam, cnt in enumerate(counts):
+            assert (got[2][cam, cnt:] == 0).all() and (got[3][cam, cnt:] == 0).all()
+
+
+# (chunk, window) that leave some of a case's chunks out of their window
+_NARROW_PLAN = {"one_corner": (4, 40), "counted": (1, 124)}
+
+
+@pytest.mark.parametrize("plan_kind", ["kernel", "narrow"])
+@pytest.mark.parametrize("case", DFA3D_CONTENTION)
+def test_dfa3d_windowed_backward_contention_matches_jax(case, plan_kind):
+    """The windowed backward's plain version (what dfa3d_win_bwd_mh is
+    held to) on the contention cases: with the kernel's plan every chunk is
+    served from its window (the map is smaller than the window); with a
+    narrow plan some chunks are and some are not."""
+    value, dpt, locs, attn, g, counts = dfa3d_contention_case(case)
+    heads = locs.shape[2]
+    ins = [torch.from_numpy(a) for a in (value, dpt, locs, attn)]
+    vc = None if counts is None else torch.from_numpy(counts)
+    if plan_kind == "kernel":
+        plan = kernel_plan(*ins[:3], vc, backward=True)
+        assert plan.ok.all()
+    else:
+        qc, wwin = _NARROW_PLAN[case]
+        plan = plan_windows(ins[2], vc, value.shape[1], value.shape[2], wwin, qc=qc)
+        live = plan.span > 0
+        assert (plan.ok & live).any() and (~plan.ok & live).any()
+    got = dfa3d_windowed_bwd_plain(*ins, torch.from_numpy(g), heads, vc, plan=plan)
+    g_live = g
+    if counts is not None:  # counted-out queries pass no gradient
+        g_live = g * (np.arange(g.shape[1])[None, :] < counts[:, None])[..., None]
+    want = _oracle_grads(value, dpt, locs, attn, heads, g_live)
+    for name, a, b in zip(GRAD_NAMES, got, want):
+        assert np.isfinite(a.numpy()).all(), name
+        assert_close_scaled(a.numpy(), b, REL, f"{case} {plan_kind} {name}")
     if counts is not None:
         for cam, cnt in enumerate(counts):
             assert (got[2][cam, cnt:] == 0).all() and (got[3][cam, cnt:] == 0).all()

@@ -8,9 +8,13 @@ map and plane count that no tile or plane group divides; the 2D lifting path
 run; the backward kernels K4 and K5 on the contention cases of
 ``torch_port_tiny`` (many samples on one row, untiled sizes, integer and
 edge coordinates, a plane behind the camera, counted views of count 0) and
-on operands that are views at an offset breaking 16-byte alignment; the windowed kernels of the ``sort_queries`` path against their plain
-versions and the template kernels, in the coherent and random regimes, and
-the sorted ``ViewTransformer`` through them; the row gather/scatter probe
+on operands that are views at an offset breaking 16-byte alignment; the
+windowed kernels of the ``sort_queries`` path against their plain versions
+and the template kernels, in the coherent and random regimes, with partial
+head groups, a chunk's window at the launch's window length and one pixel
+past it, every sample of a chunk on one pixel, misaligned views, and their
+shared memory against the plan's reservation; the sorted
+``ViewTransformer`` through them; the row gather/scatter probe
 kernels against their plain versions (int32 and int64 indices, ragged last
 chunks, chunks exceeding the window, the windows of probe_window_matmul.py),
 a permutation moved bit for bit, the scatter equal from run to run and
@@ -34,7 +38,13 @@ from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
 from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
 from sgcdet_tpu_torch.ops.dfa3d import (dfa3d_attention_plain, dfa3d_bwd_cuda,
                                         dfa3d_bwd_plain, dfa3d_fwd_cuda)
-from sgcdet_tpu_torch.ops.dfa3d_windowed import dfa3d_attention_windowed, plan_windows
+from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, QC_S1,
+                                                 dfa3d_attention_windowed,
+                                                 dfa3d_win_bwd_cuda, dfa3d_win_fwd_cuda,
+                                                 dfa3d_windowed_bwd_plain,
+                                                 dfa3d_windowed_plain, kernel_plan,
+                                                 kernel_resources, plan_windows,
+                                                 window_bytes, window_length)
 from sgcdet_tpu_torch.ops.sweep import (plane_sweep_correlation, sweep_bwd_cuda,
                                         sweep_bwd_plain, sweep_fwd, sweep_fwd_cuda,
                                         sweep_fwd_plain)
@@ -387,39 +397,89 @@ def test_2d_lifting_kernels_match_plain(cuda_device, dtype):
                             f"2D lifting tensor {i}")
 
 
-REGIMES = [pytest.param(True, id="coherent"), pytest.param(False, id="random")]
 GRAD_FLAGS = [(True, True), (False, True), (True, False), (False, False)]
 GRAD_IDS = ["all", "value_depth", "no_depth", "value_only"]
+# cases of the windowed kernels: "coherent" locations keep their chunks in
+# the window, "random" ones do not; "cap": one chunk's union spans exactly
+# the window length the kernel is launched with and the next one pixel
+# more (one staged, one on the global branch); "one_pixel": every sample
+# of a chunk on one pixel centre, a view counted to 0; "misaligned":
+# coherent operands that are views breaking 16-byte alignment
+WINDOW_CASES = ["coherent", "random", "cap", "one_pixel", "misaligned"]
+# (heads, points, c): stage 1, stage 2 and its partial head groups
+WINDOW_SHAPES = [(1, 1, 256), (8, 4, 32), (1, 4, 32), (2, 4, 32), (6, 4, 32), (8, 3, 32)]
+WINDOW_FWD = ([pytest.param(*shape, case, id=f"{sid}-{case}") for shape, sid in
+               zip(WINDOW_SHAPES, ["stage1", "stage2", "stage2_h1", "stage2_h2",
+                                   "stage2_h6", "stage2_p3"])
+               for case in (WINDOW_CASES if shape == (8, 4, 32) else WINDOW_CASES[:2])])
+WINDOW_BWD = ([pytest.param(*shape[:2], case, id=case if shape == (8, 4, 32) else
+                            f"h{shape[0]}p{shape[1]}-{case}")
+               for shape in WINDOW_SHAPES[1:]
+               for case in (WINDOW_CASES if shape == (8, 4, 32) else WINDOW_CASES[:2])])
 
 
-def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, coherent):
-    """A (4, 30, 40) map, 600 queries, 12 depth bins; counts 0, 200, 599
-    and 600.  Coherent locations keep their chunks in the window; random
-    ones do not."""
-    value, dpt, locs, attn = windowed_inputs(4, 30, 40, 600, heads, c, p, 12, coherent)
+def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=False):
+    """Operands, counts and the window length to launch with (None: the
+    kernels' own), at the chunks of the forward or the backward.  A (4, 30, 40) map ((4, 32, 64) for "cap" and
+    "one_pixel", whose pixel centres are exact in f32), 600 queries, 12
+    depth bins; counts 0, 200, 599 and 600."""
+    coherent = case in ("coherent", "misaligned")
+    h, w = (30, 40) if case in ("coherent", "random", "misaligned") else (32, 64)
+    value, dpt, locs, attn = windowed_inputs(4, h, w, 600, heads, c, p, 12,
+                                             case != "random")
+    wwin, qc = None, (QC_S1 if heads == p == 1 else QC_BWD if backward else QC_FWD)
+    if case == "cap":
+        # every sample a quarter pixel past the centre of pixel (1, 1): its
+        # box is pixels [1, 2] x [1, 2]; one sample of chunk 0 at (5, 10)
+        # and one of chunk 1 at (5, 11) stretch their unions to
+        # 5 * w + 11 and 5 * w + 12 pixels
+        def at(y, x):
+            return torch.tensor([(x + 0.75) / w, (y + 0.75) / h])
+        locs[..., :2] = at(1, 1)
+        locs[:, 0, 0, 0, :2] = at(5, 10)
+        locs[:, qc, 0, 0, :2] = at(5, 11)
+        wwin = 5 * w + 11
+    elif case == "one_pixel":
+        q = torch.arange(600) // qc  # chunk of each query
+        locs[..., 0] = (((3 * q) % w + 0.5) / w)[None, :, None, None]
+        locs[..., 1] = ((q % h + 0.5) / h)[None, :, None, None]
     args = [value.to(vdtype), dpt.to(ddtype), locs, attn]
     args = [a.to(cuda_device) for a in args]
+    if case == "misaligned":
+        args[0], args[1] = _misaligned(args[0]), _misaligned(args[1])
     counts = torch.tensor([0, 200, 599, 600], dtype=torch.int32, device=cuda_device)
-    plan = plan_windows(args[2], counts, 30, 40, 512)
+    plan = plan_windows(args[2], counts, h, w, wwin or 512, qc)
     live = plan.span > 0
     share = float((plan.ok & live).sum() / live.sum())
-    assert share > 0.9 if coherent else share < 0.1
-    return args, counts
+    if case == "cap":
+        assert plan.span[1:, 0].eq(wwin).all() and plan.span[1:, 1].eq(wwin + 1).all()
+    else:
+        assert share < 0.1 if case == "random" else share > 0.9
+    return args, counts, wwin
 
 
-@pytest.mark.parametrize("heads,p,c", [(1, 1, 256), (8, 4, 32)],
-                         ids=["stage1", "stage2"])
+def _windowed_fwd(args, heads, counts, wwin):
+    """(kernel, plain) outputs of the windowed forward: through the op (and
+    plain_ops) at the kernels' own windows, through the wrappers with the
+    plan of a given window length."""
+    if wwin is None:
+        got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+        with plain_ops():
+            return got, dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+    got = dfa3d_win_fwd_cuda(*args, heads, counts, wwin=wwin)
+    plan = kernel_plan(*args[:3], counts, wwin=wwin)
+    return got, dfa3d_windowed_plain(*args, heads, counts, plan=plan)
+
+
+@pytest.mark.parametrize("heads,p,c,case", WINDOW_FWD)
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
-@pytest.mark.parametrize("coherent", REGIMES)
 def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vdtype,
-                                                    ddtype, coherent):
-    args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, coherent)
+                                                    ddtype, case):
+    args, counts, wwin = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case)
     name = "dfa3d_win_fwd_s1" if heads == p == 1 else "dfa3d_win_fwd_mh"
     before = KERNELS[name].launches
-    got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+    got, expected = _windowed_fwd(args, heads, counts, wwin)
     assert KERNELS[name].launches == before + 1
-    with plain_ops():
-        expected = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
     template = dfa3d_fwd_cuda(*args, heads, counts)
     torch.cuda.synchronize()
     assert got.dtype == vdtype
@@ -430,31 +490,44 @@ def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vd
         assert (got[cam, cnt:] == 0).all()
 
 
+@pytest.mark.parametrize("heads,p,case", WINDOW_BWD)
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
-@pytest.mark.parametrize("coherent", REGIMES)
 @pytest.mark.parametrize("sample_grads,depth_grad", GRAD_FLAGS, ids=GRAD_IDS)
 def test_windowed_backward_kernel_matches_plain_and_template(
-        cuda_device, vdtype, ddtype, coherent, sample_grads, depth_grad):
-    heads, p, c = 8, 4, 32
-    args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, coherent)
-    for a, want in zip(args, (True, depth_grad, sample_grads, sample_grads)):
-        a.requires_grad_(want)
+        cuda_device, heads, p, case, vdtype, ddtype, sample_grads, depth_grad):
+    c = 32
+    args, counts, wwin = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case,
+                                        backward=True)
     g = torch.randn((4, 600, heads * c), device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(0)).to(vdtype)
-    out = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
-    assert graph_has(out, "_DFA3DWindowedBackward")
+    if case == "misaligned":
+        g = _misaligned(g)
+    wants = (True, depth_grad, sample_grads, sample_grads)
     before = KERNELS["dfa3d_win_bwd_mh"].launches
-    got = _grads(out, args, g)
-    assert KERNELS["dfa3d_win_bwd_mh"].launches == before + 1
-    with plain_ops():
-        expected = _grads(dfa3d_attention_windowed(*args, heads, valid_counts=counts),
-                          args, g)
+    if wwin is None:
+        for a, want in zip(args, wants):
+            a.requires_grad_(want)
+        out = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+        assert graph_has(out, "_DFA3DWindowedBackward")
+        got = _grads(out, args, g)
+        assert KERNELS["dfa3d_win_bwd_mh"].launches == before + 1
+        with plain_ops():
+            expected = _grads(dfa3d_attention_windowed(*args, heads, valid_counts=counts),
+                              args, g)
+    else:
+        kw = dict(sample_grads=sample_grads, depth_grad=depth_grad)
+        got = [t for t in dfa3d_win_bwd_cuda(*args, g, heads, counts, wwin=wwin, **kw)
+               if t is not None]
+        assert KERNELS["dfa3d_win_bwd_mh"].launches == before + 1
+        plan = kernel_plan(*args[:3], counts, backward=True, depth_grad=depth_grad,
+                           wwin=wwin)
+        expected = [t for t in dfa3d_windowed_bwd_plain(*args, g, heads, counts, plan=plan,
+                                                         **kw) if t is not None]
     template = dfa3d_bwd_cuda(*[a.detach() for a in args], g, heads, counts,
                               sample_grads=sample_grads, depth_grad=depth_grad)
     template = [t for t in template if t is not None]
     torch.cuda.synchronize()
-    names = [n for n, a in zip(("d_value", "d_dpt", "d_locs", "d_attn"), args)
-             if a.requires_grad]
+    names = [n for n, want in zip(("d_value", "d_dpt", "d_locs", "d_attn"), wants) if want]
     for gname, a, b, t in zip(names, got, expected, template):
         for want, what in ((b, "plain"), (t, "template")):
             assert_close_scaled(a.float().cpu().numpy(), want.float().cpu().numpy(),
@@ -466,11 +539,31 @@ def test_windowed_backward_kernel_matches_plain_and_template(
             assert (by_name["d_attn"][cam, cnt:] == 0).all()
 
 
+@pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
+def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype):
+    """Each windowed kernel's shared memory a block is window_bytes at the
+    window_length the wrappers launch it with, plus its static ints of
+    block window (stage 1 two, the multi-head kernels two a warp), at the
+    level-2 shape; the CUDA runtime's own figures."""
+    value = torch.zeros((1, 59, 80, 256), dtype=vdtype, device=cuda_device)
+    depth = torch.zeros((1, 59, 80, 12), dtype=ddtype, device=cuda_device)
+    for name, stage1, backward, depth_grad in (("dfa3d_win_fwd_s1", True, False, True),
+                                               ("dfa3d_win_fwd_mh", False, False, True),
+                                               ("dfa3d_win_bwd_mh", False, True, True),
+                                               ("dfa3d_win_bwd_mh", False, True, False)):
+        wwin = window_length(value, depth, stage1, backward, depth_grad)
+        res = kernel_resources(name, vdtype, ddtype, 12, wwin, 256 if stage1 else 32,
+                               depth_grad)
+        reserved = window_bytes(wwin, value, depth, stage1, backward, depth_grad)
+        assert 0 < res["smem_bytes"] - reserved <= 64, (name, res, reserved)
+        assert res["blocks_per_sm"] >= 1, (name, res)
+
+
 def test_windowed_stage1_backward_is_k6(cuda_device):
     """The sorted path's stage-1 backward is the template's K6, as on the
     TPU, whose windowed stage 1 has no backward."""
-    args, counts = _windowed_case(cuda_device, 1, 1, 256, torch.bfloat16, torch.float32,
-                                  True)
+    args, counts, _ = _windowed_case(cuda_device, 1, 1, 256, torch.bfloat16,
+                                     torch.float32, "coherent")
     args[0].requires_grad_()
     args[1].requires_grad_()
     out = dfa3d_attention_windowed(*args, 1, valid_counts=counts)

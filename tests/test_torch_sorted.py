@@ -13,7 +13,8 @@ the row gather/scatter probes.
   unsorted model (the permutation is exact: 1e-5); the JAX tree loads
   strictly;
 * ``plan_windows`` invariants, in the coherent and random regimes of
-  tests/test_dfa3d_windowed.py;
+  tests/test_dfa3d_windowed.py: a chunk's window is the union of its
+  heads' windows, and ``window_length`` the kernels' reservation;
 * ``dfa3d_windowed_plain`` vs ``dfa3d_attention_plain`` (1e-6) and vs the
   JAX oracle on bf16-rounded inputs at test_dfa3d_windowed.py's shapes and
   tolerances (8e-3 forward, 2e-2 gradients), counted and not;
@@ -44,11 +45,15 @@ from sgcdet_tpu_torch.models.view_transformer import (
     compact_queries,
     point_sampling,
 )
-from sgcdet_tpu_torch.ops import dfa3d_attention_plain
+from sgcdet_tpu_torch.ops import dfa3d_attention_plain, dfa3d_windowed
+from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_plain
 from sgcdet_tpu_torch.ops.dfa3d_windowed import (
     dfa3d_attention_windowed,
+    dfa3d_windowed_bwd_plain,
     dfa3d_windowed_plain,
     plan_windows,
+    window_bytes,
+    window_length,
 )
 from sgcdet_tpu_torch.scene import example_scene
 from sgcdet_tpu_torch.voxel_grid import voxel_centers_zero_origin
@@ -250,17 +255,18 @@ def test_plan_windows_invariants(coherent, wwin):
     _, _, locs, _ = windowed_inputs(n, h, w, k, heads, 32, 2, 6, coherent)
     counts = torch.tensor([300, 512], dtype=torch.int32)
     plan = plan_windows(locs, counts, h, w, wwin, qc=32)
-    assert plan.base.shape == plan.ok.shape == (n, 16, heads)
+    assert plan.base.shape == plan.ok.shape == (n, 16)
     assert ((plan.base >= 0) & (plan.base < h * w)).all()
     assert ((plan.span >= 0) & (plan.span <= h * w)).all()
     assert torch.equal(plan.ok, plan.span <= wwin)
+    # every live corner of every head lies in its chunk's window
     live = _live_corners(locs, counts, h, w)
-    cam, q, head, pix = live.unbind(1)
-    base = plan.base[cam, q // 32, head]
-    span = plan.span[cam, q // 32, head]
+    cam, q, _, pix = live.unbind(1)
+    base = plan.base[cam, q // 32]
+    span = plan.span[cam, q // 32]
     assert ((pix >= base) & (pix < base + span)).all()
     # the window is tight: its ends are live corners
-    cell = (cam * 16 + q // 32) * heads + head
+    cell = cam * 16 + q // 32
     lo = torch.full((plan.base.numel(),), h * w).scatter_reduce(0, cell, pix, "amin")
     hi = torch.full((plan.base.numel(),), -1).scatter_reduce(0, cell, pix, "amax")
     full = plan.span.view(-1) > 0
@@ -279,20 +285,79 @@ def test_plan_windows_invariants(coherent, wwin):
     assert all(torch.equal(a, b) for a, b in zip(plan2[:3], plan3[:3]))
 
 
+@pytest.mark.parametrize("coherent", [True, False], ids=["coherent", "random"])
+@pytest.mark.parametrize("counted", [False, True], ids=["uncounted", "counted"])
+def test_union_window_is_the_envelope_of_head_windows(coherent, counted):
+    """A block takes every head of its chunk: its window runs from the
+    lowest base of its heads' own windows to the highest end."""
+    n, h, w, k, heads = 2, 10, 12, 512, 4
+    _, _, locs, _ = windowed_inputs(n, h, w, k, heads, 32, 2, 6, coherent)
+    counts = torch.tensor([300, 0], dtype=torch.int32) if counted else None
+    union = plan_windows(locs, counts, h, w, 64, qc=32)
+    per_head = [plan_windows(locs[:, :, i:i + 1], counts, h, w, 64, qc=32)
+                for i in range(heads)]
+    live = torch.stack([p.span > 0 for p in per_head])
+    lo = torch.stack([p.base for p in per_head]).masked_fill(~live, h * w).amin(0)
+    hi = torch.stack([p.base + p.span - 1 for p in per_head]).masked_fill(~live, -1).amax(0)
+    assert torch.equal(union.span > 0, live.any(0))
+    assert torch.equal(union.base[live.any(0)], lo[live.any(0)])
+    assert torch.equal((union.base + union.span - 1)[live.any(0)], hi[live.any(0)])
+    assert (union.span[~live.any(0)] == 0).all()
+    if counted:  # a view counted to 0 has no window
+        assert (union.span[1] == 0).all()
+
+
+@pytest.mark.parametrize("vdtype,ddtype", [(torch.bfloat16, torch.float32),
+                                           (torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)],
+                         ids=["bf16_f32", "f32_f32", "bf16_bf16"])
+@pytest.mark.parametrize("dsize", [12, 5])
+def test_window_length_is_the_kernels_reservation(vdtype, ddtype, dsize):
+    """window_length is the longest window whose reservation (window_bytes,
+    the kernels' shared-memory formula) fits the kernel's budget, at most
+    the cap and the map; the multi-head kernels hold f32 per bin whatever
+    the types, stage 1 a value slice in its own type too."""
+    value = torch.zeros((1, 59, 80, 256), dtype=vdtype)
+    depth = torch.zeros((1, 59, 80, dsize), dtype=ddtype)
+    cases = [(True, False, dfa3d_windowed.WWIN_S1, dfa3d_windowed.SMEM_S1),
+             (False, False, dfa3d_windowed.WIN_CAP, dfa3d_windowed.SMEM_MH),
+             (False, True, dfa3d_windowed.WIN_CAP, dfa3d_windowed.SMEM_MH)]
+    for stage1, backward, cap, smem in cases:
+        wwin = window_length(value, depth, stage1, backward)
+        size = window_bytes(wwin, value, depth, stage1, backward)
+        assert 1 <= wwin <= cap and size <= smem
+        assert wwin == cap or window_bytes(wwin + 1, value, depth, stage1, backward) > smem
+        want = (wwin * (32 * value.element_size() + 4 * dsize) if stage1
+                else 4 * wwin * dsize)
+        assert size == want
+    # a backward without d_depth has nothing to hold
+    assert window_length(value, depth, backward=True, depth_grad=False) == 0
+    assert window_bytes(1152, value, depth, backward=True, depth_grad=False) == 0
+    # the main path's pair at 12 bins: the cap, 54 KB a block
+    if (vdtype, ddtype, dsize) == (torch.bfloat16, torch.float32, 12):
+        assert window_length(value, depth) == dfa3d_windowed.WIN_CAP == 1152
+        assert window_bytes(1152, value, depth) == 55296
+        assert window_bytes(1152, value, depth, backward=True) == 55296
+        assert window_length(value, depth, stage1=True) == 1024
+    # a map smaller than the cap is held whole
+    small = value[:, :14, :20]
+    assert window_length(small, depth[:, :14, :20], backward=True) == 280
+
+
 def test_plan_windows_sees_both_regimes():
-    """Coherent locations keep 32-query chunks in a 24-pixel window where
-    random ones keep none; both regimes give window and fallback chunks at
-    some chunk and window length."""
+    """Coherent locations keep 32-query chunks in a 64-pixel window (some
+    in 24) where random ones keep none; both regimes give window and
+    fallback chunks at some chunk and window length."""
     def share(coherent, qc, wwin):
         _, _, locs, _ = windowed_inputs(2, 10, 12, 512, 4, 32, 2, 6, coherent)
         return float(plan_windows(locs, None, 10, 12, wwin, qc=qc).ok.float().mean())
 
     assert 0 < share(True, 32, 24) < 1 and share(True, 32, 64) == 1
-    assert share(False, 32, 64) == 0 and 0 < share(False, 4, 64) < 1
+    assert share(False, 32, 64) == 0 and 0 < share(False, 2, 96) < 1
 
 
 # (chunk, window) where each regime has window and fallback chunks
-_REGIME_PLAN = {True: (32, 24), False: (4, 64)}
+_REGIME_PLAN = {True: (32, 24), False: (2, 96)}
 
 
 @pytest.mark.parametrize("coherent", [True, False], ids=["coherent", "random"])
@@ -315,6 +380,13 @@ def test_windowed_plain_matches_plain_and_jax_oracle(coherent, counted):
     bad = dfa3d_windowed_plain(value.float(), dpt.float(), locs, attn, heads, counts,
                                plan=broken)
     assert (bad - plain).abs().max() > 1e-3 * plain.abs().max()
+    # the backward's plain version with the same plan: the VJP of the plain
+    # version, whatever the plan, where the plan is right
+    g = torch.from_numpy(np.random.RandomState(3).randn(n, k, heads * c).astype(np.float32))
+    f32_ins = (value.float(), dpt.float(), locs, attn)
+    for got_g, want_g in zip(dfa3d_windowed_bwd_plain(*f32_ins, g, heads, counts, plan=plan),
+                             dfa3d_bwd_plain(*f32_ins, g, heads, counts)):
+        assert_close_scaled(got_g.numpy(), want_g.numpy(), 1e-6, "windowed bwd vs plain")
     # the JAX oracle on the bf16-rounded inputs
     keep = (np.arange(k)[None, :] < (counts.numpy()[:, None] if counted else k))
     keep = jnp.asarray(keep[..., None].astype(np.float32))
