@@ -1730,8 +1730,13 @@ def phase_windowed(torch, dev, report):
                 plan = kernel_plan(value, depth, locs, counts, backward, qc=qc, wwin=wwin)
                 samples = window_shares(torch, plan, locs, counts, h, w)[2]
                 parts.append(f"{qc} q x {plan.wwin} px {ms:.4f} ms ({samples:.3f})")
+        if backward:
+            ms_vm = cuda_ms(torch, lambda: dfa3d_win_bwd_cuda(*args, view_major=True))
+        else:
+            ms_vm = cuda_ms(torch, lambda: dfa3d_win_fwd_cuda(*args, view_major=True))
         log(f"[windowed] {name}: chunks x windows (share of samples in a window): "
-            + ", ".join(parts) + f"; the windows as torch ops {ms_plan:.4f} ms")
+            + ", ".join(parts) + f"; the windows as torch ops {ms_plan:.4f} ms; "
+            f"blocks in view-major order {ms_vm:.4f} ms")
 
     def fwd(name, kernel_name, args, timed=False, main=False, earlier=None):
         """Windowed forward vs its plain version and the template kernel."""
@@ -1837,8 +1842,12 @@ def phase_windowed(torch, dev, report):
     s2 = (vp, x["depth"], locs, x["attn2"], x["heads"], x["counts"])
     fwd(f"stage2 bf16/f32 {shape} random locs", "dfa3d_win_fwd_mh", s2, timed=True,
         earlier="win mh random")
-    bwd(f"stage2 bwd bf16/f32 {shape} random locs",
-        s2[:4] + (x["g"].to(bf16),) + s2[4:], timed=True, earlier="win bwd random")
+    b2 = s2[:4] + (x["g"].to(bf16),) + s2[4:]
+    bwd(f"stage2 bwd bf16/f32 {shape} random locs", b2, timed=True, earlier="win bwd random")
+    ms_f = cuda_ms(torch, lambda: dfa3d_win_fwd_cuda(*s2, view_major=True))
+    ms_b = cuda_ms(torch, lambda: dfa3d_win_bwd_cuda(*b2, view_major=True))
+    log(f"[windowed] random locs, blocks in view-major order: forward {ms_f:.4f} ms, "
+        f"backward {ms_b:.4f} ms")
     log(f"[windowed] chunks run from a window: {branches['window']}, from global "
         f"memory: {branches['fallback']}")
     check(branches["window"] > 0, "no windowed case ran a chunk from its window")

@@ -152,12 +152,13 @@ __global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
     const float* __restrict__ attn,  // (N, K, heads, P)
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
     VT* __restrict__ out,            // (N, K, heads*c)
-    int h, int w, int heads, int dsize, int k, int p, int qc, int wwin) {
+    int h, int w, int heads, int dsize, int k, int p, int qc, int wwin, bool view_major) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int2 s_warp[kMhThreads / 32];
   constexpr int HPW = 32 / (C / 8);  // heads per warp
   const int hgroups = (heads + HPW - 1) / HPW;
-  const int chunk = blockIdx.x, cam = blockIdx.y;
+  const int chunk = view_major ? blockIdx.y : blockIdx.x;
+  const int cam = view_major ? blockIdx.x : blockIdx.y;
   const int count = counts == nullptr ? k : counts[cam];
   const int q0 = chunk * qc, q1 = min(k, q0 + qc);
   const int nqc = max(0, min(q1, count) - q0);  // counted queries of the chunk
@@ -216,16 +217,17 @@ template <typename VT, typename DT, int C>
 int launch_mh(const void* value, const void* depth, const float* locs,
               const float* attn, const int* counts, void* out, int n, int h,
               int w, int heads, int dsize, int k, int p, int qc, int wwin,
-              cudaStream_t stream) {
+              bool view_major, cudaStream_t stream) {
   const size_t smem = mh_smem(dsize, wwin);
   auto kernel = dfa3d_win_fwd_mh_kernel<VT, DT, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((k + qc - 1) / qc, n);
+  const int nchunk = (k + qc - 1) / qc;
+  const dim3 grid(view_major ? n : nchunk, view_major ? nchunk : n);
   kernel<<<grid, kMhThreads, smem, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
-      counts, static_cast<VT*>(out), h, w, heads, dsize, k, p, qc, wwin);
+      counts, static_cast<VT*>(out), h, w, heads, dsize, k, p, qc, wwin, view_major);
   return (int)cudaGetLastError();
 }
 
@@ -235,13 +237,15 @@ int launch_mh(const void* value, const void* depth, const float* locs,
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
 // (N,) int32 or null -> out (N, K, heads*c) of type vdtype.  heads = P = 1
 // (stage 1) takes c a multiple of 32, multi-head c = 32 or 256; chunks of
-// qc queries; windows of at most wwin pixels.
+// qc queries; windows of at most wwin pixels; multi-head blocks launched
+// a chunk's views after one another (view_major) or, as the wrappers do, a
+// view's chunks.
 extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
                                  const void* depth, const float* locs,
                                  const float* attn, const int* counts,
                                  void* out, int n, int h, int w, int heads,
                                  int c, int dsize, int k, int p, int qc,
-                                 int wwin, void* stream) {
+                                 int wwin, int view_major, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
   if (qc <= 0 || wwin < 0) return (int)cudaErrorInvalidValue;
@@ -251,9 +255,9 @@ extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
     if (heads == 1 && p == 1)
       return launch_s1<VT, DT>(value, depth, locs, attn, counts, out, n, h, w, heads, c, dsize, k, p, qc, wwin, s);
     if (c == 32)
-      return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
+      return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, view_major, s);
     if (c == 256)
-      return launch_mh<VT, DT, 256>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
+      return launch_mh<VT, DT, 256>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, view_major, s);
     return (int)cudaErrorInvalidValue;
   });
 }

@@ -539,6 +539,23 @@ def test_windowed_backward_kernel_matches_plain_and_template(
             assert (by_name["d_attn"][cam, cnt:] == 0).all()
 
 
+def test_windowed_kernels_in_view_major_order_match_the_default_order(cuda_device):
+    """The multi-head windowed kernels with their blocks launched a chunk's
+    views after one another (a measurement's option) compute what the
+    default order computes: the forward bit for bit, the backward up to its
+    sums' order (one bf16 ulp of the gradients it casts to bf16)."""
+    args, counts, _ = _windowed_case(cuda_device, 8, 4, 32, torch.bfloat16, torch.float32,
+                                     "coherent")
+    assert torch.equal(dfa3d_win_fwd_cuda(*args, 8, counts, view_major=True),
+                       dfa3d_win_fwd_cuda(*args, 8, counts))
+    g = torch.randn((4, 600, 256), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0)).bfloat16()
+    for a, b in zip(dfa3d_win_bwd_cuda(*args, g, 8, counts, view_major=True),
+                    dfa3d_win_bwd_cuda(*args, g, 8, counts)):
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(), _rel(a.dtype),
+                            "view-major backward")
+
+
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
 def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype):
     """Each windowed kernel's shared memory a block is window_bytes at the
