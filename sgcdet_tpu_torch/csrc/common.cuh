@@ -64,26 +64,23 @@ __device__ __forceinline__ float pixel_coord(float loc, int size) {
                     size + 4.f);
 }
 
-// The window of a windowed kernel's block, as ops/dfa3d_windowed.py::
-// plan_windows computes it: the lowest and the highest pixel y * w + x
-// that an in-image corner of the block's samples reads.  A sample's
-// in-image corners fill the box [max(x0, 0), min(x0 + 1, w - 1)] x [max(y0,
-// 0), min(y0 + 1, h - 1)].  lp: the block's first query's (u, v, d) at its
-// head, queries `stride` floats apart, p points each; nq counted queries.
-// Returns {lo, hi}, hi < 0 where no corner lies in the image.  Every
-// thread of the block calls it once; s_box is two shared ints.
-__device__ __forceinline__ int2 block_window(const float* lp, long long stride, int p,
-                                             int nq, int h, int w, int* s_box) {
-  if (threadIdx.x == 0) {
-    s_box[0] = 0x7fffffff;
-    s_box[1] = -1;
-  }
-  __syncthreads();
+// The window of a windowed kernel's block (THREADS threads), as
+// ops/dfa3d_windowed.py::plan_windows computes it: the lowest and the
+// highest pixel y * w + x that an in-image corner of the n samples at lp
+// reads (3 floats each: the chunk's counted queries' points at stage 1,
+// every (head, point) of them multi-head, whose window is the union of the
+// heads' bands).  A sample's in-image corners fill the box [max(x0, 0),
+// min(x0 + 1, w - 1)] x [max(y0, 0), min(y0 + 1, h - 1)].  Returns {lo,
+// hi}, hi < 0 where no corner lies in the image.  Every thread of the block
+// calls it once; one sync: each warp leaves its extremes in s_warp
+// (THREADS / 32 entries, shared) and every thread folds them.
+template <int THREADS>
+__device__ __forceinline__ int2 union_window(const float* lp, int n, int h, int w,
+                                             int2* s_warp) {
   int lo = 0x7fffffff, hi = -1;
-  for (int i = threadIdx.x; i < nq * p; i += blockDim.x) {
-    const float* l = lp + (i / p) * stride + (i % p) * 3;
-    const int x0 = (int)floorf(pixel_coord(l[0], w));
-    const int y0 = (int)floorf(pixel_coord(l[1], h));
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int x0 = (int)floorf(pixel_coord(lp[3 * i], w));
+    const int y0 = (int)floorf(pixel_coord(lp[3 * i + 1], h));
     const int xlo = max(x0, 0), xhi = min(x0 + 1, w - 1);
     const int ylo = max(y0, 0), yhi = min(y0 + 1, h - 1);
     if (xlo <= xhi && ylo <= yhi) {
@@ -96,12 +93,16 @@ __device__ __forceinline__ int2 block_window(const float* lp, long long stride, 
     lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
     hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
-  if ((threadIdx.x & 31) == 0) {
-    atomicMin(s_box, lo);
-    atomicMax(s_box + 1, hi);
-  }
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = make_int2(lo, hi);
   __syncthreads();
-  return make_int2(s_box[0], s_box[1]);
+  lo = 0x7fffffff;
+  hi = -1;
+#pragma unroll
+  for (int i = 0; i < THREADS / 32; ++i) {
+    lo = min(lo, s_warp[i].x);
+    hi = max(hi, s_warp[i].y);
+  }
+  return make_int2(lo, hi);
 }
 
 // 16 bytes from global to shared memory without a register round trip

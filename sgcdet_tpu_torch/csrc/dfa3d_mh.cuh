@@ -87,43 +87,6 @@ __device__ __forceinline__ void flush_add(float* dst, const float* s, int n) {
     if (s[i] != 0.f) atomicAdd(dst + i, s[i]);
 }
 
-// The window of a multi-head windowed block, as ops/dfa3d_windowed.py::
-// plan_windows computes it: the lowest and the highest pixel y * w + x that
-// an in-image corner of the n samples at lp (3 floats each: every (head,
-// point) of the chunk's counted queries) reads; {lo, hi}, hi < 0 where no
-// corner lies in the image.  One sync: each warp leaves its extremes in
-// s_warp (THREADS / 32 entries, shared) and every thread folds them.
-template <int THREADS>
-__device__ __forceinline__ int2 union_window(const float* lp, int n, int h, int w,
-                                             int2* s_warp) {
-  int lo = 0x7fffffff, hi = -1;
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const int x0 = (int)floorf(pixel_coord(lp[3 * i], w));
-    const int y0 = (int)floorf(pixel_coord(lp[3 * i + 1], h));
-    const int xlo = max(x0, 0), xhi = min(x0 + 1, w - 1);
-    const int ylo = max(y0, 0), yhi = min(y0 + 1, h - 1);
-    if (xlo <= xhi && ylo <= yhi) {
-      lo = min(lo, ylo * w + xlo);
-      hi = max(hi, yhi * w + xhi);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = make_int2(lo, hi);
-  __syncthreads();
-  lo = 0x7fffffff;
-  hi = -1;
-#pragma unroll
-  for (int i = 0; i < THREADS / 32; ++i) {
-    lo = min(lo, s_warp[i].x);
-    hi = max(hi, s_warp[i].y);
-  }
-  return make_int2(lo, hi);
-}
-
 template <typename DT, bool BINS = true>
 struct WindowDepth {
   GlobalDepth<DT> global;

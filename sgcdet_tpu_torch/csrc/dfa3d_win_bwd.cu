@@ -35,16 +35,19 @@
 // and scatter nothing.
 //
 // What bounds it on this card, as K5: the d_value reductions and the value
-// gathers.  The d_depth atomics the window takes out of L2 were ~2 % of
-// K5's time (PERF.md, PR 8).  Measured choices (H100 80GB HBM3): the depth
+// gathers.  The d_depth atomics the window takes out of L2 were ~2.5 % of
+// its time (PERF.md, PR 8).  Measured choices (H100 80GB HBM3): the depth
 // bins are read from global memory as K5 reads them, not staged: staging
-// them too (96 B a pixel) left two blocks an SM and ran 8-16 % slower; chunks of 8
-// queries, a query a warp (16 and 32 queries, two and four a warp, ran 6
-// and 19 % slower); three blocks an SM (80 registers).  d_value is not
-// summed in shared memory: at 8 heads x 32 channels it takes 1 KB a pixel,
-// so a block could hold ~227 pixels, and no union at level 2 is that
-// narrow at any chunk of 8-256 queries (the heads' offsets alone span ~9
-// image rows).
+// them too (96 B a pixel) left two blocks an SM and ran 8-16 % slower;
+// chunks of 8 queries, a query a warp (16 and 32 queries, two and four a
+// warp, ran 6 and 18 % slower); three blocks an SM (80 registers); blocks
+// a view's chunks after one another (a chunk's views after one another,
+// view_major, ran 2 % slower sorted and 25 % slower on random locations:
+// forty views' d_value sums at once exceed the L2).  d_value is not summed
+// in shared memory: at 8 heads x 32 channels it takes 1 KB a pixel, so a
+// block could hold ~227 pixels, and no union at level 2 is that narrow at
+// any chunk of 8-256 queries (the heads' offsets alone span ~9 image
+// rows).
 #include "dfa3d_mh.cuh"
 
 namespace {

@@ -35,12 +35,15 @@
 // shared memory, and those gathers were in flight beside the value rows'
 // (PERF.md, PR 8).  What the block adds is a prologue: the union (one sync)
 // and the staging (an L2 round trip, ~48 B a pixel, before any value load
-// of the block).  Measured choices (H100 80GB HBM3): chunks of 16 (32 and 8
-// ran 2 and 12 % slower); one point a round (PG = 1: 76 registers, no
-// spill, where K3's two spill 16 bytes at this kernel's few extra registers
-// and ran 16 % slower); three blocks an SM.  The value rows are not staged: at level 2 a
-// chunk-head reads about 1.8 value rows per pixel of its band, so staging
-// them would move as many bytes as the gathers they replace.
+// of the block).  Measured choices (H100 80GB HBM3, PERF.md): chunks of 16
+// (32 and 8 ran 2 and 12 % slower); one point a round (PG = 1: no spill,
+// where K3's two spilled 16 bytes and ran 16 % slower); three blocks an SM;
+// blocks a view's chunks after one another.  A chunk's views after one
+// another (view_major, a measurement's option) ran the sorted level 2 5 %
+// faster but random locations 11 % slower: forty views' value maps at once
+// exceed the L2.  The value rows are not staged: at level 2 a chunk-head
+// reads about 1.8 value rows per pixel of its band, so staging them would
+// move as many bytes as the gathers they replace.
 //
 // Stage 1 (heads = P = 1, c = 256: dfa3d_win_fwd_s1_kernel) keeps the
 // earlier design: one block per (32-channel slice of the value row, chunk,
@@ -64,7 +67,7 @@ __global__ void __launch_bounds__(kS1Threads) dfa3d_win_fwd_s1_kernel(
     VT* __restrict__ out,            // (N, K, heads*c)
     int h, int w, int heads, int c, int dsize, int k, int p, int qc, int wwin) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int s_box[2];
+  __shared__ int2 s_warp[kS1Threads / 32];
   VT* s_val = reinterpret_cast<VT*>(smem);  // [wwin][kSlice]
   float* s_dpt = reinterpret_cast<float*>(smem + (size_t)wwin * kSlice * sizeof(VT));
   const int slice = blockIdx.x, chunk = blockIdx.y, cam = blockIdx.z;
@@ -73,9 +76,8 @@ __global__ void __launch_bounds__(kS1Threads) dfa3d_win_fwd_s1_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int count = counts == nullptr ? k : counts[cam];
   const int q0 = chunk * qc, q1 = min(k, q0 + qc);
-  const int2 box = sgc::block_window(
-      locs + (((long long)cam * k + q0) * heads + head) * p * 3, (long long)heads * p * 3,
-      p, max(0, min(q1, count) - q0), h, w, s_box);
+  const int2 box = sgc::union_window<kS1Threads>(
+      locs + ((long long)cam * k + q0) * 3, max(0, min(q1, count) - q0), h, w, s_warp);
   const int base = box.x, span = box.y >= 0 ? box.y - box.x + 1 : 0;
   const long long hw = (long long)h * w;
   const VT* vmap = value + cam * hw * cfull + slice * kSlice;  // pixel stride cfull

@@ -26,9 +26,8 @@ its own window.
   flag (every live corner lies in ``[base, base + wwin)``).  A live corner
   is an in-image corner of a query inside ``valid_counts``, whatever its
   weight: the kernels read it.  The kernels find the same windows
-  themselves, each block over its own chunk (csrc/dfa3d_mh.cuh::
-  union_window; stage 1 csrc/common.cuh::block_window); these torch ops
-  serve the plain version and reports.
+  themselves, each block over its own chunk (csrc/common.cuh::
+  union_window); these torch ops serve the plain version and reports.
   ``window_length`` is the most pixels a kernel's window holds, from the
   shared memory a pixel takes (``window_bytes``, the kernels' reservation).
 * ``dfa3d_windowed_plain`` / ``dfa3d_windowed_bwd_plain`` — the plain

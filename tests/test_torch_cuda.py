@@ -559,9 +559,9 @@ def test_windowed_kernels_in_view_major_order_match_the_default_order(cuda_devic
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
 def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype):
     """Each windowed kernel's shared memory a block is window_bytes at the
-    window_length the wrappers launch it with, plus its static ints of
-    block window (stage 1 two, the multi-head kernels two a warp), at the
-    level-2 shape; the CUDA runtime's own figures."""
+    window_length the wrappers launch it with, plus the block window's two
+    static ints a warp, at the level-2 shape; the CUDA runtime's own
+    figures."""
     value = torch.zeros((1, 59, 80, 256), dtype=vdtype, device=cuda_device)
     depth = torch.zeros((1, 59, 80, 12), dtype=ddtype, device=cuda_device)
     for name, stage1, backward, depth_grad in (("dfa3d_win_fwd_s1", True, False, True),
@@ -572,7 +572,7 @@ def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype
         res = kernel_resources(name, vdtype, ddtype, 12, wwin, 256 if stage1 else 32,
                                depth_grad)
         reserved = window_bytes(wwin, value, depth, stage1, backward, depth_grad)
-        assert 0 < res["smem_bytes"] - reserved <= 64, (name, res, reserved)
+        assert res["smem_bytes"] == reserved + 8 * res["threads"] // 32, (name, res, reserved)
         assert res["blocks_per_sm"] >= 1, (name, res)
 
 
