@@ -221,7 +221,7 @@ EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
               "K2' 2D": 0.1157, "K3' 2D": 1.2694, "K3 f32/f32 uncounted": 0.9651,
               "K2 f32/f32 uncounted": 0.1146,
               # the windowed kernels at level 2 before their redesign (PERF.md
-              # section 6, rows 16-21: PR 7's proof run of this script)
+              # section 6, rows 16-21, as this script measured them)
               "win s1 sorted": 0.2398, "win mh sorted": 0.3878,
               "win mh random": 0.4341, "win bwd sorted": 1.2569,
               "win bwd random": 1.2202}
@@ -1607,9 +1607,9 @@ def window_spans(torch, locs, counts, h, w, qc):
         f"{', ' if heads > 1 else ''}union {stats(union)}", union
 
 
-# a chunk's d_value for 8 heads x 32 channels in f32 takes 1 KB a pixel: the
-# most pixels one block's shared memory (227 KB) could sum it for
-DVALUE_WINDOW_PIXELS = 227 * 1024 // 1024
+# the most pixels whose d_value a block could sum in its 227 KB of shared
+# memory: 8 heads x 32 channels in f32 take 1 KB a pixel
+DVALUE_WINDOW_PIXELS = 227
 
 
 def ptxas_resources(log):

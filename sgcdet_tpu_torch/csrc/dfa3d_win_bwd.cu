@@ -36,7 +36,7 @@
 //
 // What bounds it on this card, as K5: the d_value reductions and the value
 // gathers.  The d_depth atomics the window takes out of L2 were ~2.5 % of
-// its time (PERF.md, PR 8).  Measured choices (H100 80GB HBM3): the depth
+// its time (PERF.md).  Measured choices (H100 80GB HBM3): the depth
 // bins are read from global memory as K5 reads them, not staged: staging
 // them too (96 B a pixel) left two blocks an SM and ran 8-16 % slower;
 // chunks of 8 queries, a query a warp (16 and 32 queries, two and four a

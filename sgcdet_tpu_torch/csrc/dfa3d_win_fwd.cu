@@ -33,7 +33,7 @@
 // What bounds it on this card: as K3, the value gathers and the zeros of
 // the counted-out rows; the window only moves the depth bins from L2 to
 // shared memory, and those gathers were in flight beside the value rows'
-// (PERF.md, PR 8).  What the block adds is a prologue: the union (one sync)
+// (PERF.md).  What the block adds is a prologue: the union (one sync)
 // and the staging (an L2 round trip, ~48 B a pixel, before any value load
 // of the block).  Measured choices (H100 80GB HBM3, PERF.md): chunks of 16
 // (32 and 8 ran 2 and 12 % slower); one point a round (PG = 1: no spill,

@@ -72,7 +72,7 @@ QC_S1 = 64
 WWIN_S1 = 1024
 SMEM_S1 = 112 * 1024
 # multi-head: chunks over all heads, the forward's of 16 queries, the
-# backward's of 8 (PERF.md, PR 8); a window of at most WIN_CAP pixels,
+# backward's of 8 (PERF.md); a window of at most WIN_CAP pixels,
 # above the 90th percentile of the unions' spans at the sorted level 2,
 # holds the depth bins in f32 (forward) or their f32 d_depth sums
 # (backward), 54 KB, in at most SMEM_MH bytes
