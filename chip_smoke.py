@@ -99,9 +99,8 @@ Phases, each fatal on failure:
               kernel's registers, spill bytes, shared memory a block and
               blocks an SM (CUDA runtime), and the registers and spills of
               K3, K5 and the windowed kernels from ptxas; at level 2 also
-              the windowed kernels at chunks of 8-64 queries and three
-              window lengths, and the template kernels on the same queries
-              in sorted and in index order.  Fails unless some case ran
+              the windows' cost as torch ops, and the template kernels on
+              the same queries in sorted and in index order.  Fails unless some case ran
               each branch.
 10. sorted  — the ScanNet config with sort_queries=True and the exact auto
               budget: the f32 scene (TF32 off) through the kernels and the
@@ -123,9 +122,6 @@ Phases, each fatal on failure:
               attribute_probes) and the device work of one call by
               torch.profiler, which must be the probe's own kernels only: one
               for a gather, at most three for a scatter-add.
-
-``--only PHASE[,PHASE...]`` (e.g. ``--only windowed``) runs phases 1, 2 and
-the named ones alone and prints no report.
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
@@ -1673,6 +1669,7 @@ def log_resources(torch, x):
 def phase_windowed(torch, dev, report):
     from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_fwd_cuda
     from sgcdet_tpu_torch.ops.dfa3d_windowed import (
+        QC_BWD,
         QC_FWD,
         QC_S1,
         dfa3d_win_bwd_cuda,
@@ -1711,32 +1708,11 @@ def phase_windowed(torch, dev, report):
         log(f"[windowed] {name} spans (p50 / p90 / max pixels), chunks of "
             + "; ".join(parts))
 
-    def chunk_sizes(name, args, backward):
-        """A main case's kernel at chunks of 8-64 queries and windows of 384,
-        768 pixels and the default length (each block finds its own window)
-        with the share of samples each serves from a window, beside the
-        time of the default windows as torch ops on the card
+    def plan_time(name, args, backward):
+        """The time of a main case's windows as torch ops on the card
         (``kernel_plan``: the plain version's)."""
-        value, depth, locs, counts = args[0], args[1], args[2], args[-1]
-        h, w = value.shape[1:3]
-        ms_plan = cuda_ms(torch, lambda: kernel_plan(value, depth, locs, counts, backward))
-        parts = []
-        for qc in (8, 16, 32, 64):
-            for wwin in (384, 768, None):
-                if backward:
-                    ms = cuda_ms(torch, lambda: dfa3d_win_bwd_cuda(*args, qc=qc, wwin=wwin))
-                else:
-                    ms = cuda_ms(torch, lambda: dfa3d_win_fwd_cuda(*args, qc=qc, wwin=wwin))
-                plan = kernel_plan(value, depth, locs, counts, backward, qc=qc, wwin=wwin)
-                samples = window_shares(torch, plan, locs, counts, h, w)[2]
-                parts.append(f"{qc} q x {plan.wwin} px {ms:.4f} ms ({samples:.3f})")
-        if backward:
-            ms_vm = cuda_ms(torch, lambda: dfa3d_win_bwd_cuda(*args, view_major=True))
-        else:
-            ms_vm = cuda_ms(torch, lambda: dfa3d_win_fwd_cuda(*args, view_major=True))
-        log(f"[windowed] {name}: chunks x windows (share of samples in a window): "
-            + ", ".join(parts) + f"; the windows as torch ops {ms_plan:.4f} ms; "
-            f"blocks in view-major order {ms_vm:.4f} ms")
+        ms = cuda_ms(torch, lambda: kernel_plan(*args[:3], args[-1], backward))
+        log(f"[windowed] {name}: the windows as torch ops {ms:.4f} ms")
 
     def fwd(name, kernel_name, args, timed=False, main=False, earlier=None):
         """Windowed forward vs its plain version and the template kernel."""
@@ -1761,7 +1737,7 @@ def phase_windowed(torch, dev, report):
             line += f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms"
         log(line)
         if main:
-            chunk_sizes(name, args, False)
+            plan_time(name, args, False)
 
     def bwd(name, args, timed=False, main=False, earlier=None):
         """Windowed multi-head backward, every gradient (the train path's
@@ -1791,7 +1767,7 @@ def phase_windowed(torch, dev, report):
             line += f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms"
         log(line)
         if main:
-            chunk_sizes(name, args, True)
+            plan_time(name, fargs, True)
 
     def query_order(x, s1, s2, shape):
         """The template kernels on this level's queries in sorted and in
@@ -1822,7 +1798,7 @@ def phase_windowed(torch, dev, report):
             main = model_pair and level == 2
             if model_pair:
                 spans(f"stage1 {shape}", s1, (QC_S1,))
-                spans(f"stage2 {shape}", s2, (8, 16, 32, 64, 128, 256) if main else (QC_FWD,))
+                spans(f"stage2 {shape}", s2, (QC_BWD, QC_FWD))
             fwd(f"stage1 {tag} {shape} sorted", "dfa3d_win_fwd_s1", s1, model_pair, main,
                 "win s1 sorted" if main else None)
             fwd(f"stage2 {tag} {shape} sorted", "dfa3d_win_fwd_mh", s2, model_pair, main,
@@ -1844,10 +1820,6 @@ def phase_windowed(torch, dev, report):
         earlier="win mh random")
     b2 = s2[:4] + (x["g"].to(bf16),) + s2[4:]
     bwd(f"stage2 bwd bf16/f32 {shape} random locs", b2, timed=True, earlier="win bwd random")
-    ms_f = cuda_ms(torch, lambda: dfa3d_win_fwd_cuda(*s2, view_major=True))
-    ms_b = cuda_ms(torch, lambda: dfa3d_win_bwd_cuda(*b2, view_major=True))
-    log(f"[windowed] random locs, blocks in view-major order: forward {ms_f:.4f} ms, "
-        f"backward {ms_b:.4f} ms")
     log(f"[windowed] chunks run from a window: {branches['window']}, from global "
         f"memory: {branches['fallback']}")
     check(branches["window"] > 0, "no windowed case ran a chunk from its window")
@@ -1960,12 +1932,6 @@ def phase_probes(torch, dev, report):
 
 
 def main() -> int:
-    only = None  # --only PHASE[,PHASE]: those phases alone, and no report
-    if sys.argv[1:2] == ["--only"] and len(sys.argv) == 3:
-        only = set(sys.argv[2].split(","))
-    elif len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--only PHASE[,PHASE...]]", file=sys.stderr)
-        return 2
     repo = Path(__file__).resolve().parent
     if not (repo / "sgcdet_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2019,15 +1985,9 @@ def main() -> int:
             ("sorted", lambda: phase_sorted(torch, dev, KERNELS, f32_scene,
                                             sorted_serving, sorted_train)),
             ("probes", lambda: probe_runs.update(phase_probes(torch, dev, report)))):
-        if only is not None and name not in only:
-            continue
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
-    if only is not None:
-        log(f"[done] phases {sorted(only)} only: no kernel report")
-        return 0
-
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         rec = report[name]

@@ -41,9 +41,9 @@
 // them too (96 B a pixel) left two blocks an SM and ran 8-16 % slower;
 // chunks of 8 queries, a query a warp (16 and 32 queries, two and four a
 // warp, ran 6 and 18 % slower); three blocks an SM (80 registers); blocks
-// a view's chunks after one another (a chunk's views after one another,
-// view_major, ran 2 % slower sorted and 25 % slower on random locations:
-// forty views' d_value sums at once exceed the L2).  d_value is not summed
+// a view's chunks after one another (a chunk's views after one another ran
+// 2 % slower sorted and 25 % slower on random locations: forty views'
+// d_value sums at once exceed the L2).  d_value is not summed
 // in shared memory: at 8 heads x 32 channels it takes 1 KB a pixel, so a
 // block could hold ~227 pixels, and no union at level 2 is that narrow at
 // any chunk of 8-256 queries (the heads' offsets alone span ~9 image
@@ -67,14 +67,13 @@ __global__ void __launch_bounds__(kThreads, 3) dfa3d_win_bwd_kernel(
     float* __restrict__ d_depth,     // (N, H, W, D), zeroed by the caller, or null
     float* __restrict__ d_locs,      // (N, K, heads, P, 3) or null
     float* __restrict__ d_attn,      // (N, K, heads, P) or null
-    int h, int w, int heads, int dsize, int k, int p, int qc, int wwin, bool view_major) {
+    int h, int w, int heads, int dsize, int k, int p, int qc, int wwin) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int2 s_warp[kThreads / 32];
   float* s_dd = reinterpret_cast<float*>(smem);  // [wwin][D] d_depth sums
   constexpr int HPW = 32 / (kC / 8);             // heads per warp
   const int hgroups = (heads + HPW - 1) / HPW;
-  const int chunk = view_major ? blockIdx.y : blockIdx.x;
-  const int cam = view_major ? blockIdx.x : blockIdx.y;
+  const int chunk = blockIdx.x, cam = blockIdx.y;
   const int count = counts == nullptr ? k : counts[cam];
   const int q0 = chunk * qc, q1 = min(k, q0 + qc);
   const int nqc = max(0, min(q1, count) - q0);  // counted queries of the chunk
@@ -116,7 +115,7 @@ template <typename VT, typename DT, bool SAMPLE_GRADS, bool DOT>
 int launch(const void* value, const void* depth, const float* locs,
            const float* attn, const int* counts, const void* g, float* d_value,
            float* d_depth, float* d_locs, float* d_attn, int n, int h, int w,
-           int heads, int dsize, int k, int p, int qc, int wwin, bool view_major,
+           int heads, int dsize, int k, int p, int qc, int wwin,
            cudaStream_t stream) {
   const size_t smem = bwd_smem(dsize, wwin, d_depth != nullptr);
   auto kernel = dfa3d_win_bwd_kernel<VT, DT, SAMPLE_GRADS, DOT>;
@@ -124,11 +123,11 @@ int launch(const void* value, const void* depth, const float* locs,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nchunk = (k + qc - 1) / qc;
-  const dim3 grid(view_major ? n : nchunk, view_major ? nchunk : n);
+  const dim3 grid(nchunk, n);  // a view's chunks after one another
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
       counts, static_cast<const VT*>(g), d_value, d_depth, d_locs, d_attn,
-      h, w, heads, dsize, k, p, qc, wwin, view_major);
+      h, w, heads, dsize, k, p, qc, wwin);
   return (int)cudaGetLastError();
 }
 
@@ -137,8 +136,7 @@ int launch(const void* value, const void* depth, const float* locs,
 // value (N, H, W, heads*32) of type vdtype, depth (N, H, W, dsize) of type
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
 // (N,) int32 or null, g (N, K, heads*32) of type vdtype, chunks of qc
-// queries, windows of at most wwin pixels, blocks a view's chunks after one
-// another (or, view_major, a chunk's views) -> d_value (f32, zeroed by the
+// queries, windows of at most wwin pixels -> d_value (f32, zeroed by the
 // caller, 16-byte aligned), d_depth (likewise, or null: not computed) and,
 // where both pointers are non-null, d_locs and d_attn (f32, every element
 // written).
@@ -148,8 +146,7 @@ extern "C" int sgc_dfa3d_win_bwd(int vdtype, int ddtype, const void* value,
                                  const void* g, float* d_value,
                                  float* d_depth, float* d_locs, float* d_attn,
                                  int n, int h, int w, int heads, int dsize,
-                                 int k, int p, int qc, int wwin, int view_major,
-                                 void* stream) {
+                                 int k, int p, int qc, int wwin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
   if ((d_locs == nullptr) != (d_attn == nullptr) || qc <= 0 || wwin < 0)
@@ -158,10 +155,10 @@ extern "C" int sgc_dfa3d_win_bwd(int vdtype, int ddtype, const void* value,
     using VT = decltype(v);
     using DT = decltype(d);
     if (d_locs != nullptr)
-      return launch<VT, DT, true, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, view_major, s);
+      return launch<VT, DT, true, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
     if (d_depth != nullptr)
-      return launch<VT, DT, false, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, view_major, s);
-    return launch<VT, DT, false, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, view_major, s);
+      return launch<VT, DT, false, true>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
+    return launch<VT, DT, false, false>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, qc, wwin, s);
   });
 }
 

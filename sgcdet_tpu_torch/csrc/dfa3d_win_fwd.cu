@@ -38,10 +38,9 @@
 // of the block).  Measured choices (H100 80GB HBM3, PERF.md): chunks of 16
 // (32 and 8 ran 2 and 12 % slower); one point a round (PG = 1: no spill,
 // where K3's two spilled 16 bytes and ran 16 % slower); three blocks an SM;
-// blocks a view's chunks after one another.  A chunk's views after one
-// another (view_major, a measurement's option) ran the sorted level 2 5 %
-// faster but random locations 11 % slower: forty views' value maps at once
-// exceed the L2.  The value rows are not staged: at level 2 a chunk-head
+// blocks a view's chunks after one another (a chunk's views after one
+// another ran the sorted level 2 5 % faster but random locations 11 %
+// slower: forty views' value maps at once exceed the L2).  The value rows are not staged: at level 2 a chunk-head
 // reads about 1.8 value rows per pixel of its band, so staging them would
 // move as many bytes as the gathers they replace.
 //
@@ -154,13 +153,12 @@ __global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
     const float* __restrict__ attn,  // (N, K, heads, P)
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
     VT* __restrict__ out,            // (N, K, heads*c)
-    int h, int w, int heads, int dsize, int k, int p, int qc, int wwin, bool view_major) {
+    int h, int w, int heads, int dsize, int k, int p, int qc, int wwin) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int2 s_warp[kMhThreads / 32];
   constexpr int HPW = 32 / (C / 8);  // heads per warp
   const int hgroups = (heads + HPW - 1) / HPW;
-  const int chunk = view_major ? blockIdx.y : blockIdx.x;
-  const int cam = view_major ? blockIdx.x : blockIdx.y;
+  const int chunk = blockIdx.x, cam = blockIdx.y;
   const int count = counts == nullptr ? k : counts[cam];
   const int q0 = chunk * qc, q1 = min(k, q0 + qc);
   const int nqc = max(0, min(q1, count) - q0);  // counted queries of the chunk
@@ -219,17 +217,17 @@ template <typename VT, typename DT, int C>
 int launch_mh(const void* value, const void* depth, const float* locs,
               const float* attn, const int* counts, void* out, int n, int h,
               int w, int heads, int dsize, int k, int p, int qc, int wwin,
-              bool view_major, cudaStream_t stream) {
+              cudaStream_t stream) {
   const size_t smem = mh_smem(dsize, wwin);
   auto kernel = dfa3d_win_fwd_mh_kernel<VT, DT, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int nchunk = (k + qc - 1) / qc;
-  const dim3 grid(view_major ? n : nchunk, view_major ? nchunk : n);
+  const dim3 grid(nchunk, n);  // a view's chunks after one another
   kernel<<<grid, kMhThreads, smem, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
-      counts, static_cast<VT*>(out), h, w, heads, dsize, k, p, qc, wwin, view_major);
+      counts, static_cast<VT*>(out), h, w, heads, dsize, k, p, qc, wwin);
   return (int)cudaGetLastError();
 }
 
@@ -239,15 +237,13 @@ int launch_mh(const void* value, const void* depth, const float* locs,
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
 // (N,) int32 or null -> out (N, K, heads*c) of type vdtype.  heads = P = 1
 // (stage 1) takes c a multiple of 32, multi-head c = 32 or 256; chunks of
-// qc queries; windows of at most wwin pixels; multi-head blocks launched
-// a chunk's views after one another (view_major) or, as the wrappers do, a
-// view's chunks.
+// qc queries; windows of at most wwin pixels.
 extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
                                  const void* depth, const float* locs,
                                  const float* attn, const int* counts,
                                  void* out, int n, int h, int w, int heads,
                                  int c, int dsize, int k, int p, int qc,
-                                 int wwin, int view_major, void* stream) {
+                                 int wwin, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
   if (qc <= 0 || wwin < 0) return (int)cudaErrorInvalidValue;
@@ -257,9 +253,9 @@ extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
     if (heads == 1 && p == 1)
       return launch_s1<VT, DT>(value, depth, locs, attn, counts, out, n, h, w, heads, c, dsize, k, p, qc, wwin, s);
     if (c == 32)
-      return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, view_major, s);
+      return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
     if (c == 256)
-      return launch_mh<VT, DT, 256>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, view_major, s);
+      return launch_mh<VT, DT, 256>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
     return (int)cudaErrorInvalidValue;
   });
 }

@@ -83,14 +83,14 @@ SMEM_MH = 56 * 1024
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # sgc_dfa3d_win_fwd(vdtype, ddtype, value, depth, locs, attn, counts, out,
-#                   n, h, w, heads, c, dsize, k, p, qc, wwin, view_major, stream)
-_FWD_ARGS = [_I, _I] + [_P] * 6 + [_I] * 11
+#                   n, h, w, heads, c, dsize, k, p, qc, wwin, stream)
+_FWD_ARGS = [_I, _I] + [_P] * 6 + [_I] * 10
 DFA3D_WIN_FWD_S1 = Kernel("sgc_dfa3d_win_fwd", _FWD_ARGS)  # stage 1 launches
 DFA3D_WIN_FWD_MH = Kernel("sgc_dfa3d_win_fwd", _FWD_ARGS)  # multi-head launches
 # sgc_dfa3d_win_bwd(vdtype, ddtype, value, depth, locs, attn, counts, g,
 #                   d_value, d_depth, d_locs, d_attn,
-#                   n, h, w, heads, dsize, k, p, qc, wwin, view_major, stream)
-_BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 10
+#                   n, h, w, heads, dsize, k, p, qc, wwin, stream)
+_BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 9
 DFA3D_WIN_BWD_MH = Kernel("sgc_dfa3d_win_bwd", _BWD_ARGS)
 
 
@@ -138,17 +138,19 @@ def _is_stage1(locs):
     return locs.shape[2] == 1 and locs.shape[3] == 1
 
 
+def _chunk(stage1, backward):
+    """The queries of a windowed kernel's chunk."""
+    return QC_S1 if stage1 else QC_BWD if backward else QC_FWD
+
+
 def kernel_plan(value_img, dpt_img, locs, valid_counts, backward=False,
-                depth_grad=True, qc=None, wwin=None):
+                depth_grad=True):
     """The windows a windowed kernel finds on these operands (each block
-    computes its own), for the plain version and for reports; ``qc`` and
-    ``wwin`` default to the kernels'."""
+    computes its own), for the plain version and for reports."""
     h, w = value_img.shape[1:3]
     stage1 = _is_stage1(locs)
-    if wwin is None:
-        wwin = window_length(value_img, dpt_img, stage1, backward, depth_grad)
-    if qc is None:
-        qc = QC_S1 if stage1 else QC_BWD if backward else QC_FWD
+    wwin = window_length(value_img, dpt_img, stage1, backward, depth_grad)
+    qc = _chunk(stage1, backward)
     return plan_windows(locs, counts=valid_counts, h=h, w=w, wwin=wwin, qc=qc)
 
 
@@ -224,14 +226,11 @@ def dfa3d_windowed_bwd_plain(value_img, dpt_img, locs, attn, g, num_heads,
 
 
 def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
-                       valid_counts=None, qc=None, wwin=None, view_major=False):
+                       valid_counts=None):
     """The windowed forward kernel on CUDA tensors; same contract as the
-    plain version, whose windows are the kernels' own (``kernel_plan``;
-    a measurement may ask for other chunks ``qc``, window lengths ``wwin``
-    and the multi-head blocks in ``view_major`` order: a chunk's views
-    after one another, where by default a view's chunks are).  heads = P
-    = 1 counts as a stage-1 launch (``dfa3d_win_fwd_s1``), anything else as
-    multi-head."""
+    plain version, whose windows are the kernels' own (``kernel_plan``).
+    heads = P = 1 counts as a stage-1 launch (``dfa3d_win_fwd_s1``),
+    anything else as multi-head."""
     value, depth, loc, att, counts, stage1, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
@@ -239,19 +238,16 @@ def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
     kernel = DFA3D_WIN_FWD_S1 if stage1 else DFA3D_WIN_FWD_MH
     kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
            value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
-           _ptr(counts), out.data_ptr(), *sizes, qc or (QC_S1 if stage1 else QC_FWD),
-           window_length(value, depth, stage1) if wwin is None else wwin,
-           int(view_major))
+           _ptr(counts), out.data_ptr(), *sizes, _chunk(stage1, False),
+           window_length(value, depth, stage1))
     return out
 
 
 def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
-                       valid_counts=None, sample_grads=True, depth_grad=True,
-                       qc=None, wwin=None, view_major=False):
+                       valid_counts=None, sample_grads=True, depth_grad=True):
     """The windowed multi-head backward kernel on CUDA tensors (c = 32 per
-    head); same contract as ``dfa3d_bwd_cuda``, and ``qc``, ``wwin``,
-    ``view_major`` as for the forward.  Every gradient is summed in f32 and
-    cast once to its input's dtype."""
+    head); same contract as ``dfa3d_bwd_cuda``.  Every gradient is summed
+    in f32 and cast once to its input's dtype."""
     value, depth, loc, att, counts, _, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, h, w, heads, c, dsize, k, p = sizes
@@ -260,8 +256,7 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     gg = check_cuda_input(g.to(value.dtype), "g", (value.dtype,), 3, value.device)
     if gg.shape != (n, k, heads * c):
         raise ValueError(f"g {tuple(gg.shape)} must be {(n, k, heads * c)}")
-    if wwin is None:
-        wwin = window_length(value, depth, False, True, depth_grad)
+    wwin = window_length(value, depth, False, True, depth_grad)
     f32 = dict(dtype=torch.float32, device=value.device)
     d_value = zeros_f32(value.shape, value.device)
     d_depth = zeros_f32(depth.shape, value.device) if depth_grad else None
@@ -271,8 +266,7 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
                      value.data_ptr(), depth.data_ptr(), loc.data_ptr(),
                      att.data_ptr(), _ptr(counts), gg.data_ptr(),
                      d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs),
-                     _ptr(d_attn), n, h, w, heads, dsize, k, p, qc or QC_BWD, wwin,
-                     int(view_major))
+                     _ptr(d_attn), n, h, w, heads, dsize, k, p, QC_BWD, wwin)
     return tuple(None if grad is None else grad.to(inp.dtype) for grad, inp in
                  zip((d_value, d_depth, d_locs, d_attn),
                      (value_img, dpt_img, locs, attn)))

@@ -38,11 +38,8 @@ from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
 from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
 from sgcdet_tpu_torch.ops.dfa3d import (dfa3d_attention_plain, dfa3d_bwd_cuda,
                                         dfa3d_bwd_plain, dfa3d_fwd_cuda)
-from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, QC_S1,
+from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, QC_S1, WIN_CAP,
                                                  dfa3d_attention_windowed,
-                                                 dfa3d_win_bwd_cuda, dfa3d_win_fwd_cuda,
-                                                 dfa3d_windowed_bwd_plain,
-                                                 dfa3d_windowed_plain, kernel_plan,
                                                  kernel_resources, plan_windows,
                                                  window_bytes, window_length)
 from sgcdet_tpu_torch.ops.sweep import (plane_sweep_correlation, sweep_bwd_cuda,
@@ -406,39 +403,43 @@ GRAD_IDS = ["all", "value_depth", "no_depth", "value_only"]
 # of a chunk on one pixel centre, a view counted to 0; "misaligned":
 # coherent operands that are views breaking 16-byte alignment
 WINDOW_CASES = ["coherent", "random", "cap", "one_pixel", "misaligned"]
-# (heads, points, c): stage 1, stage 2 and its partial head groups
-WINDOW_SHAPES = [(1, 1, 256), (8, 4, 32), (1, 4, 32), (2, 4, 32), (6, 4, 32), (8, 3, 32)]
+# (heads, points, c): stage 1, stage 2 and its partial head groups (the
+# backward's shapes), and the multi-head forward at c = 256
+WINDOW_SHAPES = [(8, 4, 32), (1, 4, 32), (2, 4, 32), (6, 4, 32), (8, 3, 32)]
 WINDOW_FWD = ([pytest.param(*shape, case, id=f"{sid}-{case}") for shape, sid in
-               zip(WINDOW_SHAPES, ["stage1", "stage2", "stage2_h1", "stage2_h2",
-                                   "stage2_h6", "stage2_p3"])
+               zip([(1, 1, 256)] + WINDOW_SHAPES + [(2, 4, 256)],
+                   ["stage1", "stage2", "stage2_h1", "stage2_h2", "stage2_h6",
+                    "stage2_p3", "c256_h2"])
                for case in (WINDOW_CASES if shape == (8, 4, 32) else WINDOW_CASES[:2])])
 WINDOW_BWD = ([pytest.param(*shape[:2], case, id=case if shape == (8, 4, 32) else
                             f"h{shape[0]}p{shape[1]}-{case}")
-               for shape in WINDOW_SHAPES[1:]
+               for shape in WINDOW_SHAPES
                for case in (WINDOW_CASES if shape == (8, 4, 32) else WINDOW_CASES[:2])])
 
 
 def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=False):
-    """Operands, counts and the window length to launch with (None: the
-    kernels' own), at the chunks of the forward or the backward.  A (4, 30, 40) map ((4, 32, 64) for "cap" and
-    "one_pixel", whose pixel centres are exact in f32), 600 queries, 12
-    depth bins; counts 0, 200, 599 and 600."""
-    coherent = case in ("coherent", "misaligned")
-    h, w = (30, 40) if case in ("coherent", "random", "misaligned") else (32, 64)
+    """Operands and counts at the chunks of the forward or the backward.  A
+    (4, 30, 40) map ((4, 32, 64) for "cap" and "one_pixel", whose pixel
+    centres are exact in f32, and for "random", whose chunks then span
+    more than the kernels' window), 600 queries, 12 depth bins; counts 0,
+    200, 599 and 600."""
+    h, w = (30, 40) if case in ("coherent", "misaligned") else (32, 64)
     value, dpt, locs, attn = windowed_inputs(4, h, w, 600, heads, c, p, 12,
                                              case != "random")
-    wwin, qc = None, (QC_S1 if heads == p == 1 else QC_BWD if backward else QC_FWD)
+    stage1 = heads == p == 1
+    qc = QC_S1 if stage1 else QC_BWD if backward else QC_FWD
+    wwin = window_length(value, dpt, stage1, backward)
     if case == "cap":
         # every sample a quarter pixel past the centre of pixel (1, 1): its
-        # box is pixels [1, 2] x [1, 2]; one sample of chunk 0 at (5, 10)
-        # and one of chunk 1 at (5, 11) stretch their unions to
-        # 5 * w + 11 and 5 * w + 12 pixels
+        # box is pixels [1, 2] x [1, 2], its lowest pixel w + 1; one sample
+        # of chunk 0 and one of chunk 1 whose boxes end at pixels w + wwin
+        # and w + wwin + 1 stretch their unions to wwin and wwin + 1 pixels
         def at(y, x):
             return torch.tensor([(x + 0.75) / w, (y + 0.75) / h])
         locs[..., :2] = at(1, 1)
-        locs[:, 0, 0, 0, :2] = at(5, 10)
-        locs[:, qc, 0, 0, :2] = at(5, 11)
-        wwin = 5 * w + 11
+        for chunk in (0, 1):
+            yhi, xhi = divmod(w + wwin + chunk, w)
+            locs[:, chunk * qc, 0, 0, :2] = at(yhi - 1, xhi - 1)
     elif case == "one_pixel":
         q = torch.arange(600) // qc  # chunk of each query
         locs[..., 0] = (((3 * q) % w + 0.5) / w)[None, :, None, None]
@@ -448,38 +449,28 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
     if case == "misaligned":
         args[0], args[1] = _misaligned(args[0]), _misaligned(args[1])
     counts = torch.tensor([0, 200, 599, 600], dtype=torch.int32, device=cuda_device)
-    plan = plan_windows(args[2], counts, h, w, wwin or 512, qc)
+    plan = plan_windows(args[2], counts, h, w, wwin, qc)
     live = plan.span > 0
     share = float((plan.ok & live).sum() / live.sum())
     if case == "cap":
+        assert wwin == WIN_CAP
         assert plan.span[1:, 0].eq(wwin).all() and plan.span[1:, 1].eq(wwin + 1).all()
     else:
         assert share < 0.1 if case == "random" else share > 0.9
-    return args, counts, wwin
-
-
-def _windowed_fwd(args, heads, counts, wwin):
-    """(kernel, plain) outputs of the windowed forward: through the op (and
-    plain_ops) at the kernels' own windows, through the wrappers with the
-    plan of a given window length."""
-    if wwin is None:
-        got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
-        with plain_ops():
-            return got, dfa3d_attention_windowed(*args, heads, valid_counts=counts)
-    got = dfa3d_win_fwd_cuda(*args, heads, counts, wwin=wwin)
-    plan = kernel_plan(*args[:3], counts, wwin=wwin)
-    return got, dfa3d_windowed_plain(*args, heads, counts, plan=plan)
+    return args, counts
 
 
 @pytest.mark.parametrize("heads,p,c,case", WINDOW_FWD)
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
 def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vdtype,
                                                     ddtype, case):
-    args, counts, wwin = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case)
+    args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case)
     name = "dfa3d_win_fwd_s1" if heads == p == 1 else "dfa3d_win_fwd_mh"
     before = KERNELS[name].launches
-    got, expected = _windowed_fwd(args, heads, counts, wwin)
+    got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
     assert KERNELS[name].launches == before + 1
+    with plain_ops():
+        expected = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
     template = dfa3d_fwd_cuda(*args, heads, counts)
     torch.cuda.synchronize()
     assert got.dtype == vdtype
@@ -496,33 +487,23 @@ def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vd
 def test_windowed_backward_kernel_matches_plain_and_template(
         cuda_device, heads, p, case, vdtype, ddtype, sample_grads, depth_grad):
     c = 32
-    args, counts, wwin = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case,
-                                        backward=True)
+    args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case,
+                                  backward=True)
     g = torch.randn((4, 600, heads * c), device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(0)).to(vdtype)
     if case == "misaligned":
         g = _misaligned(g)
     wants = (True, depth_grad, sample_grads, sample_grads)
     before = KERNELS["dfa3d_win_bwd_mh"].launches
-    if wwin is None:
-        for a, want in zip(args, wants):
-            a.requires_grad_(want)
-        out = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
-        assert graph_has(out, "_DFA3DWindowedBackward")
-        got = _grads(out, args, g)
-        assert KERNELS["dfa3d_win_bwd_mh"].launches == before + 1
-        with plain_ops():
-            expected = _grads(dfa3d_attention_windowed(*args, heads, valid_counts=counts),
-                              args, g)
-    else:
-        kw = dict(sample_grads=sample_grads, depth_grad=depth_grad)
-        got = [t for t in dfa3d_win_bwd_cuda(*args, g, heads, counts, wwin=wwin, **kw)
-               if t is not None]
-        assert KERNELS["dfa3d_win_bwd_mh"].launches == before + 1
-        plan = kernel_plan(*args[:3], counts, backward=True, depth_grad=depth_grad,
-                           wwin=wwin)
-        expected = [t for t in dfa3d_windowed_bwd_plain(*args, g, heads, counts, plan=plan,
-                                                         **kw) if t is not None]
+    for a, want in zip(args, wants):
+        a.requires_grad_(want)
+    out = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+    assert graph_has(out, "_DFA3DWindowedBackward")
+    got = _grads(out, args, g)
+    assert KERNELS["dfa3d_win_bwd_mh"].launches == before + 1
+    with plain_ops():
+        expected = _grads(dfa3d_attention_windowed(*args, heads, valid_counts=counts),
+                          args, g)
     template = dfa3d_bwd_cuda(*[a.detach() for a in args], g, heads, counts,
                               sample_grads=sample_grads, depth_grad=depth_grad)
     template = [t for t in template if t is not None]
@@ -537,23 +518,6 @@ def test_windowed_backward_kernel_matches_plain_and_template(
         for cam, cnt in enumerate(counts.tolist()):
             assert (by_name["d_locs"][cam, cnt:] == 0).all()
             assert (by_name["d_attn"][cam, cnt:] == 0).all()
-
-
-def test_windowed_kernels_in_view_major_order_match_the_default_order(cuda_device):
-    """The multi-head windowed kernels with their blocks launched a chunk's
-    views after one another (a measurement's option) compute what the
-    default order computes: the forward bit for bit, the backward up to its
-    sums' order (one bf16 ulp of the gradients it casts to bf16)."""
-    args, counts, _ = _windowed_case(cuda_device, 8, 4, 32, torch.bfloat16, torch.float32,
-                                     "coherent")
-    assert torch.equal(dfa3d_win_fwd_cuda(*args, 8, counts, view_major=True),
-                       dfa3d_win_fwd_cuda(*args, 8, counts))
-    g = torch.randn((4, 600, 256), device=cuda_device,
-                    generator=torch.Generator(cuda_device).manual_seed(0)).bfloat16()
-    for a, b in zip(dfa3d_win_bwd_cuda(*args, g, 8, counts, view_major=True),
-                    dfa3d_win_bwd_cuda(*args, g, 8, counts)):
-        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(), _rel(a.dtype),
-                            "view-major backward")
 
 
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
@@ -579,8 +543,8 @@ def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype
 def test_windowed_stage1_backward_is_k6(cuda_device):
     """The sorted path's stage-1 backward is the template's K6, as on the
     TPU, whose windowed stage 1 has no backward."""
-    args, counts, _ = _windowed_case(cuda_device, 1, 1, 256, torch.bfloat16,
-                                     torch.float32, "coherent")
+    args, counts = _windowed_case(cuda_device, 1, 1, 256, torch.bfloat16,
+                                  torch.float32, "coherent")
     args[0].requires_grad_()
     args[1].requires_grad_()
     out = dfa3d_attention_windowed(*args, 1, valid_counts=counts)
