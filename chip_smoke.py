@@ -216,9 +216,14 @@ TRAIN_STEPS = 4
 EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
               "K2' 2D": 0.1157, "K3' 2D": 1.2694, "K3 f32/f32 uncounted": 0.9651,
               "K2 f32/f32 uncounted": 0.1146,
+              # K6 (rows 7 and 15) and K6' before the stage-1 backward summed
+              # where the output lives (PR 5's template, zero-filled f32
+              # gradients cast afterwards)
+              "K6": 0.2372, "K6 f32/f32 uncounted": 0.2452, "K6' 2D": 0.2970,
               # the windowed kernels at level 2 before their redesign (PERF.md
-              # section 6, rows 16-21, as this script measured them)
-              "win s1 sorted": 0.2398, "win mh sorted": 0.3878,
+              # section 6, rows 16-21, as this script measured them; stage 1
+              # before it ran K2's warp)
+              "win s1 sorted": 0.2314, "win mh sorted": 0.3878,
               "win mh random": 0.4341, "win bwd sorted": 1.2569,
               "win bwd random": 1.2202}
 # small DFA3D stage-2 shapes whose head groups fill only part of a warp of
@@ -997,6 +1002,47 @@ def _sweep_contention_cases(torch, dev, gen, n, h, w, d):
     return out
 
 
+def s1_lists(locs, counts, h, w):
+    """What the stage-1 backward's lists hold for one call: its entries
+    (the in-image corners of the counted samples, each on one pixel), the
+    pixels they fall on, the longest list and the lists longer than the
+    pixel pass takes (32 entries: the long pass's)."""
+    import torch
+
+    n, k = locs.shape[:2]
+    x = (locs[..., 0] * w - 0.5).nan_to_num(nan=-4.0).clamp(-4, w + 4).floor().long()
+    y = (locs[..., 1] * h - 0.5).nan_to_num(nan=-4.0).clamp(-4, h + 4).floor().long()
+    live = torch.ones(x.shape, dtype=torch.bool, device=locs.device)
+    if counts is not None:
+        q = torch.arange(k, device=locs.device)
+        live = (q[None, :] < counts[:, None]).view(n, k, 1, 1).expand(x.shape)
+    cam = torch.arange(n, device=locs.device).view(n, 1, 1, 1).expand(x.shape)
+    pix = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            ok = live & (x + dx >= 0) & (x + dx < w) & (y + dy >= 0) & (y + dy < h)
+            pix.append(((cam * h + y + dy) * w + x + dx)[ok])
+    per_pixel = torch.cat(pix).unique(return_counts=True)[1]
+    return (f"{int(per_pixel.sum())} entries on {per_pixel.numel()} pixels, longest "
+            f"list {int(per_pixel.max()) if per_pixel.numel() else 0}, "
+            f"{int((per_pixel > 32).sum())} lists longer than 32")
+
+
+def earlier_wrapper_ops(torch, value, depth, depth_grad):
+    """Warm times (ms, CUDA events) of the torch ops that K6's wrapper ran
+    around its kernel before the stage-1 backward wrote its outputs itself,
+    at these operands' shapes: the zero fills of the f32 d_value and d_depth
+    (0 without depth_grad) and d_value's cast to the value's type (0 at
+    f32)."""
+    f32 = dict(dtype=torch.float32, device=value.device)
+    d_value = torch.zeros(value.shape, **f32)
+    z_v = cuda_ms(torch, lambda: torch.zeros(value.shape, **f32))
+    z_d = cuda_ms(torch, lambda: torch.zeros(depth.shape, **f32)) if depth_grad else 0.0
+    cast = (cuda_ms(torch, lambda: d_value.to(value.dtype))
+            if value.dtype != torch.float32 else 0.0)
+    return z_v, z_d, cast
+
+
 def phase_backward(torch, dev, report):
     from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_bwd_plain
     from sgcdet_tpu_torch.ops.sweep import sweep_bwd_cuda, sweep_bwd_plain
@@ -1024,7 +1070,7 @@ def phase_backward(torch, dev, report):
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
 
     def dfa3d(name, kernel_name, args, sample_grads=True, extra=None, time=None,
-              depth_grad=True, run_library=None):
+              depth_grad=True, run_library=None, earlier=None):
         """args: (value, depth, locs, attn, g, heads, counts); time: None,
         "log" or "main", as in phase 3."""
         kw = dict(sample_grads=sample_grads, depth_grad=depth_grad)
@@ -1042,11 +1088,19 @@ def phase_backward(torch, dev, report):
             ms = _timing(torch, report, name, kernel_name, run_k, run_p,
                          lambda outs: dfa3d_work(args[:5], outs, args[6], True,
                                                  dot=sample_grads or depth_grad),
-                         run_library, main=time == "main")
+                         run_library, main=time == "main", earlier=earlier)
             value, depth, locs = args[:3]
-            log_atomics(name, ms, *dfa3d_atomics(
-                locs, args[6], value.shape[1], value.shape[2], depth.shape[-1],
-                value.shape[-1] // args[5], depth_grad))
+            h, w = value.shape[1:3]
+            if locs.shape[2] == locs.shape[3] == 1:  # K6, K6': lists, no atomics
+                z_v, z_d, cast = earlier_wrapper_ops(torch, value, depth, depth_grad)
+                log(f"[kernels] {name}: {s1_lists(locs, args[6], h, w)}; no zero fill "
+                    f"and no cast in the call; the earlier wrapper's, alone at these "
+                    f"shapes: zeros of the f32 d_value {z_v:.4f} ms and d_depth "
+                    f"{z_d:.4f} ms, d_value cast to {str(value.dtype)[6:]} {cast:.4f} ms")
+            else:
+                log_atomics(name, ms, *dfa3d_atomics(
+                    locs, args[6], h, w, depth.shape[-1], value.shape[-1] // args[5],
+                    depth_grad))
 
     for name, src, ref, xe, ye in _sweep_cases(torch, dev, cfg, scene, gen):
         g = torch.randn(xe.shape, device=dev, generator=gen)
@@ -1094,7 +1148,7 @@ def phase_backward(torch, dev, report):
             # stage 1 as the model runs it: no location/attention grads
             timed = level == 2 and ("main" if vdt == torch.bfloat16 else "log")
             dfa3d(f"stage1 bwd {tag} {shape} counted", "dfa3d_bwd_s1", s1, False,
-                  time=timed)
+                  time=timed, earlier="K6" if timed == "main" else None)
             vp = torch.randn((N_VIEWS, x["h"], x["w"], value.shape[-1]),
                              device=dev, generator=gen).to(vdt)
             locs2 = _edge_locs(x["locs2"], x["w"], x["h"])
@@ -1131,11 +1185,29 @@ def phase_backward(torch, dev, report):
                           "dfa3d_bwd_mh" if dpt.dtype == torch.float32 else "dfa3d_bwd_mh_bd",
                           (vp, dpt, one, x["attn2"], g1, x["heads"], c0),
                           extra=_zeros_past_count(torch, c0, rows=2))
+                # stage 1's long lists: every query of a view on one pixel
+                # centre (each view its own), all of them counted but in
+                # view 0, which is counted to 0: four lists of K' entries
+                # a view
+                pv = torch.arange(N_VIEWS, device=dev)
+                one1 = locs1.clone()
+                one1[..., 0] = ((cx[pv % cx.numel()] + 0.5) / x["w"])[:, None, None, None]
+                one1[..., 1] = ((cy[pv % cy.numel()] + 0.5) / x["h"])[:, None, None, None]
+                call = torch.full_like(counts, x["kb"])
+                call[0] = 0
+                for dpt in ddt:
+                    dtag = tag if dpt.dtype == torch.float32 else "bf16/bf16"
+                    s1_long = (value, dpt, one1, x["attn1"], g1, 1, call)
+                    k6 = "dfa3d_bwd_s1" if dpt.dtype == torch.float32 else "dfa3d_bwd_s1_bd"
+                    name1 = (f"stage1 bwd {dtag} {shape} every query of a view on one "
+                             f"pixel centre, view 0 counted to 0")
+                    dfa3d(name1, k6, s1_long, True, _zeros_past_count(torch, call, rows=2))
+                    dfa3d(name1, k6, s1_long, False, time="log")
             if level == 2 and vdt == torch.float32:
                 # the v1 (_bwd_kernel) and v3 (_bwd_kernel_q / _q_s1) rows:
                 # uncounted f32
                 dfa3d(f"stage1 bwd {tag} {shape} uncounted (v3 q_s1)", "dfa3d_bwd_s1",
-                      s1[:6] + (None,), time="log")
+                      s1[:6] + (None,), time="log", earlier="K6 f32/f32 uncounted")
                 dfa3d(f"stage2 bwd {tag} {shape} uncounted (v1, v3 q)",
                       "dfa3d_bwd_mh", s2[:6] + (None,), time="log")
             if level == 2 and vdt == torch.bfloat16:
@@ -1175,7 +1247,8 @@ def phase_backward(torch, dev, report):
         grid = stage1_grid(locs1, torch.bfloat16)
         library = (lambda: grid_sample_stage1_bwd(torch, g, s1[0], grid)) if last else None
         dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_bd", s1, False,
-              time=last and "main", depth_grad=False, run_library=library)
+              time=last and "main", depth_grad=False, run_library=library,
+              earlier="K6' 2D" if last else None)
         dfa3d(f"2D stage2 bwd bf16/bf16 {shape}", "dfa3d_bwd_mh_bd", s2,
               time=last and "main", depth_grad=False)
         if last:
@@ -1626,19 +1699,22 @@ def ptxas_resources(log):
     return found
 
 
-# ptxas names of the bf16/f32 instances of K3, K5 (every gradient) and the
-# windowed kernels
-PTXAS_KERNELS = {"K3": "dfa3d_fwd_kernelI13__nv_bfloat16fLi32ELi2E",
+# ptxas names of the bf16/f32 instances of K2, K3, K5 (every gradient), K6's
+# pixel pass (as the model runs it) and the windowed kernels
+PTXAS_KERNELS = {"K2": "dfa3d_fwd_one_point_kernelI13__nv_bfloat16fLi8EE",
+                 "K3": "dfa3d_fwd_kernelI13__nv_bfloat16fLi32ELi2E",
                  "K5": "dfa3d_bwd_kernelI13__nv_bfloat16fLi32ELb1ELb1E",
-                 "dfa3d_win_fwd_s1": "dfa3d_win_fwd_s1_kernelI13__nv_bfloat16fE",
+                 "K6 pixel pass": "s1_pixels_kernelI13__nv_bfloat16fLi256ELb0ELb1EE",
+                 "K6 long pass": "s1_long_kernelI13__nv_bfloat16fLi256ELb0ELb1EE",
+                 "dfa3d_win_fwd_s1": "dfa3d_win_fwd_s1_kernelI13__nv_bfloat16fLi8EE",
                  "dfa3d_win_fwd_mh": "dfa3d_win_fwd_mh_kernelI13__nv_bfloat16fLi32E",
                  "dfa3d_win_bwd_mh": "dfa3d_win_bwd_kernelI13__nv_bfloat16fLb1ELb1E"}
 
 
 def log_resources(torch, x):
     """Each windowed kernel's resources at level 2 (CUDA runtime), and
-    ptxas's registers and spills of its bf16/f32 instance beside K3's and
-    K5's."""
+    ptxas's registers and spills of its bf16/f32 instance beside K2's, K3's,
+    K5's and K6's."""
     from sgcdet_tpu_torch.ops import LIBRARY
     from sgcdet_tpu_torch.ops.dfa3d_windowed import kernel_resources, window_length
 
@@ -1799,6 +1875,12 @@ def phase_windowed(torch, dev, report):
             if model_pair:
                 spans(f"stage1 {shape}", s1, (QC_S1,))
                 spans(f"stage2 {shape}", s2, (QC_BWD, QC_FWD))
+                nchunk = -(-x["kb"] // QC_S1)
+                past = int((torch.arange(nchunk, device=dev)[None, :] * QC_S1
+                            >= counts[:, None]).sum())
+                log(f"[windowed] stage1 {shape}: {past} of {N_VIEWS * nchunk} chunks of "
+                    f"{QC_S1} queries ({past / (N_VIEWS * nchunk):.4f}) hold no counted "
+                    f"query")
             fwd(f"stage1 {tag} {shape} sorted", "dfa3d_win_fwd_s1", s1, model_pair, main,
                 "win s1 sorted" if main else None)
             fwd(f"stage2 {tag} {shape} sorted", "dfa3d_win_fwd_mh", s2, model_pair, main,

@@ -52,97 +52,57 @@
 
 namespace {
 
-constexpr int kSlice = 32;  // stage 1: value channels per block, one per lane
-constexpr int kS1Threads = 512;
+constexpr int kS1Threads = 256;
 constexpr int kMhThreads = 256;
 
-template <typename VT, typename DT>
+// Zero n elements of T at p (16-byte aligned, n * sizeof(T) a multiple of
+// 16) in 16-byte stores, the block's threads side by side.
+template <typename T>
+__device__ __forceinline__ void zero_rows(T* p, long long n) {
+  uint4* p4 = reinterpret_cast<uint4*>(p);
+  const long long n4 = n * (long long)sizeof(T) / 16;
+  for (long long i = threadIdx.x; i < n4; i += blockDim.x) p4[i] = make_uint4(0, 0, 0, 0);
+}
+
+template <typename VT, typename DT, int VEC>
 __global__ void __launch_bounds__(kS1Threads) dfa3d_win_fwd_s1_kernel(
-    const VT* __restrict__ value,    // (N, H, W, heads*c)
+    const VT* __restrict__ value,    // (N, H, W, c), c = 32 * VEC
     const DT* __restrict__ depth,    // (N, H, W, D)
-    const float* __restrict__ locs,  // (N, K, heads, P, 3) normalized (u, v, d)
-    const float* __restrict__ attn,  // (N, K, heads, P)
+    const float* __restrict__ locs,  // (N, K, 1, 1, 3) normalized (u, v, d)
+    const float* __restrict__ attn,  // (N, K, 1, 1)
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
-    VT* __restrict__ out,            // (N, K, heads*c)
-    int h, int w, int heads, int c, int dsize, int k, int p, int qc, int wwin) {
+    VT* __restrict__ out,            // (N, K, c)
+    int h, int w, int dsize, int k, int qc, int wwin) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int2 s_warp[kS1Threads / 32];
-  VT* s_val = reinterpret_cast<VT*>(smem);  // [wwin][kSlice]
-  float* s_dpt = reinterpret_cast<float*>(smem + (size_t)wwin * kSlice * sizeof(VT));
-  const int slice = blockIdx.x, chunk = blockIdx.y, cam = blockIdx.z;
-  const int head = slice * kSlice / c;
-  const int cfull = heads * c;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int C = 32 * VEC;
+  const int chunk = blockIdx.x, cam = blockIdx.y;
   const int count = counts == nullptr ? k : counts[cam];
   const int q0 = chunk * qc, q1 = min(k, q0 + qc);
-  const int2 box = sgc::union_window<kS1Threads>(
-      locs + ((long long)cam * k + q0) * 3, max(0, min(q1, count) - q0), h, w, s_warp);
-  const int base = box.x, span = box.y >= 0 ? box.y - box.x + 1 : 0;
-  const long long hw = (long long)h * w;
-  const VT* vmap = value + cam * hw * cfull + slice * kSlice;  // pixel stride cfull
-  const DT* dmap = depth + cam * hw * dsize;
+  const int nqc = max(0, min(q1, count) - q0);  // counted queries of the chunk
+  if (nqc == 0) {  // uniform over the block: a chunk past the count
+    zero_rows(out + ((long long)cam * k + q0) * C, (long long)(q1 - q0) * C);
+    return;
+  }
+  int2 box = make_int2(0, -1);
+  if (wwin > 0)  // uniform over the block
+    box = sgc::union_window<kS1Threads>(locs + ((long long)cam * k + q0) * 3, nqc, h, w,
+                                        s_warp);
+  const int span = box.y >= 0 ? box.y - box.x + 1 : 0;
   const bool staged = span > 0 && span <= wwin;
-
-  if (staged) {
-    constexpr int kVec = 16 / sizeof(VT);      // elements per 16-byte copy
-    constexpr int kParts = kSlice / kVec;      // copies per pixel
-    for (int i = threadIdx.x; i < span * kParts; i += kS1Threads) {
-      const int r = i / kParts, part = i - r * kParts;
-      sgc::cp_async16(s_val + r * kSlice + part * kVec,
-                      vmap + (long long)(base + r) * cfull + part * kVec);
-    }
-    const DT* dsrc = dmap + (long long)base * dsize;
-    for (int i = threadIdx.x; i < span * dsize; i += kS1Threads)
-      s_dpt[i] = sgc::to_f32(dsrc[i]);
-    sgc::cp_async_wait_all();
+  const long long hw = (long long)h * w;
+  const DT* dmap = depth + cam * hw * dsize;
+  float* s_dpt = reinterpret_cast<float*>(smem);  // [wwin][D]
+  if (staged) {  // uniform over the block
+    sgc::stage_depth(s_dpt, dmap, box.x, span, dsize);
+    __syncthreads();
   }
-  __syncthreads();
-
-  for (int q = q0 + warp; q < q1; q += kS1Threads / 32) {
-    float acc = 0.f;
-    if (q < count) {
-      const long long sid = ((long long)cam * k + q) * heads + head;
-      const float* lp = locs + sid * p * 3;
-      const float* ap = attn + sid * p;
-      for (int pt = 0; pt < p; ++pt) {
-        const float u = sgc::pixel_coord(lp[3 * pt], w);
-        const float v = sgc::pixel_coord(lp[3 * pt + 1], h);
-        const float dd = sgc::pixel_coord(lp[3 * pt + 2], dsize);
-        const float a = ap[pt];
-        const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
-        const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
-        const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
-        const float wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
-        const float wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
-        const int d0c = min(max(d0, 0), dsize - 1);
-        const int d1c = min(max(d0 + 1, 0), dsize - 1);
-#pragma unroll
-        for (int corner = 0; corner < 4; ++corner) {
-          const int dy = corner >> 1, dx = corner & 1;
-          const int yi = y0 + dy, xi = x0 + dx;
-          if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
-          const int pix = yi * w + xi;
-          const int rel = pix - base;
-          float dp0, dp1, val;
-          if (staged && rel >= 0 && rel < span) {
-            const float* dr = s_dpt + rel * dsize;
-            dp0 = dr[d0c];
-            dp1 = dr[d1c];
-            val = sgc::to_f32(s_val[rel * kSlice + lane]);
-          } else {
-            const DT* dr = dmap + (long long)pix * dsize;
-            dp0 = sgc::to_f32(dr[d0c]);
-            dp1 = sgc::to_f32(dr[d1c]);
-            val = sgc::to_f32(vmap[(long long)pix * cfull + lane]);
-          }
-          const float wgt = ((dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a)
-                            * (dp0 * wd0 + dp1 * wd1);
-          acc += wgt * val;
-        }
-      }
-    }
-    out[((long long)cam * k + q) * cfull + slice * kSlice + lane] = sgc::from_f32<VT>(acc);
-  }
+  const sgc::WindowDepth<DT> dep{{dmap, nullptr, dsize}, s_dpt, nullptr, box.x,
+                                 staged ? span : 0};
+  const VT* vmap = value + cam * hw * C;
+  for (int q = q0 + (threadIdx.x >> 5); q < q1; q += kS1Threads / 32)
+    sgc::s1_fwd_warp<VT, DT, VEC>(vmap, locs, attn, out, (long long)cam * k + q, q < count,
+                                  0, h, w, 1, dsize, dep);
 }
 
 template <typename VT, typename DT, int C>
@@ -187,29 +147,23 @@ __global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
   }
 }
 
-// Dynamic shared memory of each kernel's block (ops/dfa3d_windowed.py::
-// window_bytes computes the same).
-template <typename VT>
-size_t s1_smem(int dsize, int wwin) {
-  return (size_t)wwin * (kSlice * sizeof(VT) + dsize * sizeof(float));
-}
-size_t mh_smem(int dsize, int wwin) { return (size_t)wwin * dsize * sizeof(float); }
+// Dynamic shared memory of each kernel's block: the window's depth bins in
+// f32 (ops/dfa3d_windowed.py::window_bytes computes the same).
+size_t window_smem(int dsize, int wwin) { return (size_t)wwin * dsize * sizeof(float); }
 
-template <typename VT, typename DT>
+template <typename VT, typename DT, int VEC>
 int launch_s1(const void* value, const void* depth, const float* locs,
               const float* attn, const int* counts, void* out, int n, int h,
-              int w, int heads, int c, int dsize, int k, int p, int qc, int wwin,
-              cudaStream_t stream) {
-  if (c % kSlice != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = s1_smem<VT>(dsize, wwin);
-  auto kernel = dfa3d_win_fwd_s1_kernel<VT, DT>;
+              int w, int dsize, int k, int qc, int wwin, cudaStream_t stream) {
+  const size_t smem = window_smem(dsize, wwin);
+  auto kernel = dfa3d_win_fwd_s1_kernel<VT, DT, VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(heads * c / kSlice, (k + qc - 1) / qc, n);
+  const dim3 grid((k + qc - 1) / qc, n);  // a view's chunks after one another
   kernel<<<grid, kS1Threads, smem, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
-      counts, static_cast<VT*>(out), h, w, heads, c, dsize, k, p, qc, wwin);
+      counts, static_cast<VT*>(out), h, w, dsize, k, qc, wwin);
   return (int)cudaGetLastError();
 }
 
@@ -218,7 +172,7 @@ int launch_mh(const void* value, const void* depth, const float* locs,
               const float* attn, const int* counts, void* out, int n, int h,
               int w, int heads, int dsize, int k, int p, int qc, int wwin,
               cudaStream_t stream) {
-  const size_t smem = mh_smem(dsize, wwin);
+  const size_t smem = window_smem(dsize, wwin);
   auto kernel = dfa3d_win_fwd_mh_kernel<VT, DT, C>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -250,8 +204,10 @@ extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
   return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
     using VT = decltype(v);
     using DT = decltype(d);
-    if (heads == 1 && p == 1)
-      return launch_s1<VT, DT>(value, depth, locs, attn, counts, out, n, h, w, heads, c, dsize, k, p, qc, wwin, s);
+    if (heads == 1 && p == 1 && c == 32)
+      return launch_s1<VT, DT, 1>(value, depth, locs, attn, counts, out, n, h, w, dsize, k, qc, wwin, s);
+    if (heads == 1 && p == 1 && c == 256)
+      return launch_s1<VT, DT, 8>(value, depth, locs, attn, counts, out, n, h, w, dsize, k, qc, wwin, s);
     if (c == 32)
       return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
     if (c == 256)
@@ -268,15 +224,15 @@ extern "C" int sgc_dfa3d_win_fwd_attributes(int vdtype, int ddtype, int stage1,
   return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
     using VT = decltype(v);
     using DT = decltype(d);
-    if (stage1)
-      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT>, kS1Threads,
-                                    s1_smem<VT>(dsize, wwin), out);
+    const size_t smem = window_smem(dsize, wwin);
+    if (stage1 && c == 32)
+      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT, 1>, kS1Threads, smem, out);
+    if (stage1 && c == 256)
+      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT, 8>, kS1Threads, smem, out);
     if (c == 32)
-      return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 32>, kMhThreads,
-                                    mh_smem(dsize, wwin), out);
+      return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 32>, kMhThreads, smem, out);
     if (c == 256)
-      return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 256>, kMhThreads,
-                                    mh_smem(dsize, wwin), out);
+      return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 256>, kMhThreads, smem, out);
     return (int)cudaErrorInvalidValue;
   });
 }

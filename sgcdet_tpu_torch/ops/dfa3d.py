@@ -26,8 +26,9 @@ plain version as in the kernels, and get zero gradients.
 * ``dfa3d_fwd_cuda`` — kernels K2 (heads = P = 1) and K3 (multi-head),
   and their bf16-depth instances K2' and K3', one entry point of
   csrc/dfa3d_fwd.cu with a launch count each; ``dfa3d_bwd_cuda`` — kernels
-  K6 (stage 1) and K5 (stage 2), and K6' / K5' at bf16 depth, one entry
-  point of csrc/dfa3d_bwd.cu.
+  K6 (stage 1) and K5 (stage 2), and K6' / K5' at bf16 depth, two entry
+  points of csrc/dfa3d_bwd.cu (stage 1 its own: the gradients summed where
+  they live, several CUDA kernels behind one launch count).
 * ``dfa3d_attend`` — the differentiable op the model calls;
   ``msda_2d_attend`` — 2D multi-scale deformable attention as DFA3D with a
   uniform depth (the ``use_depth=False`` lifting path).
@@ -54,11 +55,14 @@ DFA3D_FWD_MH_BD = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
 #               d_value, d_depth, d_locs, d_attn,
 #               n, h, w, heads, c, dsize, k, p, stream)
 _BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 8
-DFA3D_BWD_S1 = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # stage 1 launches (K6)
 DFA3D_BWD_MH = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # stage 2 launches (K5)
-# ... with bf16 value and bf16 depth (K6', K5')
-DFA3D_BWD_S1_BD = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)
-DFA3D_BWD_MH_BD = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)
+DFA3D_BWD_MH_BD = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # ... at bf16 depth (K5')
+# sgc_dfa3d_bwd_s1(vdtype, ddtype, value, depth, locs, attn, counts, g,
+#                  d_value, d_depth, d_locs, d_attn, scratch,
+#                  n, h, w, c, dsize, k, stream)
+_BWD_S1_ARGS = [_I, _I] + [_P] * 11 + [_I] * 6
+DFA3D_BWD_S1 = Kernel("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS)  # stage 1 launches (K6)
+DFA3D_BWD_S1_BD = Kernel("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS)  # ... at bf16 depth (K6')
 
 # elements of one gathered corner tensor per query chunk of the plain version
 _PLAIN_CHUNK_ELEMS = 1 << 25
@@ -211,32 +215,57 @@ def dfa3d_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
     return out
 
 
+def s1_scratch_ints(n, h, w, k):
+    """int32 elements of the stage-1 backward's scratch (csrc/dfa3d_bwd.cu::
+    S1Scratch): per view an entry record of 8 ints for each of the 4 k
+    entries, the list offsets of its pixels (h w + 1), the entries' order
+    (4 k), its pixels with a long list (h w) and their count, and a float
+    an entry (4 k)."""
+    return n * (32 * k + 2 * h * w + 1 + 1 + 8 * k)
+
+
 def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
                    valid_counts=None, sample_grads=True, depth_grad=True):
     """Kernels K6 (heads = P = 1) / K5 (multi-head), or K6' / K5' at bf16
-    depth, on CUDA tensors; same contract as ``dfa3d_bwd_plain``.  The
-    kernels accumulate every gradient in f32 (d_value by 16-byte vector
-    atomics into an aligned buffer, d_dpt by scalar ones) and write d_locs
-    and d_attn directly; each is cast once to its
-    input's dtype.  Without ``depth_grad`` they skip the depth atomics, and
-    without ``sample_grads`` too the value gather and dot products."""
+    depth, on CUDA tensors; same contract as ``dfa3d_bwd_plain``.
+
+    Stage 1 sums each output pixel's gradients where it lives: its kernels
+    build per view the list of the (query, corner) entries of each pixel,
+    then write every d_value and d_depth row once, at the inputs' dtypes
+    (zeros where no counted corner lies), and d_locs and d_attn; the
+    scratch is one ``torch.empty``.  Multi-head, K5 accumulates d_value by
+    16-byte vector atomics into an aligned f32 buffer and d_dpt by scalar
+    ones, writes d_locs and d_attn directly, and each is cast once to its
+    input's dtype.  Without ``depth_grad`` the kernels skip the depth
+    gradient, and without ``sample_grads`` too the value gather and dot
+    products."""
     value, depth, loc, att, counts, stage1, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     gg = check_cuda_input(g.to(value.dtype), "g", (value.dtype,), 3, value.device)
-    n, _, _, heads, c, _, k, _ = sizes
+    n, h, w, heads, c, dsize, k, _ = sizes
     if gg.shape != (n, k, heads * c):
         raise ValueError(f"g {tuple(gg.shape)} must be {(n, k, heads * c)}")
     f32 = dict(dtype=torch.float32, device=value.device)
-    d_value = zeros_f32(value.shape, value.device)
-    d_depth = torch.zeros(depth.shape, **f32) if depth_grad else None
     d_locs = torch.empty(loc.shape, **f32) if sample_grads else None
     d_attn = torch.empty(att.shape, **f32) if sample_grads else None
-    kernel = _pick((DFA3D_BWD_S1, DFA3D_BWD_MH, DFA3D_BWD_S1_BD,
-                    DFA3D_BWD_MH_BD), stage1, depth)
-    kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
-           value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
-           _ptr(counts), gg.data_ptr(), d_value.data_ptr(), _ptr(d_depth),
-           _ptr(d_locs), _ptr(d_attn), *sizes)
+    codes = DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype]
+    if stage1:
+        d_value = torch.empty_like(value)
+        d_depth = torch.empty_like(depth) if depth_grad else None
+        scratch = torch.empty(s1_scratch_ints(n, h, w, k), dtype=torch.int32,
+                              device=value.device)
+        kernel = DFA3D_BWD_S1_BD if depth.dtype == torch.bfloat16 else DFA3D_BWD_S1
+        kernel(value.device, *codes, value.data_ptr(), depth.data_ptr(),
+               loc.data_ptr(), att.data_ptr(), _ptr(counts), gg.data_ptr(),
+               d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs), _ptr(d_attn),
+               scratch.data_ptr(), n, h, w, c, dsize, k)
+    else:
+        d_value = zeros_f32(value.shape, value.device)
+        d_depth = torch.zeros(depth.shape, **f32) if depth_grad else None
+        kernel = DFA3D_BWD_MH_BD if depth.dtype == torch.bfloat16 else DFA3D_BWD_MH
+        kernel(value.device, *codes, value.data_ptr(), depth.data_ptr(),
+               loc.data_ptr(), att.data_ptr(), _ptr(counts), gg.data_ptr(),
+               d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs), _ptr(d_attn), *sizes)
     return tuple(None if grad is None else grad.to(inp.dtype) for grad, inp in
                  zip((d_value, d_depth, d_locs, d_attn),
                      (value_img, dpt_img, locs, attn)))

@@ -16,8 +16,8 @@ multi-head kernels take a chunk's heads in one block, whose window is the
 union of its heads' bands, and run the templates' warps (K3, K5) with the
 window in shared memory: the forward stages the window's depth bins, the
 backward sums its ``d_depth`` there and adds it back by 16-byte
-reductions; stage 1 stages a 32-channel value slice and the depth bins of
-its own window.
+reductions.  Stage 1 runs K2's warp over its chunk the same way, and a
+chunk past the count writes its zero rows and stops.
 
 * ``plan_windows`` — counterpart of ``_chunk_meta`` (dfa3d_pallas4.py:83-96)
   and ``_ws_prep`` (dfa3d_pallas5.py:80-120): per (view, chunk of ``qc``
@@ -64,13 +64,14 @@ from .dfa3d import (
 )
 from .sampling import clip_coord
 
-SLICE = 32        # value channels of a head (multi-head) or a stage-1 block
-# stage 1 (heads = P = 1): chunks of the TPU kernels' ``_QC``, a 32-channel
-# value slice and the depth bins staged per pixel, blocks of 512 threads
-# two an SM (228 KB)
-QC_S1 = 64
-WWIN_S1 = 1024
-SMEM_S1 = 112 * 1024
+SLICE = 32        # value channels of a head: the windowed backward's c
+# stage 1 (heads = P = 1): chunks of 16 queries, whose union spans 152 /
+# 284 / 1014 pixels (p50 / p90 / max) at the sorted level 2; a window of
+# at most WWIN_S1 pixels holds the depth bins in f32, in at most SMEM_S1
+# bytes
+QC_S1 = 16
+WWIN_S1 = 512
+SMEM_S1 = 24 * 1024
 # multi-head: chunks over all heads, the forward's of 16 queries, the
 # backward's of 8 (PERF.md); a window of at most WIN_CAP pixels,
 # above the 90th percentile of the unions' spans at the sorted level 2,
@@ -109,13 +110,12 @@ class WindowPlan(NamedTuple):
 def window_bytes(wwin, value_img, dpt_img, stage1=False, backward=False,
                  depth_grad=True):
     """The dynamic shared memory a windowed kernel's block reserves for a
-    window of ``wwin`` pixels (csrc/dfa3d_win_fwd.cu::s1_smem / mh_smem,
-    dfa3d_win_bwd.cu::bwd_smem): stage 1 a 32-channel value slice in its
-    own type and the depth bins in f32; the multi-head forward the bins in
-    f32; the backward, with ``depth_grad``, the bins' f32 d_depth sums."""
+    window of ``wwin`` pixels (csrc/dfa3d_win_fwd.cu::window_smem,
+    dfa3d_win_bwd.cu::bwd_smem): the forwards (stage 1 and multi-head) the
+    depth bins in f32; the backward, with ``depth_grad``, the bins' f32
+    d_depth sums.  ``value_img`` and ``stage1`` change nothing: every
+    window holds 4 bytes a bin."""
     d = dpt_img.shape[-1]
-    if stage1:
-        return wwin * (SLICE * value_img.element_size() + 4 * d)
     return 0 if backward and not depth_grad else 4 * wwin * d
 
 

@@ -1,16 +1,18 @@
 """The contention cases of the port's scatter-bound backward kernels, on the
 CPU: the plain versions of the sweep backward (K4's) and of the DFA3D
-stage-2 backward at c = 32 per head (K5's) against ``jax.vjp`` of the JAX
-package, at f32, on inputs made with numpy (``tests/torch_port_tiny.py``,
-whose same cases ``tests/test_torch_cuda.py`` runs through the kernels on a
-card):
+backward at c = 32 per head, stage 2 (K5's) and stage 1 (K6's), against
+``jax.vjp`` of the JAX package, at f32, on inputs made with numpy
+(``tests/torch_port_tiny.py``, whose same cases ``tests/test_torch_cuda.py``
+runs through the kernels on a card):
 
 * sweeps whose coordinates pile many reference pixels onto one src pixel
   (a tile's, a whole image's, and a homography that collapses the image),
   on a 13 x 21 map that no tile divides; integer coordinates on the first
   and last row and column; a plane behind the source camera;
 * a DFA3D stage 2 whose heads and points all sample one pixel centre per
-  query; counted queries with a view of count 0; the same cases through
+  query; counted queries with a view of count 0; the same at stage 1, and
+  every counted query of a view (4096 of them) on one pixel centre, the
+  long lists of K6's pixel pass; the stage-2 cases through
   the plain version of the windowed backward of the sorted path (K5's
   warp with the chunk's depth in a window), with the kernel's own window
   plan and with a narrow one that leaves some chunks out of their window.
@@ -39,6 +41,7 @@ from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
 
 from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     DFA3D_CONTENTION,
+    DFA3D_S1_CONTENTION,
     SWEEP_CONTENTION,
     assert_close_scaled,
     dfa3d_contention_case,
@@ -127,8 +130,9 @@ def _oracle_grads(value, dpt, locs, attn, heads, g):
     return [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
 
-@pytest.mark.parametrize("case", DFA3D_CONTENTION)
+@pytest.mark.parametrize("case", DFA3D_CONTENTION + DFA3D_S1_CONTENTION)
 def test_dfa3d_stage2_backward_contention_matches_jax(case):
+    """Stage 2's cases, and stage 1's (``s1_``: one head, one point)."""
     value, dpt, locs, attn, g, counts = dfa3d_contention_case(case)
     heads = locs.shape[2]
     vc = None if counts is None else torch.from_numpy(counts)
@@ -142,8 +146,11 @@ def test_dfa3d_stage2_backward_contention_matches_jax(case):
     for name, a, b in zip(GRAD_NAMES, got, want):
         assert np.isfinite(a).all(), name
         assert_close_scaled(a, b, REL, f"{case} {name}")
-    if case == "one_corner":  # three value rows per view take every update
-        assert ((np.abs(got[0]).sum(-1) > 0).sum((1, 2)) <= 3).all()
+    touched = (np.abs(got[0]).sum(-1) > 0).sum((1, 2))  # value rows a view
+    if case.endswith("one_corner"):  # three value rows per view take every update
+        assert (touched <= 3).all()
+    if case.endswith("long_list"):  # the four corners of one pixel centre
+        assert touched[0] == 0 and (touched[1:] <= 4).all() and (touched[1:] > 0).all()
     if counts is not None:
         for cam, cnt in enumerate(counts):
             assert (got[2][cam, cnt:] == 0).all() and (got[3][cam, cnt:] == 0).all()

@@ -48,6 +48,7 @@ from sgcdet_tpu_torch.ops.sweep import (plane_sweep_correlation, sweep_bwd_cuda,
 
 from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     DFA3D_CONTENTION,
+    DFA3D_S1_CONTENTION,
     SWEEP_CONTENTION,
     assert_close_scaled,
     dfa3d_contention_case,
@@ -236,15 +237,25 @@ def test_sweep_backward_kernel_contention(cuda_device, case, dtype):
                             _rel(dtype), f"{case} {name}")
 
 
+def _contention_case(case, device, vdtype, ddtype):
+    """A DFA3D contention case on the card at the kernels' widths (stage 1's
+    at c = 256): (value, depth, locs, attn, g, counts)."""
+    c = 256 if case.startswith("s1_") else 32
+    value, dpt, locs, attn, g, counts = (
+        None if a is None else torch.from_numpy(a).to(device)
+        for a in dfa3d_contention_case(case, c=c))
+    return value.to(vdtype), dpt.to(ddtype), locs, attn, g.to(vdtype), counts
+
+
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
-@pytest.mark.parametrize("case", DFA3D_CONTENTION)
+@pytest.mark.parametrize("case", DFA3D_CONTENTION + DFA3D_S1_CONTENTION)
 def test_dfa3d_stage2_backward_kernel_contention(cuda_device, case, vdtype, ddtype):
     """K5 (K5' at bf16 depth): a query's eight heads on one warp, all on one
-    pixel; counted views of count 0."""
-    value, dpt, locs, attn, g, counts = (
-        None if a is None else torch.from_numpy(a).to(cuda_device)
-        for a in dfa3d_contention_case(case))
-    value, dpt, g = value.to(vdtype), dpt.to(ddtype), g.to(vdtype)
+    pixel; counted views of count 0.  K6 (K6') on stage 1's cases at c =
+    256: one pixel for many queries, and lists of 4096 entries (the long
+    pass)."""
+    value, dpt, locs, attn, g, counts = _contention_case(case, cuda_device, vdtype,
+                                                         ddtype)
     heads = locs.shape[2]
     name = _dfa3d_kernel_name("bwd", heads, locs.shape[3], ddtype)
     before = KERNELS[name].launches
@@ -396,21 +407,105 @@ def test_2d_lifting_kernels_match_plain(cuda_device, dtype):
 
 GRAD_FLAGS = [(True, True), (False, True), (True, False), (False, False)]
 GRAD_IDS = ["all", "value_depth", "no_depth", "value_only"]
+
+
+def _poison_allocator(device, blocks=16):
+    """Fill the caching allocator's free memory of its small pool (the
+    allocations of up to 1 MB) with NaN bytes (0xff: NaN in f32 and bf16)
+    and free it again, after emptying its cache: every free block of the
+    segments still in use, largest first and in pieces of at most 1 MB,
+    then ``blocks`` more 1 MB blocks (two to each new 2 MB segment), so
+    every later allocation of up to 1 MB comes from memory that holds NaN.
+    Returns the poisoned (start, end) ranges."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    free = sorted((b["size"] for seg in torch.cuda.memory_snapshot()
+                   if seg["device"] == device.index and seg["segment_type"] == "small"
+                   for b in seg["blocks"] if b["state"] == "inactive"), reverse=True)
+    pieces = [min(size - at, 1 << 20) for size in free for at in range(0, size, 1 << 20)]
+    poison = [torch.full((nbytes,), 255, dtype=torch.uint8, device=device)
+              for nbytes in pieces + [1 << 20] * blocks]
+    torch.cuda.synchronize(device)
+    ranges = [(t.data_ptr(), t.data_ptr() + t.numel()) for t in poison]
+    del poison
+    return ranges
+
+
+@pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
+@pytest.mark.parametrize("sample_grads,depth_grad", GRAD_FLAGS, ids=GRAD_IDS)
+@pytest.mark.parametrize("case", DFA3D_S1_CONTENTION[1:])
+def test_stage1_backward_writes_every_element(cuda_device, case, vdtype, ddtype,
+                                              sample_grads, depth_grad):
+    """K6 (K6') writes each d_value and d_depth element itself, no zero
+    fill ahead of it: after the caching allocator's memory is filled with
+    NaN, every element that no counted corner touches is exactly 0 (a view
+    counted to 0 among them), the rest matches the plain version, and two
+    calls give the same bits (each pixel sums its entries in query
+    order)."""
+    value, dpt, locs, attn, g, counts = _contention_case(case, cuda_device, vdtype,
+                                                         ddtype)
+    n, h, w, _ = value.shape
+    kw = dict(sample_grads=sample_grads, depth_grad=depth_grad)
+    want = dfa3d_bwd_plain(value, dpt, locs, attn, g, 1, counts, **kw)
+    ranges = _poison_allocator(cuda_device)
+    before = KERNELS[_dfa3d_kernel_name("bwd", 1, 1, ddtype)].launches
+    got = dfa3d_bwd_cuda(value, dpt, locs, attn, g, 1, counts, **kw)
+    assert KERNELS[_dfa3d_kernel_name("bwd", 1, 1, ddtype)].launches == before + 1
+    again = dfa3d_bwd_cuda(value, dpt, locs, attn, g, 1, counts, **kw)
+    torch.cuda.synchronize()
+    for grad in got[:2]:
+        if grad is not None:  # the outputs took poisoned memory
+            end = grad.data_ptr() + grad.numel() * grad.element_size()
+            assert any(a <= grad.data_ptr() < b for a, b in ranges)
+            assert any(a < end <= b for a, b in ranges)
+    # the pixels a counted corner lies on
+    x = torch.floor(locs[:, :, 0, 0, 0] * w - 0.5).long()
+    y = torch.floor(locs[:, :, 0, 0, 1] * h - 0.5).long()
+    live = torch.arange(locs.shape[1], device=cuda_device)[None, :] < counts[:, None]
+    touched = torch.zeros((n, h, w), dtype=torch.bool, device=cuda_device)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            ok = live & (x + dx >= 0) & (x + dx < w) & (y + dy >= 0) & (y + dy < h)
+            cam = torch.arange(n, device=cuda_device)[:, None].expand_as(ok)
+            touched[cam[ok], (y + dy)[ok], (x + dx)[ok]] = True
+    assert not touched[0].any() and touched.any()
+    for gname, a, b, c in zip(("d_value", "d_dpt", "d_locs", "d_attn"), got, want, again):
+        assert (a is None) == (b is None), gname
+        if a is None:
+            continue
+        assert torch.isfinite(a).all(), gname
+        assert torch.equal(a, c), f"{gname} differs from run to run"
+        if gname in ("d_value", "d_dpt"):
+            assert (a[~touched] == 0).all(), gname
+        assert_close_scaled(a.float().cpu().numpy(), b.float().cpu().numpy(),
+                            _rel(a.dtype), f"{case} {gname}")
+
+
 # cases of the windowed kernels: "coherent" locations keep their chunks in
 # the window, "random" ones do not; "cap": one chunk's union spans exactly
 # the window length the kernel is launched with and the next one pixel
 # more (one staged, one on the global branch); "one_pixel": every sample
 # of a chunk on one pixel centre, a view counted to 0; "misaligned":
-# coherent operands that are views breaking 16-byte alignment
+# coherent operands that are views breaking 16-byte alignment;
+# "past_count" (stage 1): coherent, counts that leave most chunks past the
+# count and some chunks partly counted
 WINDOW_CASES = ["coherent", "random", "cap", "one_pixel", "misaligned"]
 # (heads, points, c): stage 1, stage 2 and its partial head groups (the
 # backward's shapes), and the multi-head forward at c = 256
 WINDOW_SHAPES = [(8, 4, 32), (1, 4, 32), (2, 4, 32), (6, 4, 32), (8, 3, 32)]
+
+
+def _window_fwd_cases(shape):
+    if shape == (8, 4, 32):
+        return WINDOW_CASES
+    return WINDOW_CASES[:2] + (["past_count"] if shape[:2] == (1, 1) else [])
+
+
 WINDOW_FWD = ([pytest.param(*shape, case, id=f"{sid}-{case}") for shape, sid in
-               zip([(1, 1, 256)] + WINDOW_SHAPES + [(2, 4, 256)],
-                   ["stage1", "stage2", "stage2_h1", "stage2_h2", "stage2_h6",
-                    "stage2_p3", "c256_h2"])
-               for case in (WINDOW_CASES if shape == (8, 4, 32) else WINDOW_CASES[:2])])
+               zip([(1, 1, 256), (1, 1, 32)] + WINDOW_SHAPES + [(2, 4, 256)],
+                   ["stage1", "stage1_c32", "stage2", "stage2_h1", "stage2_h2",
+                    "stage2_h6", "stage2_p3", "c256_h2"])
+               for case in _window_fwd_cases(shape)])
 WINDOW_BWD = ([pytest.param(*shape[:2], case, id=case if shape == (8, 4, 32) else
                             f"h{shape[0]}p{shape[1]}-{case}")
                for shape in WINDOW_SHAPES
@@ -422,8 +517,8 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
     (4, 30, 40) map ((4, 32, 64) for "cap" and "one_pixel", whose pixel
     centres are exact in f32, and for "random", whose chunks then span
     more than the kernels' window), 600 queries, 12 depth bins; counts 0,
-    200, 599 and 600."""
-    h, w = (30, 40) if case in ("coherent", "misaligned") else (32, 64)
+    200, 599 and 600 ("past_count": 0, 9, 37 and 120)."""
+    h, w = (30, 40) if case in ("coherent", "misaligned", "past_count") else (32, 64)
     value, dpt, locs, attn = windowed_inputs(4, h, w, 600, heads, c, p, 12,
                                              case != "random")
     stage1 = heads == p == 1
@@ -448,7 +543,8 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
     args = [a.to(cuda_device) for a in args]
     if case == "misaligned":
         args[0], args[1] = _misaligned(args[0]), _misaligned(args[1])
-    counts = torch.tensor([0, 200, 599, 600], dtype=torch.int32, device=cuda_device)
+    counts = torch.tensor([0, 9, 37, 120] if case == "past_count" else [0, 200, 599, 600],
+                          dtype=torch.int32, device=cuda_device)
     plan = plan_windows(args[2], counts, h, w, wwin, qc)
     live = plan.span > 0
     share = float((plan.ok & live).sum() / live.sum())

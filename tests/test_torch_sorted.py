@@ -315,8 +315,8 @@ def test_union_window_is_the_envelope_of_head_windows(coherent, counted):
 def test_window_length_is_the_kernels_reservation(vdtype, ddtype, dsize):
     """window_length is the longest window whose reservation (window_bytes,
     the kernels' shared-memory formula) fits the kernel's budget, at most
-    the cap and the map; the multi-head kernels hold f32 per bin whatever
-    the types, stage 1 a value slice in its own type too."""
+    the cap and the map; every windowed kernel holds f32 per bin whatever
+    the types."""
     value = torch.zeros((1, 59, 80, 256), dtype=vdtype)
     depth = torch.zeros((1, 59, 80, dsize), dtype=ddtype)
     cases = [(True, False, dfa3d_windowed.WWIN_S1, dfa3d_windowed.SMEM_S1),
@@ -327,9 +327,7 @@ def test_window_length_is_the_kernels_reservation(vdtype, ddtype, dsize):
         size = window_bytes(wwin, value, depth, stage1, backward)
         assert 1 <= wwin <= cap and size <= smem
         assert wwin == cap or window_bytes(wwin + 1, value, depth, stage1, backward) > smem
-        want = (wwin * (32 * value.element_size() + 4 * dsize) if stage1
-                else 4 * wwin * dsize)
-        assert size == want
+        assert size == 4 * wwin * dsize
     # a backward without d_depth has nothing to hold
     assert window_length(value, depth, backward=True, depth_grad=False) == 0
     assert window_bytes(1152, value, depth, backward=True, depth_grad=False) == 0
@@ -338,7 +336,8 @@ def test_window_length_is_the_kernels_reservation(vdtype, ddtype, dsize):
         assert window_length(value, depth) == dfa3d_windowed.WIN_CAP == 1152
         assert window_bytes(1152, value, depth) == 55296
         assert window_bytes(1152, value, depth, backward=True) == 55296
-        assert window_length(value, depth, stage1=True) == 1024
+        assert window_length(value, depth, stage1=True) == dfa3d_windowed.WWIN_S1 == 512
+        assert window_bytes(512, value, depth, stage1=True) == 24576
     # a map smaller than the cap is held whole
     small = value[:, :14, :20]
     assert window_length(small, depth[:, :14, :20], backward=True) == 280

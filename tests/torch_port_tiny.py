@@ -177,6 +177,7 @@ def sweep_edge_rig(n=2, h=7, w=9, c=128, seed=0):
 # tests/test_torch_cuda.py the kernels against the plain versions (card).
 SWEEP_CONTENTION = ("tile_collapse", "image_collapse", "integer_grid", "plane_behind")
 DFA3D_CONTENTION = ("one_corner", "counted")
+DFA3D_S1_CONTENTION = ("s1_one_corner", "s1_counted", "s1_long_list")
 
 
 def sweep_contention_case(name, n=2, h=13, w=21, c=128, d=4, seed=0):
@@ -232,7 +233,7 @@ def sweep_contention_case(name, n=2, h=13, w=21, c=128, d=4, seed=0):
 def dfa3d_contention_case(name, n=3, h=8, w=16, d=8, k=20, heads=8, p=4, c=32,
                           seed=0):
     """(value, depth, locs, attn, g, valid_counts) as NumPy for one
-    contention case of the DFA3D stage-2 backward at c channels per head;
+    contention case of the DFA3D backward at c channels per head;
     valid_counts is None or (n,) int32.  h and w are powers of two, so a
     pixel centre's location times the size is exact in f32 and every
     implementation floors it alike (the location gradient jumps there):
@@ -241,8 +242,21 @@ def dfa3d_contention_case(name, n=3, h=8, w=16, d=8, k=20, heads=8, p=4, c=32,
       centre (loc * size - 0.5 an integer: one corner of weight 1), and
       the queries share three pixels, the last row and column's among them;
     * ``counted``: ``dfa3d_inputs``' spread of locations, valid_counts 0 for
-      the first view, k // 3 for the second and k for the rest.
+      the first view, k // 3 for the second and k for the rest;
+    * ``long_list``: every counted query of a view on one pixel centre of
+      its own (the last row and column's in the last view), at least 4096
+      queries; valid_counts 0 for the first view, every query for the
+      second, all but 7 for the rest, whose uncounted queries keep the
+      spread of locations.
+
+    The ``s1_`` cases (DFA3D_S1_CONTENTION) are the same at stage 1: one
+    head and one point (heads and p are ignored).
     """
+    stage1 = name.startswith("s1_")
+    if stage1:
+        name, heads, p = name[3:], 1, 1
+    if name == "long_list":
+        k = max(k, 4096)
     value, dpt, locs, attn = dfa3d_inputs(heads, p, c, n=n, h=h, w=w, d=d, k=k,
                                           seed=seed)
     rng = np.random.RandomState(seed + 1)
@@ -255,6 +269,14 @@ def dfa3d_contention_case(name, n=3, h=8, w=16, d=8, k=20, heads=8, p=4, c=32,
     elif name == "counted":
         counts = np.full(n, k, np.int32)
         counts[0], counts[1] = 0, k // 3
+    elif name == "long_list":
+        counts = np.full(n, k - 7, np.int32)
+        counts[0], counts[1] = 0, k
+        for view in range(n):
+            y, x = ((h - 1, w - 1) if view == n - 1 and n > 2
+                    else (1 + view % (h - 2), 2 + 3 * view % (w - 3)))
+            locs[view, :counts[view], ..., 0] = (x + 0.5) / w
+            locs[view, :counts[view], ..., 1] = (y + 0.5) / h
     else:
         raise ValueError(name)
     return value, dpt, locs, attn, g, counts
