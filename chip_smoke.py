@@ -44,14 +44,21 @@ Phases, each fatal on failure:
               behind the source camera, a DFA3D stage 2 at level 2 whose
               heads and points all sample one pixel centre per query with a
               view counted to 0, and operands that are views breaking
-              16-byte alignment.  aten's grid_sampler_2d_backward, the
-              library call that computes K4's d_src, against K4 at f32.
-              The partial head groups of phase 3 through K5.
-              Prints each gradient's max abs error, its worst ratio to the
-              per-element tolerance, the warm time of kernel, plain version
-              and library call, and the global atomic operations of K4, K5
-              and K6 (vector and scalar, counted from the design) with their
-              rate.
+              16-byte alignment; a DFA3D stage 1 at level 2 whose counted
+              queries of each view all sample one pixel centre (lists of
+              4608 entries, K6's long pass) with view 0 counted to 0.
+              aten's grid_sampler_2d_backward, the library call that
+              computes K4's d_src, against K4 at f32.  The partial head
+              groups of phase 3 through K5.  Prints each gradient's max abs
+              error, its worst ratio to the per-element tolerance, the warm
+              time of kernel, plain version and library call (with the
+              earlier times of K6, K6' and the f32 stage 1 beside this
+              run's), the global atomic operations of K4 and K5 (vector and
+              scalar, counted from the design) with their rate, and for K6
+              and K6' the lists the call builds (entries, pixels, the
+              longest list, the lists of more than 32 entries) beside the
+              zero fills and the cast that the earlier K6 wrapper ran around
+              its kernel, timed alone at the same shapes.
 4. slice    — the ScanNet forward at compute_dtype=float32 with TF32 off, on
               the indoor 40-view scene, once through the kernels and once
               through the plain versions: identical `valid`, matching
@@ -92,7 +99,8 @@ Phases, each fatal on failure:
               global-memory branch.  Prints per level the share of chunks
               and of samples served from a window and the windowed and
               template kernels' warm times (with the earlier windowed
-              times of PERF.md beside them); per level the windows' spans
+              times of PERF.md beside them); per level the share of stage-1
+              chunks that hold no counted query; the windows' spans
               (p50 / p90 / max, per head and the union of a chunk's heads
               that a block stages) and the share of unions small enough to
               hold a chunk's d_value in shared memory; each windowed
@@ -217,7 +225,7 @@ EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
               "K2' 2D": 0.1157, "K3' 2D": 1.2694, "K3 f32/f32 uncounted": 0.9651,
               "K2 f32/f32 uncounted": 0.1146,
               # K6 (rows 7 and 15) and K6' before the stage-1 backward summed
-              # where the output lives (PR 5's template, zero-filled f32
+              # where the output lives (the multi-head template, zero-filled f32
               # gradients cast afterwards)
               "K6": 0.2372, "K6 f32/f32 uncounted": 0.2452, "K6' 2D": 0.2970,
               # the windowed kernels at level 2 before their redesign (PERF.md

@@ -117,6 +117,37 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Programmatic dependent launch (sm_90): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
+// kernel ahead of it in the stream ends; it waits here before it reads
+// what that kernel writes or writes what it reads.
+__device__ __forceinline__ void wait_for_prerequisite() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+// Let the next kernel of the stream start launching.
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Launch kernel on grid x block threads with smem bytes of dynamic shared
+// memory in stream s, allowed to start before the kernel ahead of it ends
+// where `early` (it then waits in wait_for_prerequisite).
+template <typename... Params, typename... Args>
+cudaError_t launch_kernel(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem,
+                          cudaStream_t s, bool early, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = early ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // Sum over each aligned group of LANES lanes (a power of two up to 32);
 // every lane of the warp must call it, and every lane ends with its group's
 // sum.

@@ -1,7 +1,7 @@
 // Fused DFA3D sampling backward (kernels K6 `dfa3d_bwd_s1`, K5
 // `dfa3d_bwd_mh` and their bf16-depth instances K6' `dfa3d_bwd_s1_bd`, K5'
-// `dfa3d_bwd_mh_bd`): one template, one entry point; the wrapper counts the
-// four apart.
+// `dfa3d_bwd_mh_bd`): a multi-head template behind one entry point and the
+// stage-1 design behind another; the wrapper counts the four apart.
 //
 // Replaces every Pallas DFA3D backward of sgcdet_tpu/ops:
 // dfa3d_pallas.py::_bwd_kernel_s1 (stage 1: heads=1, P=1, attention 1, all
@@ -21,55 +21,82 @@
 // s = dpt[d0c] * wd0 + dpt[d1c] * wd1 and attention a:
 //
 //   t          = <g[n, q, head channels], value[corner, head channels]>
-//   d_value   += (b * a * s) * g                         (atomics)
-//   d_dpt[d0c]+= t * b * a * wd0,  d_dpt[d1c] += t * b * a * wd1  (atomics)
+//   d_value   += (b * a * s) * g
+//   d_dpt[d0c]+= t * b * a * wd0,  d_dpt[d1c] += t * b * a * wd1
 //   d_attn     = sum_corners t * b * s
 //   d_lx, d_ly = sum_corners t * a * s * db/dlx, db/dly
 //   d_ld       = sum_corners t * b * a * (valid1 * dpt[d1c] - valid0 * dpt[d0c])
 //   d_locs     = (d_lx * W, d_ly * H, d_ld * D)   (pixel = loc * size - 0.5)
 //
-// Queries at or past valid_counts[n] get zero d_locs / d_attn and scatter
+// Queries at or past valid_counts[n] get zero d_locs / d_attn and add
 // nothing (dfa3d_pallas.py:448-465).  Coordinates are clipped as in the
 // forward, so NaN and far-off samples touch no corner.  All gradients are
-// accumulated in f32 (d_dpt too at bf16 depth); the wrapper casts them
-// once to the input dtypes.  With SAMPLE_GRADS
-// off (stage 1 in the model: its locations are fixed voxel centres and its
-// attention is 1) only d_value and d_dpt are produced; with a null d_depth
-// (the 2D path: its uniform depth is a constant) the depth atomics are
-// skipped.  Where both are off (the 2D stage 1) nothing needs t, so DOT is
-// off too: the kernel reads no value row and does no warp reduction, and
-// only scatters (b * a * s) * g.
+// summed in f32 (d_dpt too at bf16 depth).  With SAMPLE_GRADS off (stage 1
+// in the model: its locations are fixed voxel centres and its attention is
+// 1) only d_value and d_dpt are produced; with a null d_depth (the 2D path:
+// its uniform depth is a constant) the depth gradient is skipped.  Where
+// both are off (the 2D stage 1) nothing needs t, so DOT is off too: no
+// value row is read and no dot product taken.
 //
-// What bounds it on this card: the scatter.  Per (query, head, point,
-// corner) the kernel gathers two depth bins and, with DOT, one c-channel
-// value row, and adds c (+ 2) f32 values by atomics into the (N, H, W, C)
-// (and (N, H, W, D)) buffers, which resolve in L2.  The counted rows past
-// each camera's visible count (most of them at the finest level) cost one
-// broadcast load of the count.
+// Multi-head (K5, K5'): the scatter.  Per (query, head, point, corner) the
+// kernel gathers two depth bins and, with DOT, one c-channel value row, and
+// adds c (+ 2) f32 values by atomics into zero-filled (N, H, W, C) (and
+// (N, H, W, D)) buffers, which resolve in L2; the wrapper casts them once
+// to the input dtypes.  The counted rows past each camera's visible count
+// cost one broadcast load of the count.  Design (the warp's code is
+// sgc::mh_bwd_warp in csrc/dfa3d_mh.cuh, which the windowed backward of
+// the sorted path shares): eight contiguous channels per lane (one 16-byte
+// load of a bf16 row piece, two of f32), so a head of c channels takes
+// LANES = c / 8 lanes and a warp takes 32 / LANES heads of one (view,
+// query): at c = 32 a warp is one query's eight heads, four lanes each.
+// The incoming gradient row is loaded once into registers, in 16-byte
+// pieces; each corner's dot product t is a reduction over the head's lanes
+// (2 shuffle steps at c = 32, 5 at c = 256), after which every lane of the
+// head carries the location and attention gradients; its first lane
+// writes them once per point, and its first two lanes add the two d_dpt
+// bins in one instruction (a single L2 request for the pair).  d_value
+// takes two 16-byte vector reductions per lane per corner, laid out so
+// that each instruction adds four whole 128-byte rows (a lane takes its
+// target head's weight and pixel by shuffle): at c = 32 that is eight
+// vector operations and two line requests per head and corner where the
+// one-head-per-warp layout issued 32 scalar ones, and a warp walks its
+// eight heads' samples side by side instead of one after another.
+// Counted-out queries are per warp: zero location and attention gradients
+// for its heads, nothing scattered.  launch_sg turns DOT off only with
+// SAMPLE_GRADS off and a null d_depth.
 //
-// Design (the warp's code is sgc::mh_bwd_warp in csrc/dfa3d_mh.cuh, which
-// the windowed backward of the sorted path shares): eight contiguous
-// channels per lane (one 16-byte load of a bf16 row piece, two of f32), so
-// a head of c channels takes LANES = c / 8 lanes and a warp takes 32 /
-// LANES heads of one (view, query): at c = 32 (stage 2) a warp is one
-// query's eight heads, four lanes each; at c = 256
-// (stage 1) a warp is one head, as the forward.  The incoming gradient row
-// is loaded once into registers, in 16-byte pieces; each corner's dot
-// product t is a reduction over the head's lanes (2 shuffle steps at
-// c = 32, 5 at c = 256), after which every lane of the head carries the
-// location and attention gradients; its first lane writes them once per
-// point, and its first two lanes add the two d_dpt bins in one instruction
-// (a single L2 request for the pair).  d_value takes two 16-byte vector
-// reductions per lane per corner, laid out so that each instruction adds
-// four whole 128-byte rows (a lane takes its target head's weight and
-// pixel by shuffle): at c = 32 that is eight vector operations and two
-// line requests per head and corner where the one-head-per-warp layout
-// issued 32 scalar ones, and a warp walks its eight heads' samples side by
-// side instead of one after another.  Counted-out queries are per warp:
-// zero location and attention gradients for its heads, nothing scattered.
-// launch_sg turns DOT off only with SAMPLE_GRADS off and a null d_depth.
-// No pair/quad row images, no dquad/un-quad pass and no transposed windows
-// (those worked around Mosaic).
+// Stage 1 (K6, K6'): the sum where the output lives.  At the finest level
+// only ~14 % of the queries are counted and their corners touch ~25 % of
+// the pixels, 1.7 entries a touched pixel (at most ~25), so the atomic
+// design spent most of its time around the kernel: zero-filling a 193 MB
+// f32 d_value and casting it to bf16 afterwards (PERF.md).  Here every
+// d_value and d_depth row is written once, at the input's dtype, zeros
+// where no counted corner lies, by four kernels behind one entry point:
+//   1. the list build (s1_lists_kernel, a block a view): each pixel's
+//      count of (query, corner) entries in shared memory, their scan into
+//      the view's list offsets, the pixels with more than kShortList
+//      entries, and the lists' 32-byte records (4 q + corner, the weight
+//      b a s of g[q] at the pixel, and b a wd0, b a wd1 and the two bins
+//      for the depth gradient), the depth bins gathered at each corner;
+//   2. the long pass (s1_long_kernel, a block a long list): the list
+//      ordered by query through a bitmap, a run a warp, the warps' rows
+//      summed in warp order, so a list of every query of a view does not
+//      serialize;
+//   3. the pixel pass (s1_pixels_kernel, a warp a tile of kTile pixels):
+//      one load of the tile's list bounds, zero rows for its empty
+//      pixels, then each short list in query order (the lanes rank their
+//      entries by shuffle): the value row once (DOT), each entry's g[q] in
+//      16-byte pieces and, with DOT, t = <g[q], value row> summed over the
+//      lanes for the depth gradient and the sample gradients;
+//   4. with SAMPLE_GRADS, the location and attention gradients, a thread a
+//      query, from each corner's t.
+// Every sum runs in a fixed order, so the gradients are equal from run to
+// run.  Kernels 2 and 3 start while the one ahead of them ends
+// (programmatic dependent launch) and wait before they read its lists.
+// What bounds it on this card: bytes, mostly the d_value rows written
+// (97 MB at bf16 for level 2), with a latency-bound list build ahead of
+// them.  No pair/quad row images, no dquad/un-quad pass and no transposed
+// windows (those worked around Mosaic).
 #include "dfa3d_mh.cuh"
 
 #include <climits>
@@ -140,11 +167,12 @@ void launch_sg(const void* value, const void* depth, const float* locs,
 // Stage 1 (K6, K6'): the sum where the output lives.
 
 constexpr int kListThreads = 1024;  // the list build: a block a view
-constexpr int kPixelThreads = 256;  // the pixel pass
-constexpr int kLongBlocks = 132;    // pixel-pass blocks of the long lists, one an SM
-constexpr int kTile = 8;            // pixels a warp of the pixel pass
+constexpr int kPixelThreads = 128;  // the pixel pass
+constexpr int kLongThreads = 1024;  // the long pass: a block a long list
+constexpr int kLongBlocks = 132;    // ... one an SM
+constexpr int kTile = 4;            // pixels a warp of the pixel pass
 constexpr int kShortList = 32;      // the longest list a warp sums alone
-constexpr int kUnroll = 1;          // g rows a group loads together
+constexpr int kLongUnroll = 2;      // g rows a group of the long pass loads together
 constexpr int kMaxViews = 1024;     // views a call (the pixel pass counts them in shared memory)
 constexpr int kMaxMapPixels = 56 * 1024;  // the build counts a view's pixels in shared memory
 
@@ -253,12 +281,37 @@ struct S1Scratch {
         tq(reinterpret_cast<float*>(nlong + n)) {}
 };
 
+// The records of query q's in-image corners (pix[corner] -1 off the
+// image), at row0 + q of locs / attn; dmap is the view's depth map.
+template <typename DT>
+__device__ __forceinline__ void s1_query_records(
+    const DT* __restrict__ dmap, const float* __restrict__ locs,
+    const float* __restrict__ attn, long long row0, int q, int h, int w, int dsize,
+    int (&pix)[4], S1Record (&rec)[4]) {
+  const S1Sample smp = s1_sample(locs + (row0 + q) * 3, attn[row0 + q], h, w, dsize);
+#pragma unroll
+  for (int corner = 0; corner < 4; ++corner) {
+    pix[corner] = corner_pixel(smp.x0, smp.y0, corner, h, w);
+    if (pix[corner] < 0) continue;
+    const float ba = (((corner >> 1) ? smp.ly : 1.f - smp.ly) *
+                      ((corner & 1) ? smp.lx : 1.f - smp.lx)) * smp.a;
+    const DT* drow = dmap + (long long)pix[corner] * dsize;
+    rec[corner].m = 4 * q + corner;
+    rec[corner].wgt =
+        ba * (sgc::to_f32(drow[smp.d0c]) * smp.wd0 + sgc::to_f32(drow[smp.d1c]) * smp.wd1);
+    rec[corner].c0 = ba * smp.wd0;
+    rec[corner].c1 = ba * smp.wd1;
+    rec[corner].bins = smp.d0c | smp.d1c << 16;
+  }
+}
+
 // The list build, a block a view: count the entries of each pixel in
 // shared memory, scan the counts into the view's list offsets, list the
 // pixels with a long list (more than kShortList entries), then fill the
 // lists with the entries' records (the depth bins gathered at each
-// corner's pixel).
-template <typename DT, bool DOT>
+// corner's pixel).  A thread's first query keeps its records in registers
+// from the count to the fill, so its loads wait on nothing but the count.
+template <typename DT>
 __global__ void __launch_bounds__(kListThreads) s1_lists_kernel(
     const DT* __restrict__ depth, const float* __restrict__ locs,
     const float* __restrict__ attn, const int* __restrict__ counts, S1Scratch sc, int h,
@@ -266,18 +319,28 @@ __global__ void __launch_bounds__(kListThreads) s1_lists_kernel(
   extern __shared__ int s_cnt[];  // [h * w] entries a pixel, then the fill's cursor
   __shared__ int s_warp[33];
   __shared__ int s_nlong;
+  sgc::launch_dependents();  // the long pass's blocks take the other SMs and wait
   const int cam = blockIdx.x, hw = h * w;
   const int count = counts == nullptr ? k : min(max(counts[cam], 0), k);
+  const long long row0 = (long long)cam * k;
+  const DT* dmap = depth + (long long)cam * hw * dsize;
+  const bool first = (int)threadIdx.x < count;
+  int pix[4] = {-1, -1, -1, -1};
+  S1Record rec[4];
+  if (first)
+    s1_query_records(dmap, locs, attn, row0, threadIdx.x, h, w, dsize, pix, rec);
   for (int i = threadIdx.x; i < hw; i += kListThreads) s_cnt[i] = 0;
   if (threadIdx.x == 0) s_nlong = 0;
   __syncthreads();
-  const long long row0 = (long long)cam * k;
-  for (int q = threadIdx.x; q < count; q += kListThreads) {
+#pragma unroll
+  for (int corner = 0; corner < 4; ++corner)
+    if (pix[corner] >= 0) atomicAdd(&s_cnt[pix[corner]], 1);
+  for (int q = threadIdx.x + kListThreads; q < count; q += kListThreads) {
     const int2 p0 = floor_point(locs + (row0 + q) * 3, h, w);
 #pragma unroll
     for (int corner = 0; corner < 4; ++corner) {
-      const int pix = corner_pixel(p0.x, p0.y, corner, h, w);
-      if (pix >= 0) atomicAdd(&s_cnt[pix], 1);
+      const int p = corner_pixel(p0.x, p0.y, corner, h, w);
+      if (p >= 0) atomicAdd(&s_cnt[p], 1);
     }
   }
   __syncthreads();
@@ -298,24 +361,12 @@ __global__ void __launch_bounds__(kListThreads) s1_lists_kernel(
   }
   if (threadIdx.x == 0) voff[hw] = total;
   __syncthreads();
-  const DT* dmap = depth + (long long)cam * hw * dsize;
   for (int q = threadIdx.x; q < count; q += kListThreads) {
-    const S1Sample smp = s1_sample(locs + (row0 + q) * 3, attn[row0 + q], h, w, dsize);
+    if (q != (int)threadIdx.x)
+      s1_query_records(dmap, locs, attn, row0, q, h, w, dsize, pix, rec);
 #pragma unroll
-    for (int corner = 0; corner < 4; ++corner) {
-      const int pix = corner_pixel(smp.x0, smp.y0, corner, h, w);
-      if (pix < 0) continue;
-      const float ba = (((corner >> 1) ? smp.ly : 1.f - smp.ly) *
-                        ((corner & 1) ? smp.lx : 1.f - smp.lx)) * smp.a;
-      const DT* drow = dmap + (long long)pix * dsize;
-      S1Record r;
-      r.m = 4 * q + corner;
-      r.wgt = ba * (sgc::to_f32(drow[smp.d0c]) * smp.wd0 + sgc::to_f32(drow[smp.d1c]) * smp.wd1);
-      r.c0 = ba * smp.wd0;
-      r.c1 = ba * smp.wd1;
-      r.bins = smp.d0c | smp.d1c << 16;
-      sc.rec[row0 * 4 + atomicAdd(&s_cnt[pix], -1) - 1] = r;
-    }
+    for (int corner = 0; corner < 4; ++corner)
+      if (pix[corner] >= 0) sc.rec[row0 * 4 + atomicAdd(&s_cnt[pix[corner]], -1) - 1] = rec[corner];
   }
   if (threadIdx.x == 0) sc.nlong[cam] = s_nlong;
 }
@@ -377,9 +428,9 @@ __device__ __forceinline__ void s1_add_entries(
 // of the pixel's records (from index `first` of the scratch arrays; rel
 // null: 0..cnt-1 in the order the fill left them, at most 32, which the
 // warp sorts by query), 32 at a time, a lane an entry's record; the warp's
-// groups of LANES lanes take the entries in turn, kUnroll loads in flight,
+// groups of LANES lanes take the entries in turn, U loads in flight,
 // each adding into its own partial row acc and depth sums dd.
-template <typename VT, int C, bool SAMPLE_GRADS, bool DOT>
+template <typename VT, int C, int U, bool SAMPLE_GRADS, bool DOT>
 __device__ __forceinline__ void s1_warp_run(
     const VT* __restrict__ g, const S1Scratch& sc, long long first, const int* rel,
     int cnt, long long row0, const float (&val)[8], float (&acc)[8], float* dd,
@@ -398,16 +449,16 @@ __device__ __forceinline__ void s1_warp_run(
       if (lane < nbt) s_slot[rank] = lane;
       __syncwarp();
     }
-    for (int x0 = 0; x0 < nbt; x0 += kUnroll * G) {  // uniform over the warp
-      int src[kUnroll];
-      bool live[kUnroll];
+    for (int x0 = 0; x0 < nbt; x0 += U * G) {  // uniform over the warp
+      int src[U];
+      bool live[U];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
+      for (int u = 0; u < U; ++u) {
         const int x = x0 + lane / LANES + u * G;
         live[u] = x < nbt;
         src[u] = !live[u] ? lane : rel == nullptr ? s_slot[x] : x;
       }
-      s1_add_entries<VT, VEC, LANES, kUnroll, SAMPLE_GRADS, DOT>(
+      s1_add_entries<VT, VEC, LANES, U, SAMPLE_GRADS, DOT>(
           g, row0, src, live, m, r.wgt, r.c0, r.c1, r.bins, val, acc, dd, vtq);
     }
     __syncwarp();
@@ -424,16 +475,11 @@ __device__ __forceinline__ int2 s1_long_pixel(const S1Scratch& sc, const int* s_
   return make_int2(cam, sc.longs[cam * hw + j]);
 }
 
-// The pixel pass, one kernel in two roles by block:
-//   * blocks [0, long_blocks): a block a pixel with a long list (a
-//     grid-stride loop over every view's): it orders the list by query (a
-//     bitmap of its queries, which add at most one entry each), splits it
-//     into a contiguous run a warp (s1_warp_run), and sums the warps'
-//     rows and depth sums in warp order;
-//   * the rest: a warp a tile of kTile consecutive pixels of a view: one
-//     load of their list bounds, zeros for the empty pixels' rows, then
-//     each short list in one run, after the pixel's value row (DOT).
-// Each pixel's d_value row is written once, at the value's type, and its
+// The pixel pass: a warp a tile of kTile consecutive pixels of a view: one
+// load of their list bounds, zeros for the empty pixels' d_value and
+// d_depth rows, then each short list in one run (s1_warp_run), after the
+// pixel's value row (DOT).  A long list's pixel is the long pass's.  Each
+// pixel's d_value row is written once, at the value's type, and its
 // d_depth row once, at the depth's.  A run's groups (c < 256: several a
 // warp) sum their rows and depth sums in group order, so every sum is in
 // the same order from run to run.
@@ -441,80 +487,99 @@ template <typename VT, typename DT, int C, bool SAMPLE_GRADS, bool DOT>
 __global__ void __launch_bounds__(kPixelThreads) s1_pixels_kernel(
     const VT* __restrict__ value, const VT* __restrict__ g, S1Scratch sc,
     VT* __restrict__ d_value, DT* __restrict__ d_depth, int n, int h, int w, int dsize,
-    int k, int long_blocks) {
+    int k) {
   constexpr int VEC = 8, LANES = C / VEC, G = 32 / LANES, WARPS = kPixelThreads / 32;
-  extern __shared__ __align__(16) float s_pass[];
-  float* s_row = s_pass;                               // [WARPS][C]: warps' rows
+  extern __shared__ float s_dd[];  // [WARPS][G][dsize]
+  __shared__ int s_slot[WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane % LANES, grp = lane / LANES;
+  const long long hw = (long long)h * w;
+  float* dd = d_depth != nullptr ? s_dd + (warp * G + grp) * dsize : nullptr;  // DOT
+  sgc::wait_for_prerequisite();  // the list build (through the long pass)
+  float val[VEC], acc[VEC];
+  const int tiles = (int)((hw + kTile - 1) / kTile);
+  const long long tile = (long long)blockIdx.x * WARPS + warp;
+  if (tile >= (long long)n * tiles) return;
+  const int cam = (int)(tile / tiles), p0 = (int)(tile % tiles) * kTile;
+  const int np = min(kTile, (int)hw - p0);
+  const int* voff = sc.off + cam * (hw + 1) + p0;
+  const int o = lane < np ? voff[lane] : 0, e = lane < np ? voff[lane + 1] : 0;
+  const unsigned empty = __ballot_sync(0xffffffffu, lane < np && e == o);
+  unsigned todo = __ballot_sync(0xffffffffu, lane < np && e > o && e - o <= kShortList);
+  const long long pix0 = cam * hw + p0;
+  const float zero[VEC] = {};
+  for (int j = grp; j < kTile; j += G) {
+    if (!(empty >> j & 1)) continue;
+    sgc::store_from_f32<VT, VEC>(d_value + (pix0 + j) * C + sub * VEC, zero);
+    if (d_depth != nullptr)
+      for (int i = sub; i < dsize; i += LANES)
+        d_depth[(pix0 + j) * dsize + i] = sgc::from_f32<DT>(0.f);
+  }
+  const long long row0 = (long long)cam * k;
+  while (todo) {  // uniform over the warp
+    const int p = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int o0 = __shfl_sync(0xffffffffu, o, p);
+    const int cnt = __shfl_sync(0xffffffffu, e, p) - o0;
+    const long long gpix = pix0 + p;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = val[i] = 0.f;
+    if (DOT) sgc::load_f32<VT, VEC>(value + gpix * C + sub * VEC, val);
+    if (dd != nullptr)
+      for (int i = sub; i < dsize; i += LANES) dd[i] = 0.f;
+    __syncwarp();
+    s1_warp_run<VT, C, 1, SAMPLE_GRADS, DOT>(g, sc, row0 * 4 + o0, nullptr, cnt, row0, val,
+                                             acc, dd, s_slot[warp]);
+    // the groups' rows and depth sums, in group order
+#pragma unroll
+    for (int x = LANES; x < 32; x <<= 1)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], x);
+    if (grp == 0) {
+      sgc::store_from_f32<VT, VEC>(d_value + gpix * C + sub * VEC, acc);
+      if (d_depth != nullptr)
+        for (int i = sub; i < dsize; i += LANES) {
+          float x = 0.f;
+          for (int gi = 0; gi < G; ++gi) x += s_dd[(warp * G + gi) * dsize + i];
+          d_depth[gpix * dsize + i] = sgc::from_f32<DT>(x);
+        }
+    }
+    __syncwarp();
+  }
+}
+
+// The long pass: a block a pixel with a long list (a grid-stride loop over
+// every view's).  The block orders the list by query (a bitmap of its
+// queries, which add at most one entry each), splits it into a contiguous
+// run a warp (s1_warp_run, kLongUnroll loads in flight), and sums the
+// warps' rows and depth sums in warp and group order.
+template <typename VT, typename DT, int C, bool SAMPLE_GRADS, bool DOT>
+__global__ void __launch_bounds__(kLongThreads, 1) s1_long_kernel(
+    const VT* __restrict__ value, const VT* __restrict__ g, S1Scratch sc,
+    VT* __restrict__ d_value, DT* __restrict__ d_depth, int n, int h, int w, int dsize,
+    int k) {
+  constexpr int VEC = 8, LANES = C / VEC, G = 32 / LANES, WARPS = kLongThreads / 32;
+  extern __shared__ __align__(16) float s_long[];
+  float* s_row = s_long;                               // [WARPS][C]: warps' rows
   float* s_dd = s_row + WARPS * C;                     // [WARPS][G][dsize]
-  int* s_words = reinterpret_cast<int*>(s_dd + WARPS * G * dsize);  // long lists' bitmap
+  int* s_words = reinterpret_cast<int*>(s_dd + WARPS * G * dsize);  // the bitmap
   __shared__ int s_slot[WARPS][32];
   __shared__ int s_nlong[kMaxViews];
   __shared__ int s_warp[33];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = lane % LANES, grp = lane / LANES;
   const long long hw = (long long)h * w;
-  const int block = (int)blockIdx.x;
   float* dd = d_depth != nullptr ? s_dd + (warp * G + grp) * dsize : nullptr;  // DOT
+  sgc::launch_dependents();      // the pixel pass's blocks take the other SMs and wait
+  sgc::wait_for_prerequisite();  // the list build
   float val[VEC], acc[VEC];
-  if (block >= long_blocks) {  // a warp a tile
-    const int tiles = (int)((hw + kTile - 1) / kTile);
-    const long long tile = (long long)(block - long_blocks) * WARPS + warp;
-    if (tile >= (long long)n * tiles) return;
-    const int cam = (int)(tile / tiles), p0 = (int)(tile % tiles) * kTile;
-    const int np = min(kTile, (int)hw - p0);
-    const int* voff = sc.off + cam * (hw + 1) + p0;
-    const int o = lane < np ? voff[lane] : 0, e = lane < np ? voff[lane + 1] : 0;
-    const unsigned empty = __ballot_sync(0xffffffffu, lane < np && e == o);
-    unsigned todo = __ballot_sync(0xffffffffu, lane < np && e > o && e - o <= kShortList);
-    const long long pix0 = cam * hw + p0;
-    const float zero[VEC] = {};
-    for (int j = grp; j < kTile; j += G) {
-      if (!(empty >> j & 1)) continue;
-      sgc::store_from_f32<VT, VEC>(d_value + (pix0 + j) * C + sub * VEC, zero);
-      if (d_depth != nullptr)
-        for (int i = sub; i < dsize; i += LANES)
-          d_depth[(pix0 + j) * dsize + i] = sgc::from_f32<DT>(0.f);
-    }
-    const long long row0 = (long long)cam * k;
-    while (todo) {  // uniform over the warp
-      const int p = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int o0 = __shfl_sync(0xffffffffu, o, p);
-      const int cnt = __shfl_sync(0xffffffffu, e, p) - o0;
-      const long long gpix = pix0 + p;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = val[i] = 0.f;
-      if (DOT) sgc::load_f32<VT, VEC>(value + gpix * C + sub * VEC, val);
-      if (dd != nullptr)
-        for (int i = sub; i < dsize; i += LANES) dd[i] = 0.f;
-      __syncwarp();
-      s1_warp_run<VT, C, SAMPLE_GRADS, DOT>(g, sc, row0 * 4 + o0, nullptr, cnt, row0, val,
-                                            acc, dd, s_slot[warp]);
-      // the groups' rows and depth sums, in group order
-#pragma unroll
-      for (int x = LANES; x < 32; x <<= 1)
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], x);
-      if (grp == 0) {
-        sgc::store_from_f32<VT, VEC>(d_value + gpix * C + sub * VEC, acc);
-        if (d_depth != nullptr)
-          for (int i = sub; i < dsize; i += LANES) {
-            float x = 0.f;
-            for (int gi = 0; gi < G; ++gi) x += s_dd[(warp * G + gi) * dsize + i];
-            d_depth[gpix * dsize + i] = sgc::from_f32<DT>(x);
-          }
-      }
-      __syncwarp();
-    }
-    return;
-  }
   // a block a long list
-  for (int i = threadIdx.x; i < n; i += kPixelThreads) s_nlong[i] = sc.nlong[i];
+  for (int i = threadIdx.x; i < n; i += kLongThreads) s_nlong[i] = sc.nlong[i];
   __syncthreads();
   const int words = (k + 31) / 32;
   unsigned* s_bits = reinterpret_cast<unsigned*>(s_words);  // [words]
   int* s_pre = s_words + words;                             // [words]: set bits before
-  for (int j = block;; j += long_blocks) {
+  for (int j = blockIdx.x;; j += gridDim.x) {
     const int2 at = s1_long_pixel(sc, s_nlong, n, hw, j);
     if (at.x == n) return;  // uniform over the block
     const long long gpix = at.x * hw + at.y;
@@ -524,26 +589,26 @@ __global__ void __launch_bounds__(kPixelThreads) s1_pixels_kernel(
     const S1Record* prec = sc.rec + row0 * 4 + o0;
     int* porder = sc.order + row0 * 4 + o0;
     // 1. the list's queries as a bitmap, and the set bits before each word
-    for (int i = threadIdx.x; i < words; i += kPixelThreads) s_bits[i] = 0u;
+    for (int i = threadIdx.x; i < words; i += kLongThreads) s_bits[i] = 0u;
     __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += kPixelThreads) {
+    for (int i = threadIdx.x; i < cnt; i += kLongThreads) {
       const int q = prec[i].m >> 2;
       atomicOr(&s_bits[q >> 5], 1u << (q & 31));
     }
     __syncthreads();
-    const int per = (words + kPixelThreads - 1) / kPixelThreads;
+    const int per = (words + kLongThreads - 1) / kLongThreads;
     const int w0 = min(words, (int)threadIdx.x * per), w1 = min(words, w0 + per);
     int run = 0;
     for (int i = w0; i < w1; ++i) run += __popc(s_bits[i]);
     int total;
-    int pre = block_exclusive_scan<kPixelThreads>(run, s_warp, &total);
+    int pre = block_exclusive_scan<kLongThreads>(run, s_warp, &total);
     for (int i = w0; i < w1; ++i) {
       s_pre[i] = pre;
       pre += __popc(s_bits[i]);
     }
     __syncthreads();
     // 2. the order of the list by query: its rank r's entry is porder[r]
-    for (int i = threadIdx.x; i < cnt; i += kPixelThreads) {
+    for (int i = threadIdx.x; i < cnt; i += kLongThreads) {
       const int q = prec[i].m >> 2;
       porder[s_pre[q >> 5] + __popc(s_bits[q >> 5] & ((1u << (q & 31)) - 1u))] = i;
     }
@@ -557,8 +622,9 @@ __global__ void __launch_bounds__(kPixelThreads) s1_pixels_kernel(
     if (dd != nullptr)
       for (int i = sub; i < dsize; i += LANES) dd[i] = 0.f;
     __syncwarp();
-    s1_warp_run<VT, C, SAMPLE_GRADS, DOT>(g, sc, row0 * 4 + o0, porder + r0, r1 - r0, row0,
-                                          val, acc, dd, s_slot[warp]);
+    s1_warp_run<VT, C, kLongUnroll, SAMPLE_GRADS, DOT>(g, sc, row0 * 4 + o0, porder + r0,
+                                                       r1 - r0, row0,
+                                                       val, acc, dd, s_slot[warp]);
     // 4. the warps' rows and depth sums, in warp and group order
 #pragma unroll
     for (int x = LANES; x < 32; x <<= 1)
@@ -568,13 +634,13 @@ __global__ void __launch_bounds__(kPixelThreads) s1_pixels_kernel(
 #pragma unroll
       for (int i = 0; i < VEC; ++i) s_row[warp * C + sub * VEC + i] = acc[i];
     __syncthreads();
-    for (int ch = threadIdx.x; ch < C; ch += kPixelThreads) {
+    for (int ch = threadIdx.x; ch < C; ch += kLongThreads) {
       float x = 0.f;
       for (int wi = 0; wi < WARPS; ++wi) x += s_row[wi * C + ch];
       d_value[gpix * C + ch] = sgc::from_f32<VT>(x);
     }
     if (d_depth != nullptr)
-      for (int i = threadIdx.x; i < dsize; i += kPixelThreads) {
+      for (int i = threadIdx.x; i < dsize; i += kLongThreads) {
         float x = 0.f;
         for (int gi = 0; gi < WARPS * G; ++gi) x += s_dd[gi * dsize + i];
         d_depth[gpix * dsize + i] = sgc::from_f32<DT>(x);
@@ -633,21 +699,30 @@ int launch_s1_passes(const void* value, const void* depth, const float* locs,
                      int h, int w, int dsize, int k, cudaStream_t stream) {
   const DT* dep = static_cast<const DT*>(depth);
   const size_t list_smem = (size_t)h * w * sizeof(int);
-  auto lists = s1_lists_kernel<DT, DOT>;
+  auto lists = s1_lists_kernel<DT>;
   cudaError_t err = cudaFuncSetAttribute(
       lists, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)list_smem);
   if (err != cudaSuccess) return (int)err;
   lists<<<n, kListThreads, list_smem, stream>>>(dep, locs, attn, counts, sc, h, w, dsize, k);
-  constexpr int WARPS = kPixelThreads / 32, G = 32 / (C / 8);
-  const long long tiles = (long long)n * ((h * w + kTile - 1) / kTile);
-  const size_t smem = (WARPS * C + WARPS * G * dsize + 2 * ((k + 31) / 32)) * sizeof(float);
-  auto pixels = s1_pixels_kernel<VT, DT, C, SAMPLE_GRADS, DOT>;
-  err = cudaFuncSetAttribute(pixels, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr int G = 32 / (C / 8), LW = kLongThreads / 32, PW = kPixelThreads / 32;
+  const size_t long_smem = (LW * C + LW * G * dsize + 2 * ((k + 31) / 32)) * sizeof(float);
+  auto longs = s1_long_kernel<VT, DT, C, SAMPLE_GRADS, DOT>;
+  err = cudaFuncSetAttribute(longs, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)long_smem);
   if (err != cudaSuccess) return (int)err;
-  pixels<<<(unsigned)(kLongBlocks + (tiles + WARPS - 1) / WARPS), kPixelThreads, smem,
-           stream>>>(static_cast<const VT*>(value), static_cast<const VT*>(g), sc,
-                     static_cast<VT*>(d_value), static_cast<DT*>(d_depth), n, h, w, dsize,
-                     k, kLongBlocks);
+  const VT* v = static_cast<const VT*>(value);
+  const VT* gg = static_cast<const VT*>(g);
+  VT* dv = static_cast<VT*>(d_value);
+  DT* dd = static_cast<DT*>(d_depth);
+  err = sgc::launch_kernel(longs, dim3(kLongBlocks), dim3(kLongThreads), long_smem, stream,
+                           true, v, gg, sc, dv, dd, n, h, w, dsize, k);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)n * ((h * w + kTile - 1) / kTile);
+  err = sgc::launch_kernel(s1_pixels_kernel<VT, DT, C, SAMPLE_GRADS, DOT>,
+                           dim3((unsigned)((tiles + PW - 1) / PW)), dim3(kPixelThreads),
+                           PW * G * dsize * sizeof(float), stream, true, v, gg, sc, dv, dd,
+                           n, h, w, dsize, k);
+  if (err != cudaSuccess) return (int)err;
   if (SAMPLE_GRADS && (long long)n * k > 0) {
     const long long rows = (long long)n * k;
     s1_sample_grads_kernel<DT><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
@@ -690,12 +765,12 @@ int dispatch_c(int c, const void* value, const void* depth, const float* locs,
 
 }  // namespace
 
-// value (N, H, W, heads*c) of type vdtype, depth (N, H, W, dsize) of type
-// ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
-// (N,) int32 or null, g (N, K, heads*c) of type vdtype -> d_value (f32,
-// zero-initialised by the caller), d_depth (likewise, or null: not
-// computed) and, where both pointers are non-null, d_locs and d_attn (f32,
-// every element written).
+// The multi-head backward (K5, K5'; it takes stage 1 too): value (N, H, W,
+// heads*c) of type vdtype, depth (N, H, W, dsize) of type ddtype, locs (N,
+// K, heads, P, 3) and attn (N, K, heads, P) f32, counts (N,) int32 or null,
+// g (N, K, heads*c) of type vdtype -> d_value (f32, zero-initialised by the
+// caller), d_depth (likewise, or null: not computed) and, where both
+// pointers are non-null, d_locs and d_attn (f32, every element written).
 extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
                              const void* depth, const float* locs,
                              const float* attn, const int* counts,

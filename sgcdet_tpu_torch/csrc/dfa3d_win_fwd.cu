@@ -44,10 +44,21 @@
 // reads about 1.8 value rows per pixel of its band, so staging them would
 // move as many bytes as the gathers they replace.
 //
-// Stage 1 (heads = P = 1, c = 256: dfa3d_win_fwd_s1_kernel) keeps the
-// earlier design: one block per (32-channel slice of the value row, chunk,
-// view) that stages the slice's value channels and the depth bins of its
-// window and computes a query per warp, a channel per lane.
+// Stage 1 (heads = P = 1, c = 32 or 256: dfa3d_win_fwd_s1_kernel): one
+// block of 256 threads per (chunk of qc = 16 queries, view) runs K2's warp
+// (sgc::s1_fwd_warp: eight contiguous channels a lane at c = 256, 16-byte
+// loads, one 512-byte store a query) over the chunk, two queries a warp,
+// with the templates' coordinates and depth reads (GlobalDepth), so its
+// output is K2's.  A chunk past the count writes its zero rows in 16-byte
+// stores and stops.  Nothing is staged: a chunk's union window at the
+// sorted level 2 spans 152 / 284 / 1014 pixels (p50 / p90 / max) for at
+// most 64 corner reads, so staging its depth bins (48 B a pixel) moves
+// more bytes than the bin reads it saves.  Measured (H100 80GB HBM3,
+// PERF.md): the bins staged in a window of 512 or 1152 pixels ran 3 and
+// 4 % slower than nothing staged; chunks of 8, 32 and 64 queries 0.5, 2
+// and 11 % slower than 16.  What bounds it: as K2, the value gathers and
+// the zeros of the counted-out rows (86 % of the sorted level 2's chunks
+// hold no counted query).
 #include "dfa3d_mh.cuh"
 
 namespace {
@@ -72,33 +83,17 @@ __global__ void __launch_bounds__(kS1Threads) dfa3d_win_fwd_s1_kernel(
     const float* __restrict__ attn,  // (N, K, 1, 1)
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
     VT* __restrict__ out,            // (N, K, c)
-    int h, int w, int dsize, int k, int qc, int wwin) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int2 s_warp[kS1Threads / 32];
+    int h, int w, int dsize, int k, int qc) {
   constexpr int C = 32 * VEC;
   const int chunk = blockIdx.x, cam = blockIdx.y;
   const int count = counts == nullptr ? k : counts[cam];
   const int q0 = chunk * qc, q1 = min(k, q0 + qc);
-  const int nqc = max(0, min(q1, count) - q0);  // counted queries of the chunk
-  if (nqc == 0) {  // uniform over the block: a chunk past the count
+  if (q0 >= count) {  // uniform over the block: a chunk past the count
     zero_rows(out + ((long long)cam * k + q0) * C, (long long)(q1 - q0) * C);
     return;
   }
-  int2 box = make_int2(0, -1);
-  if (wwin > 0)  // uniform over the block
-    box = sgc::union_window<kS1Threads>(locs + ((long long)cam * k + q0) * 3, nqc, h, w,
-                                        s_warp);
-  const int span = box.y >= 0 ? box.y - box.x + 1 : 0;
-  const bool staged = span > 0 && span <= wwin;
   const long long hw = (long long)h * w;
-  const DT* dmap = depth + cam * hw * dsize;
-  float* s_dpt = reinterpret_cast<float*>(smem);  // [wwin][D]
-  if (staged) {  // uniform over the block
-    sgc::stage_depth(s_dpt, dmap, box.x, span, dsize);
-    __syncthreads();
-  }
-  const sgc::WindowDepth<DT> dep{{dmap, nullptr, dsize}, s_dpt, nullptr, box.x,
-                                 staged ? span : 0};
+  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize, nullptr, dsize};
   const VT* vmap = value + cam * hw * C;
   for (int q = q0 + (threadIdx.x >> 5); q < q1; q += kS1Threads / 32)
     sgc::s1_fwd_warp<VT, DT, VEC>(vmap, locs, attn, out, (long long)cam * k + q, q < count,
@@ -154,16 +149,11 @@ size_t window_smem(int dsize, int wwin) { return (size_t)wwin * dsize * sizeof(f
 template <typename VT, typename DT, int VEC>
 int launch_s1(const void* value, const void* depth, const float* locs,
               const float* attn, const int* counts, void* out, int n, int h,
-              int w, int dsize, int k, int qc, int wwin, cudaStream_t stream) {
-  const size_t smem = window_smem(dsize, wwin);
-  auto kernel = dfa3d_win_fwd_s1_kernel<VT, DT, VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+              int w, int dsize, int k, int qc, cudaStream_t stream) {
   const dim3 grid((k + qc - 1) / qc, n);  // a view's chunks after one another
-  kernel<<<grid, kS1Threads, smem, stream>>>(
-      static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
-      counts, static_cast<VT*>(out), h, w, dsize, k, qc, wwin);
+  dfa3d_win_fwd_s1_kernel<VT, DT, VEC><<<grid, kS1Threads, 0, stream>>>(
+      static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn, counts,
+      static_cast<VT*>(out), h, w, dsize, k, qc);
   return (int)cudaGetLastError();
 }
 
@@ -189,9 +179,9 @@ int launch_mh(const void* value, const void* depth, const float* locs,
 
 // value (N, H, W, heads*c) of type vdtype, depth (N, H, W, dsize) of type
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
-// (N,) int32 or null -> out (N, K, heads*c) of type vdtype.  heads = P = 1
-// (stage 1) takes c a multiple of 32, multi-head c = 32 or 256; chunks of
-// qc queries; windows of at most wwin pixels.
+// (N,) int32 or null -> out (N, K, heads*c) of type vdtype, c = 32 or 256;
+// chunks of qc queries; the multi-head kernel's windows of at most wwin
+// pixels (stage 1 has none).
 extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
                                  const void* depth, const float* locs,
                                  const float* attn, const int* counts,
@@ -205,9 +195,9 @@ extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
     using VT = decltype(v);
     using DT = decltype(d);
     if (heads == 1 && p == 1 && c == 32)
-      return launch_s1<VT, DT, 1>(value, depth, locs, attn, counts, out, n, h, w, dsize, k, qc, wwin, s);
+      return launch_s1<VT, DT, 1>(value, depth, locs, attn, counts, out, n, h, w, dsize, k, qc, s);
     if (heads == 1 && p == 1 && c == 256)
-      return launch_s1<VT, DT, 8>(value, depth, locs, attn, counts, out, n, h, w, dsize, k, qc, wwin, s);
+      return launch_s1<VT, DT, 8>(value, depth, locs, attn, counts, out, n, h, w, dsize, k, qc, s);
     if (c == 32)
       return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
     if (c == 256)
@@ -226,9 +216,9 @@ extern "C" int sgc_dfa3d_win_fwd_attributes(int vdtype, int ddtype, int stage1,
     using DT = decltype(d);
     const size_t smem = window_smem(dsize, wwin);
     if (stage1 && c == 32)
-      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT, 1>, kS1Threads, smem, out);
+      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT, 1>, kS1Threads, 0, out);
     if (stage1 && c == 256)
-      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT, 8>, kS1Threads, smem, out);
+      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT, 8>, kS1Threads, 0, out);
     if (c == 32)
       return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 32>, kMhThreads, smem, out);
     if (c == 256)

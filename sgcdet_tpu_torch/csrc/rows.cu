@@ -170,25 +170,13 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
   }
 }
 
-// Programmatic dependent launch (sm_90): a kernel launched with
-// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
-// kernel ahead of it in the stream ends; it waits here before it reads
-// what that kernel writes or writes what it reads.
-__device__ __forceinline__ void wait_for_prerequisite() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-// Let the next kernel of the stream start launching.
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
 // meta[ch] = {lowest row, span} of chunk ch's indices, span -1 where it
 // exceeds wwin.
 template <typename I>
 __global__ void __launch_bounds__(kThreads) scatter_plan_kernel(
     const I* __restrict__ rows, int* __restrict__ meta, int m, int cm, int wwin) {
   __shared__ int s_box[2];
-  launch_dependents();
+  sgc::launch_dependents();
   const int m0 = blockIdx.x * cm, n = min(cm, m - m0);
   const I* r = rows + m0;
   const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, s_box);
@@ -290,7 +278,7 @@ __global__ void __launch_bounds__(kThreads) scatter_owner_kernel(
          [&](int k) { const int ch = k / cm; return s_hi[ch] - s_sel[ch] + 1 <= wwin; });
     flush();
   } else if (wwin > 0) {
-    wait_for_prerequisite();  // meta
+    sgc::wait_for_prerequisite();  // meta
     const int nchunks = (m + cm - 1) / cm;
     const int per_tile = kScatterTile / cm;  // whole chunks a tile holds
     for (int g = 0; g < nchunks; g += kThreads) {
@@ -335,7 +323,7 @@ __global__ void __launch_bounds__(kThreads) scatter_owner_kernel(
     flush();
   }
   if (live) reinterpret_cast<float4*>(out)[(long long)row * l4 + col] = acc;
-  launch_dependents();
+  sgc::launch_dependents();
 }
 
 // out[rows[i]] += u[i] for the indices of the direct chunks (every chunk
@@ -353,7 +341,7 @@ __global__ void __launch_bounds__(kThreads) scatter_direct_kernel(
     const int2 b = chunk_bounds(n, [&](int i) { return (int)r[i]; }, s_box);
     if (b.y - b.x + 1 <= wwin) return;  // summed by scatter_owner_kernel
   }
-  wait_for_prerequisite();  // out stored
+  sgc::wait_for_prerequisite();  // out stored
   const float4* u4 = reinterpret_cast<const float4*>(u);
   float4* o4 = reinterpret_cast<float4*>(out);
   for (int e = threadIdx.x; e < n * l4; e += kThreads) {
@@ -368,16 +356,7 @@ __global__ void __launch_bounds__(kThreads) scatter_direct_kernel(
 template <typename... Params, typename... Args>
 cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool early,
                    Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = early ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+  return sgc::launch_kernel(kernel, grid, dim3(kThreads), 0, s, early, args...);
 }
 
 template <typename T, typename I, bool EPI>

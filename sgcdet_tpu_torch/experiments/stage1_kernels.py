@@ -1,6 +1,6 @@
 """Measurements behind the stage-1 DFA3D kernels' design: where a K6 call's
-device time goes, and the windowed stage-1 forward at other chunks and
-windows than the ones it is launched with.
+device time goes, and the windowed stage-1 forward at other chunks than
+the one it is launched with.
 
     python -m sgcdet_tpu_torch.experiments.stage1_kernels [--wrappers]
 
@@ -16,12 +16,11 @@ card).  It prints:
   dtype casts and its kernels (torch.profiler), the last by kernel name;
 * the windowed stage-1 forward through its wrapper on the sorted and on
   random level-2 locations, beside K2 on the same input;
-* with no ``--wrappers``, also the windowed stage-1 kernel at chunks of 16
-  / 32 / 64 queries and windows of 0 (nothing staged), 512 and 1152
-  pixels, each held against its plain version with the same plan.
+* with no ``--wrappers``, also the windowed stage-1 kernel at chunks of 8
+  / 16 / 32 / 64 queries, each held against its plain version.
 
-With ``--wrappers`` it runs on any tree of the port since PR 8, so one
-call can time a parent beside its change.
+With ``--wrappers`` it calls only what earlier trees of the port have too,
+so one call can time a parent tree beside its change.
 """
 from __future__ import annotations
 
@@ -135,35 +134,30 @@ def windowed_wrapper(dev):
             for regime, args in _stage1_regimes(dev)]
 
 
-def window_grid(dev, chunks=(8, 16, 32, 64), windows=(0, 512, 1152)):
-    """The windowed stage-1 kernel at each (chunk, window) on the sorted
-    and on random level-2 locations against its plain version with the same
-    plan, beside K2: (name, ms, K2 ms, max abs error)."""
+def window_grid(dev, chunks=(8, 16, 32, 64)):
+    """The windowed stage-1 kernel at each chunk on the sorted and on
+    random level-2 locations against its plain version, beside K2: (name,
+    ms, K2 ms, max abs error)."""
     from ..ops._cuda import DTYPE_CODE
     from ..ops.dfa3d import _check, _ptr, dfa3d_fwd_cuda
-    from ..ops.dfa3d_windowed import (DFA3D_WIN_FWD_S1, dfa3d_windowed_plain,
-                                      plan_windows)
+    from ..ops.dfa3d_windowed import DFA3D_WIN_FWD_S1, dfa3d_windowed_plain
 
     rows = []
     for regime, args in _stage1_regimes(dev):
-        locs, counts = args[2], args[5]
         v, d, lo, at, cnt, _, sizes = _check(*args)
         k2 = cuda_ms(lambda: dfa3d_fwd_cuda(*args))
+        want = dfa3d_windowed_plain(*args)
         for qc in chunks:
-            for wwin in windows:
-                out = torch.empty((sizes[0], sizes[6], sizes[4]), dtype=v.dtype, device=dev)
+            out = torch.empty((sizes[0], sizes[6], sizes[4]), dtype=v.dtype, device=dev)
 
-                def run():
-                    DFA3D_WIN_FWD_S1(dev, DTYPE_CODE[v.dtype], DTYPE_CODE[d.dtype],
-                                     v.data_ptr(), d.data_ptr(), lo.data_ptr(),
-                                     at.data_ptr(), _ptr(cnt), out.data_ptr(), *sizes,
-                                     qc, wwin)
-                    return out
+            def run():
+                DFA3D_WIN_FWD_S1(dev, DTYPE_CODE[v.dtype], DTYPE_CODE[d.dtype], v.data_ptr(),
+                                 d.data_ptr(), lo.data_ptr(), at.data_ptr(), _ptr(cnt),
+                                 out.data_ptr(), *sizes, qc, 0)
+                return out
 
-                plan = plan_windows(locs, counts, sizes[1], sizes[2], wwin, qc)
-                want = dfa3d_windowed_plain(*args, plan=plan)
-                err = float((run().float() - want.float()).abs().max())
-                rows.append((f"{regime} chunks of {qc}, window {wwin}", cuda_ms(run), k2, err))
+            err = float((run().float() - want.float()).abs().max())
+            rows.append((f"{regime} chunks of {qc}", cuda_ms(run), k2, err))
     return rows
 
 

@@ -16,8 +16,9 @@ multi-head kernels take a chunk's heads in one block, whose window is the
 union of its heads' bands, and run the templates' warps (K3, K5) with the
 window in shared memory: the forward stages the window's depth bins, the
 backward sums its ``d_depth`` there and adds it back by 16-byte
-reductions.  Stage 1 runs K2's warp over its chunk the same way, and a
-chunk past the count writes its zero rows and stops.
+reductions.  Stage 1 runs K2's warp over its chunk with no window (its
+chunks' unions span more pixels than their corners read), and a chunk past
+the count writes its zero rows and stops.
 
 * ``plan_windows`` — counterpart of ``_chunk_meta`` (dfa3d_pallas4.py:83-96)
   and ``_ws_prep`` (dfa3d_pallas5.py:80-120): per (view, chunk of ``qc``
@@ -65,13 +66,8 @@ from .dfa3d import (
 from .sampling import clip_coord
 
 SLICE = 32        # value channels of a head: the windowed backward's c
-# stage 1 (heads = P = 1): chunks of 16 queries, whose union spans 152 /
-# 284 / 1014 pixels (p50 / p90 / max) at the sorted level 2; a window of
-# at most WWIN_S1 pixels holds the depth bins in f32, in at most SMEM_S1
-# bytes
+# stage 1 (heads = P = 1): chunks of 16 queries and no window (PERF.md)
 QC_S1 = 16
-WWIN_S1 = 512
-SMEM_S1 = 24 * 1024
 # multi-head: chunks over all heads, the forward's of 16 queries, the
 # backward's of 8 (PERF.md); a window of at most WIN_CAP pixels,
 # above the 90th percentile of the unions' spans at the sorted level 2,
@@ -111,27 +107,26 @@ def window_bytes(wwin, value_img, dpt_img, stage1=False, backward=False,
                  depth_grad=True):
     """The dynamic shared memory a windowed kernel's block reserves for a
     window of ``wwin`` pixels (csrc/dfa3d_win_fwd.cu::window_smem,
-    dfa3d_win_bwd.cu::bwd_smem): the forwards (stage 1 and multi-head) the
-    depth bins in f32; the backward, with ``depth_grad``, the bins' f32
-    d_depth sums.  ``value_img`` and ``stage1`` change nothing: every
-    window holds 4 bytes a bin."""
+    dfa3d_win_bwd.cu::bwd_smem): the multi-head forward the depth bins in
+    f32; the backward, with ``depth_grad``, the bins' f32 d_depth sums;
+    stage 1 nothing (it has no window).  ``value_img`` changes nothing:
+    every window holds 4 bytes a bin."""
     d = dpt_img.shape[-1]
-    return 0 if backward and not depth_grad else 4 * wwin * d
+    return 0 if stage1 or (backward and not depth_grad) else 4 * wwin * d
 
 
 def window_length(value_img, dpt_img, stage1=False, backward=False, depth_grad=True):
     """The most pixels a windowed kernel's window holds on these operands
-    (the ``wwin`` it is launched with): at most ``WWIN_S1`` (stage 1) or
-    ``WIN_CAP`` (multi-head), the whole map where it is smaller, and what
-    the kernel's shared memory budget allows at ``window_bytes`` a
-    window; 0 for a backward without ``depth_grad``, whose window would
-    hold nothing."""
-    if backward and not depth_grad:
+    (the ``wwin`` it is launched with): at most ``WIN_CAP``, the whole map
+    where it is smaller, and what the kernel's shared memory budget allows
+    at ``window_bytes`` a window; 0 for stage 1, which has no window, and
+    for a backward without ``depth_grad``, whose window would hold
+    nothing."""
+    if stage1 or (backward and not depth_grad):
         return 0
     h, w = value_img.shape[1:3]
-    cap, smem = (WWIN_S1, SMEM_S1) if stage1 else (WIN_CAP, SMEM_MH)
     per_pixel = window_bytes(1, value_img, dpt_img, stage1, backward, depth_grad)
-    return max(1, min(h * w, cap, smem // per_pixel))
+    return max(1, min(h * w, WIN_CAP, SMEM_MH // per_pixel))
 
 
 def _is_stage1(locs):

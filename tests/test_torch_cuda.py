@@ -488,7 +488,8 @@ def test_stage1_backward_writes_every_element(cuda_device, case, vdtype, ddtype,
 # of a chunk on one pixel centre, a view counted to 0; "misaligned":
 # coherent operands that are views breaking 16-byte alignment;
 # "past_count" (stage 1): coherent, counts that leave most chunks past the
-# count and some chunks partly counted
+# count and some chunks partly counted.  Stage 1 has no window: its cases
+# hold its chunks against the plain version and K2
 WINDOW_CASES = ["coherent", "random", "cap", "one_pixel", "misaligned"]
 # (heads, points, c): stage 1, stage 2 and its partial head groups (the
 # backward's shapes), and the multi-head forward at c = 256
@@ -548,7 +549,9 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
     plan = plan_windows(args[2], counts, h, w, wwin, qc)
     live = plan.span > 0
     share = float((plan.ok & live).sum() / live.sum())
-    if case == "cap":
+    if stage1:  # no window: every live chunk reads the whole map, as K2
+        assert wwin == 0 and share == 0
+    elif case == "cap":
         assert wwin == WIN_CAP
         assert plan.span[1:, 0].eq(wwin).all() and plan.span[1:, 1].eq(wwin + 1).all()
     else:
@@ -619,8 +622,9 @@ def test_windowed_backward_kernel_matches_plain_and_template(
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
 def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype):
     """Each windowed kernel's shared memory a block is window_bytes at the
-    window_length the wrappers launch it with, plus the block window's two
-    static ints a warp, at the level-2 shape; the CUDA runtime's own
+    window_length the wrappers launch it with, plus, for the multi-head
+    kernels, the block window's two static ints a warp (stage 1 has no
+    window: none), at the level-2 shape; the CUDA runtime's own
     figures."""
     value = torch.zeros((1, 59, 80, 256), dtype=vdtype, device=cuda_device)
     depth = torch.zeros((1, 59, 80, 12), dtype=ddtype, device=cuda_device)
@@ -632,7 +636,8 @@ def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype
         res = kernel_resources(name, vdtype, ddtype, 12, wwin, 256 if stage1 else 32,
                                depth_grad)
         reserved = window_bytes(wwin, value, depth, stage1, backward, depth_grad)
-        assert res["smem_bytes"] == reserved + 8 * res["threads"] // 32, (name, res, reserved)
+        window_ints = 0 if stage1 else 8 * res["threads"] // 32
+        assert res["smem_bytes"] == reserved + window_ints, (name, res, reserved)
         assert res["blocks_per_sm"] >= 1, (name, res)
 
 
