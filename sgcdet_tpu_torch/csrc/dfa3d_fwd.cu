@@ -128,10 +128,9 @@ __global__ void __launch_bounds__(256) dfa3d_fwd_one_point_kernel(
   const int q = (int)(nq % k);
   const int cam = (int)(nq / k);
   const long long hw = (long long)h * w;
-  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize, nullptr, dsize};
-  sgc::s1_fwd_warp<VT, DT, VEC>(value + cam * hw * heads * 32 * VEC, locs, attn, out, nq,
-                                counts == nullptr || q < counts[cam], head, h, w, heads,
-                                dsize, dep);
+  sgc::s1_fwd_warp<VT, DT, VEC>(value + cam * hw * heads * 32 * VEC, depth + cam * hw * dsize,
+                                locs, attn, out, nq, counts == nullptr || q < counts[cam],
+                                head, h, w, heads, dsize);
 }
 
 template <typename VT, typename DT, int C>

@@ -48,8 +48,7 @@
 // block of 256 threads per (chunk of qc = 16 queries, view) runs K2's warp
 // (sgc::s1_fwd_warp: eight contiguous channels a lane at c = 256, 16-byte
 // loads, one 512-byte store a query) over the chunk, two queries a warp,
-// with the templates' coordinates and depth reads (GlobalDepth), so its
-// output is K2's.  A chunk past the count writes its zero rows in 16-byte
+// with K2's coordinates and depth reads, so its output is K2's.  A chunk past the count writes its zero rows in 16-byte
 // stores and stops.  Nothing is staged: a chunk's union window at the
 // sorted level 2 spans 152 / 284 / 1014 pixels (p50 / p90 / max) for at
 // most 64 corner reads, so staging its depth bins (48 B a pixel) moves
@@ -93,11 +92,11 @@ __global__ void __launch_bounds__(kS1Threads) dfa3d_win_fwd_s1_kernel(
     return;
   }
   const long long hw = (long long)h * w;
-  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize, nullptr, dsize};
   const VT* vmap = value + cam * hw * C;
+  const DT* dmap = depth + cam * hw * dsize;
   for (int q = q0 + (threadIdx.x >> 5); q < q1; q += kS1Threads / 32)
-    sgc::s1_fwd_warp<VT, DT, VEC>(vmap, locs, attn, out, (long long)cam * k + q, q < count,
-                                  0, h, w, 1, dsize, dep);
+    sgc::s1_fwd_warp<VT, DT, VEC>(vmap, dmap, locs, attn, out, (long long)cam * k + q,
+                                  q < count, 0, h, w, 1, dsize);
 }
 
 template <typename VT, typename DT, int C>
