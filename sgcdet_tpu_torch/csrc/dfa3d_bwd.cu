@@ -177,8 +177,8 @@ constexpr int kMaxViews = 1024;     // views a call (the pixel pass counts them 
 constexpr int kMaxMapPixels = 56 * 1024;  // the build counts a view's pixels in shared memory
 
 // A stage-1 sample's quantities, with the coordinates rounded as the
-// plain version rounds them (sgc::pixel_coord): the build and the pixel
-// pass compute the same corners.
+// plain version rounds them (sgc::pixel_coord): the list build, the long
+// pass and the sample gradients find the same corners.
 struct S1Sample {
   int x0, y0, d0c, d1c;
   float lx, ly, wd0, wd1, a;
