@@ -56,9 +56,7 @@ Phases, each fatal on failure:
               run's), the global atomic operations of K4 and K5 (vector and
               scalar, counted from the design) with their rate, and for K6
               and K6' the lists the call builds (entries, pixels, the
-              longest list, the lists of more than 32 entries) beside the
-              zero fills and the cast that the earlier K6 wrapper ran around
-              its kernel, timed alone at the same shapes.
+              longest list, the lists of more than 32 entries).
 4. slice    — the ScanNet forward at compute_dtype=float32 with TF32 off, on
               the indoor 40-view scene, once through the kernels and once
               through the plain versions: identical `valid`, matching
@@ -90,17 +88,18 @@ Phases, each fatal on failure:
               backward, finite, with the launches of the bf16-depth kernels
               (1 stage-1 and 1 stage-2, forward and backward, per level),
               warm milliseconds and peak memory per level.
-9. windowed — the windowed kernels of the sort_queries path (stage-1 and
-              multi-head forward, multi-head backward) at the three lifting
-              shapes on the indoor scene's sorted projections with the
-              model's initial sampling offsets, at every type pair, against
-              their plain versions and against the template kernels on the
-              same input; a random-location case at level 2 for the
+9. windowed — the windowed kernels of the sort_queries path (multi-head
+              forward and backward) at the three lifting shapes on the
+              indoor scene's sorted projections with the model's initial
+              sampling offsets, at every type pair, against their plain
+              versions and against the template kernels on the same input,
+              and the sorted stage 1, which goes to K2, against its plain
+              version; a random-location case at level 2 for the
               global-memory branch.  Prints per level the share of chunks
               and of samples served from a window and the windowed and
               template kernels' warm times (with the earlier windowed
-              times of PERF.md beside them); per level the share of stage-1
-              chunks that hold no counted query; the windows' spans
+              times of PERF.md beside them, K2's beside the earlier
+              windowed stage 1's); the windows' spans
               (p50 / p90 / max, per head and the union of a chunk's heads
               that a block stages) and the share of unions small enough to
               hold a chunk's d_value in shared memory; each windowed
@@ -115,9 +114,9 @@ Phases, each fatal on failure:
               plain versions (as phase 4) and against phase 4's unsorted
               scene (identical `valid`, head outputs within 1e-4 of their
               scale); 3 bf16 scenes through infer.detect (launches per
-              scene: 2 sweep, 3 windowed stage-1, 3 windowed multi-head, no
-              template forward) and 4 bf16 train steps (per step also 2
-              sweep bwd, 3 K6 and 3 windowed backward, no K5).
+              scene: 2 sweep, 3 K2, 3 windowed multi-head, no K3) and 4
+              bf16 train steps (per step also 2 sweep bwd, 3 K6 and 3
+              windowed backward, no K5).
 11. probes  — the row gather/scatter probe kernels, each mode against its
               plain version at the TPU probes' shapes (gathers exact; a
               windowed scatter of a permutation bit-exact), then the probes'
@@ -160,7 +159,8 @@ KERNEL_INFO = {
     "sweep_fwd": ("sgcdet_tpu_torch/csrc/sweep_fwd.cu",
                   f"{_OPS}sweep_pallas.py:233; {_OPS}sweep_pallas.py:225"),
     "dfa3d_fwd_s1": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
-                     f"{_OPS}dfa3d_pallas.py:303; {_OPS}dfa3d_pallas3.py:179"),
+                     f"{_OPS}dfa3d_pallas.py:303; {_OPS}dfa3d_pallas3.py:179; "
+                     f"{_EXP}dfa3d_pallas4.py:174"),
     "dfa3d_fwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
                      f"{_OPS}dfa3d_pallas2.py:267; {_OPS}dfa3d_pallas.py:262; "
                      f"{_OPS}dfa3d_pallas3.py:154"),
@@ -181,8 +181,6 @@ KERNEL_INFO = {
     "dfa3d_bwd_mh_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
                         f"{_OPS}dfa3d_pallas2.py:318 at bf16 depth (the 2D "
                         "path's stage 2)"),
-    "dfa3d_win_fwd_s1": ("sgcdet_tpu_torch/csrc/dfa3d_win_fwd.cu",
-                         f"{_EXP}dfa3d_pallas4.py:174"),
     "dfa3d_win_fwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_win_fwd.cu",
                          f"{_EXP}dfa3d_pallas4.py:130; {_EXP}dfa3d_pallas4.py:418; "
                          f"{_EXP}dfa3d_pallas5.py:185"),
@@ -199,7 +197,7 @@ KERNEL_INFO = {
 KERNELS_2D = ("dfa3d_fwd_s1_bd", "dfa3d_fwd_mh_bd", "dfa3d_bwd_s1_bd",
               "dfa3d_bwd_mh_bd")
 # the windowed kernels, launched by the sorted path
-KERNELS_SORTED = ("dfa3d_win_fwd_s1", "dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
+KERNELS_SORTED = ("dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and f32 flop/s outside
 # the tensor cores, where every kernel here computes
 HBM_BYTES_PER_S = 3.35e12
@@ -209,11 +207,11 @@ LAUNCHES_PER_SCENE = {"sweep_fwd": 2, "dfa3d_fwd_s1": 3, "dfa3d_fwd_mh": 3}
 # ... and per step on the train path
 LAUNCHES_PER_STEP = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1": 3,
                      "dfa3d_bwd_s1": 3, "dfa3d_fwd_mh": 3, "dfa3d_bwd_mh": 3}
-# ... and on the sorted path (sort_queries): the windowed forwards, K6 for
-# stage 1's backward and the windowed multi-head backward
-LAUNCHES_PER_SCENE_SORTED = {"sweep_fwd": 2, "dfa3d_win_fwd_s1": 3,
+# ... and on the sorted path (sort_queries): K2 and K6 for stage 1, the
+# windowed multi-head forward and backward
+LAUNCHES_PER_SCENE_SORTED = {"sweep_fwd": 2, "dfa3d_fwd_s1": 3,
                              "dfa3d_win_fwd_mh": 3}
-LAUNCHES_PER_STEP_SORTED = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_win_fwd_s1": 3,
+LAUNCHES_PER_STEP_SORTED = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1": 3,
                             "dfa3d_bwd_s1": 3, "dfa3d_win_fwd_mh": 3,
                             "dfa3d_win_bwd_mh": 3}
 TRAIN_STEPS = 4
@@ -230,7 +228,7 @@ EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
               "K6": 0.2372, "K6 f32/f32 uncounted": 0.2452, "K6' 2D": 0.2970,
               # the windowed kernels at level 2 before their redesign (PERF.md
               # section 6, rows 16-21, as this script measured them; stage 1
-              # before it ran K2's warp)
+              # before the sorted path sent it to K2)
               "win s1 sorted": 0.2314, "win mh sorted": 0.3878,
               "win mh random": 0.4341, "win bwd sorted": 1.2569,
               "win bwd random": 1.2202}
@@ -1036,21 +1034,6 @@ def s1_lists(locs, counts, h, w):
             f"{int((per_pixel > 32).sum())} lists longer than 32")
 
 
-def earlier_wrapper_ops(torch, value, depth, depth_grad):
-    """Warm times (ms, CUDA events) of the torch ops that K6's wrapper ran
-    around its kernel before the stage-1 backward wrote its outputs itself,
-    at these operands' shapes: the zero fills of the f32 d_value and d_depth
-    (0 without depth_grad) and d_value's cast to the value's type (0 at
-    f32)."""
-    f32 = dict(dtype=torch.float32, device=value.device)
-    d_value = torch.zeros(value.shape, **f32)
-    z_v = cuda_ms(torch, lambda: torch.zeros(value.shape, **f32))
-    z_d = cuda_ms(torch, lambda: torch.zeros(depth.shape, **f32)) if depth_grad else 0.0
-    cast = (cuda_ms(torch, lambda: d_value.to(value.dtype))
-            if value.dtype != torch.float32 else 0.0)
-    return z_v, z_d, cast
-
-
 def phase_backward(torch, dev, report):
     from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_bwd_plain
     from sgcdet_tpu_torch.ops.sweep import sweep_bwd_cuda, sweep_bwd_plain
@@ -1100,11 +1083,7 @@ def phase_backward(torch, dev, report):
             value, depth, locs = args[:3]
             h, w = value.shape[1:3]
             if locs.shape[2] == locs.shape[3] == 1:  # K6, K6': lists, no atomics
-                z_v, z_d, cast = earlier_wrapper_ops(torch, value, depth, depth_grad)
-                log(f"[kernels] {name}: {s1_lists(locs, args[6], h, w)}; no zero fill "
-                    f"and no cast in the call; the earlier wrapper's, alone at these "
-                    f"shapes: zeros of the f32 d_value {z_v:.4f} ms and d_depth "
-                    f"{z_d:.4f} ms, d_value cast to {str(value.dtype)[6:]} {cast:.4f} ms")
+                log(f"[kernels] {name}: {s1_lists(locs, args[6], h, w)}")
             else:
                 log_atomics(name, ms, *dfa3d_atomics(
                     locs, args[6], h, w, depth.shape[-1], value.shape[-1] // args[5],
@@ -1714,7 +1693,6 @@ PTXAS_KERNELS = {"K2": "dfa3d_fwd_one_point_kernelI13__nv_bfloat16fLi8EE",
                  "K5": "dfa3d_bwd_kernelI13__nv_bfloat16fLi32ELb1ELb1E",
                  "K6 pixel pass": "s1_pixels_kernelI13__nv_bfloat16fLi256ELb0ELb1EE",
                  "K6 long pass": "s1_long_kernelI13__nv_bfloat16fLi256ELb0ELb1EE",
-                 "dfa3d_win_fwd_s1": "dfa3d_win_fwd_s1_kernelI13__nv_bfloat16fLi8EE",
                  "dfa3d_win_fwd_mh": "dfa3d_win_fwd_mh_kernelI13__nv_bfloat16fLi32E",
                  "dfa3d_win_bwd_mh": "dfa3d_win_bwd_kernelI13__nv_bfloat16fLb1ELb1E"}
 
@@ -1731,11 +1709,9 @@ def log_resources(torch, x):
                      (torch.bfloat16, torch.bfloat16)):
         value, depth = x["value"].to(vdt), x["depth"].to(ddt)
         parts = []
-        for name, stage1, backward in (("dfa3d_win_fwd_s1", True, False),
-                                       ("dfa3d_win_fwd_mh", False, False),
-                                       ("dfa3d_win_bwd_mh", False, True)):
-            wwin = window_length(value, depth, stage1, backward)
-            r = kernel_resources(name, vdt, ddt, dsize, wwin, 256 if stage1 else 32)
+        for name, backward in (("dfa3d_win_fwd_mh", False), ("dfa3d_win_bwd_mh", True)):
+            wwin = window_length(value, depth, backward)
+            r = kernel_resources(name, vdt, ddt, dsize, wwin)
             parts.append(f"{name} {r['registers']} registers, {r['spill_bytes']} B "
                          f"local, {r['smem_bytes']} B shared a block ({wwin} pixels), "
                          f"{r['blocks_per_sm']} blocks of {r['threads']} an SM")
@@ -1751,11 +1727,15 @@ def log_resources(torch, x):
 
 
 def phase_windowed(torch, dev, report):
-    from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_fwd_cuda
+    from sgcdet_tpu_torch.ops.dfa3d import (
+        dfa3d_attention_plain,
+        dfa3d_bwd_cuda,
+        dfa3d_fwd_cuda,
+    )
     from sgcdet_tpu_torch.ops.dfa3d_windowed import (
         QC_BWD,
         QC_FWD,
-        QC_S1,
+        dfa3d_attention_windowed,
         dfa3d_win_bwd_cuda,
         dfa3d_win_fwd_cuda,
         dfa3d_windowed_bwd_plain,
@@ -1823,6 +1803,24 @@ def phase_windowed(torch, dev, report):
         if main:
             plan_time(name, args, False)
 
+    def stage1(name, args, timed=False, earlier=None):
+        """The sorted path's stage 1, which the windowed op sends to K2 (K2'
+        at bf16 depth), vs the plain version on sorted queries; timed, K2
+        beside the windowed stage 1's earlier time."""
+        kernel_name = "dfa3d_fwd_s1_bd" if args[1].dtype == torch.bfloat16 else "dfa3d_fwd_s1"
+        got = dfa3d_attention_windowed(*args[:5], valid_counts=args[5])
+        want = dfa3d_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = compare_tensors(torch, f"{name} vs plain", got, want)
+        _zeros_past_count(torch, args[-1])(got)
+        rec = report[kernel_name]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        if timed:
+            _timing(torch, report, name, kernel_name, lambda: dfa3d_fwd_cuda(*args),
+                    lambda: dfa3d_attention_plain(*args),
+                    lambda outs: dfa3d_work(args[:4], outs, args[5], False),
+                    earlier=earlier)
+
     def bwd(name, args, timed=False, main=False, earlier=None):
         """Windowed multi-head backward, every gradient (the train path's
         stage 2), vs its plain version and the template kernel K5."""
@@ -1881,16 +1879,10 @@ def phase_windowed(torch, dev, report):
             model_pair = (vdt, ddt) == (bf16, f32)
             main = model_pair and level == 2
             if model_pair:
-                spans(f"stage1 {shape}", s1, (QC_S1,))
+                spans(f"stage1 {shape}", s1, (QC_FWD,))
                 spans(f"stage2 {shape}", s2, (QC_BWD, QC_FWD))
-                nchunk = -(-x["kb"] // QC_S1)
-                past = int((torch.arange(nchunk, device=dev)[None, :] * QC_S1
-                            >= counts[:, None]).sum())
-                log(f"[windowed] stage1 {shape}: {past} of {N_VIEWS * nchunk} chunks of "
-                    f"{QC_S1} queries ({past / (N_VIEWS * nchunk):.4f}) hold no counted "
-                    f"query")
-            fwd(f"stage1 {tag} {shape} sorted", "dfa3d_win_fwd_s1", s1, model_pair, main,
-                "win s1 sorted" if main else None)
+            stage1(f"stage1 {tag} {shape} sorted, K2", s1, model_pair,
+                   "win s1 sorted" if main else None)
             fwd(f"stage2 {tag} {shape} sorted", "dfa3d_win_fwd_mh", s2, model_pair, main,
                 "win mh sorted" if main else None)
             bwd(f"stage2 bwd {tag} {shape} sorted", s2[:4] + (x["g"].to(vdt),) + s2[4:],

@@ -38,7 +38,8 @@
 // both are off (the 2D stage 1) nothing needs t, so DOT is off too: no
 // value row is read and no dot product taken.
 //
-// Multi-head (K5, K5'): the scatter.  Per (query, head, point, corner) the
+// Multi-head (K5, K5', c = 32 per head: every model path's): the scatter.
+// Per (query, head, point, corner) the
 // kernel gathers two depth bins and, with DOT, one c-channel value row, and
 // adds c (+ 2) f32 values by atomics into zero-filled (N, H, W, C) (and
 // (N, H, W, D)) buffers, which resolve in L2; the wrapper casts them once
@@ -46,12 +47,11 @@
 // cost one broadcast load of the count.  Design (the warp's code is
 // sgc::mh_bwd_warp in csrc/dfa3d_mh.cuh, which the windowed backward of
 // the sorted path shares): eight contiguous channels per lane (one 16-byte
-// load of a bf16 row piece, two of f32), so a head of c channels takes
-// LANES = c / 8 lanes and a warp takes 32 / LANES heads of one (view,
-// query): at c = 32 a warp is one query's eight heads, four lanes each.
+// load of a bf16 row piece, two of f32), so a head of c = 32 channels
+// takes four lanes and a warp one query's eight heads.
 // The incoming gradient row is loaded once into registers, in 16-byte
 // pieces; each corner's dot product t is a reduction over the head's lanes
-// (2 shuffle steps at c = 32, 5 at c = 256), after which every lane of the
+// (2 shuffle steps), after which every lane of the
 // head carries the location and attention gradients; its first lane
 // writes them once per point, and its first two lanes add the two d_dpt
 // bins in one instruction (a single L2 request for the pair).  d_value
@@ -749,28 +749,15 @@ int launch_s1(const void* value, const void* depth, const float* locs,
   return (int)cudaGetLastError();
 }
 
-template <typename VT, typename DT>
-int dispatch_c(int c, const void* value, const void* depth, const float* locs,
-               const float* attn, const int* counts, const void* g,
-               float* d_value, float* d_depth, float* d_locs, float* d_attn,
-               int n, int h, int w, int heads, int dsize, int k, int p,
-               cudaStream_t stream) {
-  switch (c) {
-    case 32: launch_sg<VT, DT, 32>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream); break;
-    case 256: launch_sg<VT, DT, 256>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, stream); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// The multi-head backward (K5, K5'; it takes stage 1 too): value (N, H, W,
-// heads*c) of type vdtype, depth (N, H, W, dsize) of type ddtype, locs (N,
-// K, heads, P, 3) and attn (N, K, heads, P) f32, counts (N,) int32 or null,
-// g (N, K, heads*c) of type vdtype -> d_value (f32, zero-initialised by the
-// caller), d_depth (likewise, or null: not computed) and, where both
-// pointers are non-null, d_locs and d_attn (f32, every element written).
+// The multi-head backward (K5, K5'; stage 1 is sgc_dfa3d_bwd_s1's): value
+// (N, H, W, heads*c) of type vdtype, c = 32, depth (N, H, W, dsize) of type
+// ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
+// (N,) int32 or null, g (N, K, heads*c) of type vdtype -> d_value (f32,
+// zero-initialised by the caller), d_depth (likewise, or null: not
+// computed) and, where both pointers are non-null, d_locs and d_attn (f32,
+// every element written).
 extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
                              const void* depth, const float* locs,
                              const float* attn, const int* counts,
@@ -780,17 +767,11 @@ extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
-  if ((d_locs == nullptr) != (d_attn == nullptr)) return (int)cudaErrorInvalidValue;
-  if (ddtype == sgc::kBFloat16) {
-    if (vdtype != sgc::kBFloat16) return (int)cudaErrorInvalidValue;
-    return dispatch_c<__nv_bfloat16, __nv_bfloat16>(c, value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
-  }
-  if (ddtype != sgc::kFloat32) return (int)cudaErrorInvalidValue;
-  if (vdtype == sgc::kBFloat16)
-    return dispatch_c<__nv_bfloat16, float>(c, value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
-  if (vdtype == sgc::kFloat32)
-    return dispatch_c<float, float>(c, value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
-  return (int)cudaErrorInvalidValue;
+  if ((d_locs == nullptr) != (d_attn == nullptr) || c != 32) return (int)cudaErrorInvalidValue;
+  return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
+    launch_sg<decltype(v), decltype(d), 32>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
+    return (int)cudaGetLastError();
+  });
 }
 
 // Stage 1 (heads = P = 1, K6 and K6'): value (N, H, W, c) of type vdtype,
@@ -799,7 +780,9 @@ extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
 // scratch (ops/dfa3d.py::s1_scratch_ints int32, uninitialised) -> d_value
 // (vdtype) and d_depth (ddtype, or null: not computed), every element
 // written, and, where both pointers are non-null, d_locs and d_attn (f32).
-// c = 32 or 256.
+// c = 32 or 256; at most kMaxViews views and kMaxMapPixels pixels a map,
+// and a long pass whose shared memory fits a block (the wrapper,
+// ops/dfa3d.py::check_bwd_sizes, refuses other sizes before the launch).
 extern "C" int sgc_dfa3d_bwd_s1(int vdtype, int ddtype, const void* value,
                                 const void* depth, const float* locs,
                                 const float* attn, const int* counts,

@@ -68,12 +68,9 @@
 // Lanes past the last head of a partial group (heads not a multiple of
 // HPW) take part in the shuffles and write nothing.
 // The one-point case (stage 1, K2 and K2') keeps the earlier design: a
-// warp per (view, query, head), c / 32 channels a lane (eight contiguous
-// ones at c = 256: a 16-byte load of a bf16 row piece, one 512-byte store
-// a query), every lane computing the sample itself; its warp is
-// sgc::s1_fwd_warp in csrc/dfa3d_mh.cuh, which the windowed stage 1 shares.
-// Off-image corners are never loaded.  No pair/quad row images (those
-// worked around Mosaic).
+// warp per (view, query, head), c / 32 channels a lane, every lane
+// computing the sample itself.  Off-image corners are never loaded.  No
+// pair/quad row images (those worked around Mosaic).
 #include "dfa3d_mh.cuh"
 
 namespace {
@@ -107,10 +104,10 @@ __global__ void __launch_bounds__(256, 3) dfa3d_fwd_kernel(
 }
 
 // One point a head (stage 1: heads = P = 1, K2 and K2'): a warp per
-// (view, query, head), C / 32 channels a lane (sgc::s1_fwd_warp, which the
-// windowed stage 1 of the sorted path runs too).  A warp has a single
-// sample, so sharing its arithmetic gains nothing, and the multi-head
-// layout ran this case slower in f32 (PERF.md).
+// (view, query, head), C / 32 channels a lane; every lane computes the
+// sample from broadcast loads and walks the corners one after another.  A
+// warp has a single sample, so sharing its arithmetic gains nothing, and
+// the multi-head layout ran this case slower in f32 (PERF.md).
 template <typename VT, typename DT, int VEC>
 __global__ void __launch_bounds__(256) dfa3d_fwd_one_point_kernel(
     const VT* __restrict__ value,    // (N, H, W, heads*c)
@@ -120,6 +117,9 @@ __global__ void __launch_bounds__(256) dfa3d_fwd_one_point_kernel(
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
     VT* __restrict__ out,            // (N, K, heads*c)
     int n, int h, int w, int heads, int dsize, int k) {
+  static_assert(VEC >= 1, "the one-point kernel takes c = 32 * VEC channels");
+  constexpr int C = 32 * VEC;  // channels per head
+  const int lane = threadIdx.x & 31;
   const long long warp_id =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (warp_id >= (long long)n * k * heads) return;
@@ -127,10 +127,44 @@ __global__ void __launch_bounds__(256) dfa3d_fwd_one_point_kernel(
   const long long nq = warp_id / heads;  // cam * k + q
   const int q = (int)(nq % k);
   const int cam = (int)(nq / k);
-  const long long hw = (long long)h * w;
-  sgc::s1_fwd_warp<VT, DT, VEC>(value + cam * hw * heads * 32 * VEC, depth + cam * hw * dsize,
-                                locs, attn, out, nq, counts == nullptr || q < counts[cam],
-                                head, h, w, heads, dsize);
+  const int cfull = heads * C;
+
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+
+  if (counts == nullptr || q < counts[cam]) {
+    const long long hw = (long long)h * w;
+    const float* lp = locs + warp_id * 3;
+    const VT* vbase = value + cam * hw * cfull + head * C + lane * VEC;
+    const DT* dbase = depth + cam * hw * dsize;
+    const float u = sgc::clip_coord(lp[0] * w - 0.5f, -4.f, w + 4.f);
+    const float v = sgc::clip_coord(lp[1] * h - 0.5f, -4.f, h + 4.f);
+    const float dd = sgc::clip_coord(lp[2] * dsize - 0.5f, -4.f, dsize + 4.f);
+    const float a = attn[warp_id];
+    const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
+    const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
+    const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
+    const float wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
+    const float wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
+    const int d0c = min(max(d0, 0), dsize - 1);
+    const int d1c = min(max(d0 + 1, 0), dsize - 1);
+#pragma unroll
+    for (int corner = 0; corner < 4; ++corner) {
+      const int dy = corner >> 1, dx = corner & 1;
+      const int yi = y0 + dy, xi = x0 + dx;
+      if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
+      const long long pix = (long long)yi * w + xi;
+      const DT* drow = dbase + pix * dsize;
+      const float ds = sgc::to_f32(drow[d0c]) * wd0 + sgc::to_f32(drow[d1c]) * wd1;
+      const float wgt = ((dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a) * ds;
+      float val[VEC];
+      sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += wgt * val[i];
+    }
+  }
+  sgc::store_from_f32<VT, VEC>(out + nq * cfull + head * C + lane * VEC, acc);
 }
 
 template <typename VT, typename DT, int C>

@@ -1,19 +1,14 @@
-// The DFA3D warps of the templates, which the windowed kernels of the
-// sorted path run too.  The one-point warp (s1_fwd_warp) is K2's: one
-// (view, query, head) of stage 1, C / 32 channels a lane; the windowed
-// stage 1 runs it over a chunk of sorted queries as it is.  The
-// multi-head warp: one (view, query) and a group of its heads, eight
-// channels a lane; the forward (mh_fwd_warp) is K3's and the backward
-// (mh_bwd_warp) K5's.  Their designs are described in csrc/dfa3d_fwd.cu and
-// csrc/dfa3d_bwd.cu.  The windowed multi-head kernels (csrc/dfa3d_win_fwd.cu,
-// dfa3d_win_bwd.cu) run them over a chunk of sorted queries with its depth
-// bins staged in shared memory where a window serves them, so a chunk that
-// no window serves costs what the templates cost.
+// The multi-head DFA3D warp: one (view, query) and a group of its heads,
+// eight channels a lane.  The forward (mh_fwd_warp) is K3's and the
+// backward (mh_bwd_warp) K5's; their designs are described in
+// csrc/dfa3d_fwd.cu and csrc/dfa3d_bwd.cu.  The windowed kernels of the
+// sorted path (csrc/dfa3d_win_fwd.cu, dfa3d_win_bwd.cu) run the same warps
+// with their depth bins staged in shared memory, so a chunk that no window
+// serves costs what the templates cost.
 //
-// What differs between the two users of the multi-head warps is one
-// policy object, Depth, which says how a sample's pixel coordinate is
-// computed and where a corner's depth bins are read and their gradients
-// added:
+// What differs between the two users is one policy object, Depth, which
+// says how a sample's pixel coordinate is computed and where a corner's
+// depth bins are read and their gradients added:
 //   GlobalDepth  — the templates: loc * size - 0.5 as nvcc compiles it, bins
 //                  read from and d_dpt added to global memory;
 //   WindowDepth  — the windowed kernels: pixel_coord (no fused multiply-add,
@@ -120,61 +115,6 @@ struct WindowDepth {
     else global.add(pix, bin, x);
   }
 };
-
-// K2's warp (csrc/dfa3d_fwd.cu): the one point of head `head` of the query
-// at row nq = view * K + q, C = 32 * VEC channels, VEC contiguous channels
-// a lane (at c = 256 one 16-byte load of a bf16 row piece and one 512-byte
-// store a query); vmap and dmap are the view's value and depth maps.
-// Every lane computes the sample from broadcast loads and walks the
-// in-image corners one after another.  Writes the head's output row (zeros
-// where not `counted`).
-template <typename VT, typename DT, int VEC>
-__device__ __forceinline__ void s1_fwd_warp(
-    const VT* __restrict__ vmap, const DT* __restrict__ dmap,
-    const float* __restrict__ locs, const float* __restrict__ attn,
-    VT* __restrict__ out, long long nq, bool counted, int head, int h, int w, int heads,
-    int dsize) {
-  static_assert(VEC >= 1, "the one-point warp takes c = 32 * VEC channels");
-  constexpr int C = 32 * VEC;  // channels per head
-  const int lane = threadIdx.x & 31;
-  const int cfull = heads * C;
-
-  float acc[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-
-  if (counted) {
-    const long long sid = nq * heads + head;  // the (query, head) sample
-    const float* lp = locs + sid * 3;
-    const VT* vbase = vmap + head * C + lane * VEC;
-    const float u = clip_coord(lp[0] * w - 0.5f, -4.f, w + 4.f);
-    const float v = clip_coord(lp[1] * h - 0.5f, -4.f, h + 4.f);
-    const float dd = clip_coord(lp[2] * dsize - 0.5f, -4.f, dsize + 4.f);
-    const float a = attn[sid];
-    const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
-    const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
-    const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
-    const float wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
-    const float wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
-    const int d0c = min(max(d0, 0), dsize - 1);
-    const int d1c = min(max(d0 + 1, 0), dsize - 1);
-#pragma unroll
-    for (int corner = 0; corner < 4; ++corner) {
-      const int dy = corner >> 1, dx = corner & 1;
-      const int yi = y0 + dy, xi = x0 + dx;
-      if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
-      const long long pix = (long long)yi * w + xi;
-      const DT* drow = dmap + pix * dsize;
-      const float ds = to_f32(drow[d0c]) * wd0 + to_f32(drow[d1c]) * wd1;
-      const float wgt = ((dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a) * ds;
-      float val[VEC];
-      load_f32<VT, VEC>(vbase + pix * cfull, val);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += wgt * val[i];
-    }
-  }
-  store_from_f32<VT, VEC>(out + nq * cfull + head * C + lane * VEC, acc);
-}
 
 // K3's warp (csrc/dfa3d_fwd.cu): heads [head0, head0 + HPW) of the query
 // at row nq = view * K + q, PG points a round; vmap is the view's value

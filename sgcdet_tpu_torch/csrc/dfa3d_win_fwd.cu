@@ -1,8 +1,8 @@
-// Windowed DFA3D sampling forward for spatially sorted queries (counters
-// `dfa3d_win_fwd_s1` and `dfa3d_win_fwd_mh`, one entry point).
+// Windowed DFA3D sampling forward for spatially sorted queries (counter
+// `dfa3d_win_fwd_mh`).
 //
-// Replaces the windowed TPU forwards of experiments/dfa3d_pallas4.py
-// (_fwd_kernel_w: multi-head, full-width rows; _fwd_kernel_w_s1: stage 1;
+// Replaces the windowed multi-head TPU forwards of
+// experiments/dfa3d_pallas4.py (_fwd_kernel_w: multi-head, full-width rows;
 // _fwd_kernel_wh: per head) and experiments/dfa3d_pallas5.py
 // (_fwd_kernel_ws: per head over raw rows).  They compute the function of
 // dfa3d_fwd.cu, which is spelled out there, for queries ordered by their
@@ -11,6 +11,13 @@
 // selection matrix on the MXU.  The idea carried over: the samples of a
 // chunk of consecutive sorted queries fall in a narrow band of pixels
 // y * W + x, so that band can sit in fast memory.
+//
+// The windowed stage 1 (_fwd_kernel_w_s1, heads = P = 1) is K2
+// (csrc/dfa3d_fwd.cu), which ops/dfa3d_windowed.py sends it to: a sorted
+// stage-1 chunk's union window spans 152 / 284 / 1014 pixels (p50 / p90 /
+// max, level 2) for at most 64 corner reads, so staging its depth bins
+// moves more bytes than it saves; with nothing staged, K2's warp run over
+// a chunk of 16 queries a block measured within 2 % of K2 (PERF.md).
 //
 // Multi-head (dfa3d_win_fwd_mh_kernel): one block of 256 threads per
 // (chunk of qc = 16 queries, view), all heads.  The block first finds its
@@ -43,61 +50,11 @@
 // slower: forty views' value maps at once exceed the L2).  The value rows are not staged: at level 2 a chunk-head
 // reads about 1.8 value rows per pixel of its band, so staging them would
 // move as many bytes as the gathers they replace.
-//
-// Stage 1 (heads = P = 1, c = 32 or 256: dfa3d_win_fwd_s1_kernel): one
-// block of 256 threads per (chunk of qc = 16 queries, view) runs K2's warp
-// (sgc::s1_fwd_warp: eight contiguous channels a lane at c = 256, 16-byte
-// loads, one 512-byte store a query) over the chunk, two queries a warp,
-// with K2's coordinates and depth reads, so its output is K2's.  A chunk past the count writes its zero rows in 16-byte
-// stores and stops.  Nothing is staged: a chunk's union window at the
-// sorted level 2 spans 152 / 284 / 1014 pixels (p50 / p90 / max) for at
-// most 64 corner reads, so staging its depth bins (48 B a pixel) moves
-// more bytes than the bin reads it saves.  Measured (H100 80GB HBM3,
-// PERF.md): the bins staged in a window of 512 or 1152 pixels ran 3 and
-// 4 % slower than nothing staged; chunks of 8, 32 and 64 queries 0.5, 2
-// and 11 % slower than 16.  What bounds it: as K2, the value gathers and
-// the zeros of the counted-out rows (86 % of the sorted level 2's chunks
-// hold no counted query).
 #include "dfa3d_mh.cuh"
 
 namespace {
 
-constexpr int kS1Threads = 256;
 constexpr int kMhThreads = 256;
-
-// Zero n elements of T at p (16-byte aligned, n * sizeof(T) a multiple of
-// 16) in 16-byte stores, the block's threads side by side.
-template <typename T>
-__device__ __forceinline__ void zero_rows(T* p, long long n) {
-  uint4* p4 = reinterpret_cast<uint4*>(p);
-  const long long n4 = n * (long long)sizeof(T) / 16;
-  for (long long i = threadIdx.x; i < n4; i += blockDim.x) p4[i] = make_uint4(0, 0, 0, 0);
-}
-
-template <typename VT, typename DT, int VEC>
-__global__ void __launch_bounds__(kS1Threads) dfa3d_win_fwd_s1_kernel(
-    const VT* __restrict__ value,    // (N, H, W, c), c = 32 * VEC
-    const DT* __restrict__ depth,    // (N, H, W, D)
-    const float* __restrict__ locs,  // (N, K, 1, 1, 3) normalized (u, v, d)
-    const float* __restrict__ attn,  // (N, K, 1, 1)
-    const int* __restrict__ counts,  // (N,) visible-query counts, or null
-    VT* __restrict__ out,            // (N, K, c)
-    int h, int w, int dsize, int k, int qc) {
-  constexpr int C = 32 * VEC;
-  const int chunk = blockIdx.x, cam = blockIdx.y;
-  const int count = counts == nullptr ? k : counts[cam];
-  const int q0 = chunk * qc, q1 = min(k, q0 + qc);
-  if (q0 >= count) {  // uniform over the block: a chunk past the count
-    zero_rows(out + ((long long)cam * k + q0) * C, (long long)(q1 - q0) * C);
-    return;
-  }
-  const long long hw = (long long)h * w;
-  const VT* vmap = value + cam * hw * C;
-  const DT* dmap = depth + cam * hw * dsize;
-  for (int q = q0 + (threadIdx.x >> 5); q < q1; q += kS1Threads / 32)
-    sgc::s1_fwd_warp<VT, DT, VEC>(vmap, dmap, locs, attn, out, (long long)cam * k + q,
-                                  q < count, 0, h, w, 1, dsize);
-}
 
 template <typename VT, typename DT, int C>
 __global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
@@ -141,20 +98,9 @@ __global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
   }
 }
 
-// Dynamic shared memory of each kernel's block: the window's depth bins in
-// f32 (ops/dfa3d_windowed.py::window_bytes computes the same).
+// Dynamic shared memory of a block: the window's depth bins in f32
+// (ops/dfa3d_windowed.py::window_bytes computes the same).
 size_t window_smem(int dsize, int wwin) { return (size_t)wwin * dsize * sizeof(float); }
-
-template <typename VT, typename DT, int VEC>
-int launch_s1(const void* value, const void* depth, const float* locs,
-              const float* attn, const int* counts, void* out, int n, int h,
-              int w, int dsize, int k, int qc, cudaStream_t stream) {
-  const dim3 grid((k + qc - 1) / qc, n);  // a view's chunks after one another
-  dfa3d_win_fwd_s1_kernel<VT, DT, VEC><<<grid, kS1Threads, 0, stream>>>(
-      static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn, counts,
-      static_cast<VT*>(out), h, w, dsize, k, qc);
-  return (int)cudaGetLastError();
-}
 
 template <typename VT, typename DT, int C>
 int launch_mh(const void* value, const void* depth, const float* locs,
@@ -179,8 +125,7 @@ int launch_mh(const void* value, const void* depth, const float* locs,
 // value (N, H, W, heads*c) of type vdtype, depth (N, H, W, dsize) of type
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
 // (N,) int32 or null -> out (N, K, heads*c) of type vdtype, c = 32 or 256;
-// chunks of qc queries; the multi-head kernel's windows of at most wwin
-// pixels (stage 1 has none).
+// chunks of qc queries, windows of at most wwin pixels.
 extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
                                  const void* depth, const float* locs,
                                  const float* attn, const int* counts,
@@ -193,10 +138,6 @@ extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
   return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
     using VT = decltype(v);
     using DT = decltype(d);
-    if (heads == 1 && p == 1 && c == 32)
-      return launch_s1<VT, DT, 1>(value, depth, locs, attn, counts, out, n, h, w, dsize, k, qc, s);
-    if (heads == 1 && p == 1 && c == 256)
-      return launch_s1<VT, DT, 8>(value, depth, locs, attn, counts, out, n, h, w, dsize, k, qc, s);
     if (c == 32)
       return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
     if (c == 256)
@@ -206,18 +147,13 @@ extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
 }
 
 // The resources of the kernel that sgc_dfa3d_win_fwd launches for these
-// types, stage (stage1: heads = P = 1), c, dsize and wwin: out[5] as
-// sgc::kernel_attributes writes it.
-extern "C" int sgc_dfa3d_win_fwd_attributes(int vdtype, int ddtype, int stage1,
-                                            int c, int dsize, int wwin, int* out) {
+// types, c, dsize and wwin: out[5] as sgc::kernel_attributes writes it.
+extern "C" int sgc_dfa3d_win_fwd_attributes(int vdtype, int ddtype, int c, int dsize,
+                                            int wwin, int* out) {
   return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
     using VT = decltype(v);
     using DT = decltype(d);
     const size_t smem = window_smem(dsize, wwin);
-    if (stage1 && c == 32)
-      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT, 1>, kS1Threads, 0, out);
-    if (stage1 && c == 256)
-      return sgc::kernel_attributes(dfa3d_win_fwd_s1_kernel<VT, DT, 8>, kS1Threads, 0, out);
     if (c == 32)
       return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 32>, kMhThreads, smem, out);
     if (c == 256)

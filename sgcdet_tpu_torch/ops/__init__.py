@@ -17,7 +17,6 @@ from .dfa3d import (
 from .dfa3d_windowed import (
     DFA3D_WIN_BWD_MH,
     DFA3D_WIN_FWD_MH,
-    DFA3D_WIN_FWD_S1,
     dfa3d_attention_windowed,
 )
 from .nms import aligned_3d_nms
@@ -42,7 +41,6 @@ KERNELS = {
     "dfa3d_fwd_mh_bd": DFA3D_FWD_MH_BD,
     "dfa3d_bwd_s1_bd": DFA3D_BWD_S1_BD,
     "dfa3d_bwd_mh_bd": DFA3D_BWD_MH_BD,
-    "dfa3d_win_fwd_s1": DFA3D_WIN_FWD_S1,
     "dfa3d_win_fwd_mh": DFA3D_WIN_FWD_MH,
     "dfa3d_win_bwd_mh": DFA3D_WIN_BWD_MH,
 }

@@ -215,6 +215,47 @@ def dfa3d_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
     return out
 
 
+# the stage-1 backward's limits (csrc/dfa3d_bwd.cu): the list build counts
+# a view's pixels in shared memory (kMaxMapPixels), the long pass the views'
+# long lists (kMaxViews), and a long pass's block holds its warps' rows and
+# depth sums and a bitmap of the list's queries in the 227 KB of shared
+# memory an H100 block may take, less the pass's 8,324 static bytes
+S1_MAX_VIEWS = 1024
+S1_MAX_MAP_PIXELS = 56 * 1024
+S1_LONG_SMEM = 227 * 1024 - 8324
+
+
+def s1_long_bytes(c, dsize, k):
+    """Dynamic shared memory of the stage-1 long pass's block
+    (csrc/dfa3d_bwd.cu::launch_s1_passes): 32 warps' f32 rows of c
+    channels, their 256 / c groups' f32 depth sums, and the bitmap of k
+    queries with a prefix count a word."""
+    return 4 * (32 * c + 32 * (256 // c) * dsize + 2 * (-(-k // 32)))
+
+
+def check_bwd_sizes(stage1, n, h, w, c, dsize, k):
+    """Raise ValueError before a backward launch at sizes its kernels do not
+    take: multi-head (K5) c other than 32; stage 1 (K6) more than
+    ``S1_MAX_VIEWS`` views, a map of more than ``S1_MAX_MAP_PIXELS``
+    pixels, or a long pass that needs more than ``S1_LONG_SMEM`` bytes of
+    shared memory (``s1_long_bytes``: at c = 256 and 12 bins, k up to
+    ~760,000 queries)."""
+    if not stage1:
+        if c != 32:
+            raise ValueError(f"the multi-head backward takes c = 32 per head, got {c}")
+        return
+    if n > S1_MAX_VIEWS:
+        raise ValueError(f"the stage-1 backward takes at most {S1_MAX_VIEWS} views, got {n}")
+    if h * w > S1_MAX_MAP_PIXELS:
+        raise ValueError(f"the stage-1 backward takes maps of at most {S1_MAX_MAP_PIXELS} "
+                         f"pixels, got {h} x {w}")
+    need = s1_long_bytes(c, dsize, k)
+    if need > S1_LONG_SMEM:
+        raise ValueError(f"the stage-1 backward's long pass needs {need} bytes of shared "
+                         f"memory at c = {c}, {dsize} bins and k = {k}; a block has "
+                         f"{S1_LONG_SMEM}")
+
+
 def s1_scratch_ints(n, h, w, k):
     """int32 elements of the stage-1 backward's scratch (csrc/dfa3d_bwd.cu::
     S1Scratch): per view an entry record of 8 ints for each of the 4 k
@@ -233,7 +274,9 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     build per view the list of the (query, corner) entries of each pixel,
     then write every d_value and d_depth row once, at the inputs' dtypes
     (zeros where no counted corner lies), and d_locs and d_attn; the
-    scratch is one ``torch.empty``.  Multi-head, K5 accumulates d_value by
+    scratch is one ``torch.empty``.  It takes at most 1024 views, maps of
+    at most 57,344 pixels and k within its long pass's shared memory
+    (``check_bwd_sizes``).  Multi-head (c = 32), K5 accumulates d_value by
     16-byte vector atomics into an aligned f32 buffer and d_dpt by scalar
     ones, writes d_locs and d_attn directly, and each is cast once to its
     input's dtype.  Without ``depth_grad`` the kernels skip the depth
@@ -245,6 +288,7 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     n, h, w, heads, c, dsize, k, _ = sizes
     if gg.shape != (n, k, heads * c):
         raise ValueError(f"g {tuple(gg.shape)} must be {(n, k, heads * c)}")
+    check_bwd_sizes(stage1, n, h, w, c, dsize, k)
     f32 = dict(dtype=torch.float32, device=value.device)
     d_locs = torch.empty(loc.shape, **f32) if sample_grads else None
     d_attn = torch.empty(att.shape, **f32) if sample_grads else None

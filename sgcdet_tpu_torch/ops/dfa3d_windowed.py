@@ -16,9 +16,9 @@ multi-head kernels take a chunk's heads in one block, whose window is the
 union of its heads' bands, and run the templates' warps (K3, K5) with the
 window in shared memory: the forward stages the window's depth bins, the
 backward sums its ``d_depth`` there and adds it back by 16-byte
-reductions.  Stage 1 runs K2's warp over its chunk with no window (its
-chunks' unions span more pixels than their corners read), and a chunk past
-the count writes its zero rows and stops.
+reductions.  Stage 1 (heads = P = 1) is the templates' K2 and K6
+(``ops/dfa3d.py``): its chunks' unions span more pixels than their
+corners read, so a window would stage more than it saves.
 
 * ``plan_windows`` — counterpart of ``_chunk_meta`` (dfa3d_pallas4.py:83-96)
   and ``_ws_prep`` (dfa3d_pallas5.py:80-120): per (view, chunk of ``qc``
@@ -36,13 +36,14 @@ the count writes its zero rows and stops.
   index relative to the window, clipped into it, and a zero weight for a
   corner outside it), other chunks from the whole map.  A planning fault
   therefore shows up on the CPU as a wrong number.
-* ``dfa3d_win_fwd_cuda`` (counters ``dfa3d_win_fwd_s1``, ``dfa3d_win_fwd_mh``)
-  and ``dfa3d_win_bwd_cuda`` (``dfa3d_win_bwd_mh``) — the kernels of
+* ``dfa3d_win_fwd_cuda`` (counter ``dfa3d_win_fwd_mh``) and
+  ``dfa3d_win_bwd_cuda`` (``dfa3d_win_bwd_mh``) — the kernels of
   csrc/dfa3d_win_fwd.cu and csrc/dfa3d_win_bwd.cu; ``kernel_resources``
   reads their registers, spills, shared memory and blocks an SM.
 * ``dfa3d_attention_windowed`` — the differentiable op of the sorted path.
-  Its stage-1 backward is K6 (``dfa3d_bwd_s1``), as on the TPU, where the
-  windowed stage 1 has no VJP and the sorted path takes ``pallas_c``'s.
+  Stage 1 goes to ``dfa3d_attend`` (K2 forward, K6 backward); on the TPU
+  too the windowed stage 1 has no VJP and the sorted path takes
+  ``pallas_c``'s.
 
 Type pairs and counted zeros are those of ``ops/dfa3d.py``
 (``check_dtypes``); ``c`` is 32 or 256 per head (the backward 32).
@@ -59,17 +60,15 @@ from .dfa3d import (
     _check,
     _ptr,
     check_dtypes,
+    dfa3d_attend,
     dfa3d_attention_plain,
-    dfa3d_bwd_cuda,
     dfa3d_bwd_plain,
 )
 from .sampling import clip_coord
 
 SLICE = 32        # value channels of a head: the windowed backward's c
-# stage 1 (heads = P = 1): chunks of 16 queries and no window (PERF.md)
-QC_S1 = 16
-# multi-head: chunks over all heads, the forward's of 16 queries, the
-# backward's of 8 (PERF.md); a window of at most WIN_CAP pixels,
+# chunks over all heads, the forward's of 16 queries, the backward's of 8
+# (PERF.md); a window of at most WIN_CAP pixels,
 # above the 90th percentile of the unions' spans at the sorted level 2,
 # holds the depth bins in f32 (forward) or their f32 d_depth sums
 # (backward), 54 KB, in at most SMEM_MH bytes
@@ -82,8 +81,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # sgc_dfa3d_win_fwd(vdtype, ddtype, value, depth, locs, attn, counts, out,
 #                   n, h, w, heads, c, dsize, k, p, qc, wwin, stream)
 _FWD_ARGS = [_I, _I] + [_P] * 6 + [_I] * 10
-DFA3D_WIN_FWD_S1 = Kernel("sgc_dfa3d_win_fwd", _FWD_ARGS)  # stage 1 launches
-DFA3D_WIN_FWD_MH = Kernel("sgc_dfa3d_win_fwd", _FWD_ARGS)  # multi-head launches
+DFA3D_WIN_FWD_MH = Kernel("sgc_dfa3d_win_fwd", _FWD_ARGS)
 # sgc_dfa3d_win_bwd(vdtype, ddtype, value, depth, locs, attn, counts, g,
 #                   d_value, d_depth, d_locs, d_attn,
 #                   n, h, w, heads, dsize, k, p, qc, wwin, stream)
@@ -103,39 +101,27 @@ class WindowPlan(NamedTuple):
     wwin: int
 
 
-def window_bytes(wwin, value_img, dpt_img, stage1=False, backward=False,
-                 depth_grad=True):
+def window_bytes(wwin, value_img, dpt_img, backward=False, depth_grad=True):
     """The dynamic shared memory a windowed kernel's block reserves for a
     window of ``wwin`` pixels (csrc/dfa3d_win_fwd.cu::window_smem,
-    dfa3d_win_bwd.cu::bwd_smem): the multi-head forward the depth bins in
-    f32; the backward, with ``depth_grad``, the bins' f32 d_depth sums;
-    stage 1 nothing (it has no window).  ``value_img`` changes nothing:
-    every window holds 4 bytes a bin."""
+    dfa3d_win_bwd.cu::bwd_smem): the forward the depth bins in f32; the
+    backward, with ``depth_grad``, the bins' f32 d_depth sums.
+    ``value_img`` changes nothing: every window holds 4 bytes a bin."""
     d = dpt_img.shape[-1]
-    return 0 if stage1 or (backward and not depth_grad) else 4 * wwin * d
+    return 0 if backward and not depth_grad else 4 * wwin * d
 
 
-def window_length(value_img, dpt_img, stage1=False, backward=False, depth_grad=True):
+def window_length(value_img, dpt_img, backward=False, depth_grad=True):
     """The most pixels a windowed kernel's window holds on these operands
     (the ``wwin`` it is launched with): at most ``WIN_CAP``, the whole map
     where it is smaller, and what the kernel's shared memory budget allows
-    at ``window_bytes`` a window; 0 for stage 1, which has no window, and
-    for a backward without ``depth_grad``, whose window would hold
-    nothing."""
-    if stage1 or (backward and not depth_grad):
+    at ``window_bytes`` a window; 0 for a backward without ``depth_grad``,
+    whose window would hold nothing."""
+    if backward and not depth_grad:
         return 0
     h, w = value_img.shape[1:3]
-    per_pixel = window_bytes(1, value_img, dpt_img, stage1, backward, depth_grad)
+    per_pixel = window_bytes(1, value_img, dpt_img, backward, depth_grad)
     return max(1, min(h * w, WIN_CAP, SMEM_MH // per_pixel))
-
-
-def _is_stage1(locs):
-    return locs.shape[2] == 1 and locs.shape[3] == 1
-
-
-def _chunk(stage1, backward):
-    """The queries of a windowed kernel's chunk."""
-    return QC_S1 if stage1 else QC_BWD if backward else QC_FWD
 
 
 def kernel_plan(value_img, dpt_img, locs, valid_counts, backward=False,
@@ -143,9 +129,8 @@ def kernel_plan(value_img, dpt_img, locs, valid_counts, backward=False,
     """The windows a windowed kernel finds on these operands (each block
     computes its own), for the plain version and for reports."""
     h, w = value_img.shape[1:3]
-    stage1 = _is_stage1(locs)
-    wwin = window_length(value_img, dpt_img, stage1, backward, depth_grad)
-    qc = _chunk(stage1, backward)
+    wwin = window_length(value_img, dpt_img, backward, depth_grad)
+    qc = QC_BWD if backward else QC_FWD
     return plan_windows(locs, counts=valid_counts, h=h, w=w, wwin=wwin, qc=qc)
 
 
@@ -223,18 +208,15 @@ def dfa3d_windowed_bwd_plain(value_img, dpt_img, locs, attn, g, num_heads,
 def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
                        valid_counts=None):
     """The windowed forward kernel on CUDA tensors; same contract as the
-    plain version, whose windows are the kernels' own (``kernel_plan``).
-    heads = P = 1 counts as a stage-1 launch (``dfa3d_win_fwd_s1``),
-    anything else as multi-head."""
-    value, depth, loc, att, counts, stage1, sizes = _check(
+    plain version, whose windows are the kernels' own (``kernel_plan``)."""
+    value, depth, loc, att, counts, _, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
-    kernel = DFA3D_WIN_FWD_S1 if stage1 else DFA3D_WIN_FWD_MH
-    kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
-           value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
-           _ptr(counts), out.data_ptr(), *sizes, _chunk(stage1, False),
-           window_length(value, depth, stage1))
+    DFA3D_WIN_FWD_MH(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
+                     value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
+                     _ptr(counts), out.data_ptr(), *sizes, QC_FWD,
+                     window_length(value, depth))
     return out
 
 
@@ -251,7 +233,7 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     gg = check_cuda_input(g.to(value.dtype), "g", (value.dtype,), 3, value.device)
     if gg.shape != (n, k, heads * c):
         raise ValueError(f"g {tuple(gg.shape)} must be {(n, k, heads * c)}")
-    wwin = window_length(value, depth, False, True, depth_grad)
+    wwin = window_length(value, depth, True, depth_grad)
     f32 = dict(dtype=torch.float32, device=value.device)
     d_value = zeros_f32(value.shape, value.device)
     d_depth = zeros_f32(depth.shape, value.device) if depth_grad else None
@@ -284,8 +266,8 @@ def kernel_resources(name, value_dtype, depth_dtype, dsize, wwin, c=SLICE,
         args = (1, int(depth_grad), dsize, wwin)
     else:
         fn = LIBRARY.get().sgc_dfa3d_win_fwd_attributes
-        args = (int(name == "dfa3d_win_fwd_s1"), c, dsize, wwin)
-    fn.argtypes, fn.restype = [_I] * 6 + [_P], _I
+        args = (c, dsize, wwin)
+    fn.argtypes, fn.restype = [_I] * (2 + len(args)) + [_P], _I
     err = fn(*types, *args, out)
     if err:
         raise RuntimeError(f"{name}: kernel attributes failed with CUDA error {err}")
@@ -293,9 +275,9 @@ def kernel_resources(name, value_dtype, depth_dtype, dsize, wwin, c=SLICE,
 
 
 class _DFA3DWindowed(torch.autograd.Function):
-    """The windowed forward with, at stage 1, K6's backward and, multi-head,
-    the windowed backward on the card; the plain versions and their VJPs on
-    the CPU.  The route is fixed in the forward, as in ``ops/dfa3d.py``."""
+    """The windowed multi-head forward and backward on the card; the plain
+    versions and their VJPs on the CPU.  The route is fixed in the forward,
+    as in ``ops/dfa3d.py``."""
 
     @staticmethod
     def forward(ctx, value_img, dpt_img, locs, attn, valid_counts, num_heads):
@@ -308,11 +290,7 @@ class _DFA3DWindowed(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         value_img, dpt_img, locs, attn, valid_counts = ctx.saved_tensors
-        stage1 = ctx.num_heads == 1 and locs.shape[3] == 1
-        if stage1:
-            bwd = dfa3d_bwd_cuda if ctx.kernel else dfa3d_bwd_plain
-        else:
-            bwd = dfa3d_win_bwd_cuda if ctx.kernel else dfa3d_windowed_bwd_plain
+        bwd = dfa3d_win_bwd_cuda if ctx.kernel else dfa3d_windowed_bwd_plain
         sample_grads = ctx.needs_input_grad[2] or ctx.needs_input_grad[3]
         grads = bwd(value_img, dpt_img, locs, attn, g, ctx.num_heads,
                     valid_counts, sample_grads=sample_grads,
@@ -328,7 +306,9 @@ def dfa3d_attention_windowed(value_img, dpt_img, locs, attn, num_heads,
     also that of the TPU's ``dfa3d_attention_pallas_w`` (forward only),
     ``dfa3d_attention_pallas_wh`` and ``dfa3d_attention_pallas_ws``.  It is
     exact for any query order; sorted queries keep more chunks in their
-    window."""
+    window.  Stage 1 (heads = P = 1) is ``dfa3d_attend``'s: K2 and K6."""
+    if num_heads == 1 and locs.shape[3] == 1:
+        return dfa3d_attend(value_img, dpt_img, locs, attn, num_heads, valid_counts)
     check_dtypes(value_img, dpt_img)
     return _DFA3DWindowed.apply(value_img, dpt_img, locs, attn, valid_counts,
                                 num_heads)

@@ -35,6 +35,7 @@ from sgcdet_tpu.ops.msda import dfa3d_attention as jax_oracle
 
 from sgcdet_tpu_torch.ops import dfa3d_attend
 from sgcdet_tpu_torch.ops._cuda import check_cuda_input
+from sgcdet_tpu_torch.ops.dfa3d import S1_MAX_VIEWS, check_bwd_sizes, dfa3d_bwd_cuda
 from sgcdet_tpu_torch.ops.dfa3d_windowed import (dfa3d_windowed_bwd_plain, kernel_plan,
                                                  plan_windows)
 from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation, sweep_fwd
@@ -209,3 +210,33 @@ def test_kernel_operands_are_copied_to_16_byte_alignment(dtype):
     aligned = base[step:step + 768].view(2, 3, 128)
     assert check_cuda_input(aligned, "src_img", (dtype,), 3,
                             view.device).data_ptr() == aligned.data_ptr()
+
+
+# (views, map, heads, points, c, bins, queries) past one limit each of the
+# backward kernels, and the message the wrapper raises with
+BWD_LIMITS = [
+    pytest.param((2, (2, 2), 2, 4, 256, 12, 8), "c = 32 per head", id="multi_head_c256"),
+    pytest.param((1025, (1, 1), 1, 1, 256, 12, 8), "at most 1024 views", id="s1_views"),
+    pytest.param((1, (240, 240), 1, 1, 32, 2, 8), "at most 57344 pixels", id="s1_map"),
+    pytest.param((1, (2, 2), 1, 1, 32, 214, 4096), "long pass needs", id="s1_long_pass"),
+]
+
+
+@pytest.mark.parametrize("sizes,match", BWD_LIMITS)
+def test_backward_refuses_sizes_its_kernels_do_not_take(sizes, match):
+    """The backward wrapper checks the sizes its kernels take before the
+    launch and names the limit (here on the CPU device, where the checks
+    run before any kernel is built): K5 is built for c = 32 per head; K6's
+    list build counts a view's pixels in shared memory, its long pass the
+    views' long lists and a bitmap of a list's queries beside its warps'
+    rows and depth sums.  The largest sizes pass the check."""
+    n, (h, w), heads, p, c, d, k = sizes
+    value = torch.zeros((n, h, w, heads * c))
+    args = (value, torch.zeros((n, h, w, d)), torch.full((n, k, heads, p, 3), 0.5),
+            torch.ones((n, k, heads, p)), torch.zeros((n, k, heads * c)), heads)
+    with pytest.raises(ValueError, match=match):
+        dfa3d_bwd_cuda(*args)
+    check_bwd_sizes(True, S1_MAX_VIEWS, 224, 256, 256, 12, 759264)
+    check_bwd_sizes(True, 1, 1, 1, 32, 213, 4096)
+    with pytest.raises(ValueError, match="long pass needs"):
+        check_bwd_sizes(True, 1, 1, 1, 256, 12, 759265)

@@ -38,7 +38,7 @@ from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
 from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
 from sgcdet_tpu_torch.ops.dfa3d import (dfa3d_attention_plain, dfa3d_bwd_cuda,
                                         dfa3d_bwd_plain, dfa3d_fwd_cuda)
-from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, QC_S1, WIN_CAP,
+from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, WIN_CAP,
                                                  dfa3d_attention_windowed,
                                                  kernel_resources, plan_windows,
                                                  window_bytes, window_length)
@@ -486,27 +486,20 @@ def test_stage1_backward_writes_every_element(cuda_device, case, vdtype, ddtype,
 # the window length the kernel is launched with and the next one pixel
 # more (one staged, one on the global branch); "one_pixel": every sample
 # of a chunk on one pixel centre, a view counted to 0; "misaligned":
-# coherent operands that are views breaking 16-byte alignment;
-# "past_count" (stage 1): coherent, counts that leave most chunks past the
-# count and some chunks partly counted.  Stage 1 has no window: its cases
-# hold its chunks against the plain version and K2
+# coherent operands that are views breaking 16-byte alignment.  The
+# windowed op sends stage 1 to K2: its cases hold K2 on sorted queries
+# against the plain version
 WINDOW_CASES = ["coherent", "random", "cap", "one_pixel", "misaligned"]
 # (heads, points, c): stage 1, stage 2 and its partial head groups (the
 # backward's shapes), and the multi-head forward at c = 256
 WINDOW_SHAPES = [(8, 4, 32), (1, 4, 32), (2, 4, 32), (6, 4, 32), (8, 3, 32)]
 
 
-def _window_fwd_cases(shape):
-    if shape == (8, 4, 32):
-        return WINDOW_CASES
-    return WINDOW_CASES[:2] + (["past_count"] if shape[:2] == (1, 1) else [])
-
-
 WINDOW_FWD = ([pytest.param(*shape, case, id=f"{sid}-{case}") for shape, sid in
-               zip([(1, 1, 256), (1, 1, 32)] + WINDOW_SHAPES + [(2, 4, 256)],
-                   ["stage1", "stage1_c32", "stage2", "stage2_h1", "stage2_h2",
-                    "stage2_h6", "stage2_p3", "c256_h2"])
-               for case in _window_fwd_cases(shape)])
+               zip([(1, 1, 256)] + WINDOW_SHAPES + [(2, 4, 256)],
+                   ["stage1", "stage2", "stage2_h1", "stage2_h2", "stage2_h6",
+                    "stage2_p3", "c256_h2"])
+               for case in (WINDOW_CASES if shape == (8, 4, 32) else WINDOW_CASES[:2])])
 WINDOW_BWD = ([pytest.param(*shape[:2], case, id=case if shape == (8, 4, 32) else
                             f"h{shape[0]}p{shape[1]}-{case}")
                for shape in WINDOW_SHAPES
@@ -518,13 +511,12 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
     (4, 30, 40) map ((4, 32, 64) for "cap" and "one_pixel", whose pixel
     centres are exact in f32, and for "random", whose chunks then span
     more than the kernels' window), 600 queries, 12 depth bins; counts 0,
-    200, 599 and 600 ("past_count": 0, 9, 37 and 120)."""
-    h, w = (30, 40) if case in ("coherent", "misaligned", "past_count") else (32, 64)
+    200, 599 and 600.  Stage 1 has no windowed kernel and no plan."""
+    h, w = (30, 40) if case in ("coherent", "misaligned") else (32, 64)
     value, dpt, locs, attn = windowed_inputs(4, h, w, 600, heads, c, p, 12,
                                              case != "random")
-    stage1 = heads == p == 1
-    qc = QC_S1 if stage1 else QC_BWD if backward else QC_FWD
-    wwin = window_length(value, dpt, stage1, backward)
+    qc = QC_BWD if backward else QC_FWD
+    wwin = window_length(value, dpt, backward)
     if case == "cap":
         # every sample a quarter pixel past the centre of pixel (1, 1): its
         # box is pixels [1, 2] x [1, 2], its lowest pixel w + 1; one sample
@@ -544,14 +536,13 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
     args = [a.to(cuda_device) for a in args]
     if case == "misaligned":
         args[0], args[1] = _misaligned(args[0]), _misaligned(args[1])
-    counts = torch.tensor([0, 9, 37, 120] if case == "past_count" else [0, 200, 599, 600],
-                          dtype=torch.int32, device=cuda_device)
+    counts = torch.tensor([0, 200, 599, 600], dtype=torch.int32, device=cuda_device)
+    if heads == p == 1:
+        return args, counts
     plan = plan_windows(args[2], counts, h, w, wwin, qc)
     live = plan.span > 0
     share = float((plan.ok & live).sum() / live.sum())
-    if stage1:  # no window: every live chunk reads the whole map, as K2
-        assert wwin == 0 and share == 0
-    elif case == "cap":
+    if case == "cap":
         assert wwin == WIN_CAP
         assert plan.span[1:, 0].eq(wwin).all() and plan.span[1:, 1].eq(wwin + 1).all()
     else:
@@ -564,7 +555,8 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
 def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vdtype,
                                                     ddtype, case):
     args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case)
-    name = "dfa3d_win_fwd_s1" if heads == p == 1 else "dfa3d_win_fwd_mh"
+    name = (_dfa3d_kernel_name("fwd", 1, 1, ddtype) if heads == p == 1
+            else "dfa3d_win_fwd_mh")
     before = KERNELS[name].launches
     got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
     assert KERNELS[name].launches == before + 1
@@ -622,37 +614,33 @@ def test_windowed_backward_kernel_matches_plain_and_template(
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
 def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype):
     """Each windowed kernel's shared memory a block is window_bytes at the
-    window_length the wrappers launch it with, plus, for the multi-head
-    kernels, the block window's two static ints a warp (stage 1 has no
-    window: none), at the level-2 shape; the CUDA runtime's own
+    window_length the wrappers launch it with, plus the block window's two
+    static ints a warp, at the level-2 shape; the CUDA runtime's own
     figures."""
     value = torch.zeros((1, 59, 80, 256), dtype=vdtype, device=cuda_device)
     depth = torch.zeros((1, 59, 80, 12), dtype=ddtype, device=cuda_device)
-    for name, stage1, backward, depth_grad in (("dfa3d_win_fwd_s1", True, False, True),
-                                               ("dfa3d_win_fwd_mh", False, False, True),
-                                               ("dfa3d_win_bwd_mh", False, True, True),
-                                               ("dfa3d_win_bwd_mh", False, True, False)):
-        wwin = window_length(value, depth, stage1, backward, depth_grad)
-        res = kernel_resources(name, vdtype, ddtype, 12, wwin, 256 if stage1 else 32,
-                               depth_grad)
-        reserved = window_bytes(wwin, value, depth, stage1, backward, depth_grad)
-        window_ints = 0 if stage1 else 8 * res["threads"] // 32
-        assert res["smem_bytes"] == reserved + window_ints, (name, res, reserved)
+    for name, backward, depth_grad in (("dfa3d_win_fwd_mh", False, True),
+                                       ("dfa3d_win_bwd_mh", True, True),
+                                       ("dfa3d_win_bwd_mh", True, False)):
+        wwin = window_length(value, depth, backward, depth_grad)
+        res = kernel_resources(name, vdtype, ddtype, 12, wwin, 32, depth_grad)
+        reserved = window_bytes(wwin, value, depth, backward, depth_grad)
+        assert res["smem_bytes"] == reserved + 8 * res["threads"] // 32, (name, res, reserved)
         assert res["blocks_per_sm"] >= 1, (name, res)
 
 
 def test_windowed_stage1_backward_is_k6(cuda_device):
-    """The sorted path's stage-1 backward is the template's K6, as on the
-    TPU, whose windowed stage 1 has no backward."""
+    """The sorted path's stage 1 is the templates' K2 and K6, as on the TPU,
+    whose windowed stage 1 has no backward; no windowed kernel launches."""
     args, counts = _windowed_case(cuda_device, 1, 1, 256, torch.bfloat16,
                                   torch.float32, "coherent")
     args[0].requires_grad_()
     args[1].requires_grad_()
+    names = ("dfa3d_fwd_s1", "dfa3d_bwd_s1", "dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
+    before = {n: KERNELS[n].launches for n in names}
     out = dfa3d_attention_windowed(*args, 1, valid_counts=counts)
-    before = {n: KERNELS[n].launches for n in ("dfa3d_bwd_s1", "dfa3d_win_bwd_mh")}
     torch.autograd.grad(out, args[:2], torch.ones_like(out))
-    assert KERNELS["dfa3d_bwd_s1"].launches == before["dfa3d_bwd_s1"] + 1
-    assert KERNELS["dfa3d_win_bwd_mh"].launches == before["dfa3d_win_bwd_mh"]
+    assert {n: KERNELS[n].launches - before[n] for n in names} == dict(zip(names, (1, 1, 0, 0)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -660,7 +648,7 @@ def test_sorted_lifting_kernels_match_plain(cuda_device, dtype):
     """ViewTransformer(sort_queries=True) at the ScanNet widths (embed 256,
     8 heads x 4 points) on a small rig, no budget (B = K): output and the
     gradients of sum(out * g) through the kernels vs the plain versions; one
-    launch each of the windowed forwards, K6 and the windowed backward."""
+    launch each of K2, the windowed forward, K6 and the windowed backward."""
     flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     rng = np.random.RandomState(6)
@@ -687,11 +675,11 @@ def test_sorted_lifting_kernels_match_plain(cuda_device, dtype):
                                     [feat, dpt] + list(model.parameters()))
         return [out.detach()] + list(grads)
 
-    names = ["dfa3d_win_fwd_s1", "dfa3d_win_fwd_mh", "dfa3d_bwd_s1", "dfa3d_win_bwd_mh",
-             "dfa3d_fwd_s1", "dfa3d_fwd_mh", "dfa3d_bwd_mh"]
+    names = ["dfa3d_fwd_s1", "dfa3d_win_fwd_mh", "dfa3d_bwd_s1", "dfa3d_win_bwd_mh",
+             "dfa3d_fwd_mh", "dfa3d_bwd_mh"]
     before = [KERNELS[nm].launches for nm in names]
     got = run()
-    assert [KERNELS[nm].launches - b for nm, b in zip(names, before)] == [1, 1, 1, 1, 0, 0, 0]
+    assert [KERNELS[nm].launches - b for nm, b in zip(names, before)] == [1, 1, 1, 1, 0, 0]
     with plain_ops():
         expected = run()
     torch.cuda.synchronize()

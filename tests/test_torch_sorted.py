@@ -315,21 +315,17 @@ def test_union_window_is_the_envelope_of_head_windows(coherent, counted):
 def test_window_length_is_the_kernels_reservation(vdtype, ddtype, dsize):
     """window_length is the longest window whose reservation (window_bytes,
     the kernels' shared-memory formula) fits the kernel's budget, at most
-    the cap and the map; the multi-head kernels hold f32 per bin whatever
-    the types, and stage 1 holds no window."""
+    the cap and the map; the windowed kernels hold f32 per bin whatever
+    the types."""
     value = torch.zeros((1, 59, 80, 256), dtype=vdtype)
     depth = torch.zeros((1, 59, 80, dsize), dtype=ddtype)
-    cases = [(False, False, dfa3d_windowed.WIN_CAP, dfa3d_windowed.SMEM_MH),
-             (False, True, dfa3d_windowed.WIN_CAP, dfa3d_windowed.SMEM_MH)]
-    for stage1, backward, cap, smem in cases:
-        wwin = window_length(value, depth, stage1, backward)
-        size = window_bytes(wwin, value, depth, stage1, backward)
-        assert 1 <= wwin <= cap and size <= smem
-        assert wwin == cap or window_bytes(wwin + 1, value, depth, stage1, backward) > smem
+    for backward in (False, True):
+        wwin = window_length(value, depth, backward)
+        size = window_bytes(wwin, value, depth, backward)
+        assert 1 <= wwin <= dfa3d_windowed.WIN_CAP and size <= dfa3d_windowed.SMEM_MH
+        assert (wwin == dfa3d_windowed.WIN_CAP
+                or window_bytes(wwin + 1, value, depth, backward) > dfa3d_windowed.SMEM_MH)
         assert size == 4 * wwin * dsize
-    # stage 1 runs K2's warp over its chunk and stages nothing
-    assert window_length(value, depth, stage1=True) == 0
-    assert window_bytes(512, value, depth, stage1=True) == 0
     # a backward without d_depth has nothing to hold
     assert window_length(value, depth, backward=True, depth_grad=False) == 0
     assert window_bytes(1152, value, depth, backward=True, depth_grad=False) == 0
