@@ -1,15 +1,53 @@
 """Configuration of the port: the fields of sgcdet_tpu/configs/config.py that
 the eval forward, decode, NMS, losses and the train step read, with the same
-names and the ScanNet defaults (configs/SGCDet_ScanNet.py of the reference).
+names and the ScanNet defaults (configs/SGCDet_ScanNet.py of the reference),
+and the ScanNet200 -L config (``scannet200_large``).
 
 ``SGCDet``, ``decode_bboxes``, ``compute_losses`` and the train step read
 attributes only, so the JAX package's configs work in their place; the tests
-hold ``scannet()`` here field by field against the JAX package's.
+hold ``scannet()`` and ``scannet200_large()`` here field by field against
+the JAX package's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Tuple
+
+# the 189 ScanNet200 classes the -L config detects (configs/
+# SGCDet_large_ScanNet200.py of the reference), in its label order
+SCANNET200_CLASSES = (
+    'wall', 'chair', 'floor', 'table', 'door', 'couch', 'cabinet', 'shelf', 'desk',
+    'office chair', 'bed', 'pillow', 'sink', 'picture', 'window', 'toilet', 'bookshelf',
+    'monitor', 'curtain', 'book', 'armchair', 'coffee table', 'box', 'refrigerator',
+    'lamp', 'kitchen cabinet', 'towel', 'clothes', 'tv', 'nightstand', 'counter',
+    'dresser', 'stool', 'cushion', 'plant', 'ceiling', 'bathtub', 'end table',
+    'dining table', 'keyboard', 'bag', 'backpack', 'toilet paper', 'printer',
+    'tv stand', 'whiteboard', 'blanket', 'shower curtain', 'trash can', 'closet',
+    'stairs', 'microwave', 'stove', 'shoe', 'computer tower', 'bottle', 'bin',
+    'ottoman', 'bench', 'board', 'washing machine', 'mirror', 'copier', 'basket',
+    'sofa chair', 'file cabinet', 'fan', 'laptop', 'shower', 'paper', 'person',
+    'paper towel dispenser', 'oven', 'blinds', 'rack', 'plate', 'blackboard', 'piano',
+    'suitcase', 'rail', 'radiator', 'recycling bin', 'container', 'wardrobe',
+    'soap dispenser', 'telephone', 'bucket', 'clock', 'stand', 'light',
+    'laundry basket', 'pipe', 'clothes dryer', 'guitar', 'toilet paper holder', 'seat',
+    'speaker', 'column', 'ladder', 'bathroom stall', 'shower wall', 'cup', 'jacket',
+    'storage bin', 'coffee maker', 'dishwasher', 'paper towel roll', 'machine', 'mat',
+    'windowsill', 'bar', 'toaster', 'bulletin board', 'ironing board', 'fireplace',
+    'soap dish', 'kitchen counter', 'doorframe', 'toilet paper dispenser',
+    'mini fridge', 'fire extinguisher', 'ball', 'hat', 'shower curtain rod',
+    'water cooler', 'paper cutter', 'tray', 'shower door', 'pillar', 'ledge',
+    'toaster oven', 'mouse', 'toilet seat cover dispenser', 'furniture', 'cart',
+    'scale', 'tissue box', 'light switch', 'crate', 'power outlet', 'decoration',
+    'sign', 'projector', 'closet door', 'vacuum cleaner', 'plunger', 'stuffed animal',
+    'headphones', 'dish rack', 'broom', 'range hood', 'dustpan', 'hair dryer',
+    'water bottle', 'handicap bar', 'vent', 'shower floor', 'water pitcher', 'mailbox',
+    'bowl', 'paper bag', 'projector screen', 'divider', 'laundry detergent',
+    'bathroom counter', 'object', 'bathroom vanity', 'closet wall', 'laundry hamper',
+    'bathroom stall door', 'ceiling light', 'trash bin', 'dumbbell', 'stair rail',
+    'tube', 'bathroom cabinet', 'closet rod', 'coffee kettle', 'shower head',
+    'keyboard piano', 'case of water bottles', 'coat rack', 'folded chair',
+    'fire alarm', 'power strip', 'calendar', 'poster', 'potted plant', 'mattress',
+)
 
 
 @dataclass(frozen=True)
@@ -116,3 +154,24 @@ class SGCDetConfig:
 def scannet() -> SGCDetConfig:
     """configs/SGCDet_ScanNet.py"""
     return SGCDetConfig(name="sgcdet_scannet")
+
+
+# the sparse volume of the -L configs: one level finer (80 x 80 x 32 at
+# 8 cm), 8x the top-k, and half the embedding width (c = 128 at stage 1,
+# 16 a head at stage 2)
+_LARGE_SPARSE = dict(
+    voxel_size_list=((0.32, 0.32, 0.4), (0.16, 0.16, 0.2), (0.08, 0.08, 0.1)),
+    n_voxels_list=((20, 20, 8), (40, 40, 16), (80, 80, 32)),
+    topk_list=(6400, 51200),
+    embed_dims=128,
+)
+
+
+def scannet200_large() -> SGCDetConfig:
+    """configs/SGCDet_large_ScanNet200.py: ScanNet200's 189 classes on
+    ScanNet's frames (the data fields are ScanNet's)."""
+    return SGCDetConfig(
+        name="sgcdet_large_scannet200",
+        model=ModelConfig(n_classes=len(SCANNET200_CLASSES), **_LARGE_SPARSE),
+        train=TrainConfig(training_steps=1201 * 45),
+    )

@@ -767,9 +767,15 @@ extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n * (long long)k == 0) return (int)cudaSuccess;
-  if ((d_locs == nullptr) != (d_attn == nullptr) || c != 32) return (int)cudaErrorInvalidValue;
+  if ((d_locs == nullptr) != (d_attn == nullptr) || (c != 16 && c != 32))
+    return (int)cudaErrorInvalidValue;
   return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
-    launch_sg<decltype(v), decltype(d), 32>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
+    using VT = decltype(v);
+    using DT = decltype(d);
+    if (c == 16)
+      launch_sg<VT, DT, 16>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
+    else
+      launch_sg<VT, DT, 32>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, n, h, w, heads, dsize, k, p, s);
     return (int)cudaGetLastError();
   });
 }
@@ -797,6 +803,8 @@ extern "C" int sgc_dfa3d_bwd_s1(int vdtype, int ddtype, const void* value,
     using DT = decltype(d);
     if (c == 32)
       return launch_s1<VT, DT, 32>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, scratch, n, h, w, dsize, k, s);
+    if (c == 128)
+      return launch_s1<VT, DT, 128>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, scratch, n, h, w, dsize, k, s);
     if (c == 256)
       return launch_s1<VT, DT, 256>(value, depth, locs, attn, counts, g, d_value, d_depth, d_locs, d_attn, scratch, n, h, w, dsize, k, s);
     return (int)cudaErrorInvalidValue;

@@ -172,13 +172,15 @@ void launch(const void* value, const void* depth, const float* locs,
             const float* attn, const int* counts, void* out, int n, int h,
             int w, int heads, int dsize, int k, int p, cudaStream_t stream) {
   const int threads = 256;
-  if (p == 1) {
-    const long long warps = (long long)n * k * heads;
-    const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
-    dfa3d_fwd_one_point_kernel<VT, DT, C / 32><<<(unsigned)blocks, threads, 0, stream>>>(
-        static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
-        counts, static_cast<VT*>(out), n, h, w, heads, dsize, k);
-    return;
+  if constexpr (C % 32 == 0) {  // the one-point kernel takes whole lanes of channels
+    if (p == 1) {
+      const long long warps = (long long)n * k * heads;
+      const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
+      dfa3d_fwd_one_point_kernel<VT, DT, C / 32><<<(unsigned)blocks, threads, 0, stream>>>(
+          static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
+          counts, static_cast<VT*>(out), n, h, w, heads, dsize, k);
+      return;
+    }
   }
   constexpr int HPW = 32 / (C / 8);  // heads per warp
   const long long warps = (long long)n * k * ((heads + HPW - 1) / HPW);
@@ -193,7 +195,9 @@ int dispatch_c(int c, const void* value, const void* depth, const float* locs,
                const float* attn, const int* counts, void* out, int n, int h,
                int w, int heads, int dsize, int k, int p, cudaStream_t stream) {
   switch (c) {
+    case 16: launch<VT, DT, 16>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, stream); break;
     case 32: launch<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, stream); break;
+    case 128: launch<VT, DT, 128>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, stream); break;
     case 256: launch<VT, DT, 256>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }

@@ -155,8 +155,19 @@ def check_dtypes(value_img, dpt_img):
                         f"{value_img.dtype}")
 
 
+# the channel widths c a head that the forward kernels are built for
+# (csrc/dfa3d_fwd.cu::dispatch_c), by stage 1 (heads = P = 1, K2: whole
+# 32-channel lanes) or not (K3): 16 and 128 for the -L configs (stage 2 and
+# stage 1), 32 and 256 for ScanNet's
+FWD_WIDTHS = {True: (32, 128, 256), False: (16, 32, 128, 256)}
+# ... and the backward kernels (csrc/dfa3d_bwd.cu): K6 and K5
+BWD_WIDTHS = {True: (32, 128, 256), False: (16, 32)}
+
+
 def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
-    """Validated kernel operands and sizes, shared by K2/K3 and K5/K6."""
+    """Validated kernel operands and sizes, shared by K2/K3 and K5/K6; a
+    width c that no forward kernel is built for raises (the backward's
+    narrower set: ``check_bwd_sizes``)."""
     dev = value_img.device
     value = check_cuda_input(value_img, "value_img",
                              (torch.float32, torch.bfloat16), 4, dev)
@@ -174,15 +185,16 @@ def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
     if att.shape != loc.shape[:4]:
         raise ValueError(f"attn {tuple(att.shape)} must be {tuple(loc.shape[:4])}")
     c = cfull // heads
-    if c * heads != cfull or c not in (32, 256):
-        raise ValueError(f"dfa3d kernels take c in (32, 256) per head, got {cfull}/{heads}")
+    stage1 = heads == 1 and p == 1
+    if c * heads != cfull or c not in FWD_WIDTHS[stage1]:
+        raise ValueError(f"the dfa3d kernels take c in {FWD_WIDTHS[stage1]} per head "
+                         f"{'at stage 1' if stage1 else 'multi-head'}, got {cfull}/{heads}")
     counts = None
     if valid_counts is not None:
         counts = check_cuda_input(valid_counts.to(torch.int32), "valid_counts",
                                   (torch.int32,), 1, dev)
         if counts.shape[0] != n:
             raise ValueError(f"valid_counts must be ({n},)")
-    stage1 = heads == 1 and p == 1
     sizes = (n, h, w, heads, c, depth.shape[-1], k, p)
     return value, depth, loc, att, counts, stage1, sizes
 
@@ -235,14 +247,17 @@ def s1_long_bytes(c, dsize, k):
 
 def check_bwd_sizes(stage1, n, h, w, c, dsize, k):
     """Raise ValueError before a backward launch at sizes its kernels do not
-    take: multi-head (K5) c other than 32; stage 1 (K6) more than
+    take: a width c that they are not built for (``BWD_WIDTHS``: multi-head
+    (K5) 16 or 32, stage 1 (K6) 32, 128 or 256); at stage 1 more than
     ``S1_MAX_VIEWS`` views, a map of more than ``S1_MAX_MAP_PIXELS``
     pixels, or a long pass that needs more than ``S1_LONG_SMEM`` bytes of
-    shared memory (``s1_long_bytes``: at c = 256 and 12 bins, k up to
-    ~760,000 queries)."""
+    shared memory (``s1_long_bytes``: at 12 bins, k up to ~760,000 queries
+    at c = 256 and ~820,000 at c = 128)."""
+    if c not in BWD_WIDTHS[stage1]:
+        widths = " or ".join(map(str, BWD_WIDTHS[stage1]))
+        raise ValueError(f"the {'stage-1' if stage1 else 'multi-head'} backward takes "
+                         f"c = {widths} per head, got {c}")
     if not stage1:
-        if c != 32:
-            raise ValueError(f"the multi-head backward takes c = 32 per head, got {c}")
         return
     if n > S1_MAX_VIEWS:
         raise ValueError(f"the stage-1 backward takes at most {S1_MAX_VIEWS} views, got {n}")
@@ -276,7 +291,7 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     (zeros where no counted corner lies), and d_locs and d_attn; the
     scratch is one ``torch.empty``.  It takes at most 1024 views, maps of
     at most 57,344 pixels and k within its long pass's shared memory
-    (``check_bwd_sizes``).  Multi-head (c = 32), K5 accumulates d_value by
+    (``check_bwd_sizes``).  Multi-head (c = 16 or 32), K5 accumulates d_value by
     16-byte vector atomics into an aligned f32 buffer and d_dpt by scalar
     ones, writes d_locs and d_attn directly, and each is cast once to its
     input's dtype.  Without ``depth_grad`` the kernels skip the depth

@@ -46,7 +46,8 @@ corners read, so a window would stage more than it saves.
   ``pallas_c``'s.
 
 Type pairs and counted zeros are those of ``ops/dfa3d.py``
-(``check_dtypes``); ``c`` is 32 or 256 per head (the backward 32).
+(``check_dtypes``); ``c`` is 32 or 256 per head (the backward 32): the
+widths of the -L configs (16 and 128) raise before any launch.
 """
 from __future__ import annotations
 
@@ -67,6 +68,7 @@ from .dfa3d import (
 from .sampling import clip_coord
 
 SLICE = 32        # value channels of a head: the windowed backward's c
+WIN_FWD_WIDTHS = (32, 256)  # ... and the forward's (csrc/dfa3d_win_fwd.cu)
 # chunks over all heads, the forward's of 16 queries, the backward's of 8
 # (PERF.md); a window of at most WIN_CAP pixels,
 # above the 90th percentile of the unions' spans at the sorted level 2,
@@ -212,6 +214,8 @@ def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
     value, depth, loc, att, counts, _, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
+    if c not in WIN_FWD_WIDTHS:
+        raise ValueError(f"the windowed forward takes c in {WIN_FWD_WIDTHS} per head, got {c}")
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
     DFA3D_WIN_FWD_MH(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
                      value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),

@@ -215,7 +215,8 @@ def test_kernel_operands_are_copied_to_16_byte_alignment(dtype):
 # (views, map, heads, points, c, bins, queries) past one limit each of the
 # backward kernels, and the message the wrapper raises with
 BWD_LIMITS = [
-    pytest.param((2, (2, 2), 2, 4, 256, 12, 8), "c = 32 per head", id="multi_head_c256"),
+    pytest.param((2, (2, 2), 2, 4, 256, 12, 8), "c = 16 or 32 per head", id="multi_head_c256"),
+    pytest.param((2, (2, 2), 8, 4, 128, 12, 8), "c = 16 or 32 per head", id="multi_head_c128"),
     pytest.param((1025, (1, 1), 1, 1, 256, 12, 8), "at most 1024 views", id="s1_views"),
     pytest.param((1, (240, 240), 1, 1, 32, 2, 8), "at most 57344 pixels", id="s1_map"),
     pytest.param((1, (2, 2), 1, 1, 32, 214, 4096), "long pass needs", id="s1_long_pass"),
@@ -226,7 +227,8 @@ BWD_LIMITS = [
 def test_backward_refuses_sizes_its_kernels_do_not_take(sizes, match):
     """The backward wrapper checks the sizes its kernels take before the
     launch and names the limit (here on the CPU device, where the checks
-    run before any kernel is built): K5 is built for c = 32 per head; K6's
+    run before any kernel is built): K5 is built for c = 16 and 32 per head
+    (K3 for 128 and 256 too); K6's
     list build counts a view's pixels in shared memory, its long pass the
     views' long lists and a bitmap of a list's queries beside its warps'
     rows and depth sums.  The largest sizes pass the check."""
