@@ -116,22 +116,18 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
     float* __restrict__ d_locs,      // (N, K, heads, P, 3) or null
     float* __restrict__ d_attn,      // (N, K, heads, P) or null
     int n, int h, int w, int heads, int dsize, int k, int p) {
-  constexpr int HPW = 32 / (C / 8);  // heads per warp
-  const int hgroups = (heads + HPW - 1) / HPW;
+  using Rows = sgc::WarpRows<32 / (C / 8)>;
   const long long warp_id =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (warp_id >= (long long)n * k * hgroups) return;
-  const int head0 = (int)(warp_id % hgroups) * HPW;
-  const long long nq = warp_id / hgroups;  // cam * k + q
-  const int q = (int)(nq % k);
-  const int cam = (int)(nq / k);
+  if (warp_id >= Rows::warps(n, k, heads)) return;
+  const Rows r(warp_id, k, heads, counts);
   const long long hw = (long long)h * w, vstride = hw * heads * C;
-  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize,
-                                 d_depth == nullptr ? nullptr : d_depth + cam * hw * dsize,
+  const sgc::GlobalDepth<DT> dep{depth + r.cam * hw * dsize,
+                                 d_depth == nullptr ? nullptr : d_depth + r.cam * hw * dsize,
                                  dsize};
   sgc::mh_bwd_warp<VT, DT, C, SAMPLE_GRADS, DOT>(
-      value + cam * vstride, locs, attn, g, d_value + cam * vstride, d_locs, d_attn, nq,
-      counts == nullptr || q < counts[cam], head0, h, w, heads, dsize, p, dep);
+      value + r.cam * vstride, locs, attn, g, d_value + r.cam * vstride, d_locs, d_attn,
+      r.row0, r.nrows, r.nlive, h, w, heads, dsize, p, dep);
 }
 
 template <typename VT, typename DT, int C, bool SAMPLE_GRADS, bool DOT>
@@ -139,8 +135,7 @@ void launch(const void* value, const void* depth, const float* locs,
             const float* attn, const int* counts, const void* g, float* d_value,
             float* d_depth, float* d_locs, float* d_attn, int n, int h, int w,
             int heads, int dsize, int k, int p, cudaStream_t stream) {
-  constexpr int HPW = 32 / (C / 8);  // heads per warp
-  const long long warps = (long long)n * k * ((heads + HPW - 1) / HPW);
+  const long long warps = sgc::WarpRows<32 / (C / 8)>::warps(n, k, heads);
   const int threads = 256;
   const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
   dfa3d_bwd_kernel<VT, DT, C, SAMPLE_GRADS, DOT><<<(unsigned)blocks, threads, 0, stream>>>(

@@ -87,20 +87,15 @@ __global__ void __launch_bounds__(256, 3) dfa3d_fwd_kernel(
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
     VT* __restrict__ out,            // (N, K, heads*c)
     int n, int h, int w, int heads, int dsize, int k, int p) {
-  constexpr int HPW = 32 / (C / 8);  // heads per warp
-  const int hgroups = (heads + HPW - 1) / HPW;
+  using Rows = sgc::WarpRows<32 / (C / 8)>;
   const long long warp_id =
       (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (warp_id >= (long long)n * k * hgroups) return;
-  const int head0 = (int)(warp_id % hgroups) * HPW;
-  const long long nq = warp_id / hgroups;  // cam * k + q
-  const int q = (int)(nq % k);
-  const int cam = (int)(nq / k);
+  if (warp_id >= Rows::warps(n, k, heads)) return;
+  const Rows r(warp_id, k, heads, counts);
   const long long hw = (long long)h * w;
-  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize, nullptr, dsize};
-  sgc::mh_fwd_warp<VT, DT, C, PG>(value + cam * hw * heads * C, locs, attn, out, nq,
-                                  counts == nullptr || q < counts[cam], head0, h, w,
-                                  heads, dsize, p, dep);
+  const sgc::GlobalDepth<DT> dep{depth + r.cam * hw * dsize, nullptr, dsize};
+  sgc::mh_fwd_warp<VT, DT, C, PG>(value + r.cam * hw * heads * C, locs, attn, out, r.row0,
+                                  r.nrows, r.nlive, h, w, heads, dsize, p, dep);
 }
 
 // One point a head (stage 1: heads = P = 1, K2 and K2'): a warp per
@@ -182,8 +177,7 @@ void launch(const void* value, const void* depth, const float* locs,
       return;
     }
   }
-  constexpr int HPW = 32 / (C / 8);  // heads per warp
-  const long long warps = (long long)n * k * ((heads + HPW - 1) / HPW);
+  const long long warps = sgc::WarpRows<32 / (C / 8)>::warps(n, k, heads);
   const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
   dfa3d_fwd_kernel<VT, DT, C, 2><<<(unsigned)blocks, threads, 0, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,

@@ -116,51 +116,88 @@ struct WindowDepth {
   }
 };
 
-// K3's warp (csrc/dfa3d_fwd.cu): heads [head0, head0 + HPW) of the query
-// at row nq = view * K + q, PG points a round; vmap is the view's value
-// map.  Writes the group's output row (zeros where not `counted`).
+// The (query, head) rows a warp of K3 or K5 takes: a row is (view * K + q)
+// * heads + head, and a warp holds HPW = 32 / (C / 8) of them.  Where a
+// query's heads fill less than a warp, the warp takes as many whole
+// queries of one view as it holds (HPW / heads: at C = 16 and 8 heads two
+// queries, at C = 32 and 8 heads one), else HPW heads of one query.
+template <int HPW>
+struct WarpRows {
+  long long row0;  // the warp's first row
+  int nrows;       // its rows (HPW or fewer)
+  int nlive;       // the first nlive of them are counted queries' rows
+  int cam;
+
+  static __host__ __device__ __forceinline__ int queries(int heads) {
+    return heads < HPW ? HPW / heads : 1;
+  }
+  // warps of a call
+  static __host__ __device__ __forceinline__ long long warps(int n, int k, int heads) {
+    const int qpw = queries(heads);
+    return (long long)n * ((k + qpw - 1) / qpw) * ((heads + HPW - 1) / HPW);
+  }
+  // the rows of warp `warp` (< warps(n, k, heads)); counts null: every query counts
+  __device__ __forceinline__ WarpRows(long long warp, int k, int heads,
+                                      const int* __restrict__ counts) {
+    const int qpw = queries(heads), hgroups = (heads + HPW - 1) / HPW;
+    const int qblocks = (k + qpw - 1) / qpw;
+    const long long vq = warp / hgroups;  // view * qblocks + query block
+    const int head0 = (int)(warp % hgroups) * HPW;
+    const int q0 = (int)(vq % qblocks) * qpw;
+    cam = (int)(vq / qblocks);
+    const int nq = min(qpw, k - q0), nh = min(HPW, heads - head0);
+    const int count = counts == nullptr ? k : counts[cam];
+    row0 = ((long long)cam * k + q0) * heads + head0;
+    nrows = nq * nh;
+    nlive = min(max(count - q0, 0), nq) * nh;  // counted queries come first
+  }
+};
+
+// K3's warp (csrc/dfa3d_fwd.cu): the rows [row0, row0 + nrows) of one
+// view (at most HPW; a row's LANES lanes take its c channels), the first
+// nlive of them counted; vmap is the view's value map.  A round takes
+// LANES points of every row, lane sub of a row computing its point sub,
+// and loads their corners PG points at a time.  Writes the rows' output
+// (zeros past nlive).
 template <typename VT, typename DT, int C, int PG, typename Depth>
 __device__ __forceinline__ void mh_fwd_warp(
     const VT* __restrict__ vmap, const float* __restrict__ locs,
-    const float* __restrict__ attn, VT* __restrict__ out, long long nq,
-    bool counted, int head0, int h, int w, int heads, int dsize, int p,
-    const Depth& dep) {
+    const float* __restrict__ attn, VT* __restrict__ out, long long row0, int nrows,
+    int nlive, int h, int w, int heads, int dsize, int p, const Depth& dep) {
   static_assert(C % 8 == 0 && C <= 256, "a head is 1-32 lanes of 8 channels");
   constexpr int VEC = 8;          // channels per lane
-  constexpr int LANES = C / VEC;  // lanes per head
-  constexpr int HPW = 32 / LANES; // heads per warp
+  constexpr int LANES = C / VEC;  // lanes per row
   const int lane = threadIdx.x & 31;
   const int cfull = heads * C;
-  const int nh = min(HPW, heads - head0);  // heads of this warp
-  const int hl = lane / LANES;             // this lane's head in the group
-  const bool active = hl < nh;
+  const int hl = lane / LANES;  // this lane's row in the warp
   const int sub = lane % LANES;
-  VT* orow = out + nq * cfull + (head0 + hl) * C + sub * VEC;
+  const long long row = row0 + min(hl, nrows - 1);
+  VT* orow = out + row * C + sub * VEC;
 
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 
-  if (counted) {
-    const long long s_row = (nq * heads + head0) * p;  // the group's first (head, point)
-    const VT* vbase = vmap + (head0 + min(hl, nh - 1)) * C + sub * VEC;
+  if (nlive > 0) {
+    const bool live = hl < nlive;
+    const VT* vbase = vmap + (int)(row % heads) * C + sub * VEC;
     int cpix[4];
     float bw[4], dp0[4], dp1[4], wd0, wd1;
-    const int ns = nh * p;  // samples of the group
-    for (int s0 = 0; s0 < ns; s0 += 32) {
-      // 1. sample s0 + lane, and the loads of its depth bins
+    for (int pb = 0; pb < p; pb += LANES) {
+      // 1. sample (row hl, point pb + sub), and the loads of its depth bins
 #pragma unroll
       for (int corner = 0; corner < 4; ++corner) {
         cpix[corner] = -1;
         bw[corner] = dp0[corner] = dp1[corner] = 0.f;
       }
       wd0 = wd1 = 0.f;
-      if (s0 + lane < ns) {
-        const float* l = locs + (s_row + s0 + lane) * 3;
+      if (live && pb + sub < p) {
+        const long long smp = (row0 + hl) * p + pb + sub;
+        const float* l = locs + smp * 3;
         const float u = Depth::coord(l[0], w);
         const float v = Depth::coord(l[1], h);
         const float dd = Depth::coord(l[2], dsize);
-        const float a = attn[s_row + s0 + lane];
+        const float a = attn[smp];
         const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
         const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
         const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
@@ -178,15 +215,16 @@ __device__ __forceinline__ void mh_fwd_warp(
           if (in) dep.bins(cpix[corner], d0c, d1c, dp0[corner], dp1[corner]);
         }
       }
-      // 2. this lane's head's points of the chunk, PG at a time: the corner
+      // 2. this lane's row's points of the round, PG at a time: the corner
       // pixels by shuffle, every corner load of the PG points, then the
       // weights (which wait on the depth loads) and the multiply-adds
-      for (int pt0 = 0; pt0 < p; pt0 += PG) {
+      const int np = min(LANES, p - pb);  // points of the round
+      for (int pt0 = 0; pt0 < np; pt0 += PG) {
         int pix[PG][4];
 #pragma unroll
         for (int i = 0; i < PG; ++i) {
-          const int src = hl * p + pt0 + i - s0;  // lane holding the sample
-          const bool mine = active && pt0 + i < p && src >= 0 && src < 32;
+          const int src = hl * LANES + pt0 + i;  // lane holding the sample
+          const bool mine = live && pt0 + i < np;
 #pragma unroll
           for (int corner = 0; corner < 4; ++corner) {
             const int ps = __shfl_sync(0xffffffffu, cpix[corner], src & 31);
@@ -212,7 +250,7 @@ __device__ __forceinline__ void mh_fwd_warp(
           cw[corner] = bw[corner] * (dp0[corner] * wd0 + dp1[corner] * wd1);
 #pragma unroll
         for (int i = 0; i < PG; ++i) {
-          const int src = hl * p + pt0 + i - s0;
+          const int src = hl * LANES + pt0 + i;
 #pragma unroll
           for (int corner = 0; corner < 4; ++corner) {
             const float wgt = __shfl_sync(0xffffffffu, cw[corner], src & 31);
@@ -224,62 +262,61 @@ __device__ __forceinline__ void mh_fwd_warp(
       }
     }
   }
-  if (active) store_from_f32<VT, VEC>(orow, acc);
+  if (hl < nrows) store_from_f32<VT, VEC>(orow, acc);
 }
 
-// K5's warp (csrc/dfa3d_bwd.cu): heads [head0, head0 + HPW) of the query
-// at row nq = view * K + q; vmap, dvmap are the view's value map and
-// d_value.  Queries that are not `counted` get zero location and attention
-// gradients and scatter nothing.
+// K5's warp (csrc/dfa3d_bwd.cu): the rows [row0, row0 + nrows) of one
+// view, the first nlive of them counted, as K3's; vmap, dvmap are the
+// view's value map and d_value.  The rows of queries that are not counted
+// get zero location and attention gradients and scatter nothing.
 template <typename VT, typename DT, int C, bool SAMPLE_GRADS, bool DOT, typename Depth>
 __device__ __forceinline__ void mh_bwd_warp(
     const VT* __restrict__ vmap, const float* __restrict__ locs,
     const float* __restrict__ attn, const VT* __restrict__ g,
     float* __restrict__ dvmap, float* __restrict__ d_locs,
-    float* __restrict__ d_attn, long long nq, bool counted, int head0, int h,
+    float* __restrict__ d_attn, long long row0, int nrows, int nlive, int h,
     int w, int heads, int dsize, int p, const Depth& dep) {
   constexpr int VEC = 8;           // channels per lane
-  constexpr int LANES = C / VEC;   // lanes per head
-  constexpr int HPW = 32 / LANES;  // heads per warp
+  constexpr int LANES = C / VEC;   // lanes per row
   const int lane = threadIdx.x & 31;
   const int sub = lane % LANES;
   const int cfull = heads * C;
 
-  if (!counted) {
+  if (nlive == 0) {
     if (SAMPLE_GRADS) {
-      const long long row = nq * heads + head0;  // first (query, head) of the warp
-      const int nh = min(HPW, heads - head0);
-      for (int i = lane; i < nh * p * 3; i += 32) d_locs[row * p * 3 + i] = 0.f;
-      for (int i = lane; i < nh * p; i += 32) d_attn[row * p + i] = 0.f;
+      for (int i = lane; i < nrows * p * 3; i += 32) d_locs[row0 * p * 3 + i] = 0.f;
+      for (int i = lane; i < nrows * p; i += 32) d_attn[row0 * p + i] = 0.f;
     }
     return;
   }
 
-  // lanes of a head past the last (heads not a multiple of HPW) read the
-  // last head's operands, take part in the shuffles and write nothing
-  const bool active = head0 + lane / LANES < heads;
-  const int head = min(head0 + lane / LANES, heads - 1);
+  // lanes past the last row (heads not a multiple of HPW, a view's last
+  // queries) read the last row's operands, take part in the shuffles and
+  // write nothing; those of a row past nlive scatter nothing
+  const int hl = lane / LANES;
+  const bool active = hl < nrows, live = hl < nlive;
+  const long long row = row0 + min(hl, nrows - 1);  // (query, head) row of locs / attn
   const bool first = active && sub == 0;
   float gv[VEC];
-  load_f32<VT, VEC>(g + nq * cfull + head * C + sub * VEC, gv);
-  const long long qh = nq * heads + head;  // (query, head) row of locs / attn
-  const float* lp = locs + qh * p * 3;
-  const float* ap = attn + qh * p;
-  const VT* vbase = vmap + head * C + sub * VEC;
+  load_f32<VT, VEC>(g + row * C + sub * VEC, gv);
+  const float* lp = locs + row * p * 3;
+  const float* ap = attn + row * p;
+  const VT* vbase = vmap + (int)(row % heads) * C + sub * VEC;
   // d_value is written in SLOTS instructions per corner; slot s covers the
-  // warp's channels [128 s, 128 s + 128) in head order, four per lane, so
+  // warp's channels [128 s, 128 s + 128) in row order, four per lane, so
   // each instruction adds four whole 128-byte rows.  A lane therefore
-  // writes for the head whose sample sits in lane wsrc[s], and holds that
-  // head's incoming gradient at its four channels.
+  // writes for the row whose sample sits in lane wsrc[s], and holds that
+  // row's incoming gradient at its four channels.
   constexpr int SLOTS = VEC / 4;
   int wsrc[SLOTS], woff[SLOTS];
   float gw[SLOTS][4];
 #pragma unroll
   for (int sl = 0; sl < SLOTS; ++sl) {
     const int f = 128 * sl + 4 * lane, hiw = f / C;
+    const long long wrow = row0 + min(hiw, nrows - 1);
     wsrc[sl] = hiw * LANES;
-    woff[sl] = min(head0 + hiw, heads - 1) * C + f % C;
-    load_f32<VT, 4>(g + nq * cfull + woff[sl], gw[sl]);
+    woff[sl] = (int)(wrow % heads) * C + f % C;
+    load_f32<VT, 4>(g + wrow * C + f % C, gw[sl]);
   }
 
   for (int pt = 0; pt < p; ++pt) {
@@ -301,8 +338,8 @@ __device__ __forceinline__ void mh_bwd_warp(
     for (int corner = 0; corner < 4; ++corner) {
       const int dy = corner >> 1, dx = corner & 1;
       const int yi = y0 + dy, xi = x0 + dx;
-      // uniform over a head's lanes; the shuffles below take every lane
-      const bool in = active && yi >= 0 && yi <= h - 1 && xi >= 0 && xi <= w - 1;
+      // uniform over a row's lanes; the shuffles below take every lane
+      const bool in = live && yi >= 0 && yi <= h - 1 && xi >= 0 && xi <= w - 1;
       const long long pix = (long long)yi * w + xi;
       const float by = dy ? ly : 1.f - ly, bx = dx ? lx : 1.f - lx;
       const float b = by * bx;
@@ -332,7 +369,7 @@ __device__ __forceinline__ void mh_bwd_warp(
       if (!in) continue;
       const float s = dp0 * wd0 + dp1 * wd1;
       const float t_s = t * b * a;  // gradient of the depth score s
-      if (active && sub < 2 && dep.depth_grad()) {  // one instruction, both bins
+      if (sub < 2 && dep.depth_grad()) {  // one instruction, both bins
         const float wd = sub == 0 ? wd0 : wd1;
         if (wd != 0.f) dep.add(pix, sub == 0 ? d0c : d1c, t_s * wd);
       }
@@ -345,11 +382,11 @@ __device__ __forceinline__ void mh_bwd_warp(
       }
     }
     if (SAMPLE_GRADS && first) {
-      float* dl = d_locs + (qh * p + pt) * 3;
+      float* dl = d_locs + (row * p + pt) * 3;
       dl[0] = g_lx * w;
       dl[1] = g_ly * h;
       dl[2] = g_ld * dsize;
-      d_attn[qh * p + pt] = g_a;
+      d_attn[row * p + pt] = g_a;
     }
   }
 }

@@ -28,7 +28,9 @@ plain version as in the kernels, and get zero gradients.
   csrc/dfa3d_fwd.cu with a launch count each; ``dfa3d_bwd_cuda`` — kernels
   K6 (stage 1) and K5 (stage 2), and K6' / K5' at bf16 depth, two entry
   points of csrc/dfa3d_bwd.cu (stage 1 its own: the gradients summed where
-  they live, several CUDA kernels behind one launch count).
+  they live, several CUDA kernels behind one launch count).  The instances
+  at the -L configs' widths (K2 and K6 at c = 128, K3 and K5 at c = 16 a
+  head) count apart (``FWD_WIDTHS``, ``BWD_WIDTHS``, ``_pick``).
 * ``dfa3d_attend`` — the differentiable op the model calls;
   ``msda_2d_attend`` — 2D multi-scale deformable attention as DFA3D with a
   uniform depth (the ``use_depth=False`` lifting path).
@@ -51,18 +53,23 @@ DFA3D_FWD_MH = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)  # stage 2 launches (K3)
 # ... with bf16 value and bf16 depth (K2', K3')
 DFA3D_FWD_S1_BD = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
 DFA3D_FWD_MH_BD = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
+# ... and at the -L configs' widths, f32 depth: K2 at c = 128, K3 at c = 16
+DFA3D_FWD_S1_C128 = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
+DFA3D_FWD_MH_C16 = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
 # sgc_dfa3d_bwd(vdtype, ddtype, value, depth, locs, attn, counts, g,
 #               d_value, d_depth, d_locs, d_attn,
 #               n, h, w, heads, c, dsize, k, p, stream)
 _BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 8
 DFA3D_BWD_MH = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # stage 2 launches (K5)
 DFA3D_BWD_MH_BD = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # ... at bf16 depth (K5')
+DFA3D_BWD_MH_C16 = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # ... at c = 16, f32 depth (-L)
 # sgc_dfa3d_bwd_s1(vdtype, ddtype, value, depth, locs, attn, counts, g,
 #                  d_value, d_depth, d_locs, d_attn, scratch,
 #                  n, h, w, c, dsize, k, stream)
 _BWD_S1_ARGS = [_I, _I] + [_P] * 11 + [_I] * 6
 DFA3D_BWD_S1 = Kernel("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS)  # stage 1 launches (K6)
 DFA3D_BWD_S1_BD = Kernel("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS)  # ... at bf16 depth (K6')
+DFA3D_BWD_S1_C128 = Kernel("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS)  # ... at c = 128, f32 depth (-L)
 
 # elements of one gathered corner tensor per query chunk of the plain version
 _PLAIN_CHUNK_ELEMS = 1 << 25
@@ -199,10 +206,18 @@ def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
     return value, depth, loc, att, counts, stage1, sizes
 
 
-def _pick(kernels, stage1, depth):
-    """The launch counter of this call: (stage 1 or multi-head) x (f32 or
-    bf16 depth)."""
-    return kernels[(not stage1) + 2 * (depth.dtype == torch.bfloat16)]
+# the widths of the -L configs, whose f32-depth launches count apart
+LARGE_WIDTH = {True: 128, False: 16}
+
+
+def _pick(kernels, stage1, depth, c):
+    """The launch counter of this call from ``kernels`` = (stage 1, multi-
+    head, stage 1 at bf16 depth, multi-head at bf16 depth, stage 1 at c =
+    128, multi-head at c = 16): bf16 depth counts by stage, f32 depth by
+    stage and by whether c is the -L configs' width."""
+    if depth.dtype == torch.bfloat16:
+        return kernels[2 + (not stage1)]
+    return kernels[4 * (c == LARGE_WIDTH[stage1]) + (not stage1)]
 
 
 def _ptr(t):
@@ -219,8 +234,8 @@ def dfa3d_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
-    kernel = _pick((DFA3D_FWD_S1, DFA3D_FWD_MH, DFA3D_FWD_S1_BD,
-                    DFA3D_FWD_MH_BD), stage1, depth)
+    kernel = _pick((DFA3D_FWD_S1, DFA3D_FWD_MH, DFA3D_FWD_S1_BD, DFA3D_FWD_MH_BD,
+                    DFA3D_FWD_S1_C128, DFA3D_FWD_MH_C16), stage1, depth, c)
     kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
            value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
            _ptr(counts), out.data_ptr(), *sizes)
@@ -313,7 +328,8 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
         d_depth = torch.empty_like(depth) if depth_grad else None
         scratch = torch.empty(s1_scratch_ints(n, h, w, k), dtype=torch.int32,
                               device=value.device)
-        kernel = DFA3D_BWD_S1_BD if depth.dtype == torch.bfloat16 else DFA3D_BWD_S1
+        kernel = _pick((DFA3D_BWD_S1, None, DFA3D_BWD_S1_BD, None, DFA3D_BWD_S1_C128),
+                       stage1, depth, c)
         kernel(value.device, *codes, value.data_ptr(), depth.data_ptr(),
                loc.data_ptr(), att.data_ptr(), _ptr(counts), gg.data_ptr(),
                d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs), _ptr(d_attn),
@@ -321,7 +337,8 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     else:
         d_value = zeros_f32(value.shape, value.device)
         d_depth = torch.zeros(depth.shape, **f32) if depth_grad else None
-        kernel = DFA3D_BWD_MH_BD if depth.dtype == torch.bfloat16 else DFA3D_BWD_MH
+        kernel = _pick((None, DFA3D_BWD_MH, None, DFA3D_BWD_MH_BD, None, DFA3D_BWD_MH_C16),
+                       stage1, depth, c)
         kernel(value.device, *codes, value.data_ptr(), depth.data_ptr(),
                loc.data_ptr(), att.data_ptr(), _ptr(counts), gg.data_ptr(),
                d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs), _ptr(d_attn), *sizes)

@@ -5,7 +5,9 @@ Function``s) against the plain versions' VJPs, the DFA3D ones counted and
 uncounted, also with head groups that fill only part of a warp, and K1 on a
 map and plane count that no tile or plane group divides; the 2D lifting path
 (``ViewTransformer(use_depth=False)``) through the kernels against its plain
-run; the backward kernels K4 and K5 on the contention cases of
+run; the DFA3D kernels also at the -L configs' widths (K2 and K6 at c =
+128, K3 and K5 at 16 a head, two queries a warp), and the windowed
+kernels refusing them; the backward kernels K4 and K5 on the contention cases of
 ``torch_port_tiny`` (many samples on one row, untiled sizes, integer and
 edge coordinates, a plane behind the camera, counted views of count 0) and
 on operands that are views at an offset breaking 16-byte alignment; the
@@ -40,6 +42,7 @@ from sgcdet_tpu_torch.ops.dfa3d import (dfa3d_attention_plain, dfa3d_bwd_cuda,
                                         dfa3d_bwd_plain, dfa3d_fwd_cuda)
 from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, WIN_CAP,
                                                  dfa3d_attention_windowed,
+                                                 dfa3d_win_bwd_cuda, dfa3d_win_fwd_cuda,
                                                  kernel_resources, plan_windows,
                                                  window_bytes, window_length)
 from sgcdet_tpu_torch.ops.sweep import (plane_sweep_correlation, sweep_bwd_cuda,
@@ -83,9 +86,14 @@ DFA3D_TYPES = [pytest.param(torch.bfloat16, torch.float32, id="bf16_f32"),
                pytest.param(torch.bfloat16, torch.bfloat16, id="bf16_bf16")]
 
 
-def _dfa3d_kernel_name(direction, heads, p, ddtype):
-    stage = "s1" if heads == p == 1 else "mh"
-    return f"dfa3d_{direction}_{stage}" + ("_bd" if ddtype == torch.bfloat16 else "")
+def _dfa3d_kernel_name(direction, heads, p, c, ddtype):
+    """The launch counter of a DFA3D call (ops/dfa3d.py::_pick): by stage,
+    bf16 depth, and at f32 depth the -L configs' widths apart."""
+    stage1 = heads == p == 1
+    name = f"dfa3d_{direction}_{'s1' if stage1 else 'mh'}"
+    if ddtype == torch.bfloat16:
+        return name + "_bd"
+    return name + {(True, 128): "_c128", (False, 16): "_c16"}.get((stage1, c), "")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -150,10 +158,17 @@ def test_sweep_kernel_ragged_tile_and_plane_group(cuda_device, dtype):
 
 # (heads, points, channels per head): stage 1, stage 2, and stage 2 with
 # head groups that do not fill a warp of eight 4-lane heads (1, 2, 6 heads;
-# 8 heads x 3 points, 24 samples for 32 lanes)
+# 8 heads x 3 points, 24 samples for 32 lanes); then the -L configs'
+# widths: stage 1 at c = 128, stage 2 at 16 a head (a warp of 16 2-lane
+# rows: two queries of 8 heads, 16 of 1 head, and with 6 heads two
+# queries on 12 of its rows)
 DFA3D_SHAPES = [pytest.param(1, 1, 256, id="stage1"), pytest.param(8, 4, 32, id="stage2"),
                 pytest.param(1, 4, 32, id="stage2_h1"), pytest.param(2, 4, 32, id="stage2_h2"),
-                pytest.param(6, 4, 32, id="stage2_h6"), pytest.param(8, 3, 32, id="stage2_p3")]
+                pytest.param(6, 4, 32, id="stage2_h6"), pytest.param(8, 3, 32, id="stage2_p3"),
+                pytest.param(1, 1, 128, id="stage1_c128"),
+                pytest.param(8, 4, 16, id="stage2_c16"),
+                pytest.param(1, 4, 16, id="stage2_c16_h1"),
+                pytest.param(6, 4, 16, id="stage2_c16_h6")]
 
 
 def _counts(counted, device):
@@ -170,7 +185,7 @@ def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype, ddtype, co
     counts = _counts(counted, cuda_device)
     args = [torch.from_numpy(a).to(cuda_device) for a in (value, dpt, locs, attn)]
     args[0], args[1] = args[0].to(vdtype), args[1].to(ddtype)
-    name = _dfa3d_kernel_name("fwd", heads, p, ddtype)
+    name = _dfa3d_kernel_name("fwd", heads, p, c, ddtype)
     before = KERNELS[name].launches
     got = dfa3d_attend(*args, heads, valid_counts=counts)
     assert KERNELS[name].launches == before + 1
@@ -237,27 +252,38 @@ def test_sweep_backward_kernel_contention(cuda_device, case, dtype):
                             _rel(dtype), f"{case} {name}")
 
 
-def _contention_case(case, device, vdtype, ddtype):
-    """A DFA3D contention case on the card at the kernels' widths (stage 1's
-    at c = 256): (value, depth, locs, attn, g, counts)."""
-    c = 256 if case.startswith("s1_") else 32
+def _contention_case(case, device, vdtype, ddtype, c=None):
+    """A DFA3D contention case on the card at c channels a head (by default
+    the ScanNet widths: stage 1's 256, stage 2's 32): (value, depth, locs,
+    attn, g, counts)."""
+    if c is None:
+        c = 256 if case.startswith("s1_") else 32
     value, dpt, locs, attn, g, counts = (
         None if a is None else torch.from_numpy(a).to(device)
         for a in dfa3d_contention_case(case, c=c))
     return value.to(vdtype), dpt.to(ddtype), locs, attn, g.to(vdtype), counts
 
 
+# the contention cases at the ScanNet widths, and at the -L configs': K6's
+# long lists at c = 128, K5's cases at 16 a head (two queries a warp)
+CONTENTION_WIDTHS = ([pytest.param(case, None, id=case)
+                      for case in DFA3D_CONTENTION + DFA3D_S1_CONTENTION]
+                     + [pytest.param("s1_long_list", 128, id="s1_long_list_c128")]
+                     + [pytest.param(case, 16, id=f"{case}_c16") for case in DFA3D_CONTENTION])
+
+
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
-@pytest.mark.parametrize("case", DFA3D_CONTENTION + DFA3D_S1_CONTENTION)
-def test_dfa3d_stage2_backward_kernel_contention(cuda_device, case, vdtype, ddtype):
+@pytest.mark.parametrize("case,c", CONTENTION_WIDTHS)
+def test_dfa3d_stage2_backward_kernel_contention(cuda_device, case, c, vdtype, ddtype):
     """K5 (K5' at bf16 depth): a query's eight heads on one warp, all on one
     pixel; counted views of count 0.  K6 (K6') on stage 1's cases at c =
     256: one pixel for many queries, and lists of 4096 entries (the long
-    pass)."""
+    pass); the long lists at c = 128 too, and K5's cases at 16 a head."""
     value, dpt, locs, attn, g, counts = _contention_case(case, cuda_device, vdtype,
-                                                         ddtype)
+                                                         ddtype, c)
     heads = locs.shape[2]
-    name = _dfa3d_kernel_name("bwd", heads, locs.shape[3], ddtype)
+    name = _dfa3d_kernel_name("bwd", heads, locs.shape[3], value.shape[-1] // heads,
+                              ddtype)
     before = KERNELS[name].launches
     got = dfa3d_bwd_cuda(value, dpt, locs, attn, g, heads, counts)
     assert KERNELS[name].launches == before + 1
@@ -323,7 +349,7 @@ def test_dfa3d_backward_kernel_matches_plain(cuda_device, heads, p, c, vdtype,
                     generator=torch.Generator(cuda_device).manual_seed(0)).to(vdtype)
     out = dfa3d_attend(*args, heads, valid_counts=counts)
     assert graph_has(out, "_DFA3DBackward")
-    name = _dfa3d_kernel_name("bwd", heads, p, ddtype)
+    name = _dfa3d_kernel_name("bwd", heads, p, c, ddtype)
     before = KERNELS[name].launches
     got = _grads(out, args, g)
     assert KERNELS[name].launches == before + 1
@@ -448,9 +474,10 @@ def test_stage1_backward_writes_every_element(cuda_device, case, vdtype, ddtype,
     kw = dict(sample_grads=sample_grads, depth_grad=depth_grad)
     want = dfa3d_bwd_plain(value, dpt, locs, attn, g, 1, counts, **kw)
     ranges = _poison_allocator(cuda_device)
-    before = KERNELS[_dfa3d_kernel_name("bwd", 1, 1, ddtype)].launches
+    name = _dfa3d_kernel_name("bwd", 1, 1, value.shape[-1], ddtype)
+    before = KERNELS[name].launches
     got = dfa3d_bwd_cuda(value, dpt, locs, attn, g, 1, counts, **kw)
-    assert KERNELS[_dfa3d_kernel_name("bwd", 1, 1, ddtype)].launches == before + 1
+    assert KERNELS[name].launches == before + 1
     again = dfa3d_bwd_cuda(value, dpt, locs, attn, g, 1, counts, **kw)
     torch.cuda.synchronize()
     for grad in got[:2]:
@@ -555,7 +582,7 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
 def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vdtype,
                                                     ddtype, case):
     args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case)
-    name = (_dfa3d_kernel_name("fwd", 1, 1, ddtype) if heads == p == 1
+    name = (_dfa3d_kernel_name("fwd", 1, 1, c, ddtype) if heads == p == 1
             else "dfa3d_win_fwd_mh")
     before = KERNELS[name].launches
     got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
@@ -641,6 +668,25 @@ def test_windowed_stage1_backward_is_k6(cuda_device):
     out = dfa3d_attention_windowed(*args, 1, valid_counts=counts)
     torch.autograd.grad(out, args[:2], torch.ones_like(out))
     assert {n: KERNELS[n].launches - before[n] for n in names} == dict(zip(names, (1, 1, 0, 0)))
+
+
+@pytest.mark.parametrize("heads,p,c", [(8, 4, 16), (1, 4, 128)], ids=["c16", "c128"])
+def test_windowed_kernels_refuse_the_large_widths(cuda_device, heads, p, c):
+    """The windowed kernels are built for c = 32 (and the forward 256) a
+    head: at the -L configs' widths their wrappers and the sorted op raise
+    before any launch."""
+    value, dpt, locs, attn = (torch.from_numpy(a).to(cuda_device)
+                              for a in dfa3d_inputs(heads, p, c, n=2, k=16))
+    g = torch.zeros((2, 16, heads * c), device=cuda_device)
+    before = {n: k.launches for n, k in KERNELS.items()}
+    with pytest.raises(ValueError, match="windowed forward takes c in"):
+        dfa3d_win_fwd_cuda(value, dpt, locs, attn, heads)
+    with pytest.raises(ValueError, match="windowed backward takes c = 32"):
+        dfa3d_win_bwd_cuda(value, dpt, locs, attn, g, heads)
+    with pytest.raises(ValueError, match="windowed forward takes c in"):
+        dfa3d_attention_windowed(value, dpt, locs, attn, heads)
+    torch.cuda.synchronize()
+    assert {n: k.launches for n, k in KERNELS.items()} == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
