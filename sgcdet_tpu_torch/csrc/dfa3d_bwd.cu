@@ -117,17 +117,16 @@ __global__ void __launch_bounds__(256) dfa3d_bwd_kernel(
     float* __restrict__ d_attn,      // (N, K, heads, P) or null
     int n, int h, int w, int heads, int dsize, int k, int p) {
   using Rows = sgc::WarpRows<32 / (C / 8)>;
-  const long long warp_id =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (warp_id >= Rows::warps(n, k, heads)) return;
-  const Rows r(warp_id, k, heads, counts);
+  const int warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (warp >= Rows::per_view(k, heads)) return;
+  const int cam = blockIdx.y;
   const long long hw = (long long)h * w, vstride = hw * heads * C;
-  const sgc::GlobalDepth<DT> dep{depth + r.cam * hw * dsize,
-                                 d_depth == nullptr ? nullptr : d_depth + r.cam * hw * dsize,
+  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize,
+                                 d_depth == nullptr ? nullptr : d_depth + cam * hw * dsize,
                                  dsize};
   sgc::mh_bwd_warp<VT, DT, C, SAMPLE_GRADS, DOT>(
-      value + r.cam * vstride, locs, attn, g, d_value + r.cam * vstride, d_locs, d_attn,
-      r.row0, r.nrows, r.nlive, h, w, heads, dsize, p, dep);
+      value + cam * vstride, locs, attn, g, d_value + cam * vstride, d_locs, d_attn,
+      Rows::of(cam, warp, k, heads, counts), h, w, heads, dsize, p, dep);
 }
 
 template <typename VT, typename DT, int C, bool SAMPLE_GRADS, bool DOT>
@@ -135,10 +134,10 @@ void launch(const void* value, const void* depth, const float* locs,
             const float* attn, const int* counts, const void* g, float* d_value,
             float* d_depth, float* d_locs, float* d_attn, int n, int h, int w,
             int heads, int dsize, int k, int p, cudaStream_t stream) {
-  const long long warps = sgc::WarpRows<32 / (C / 8)>::warps(n, k, heads);
+  const int warps = sgc::WarpRows<32 / (C / 8)>::per_view(k, heads);
   const int threads = 256;
-  const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
-  dfa3d_bwd_kernel<VT, DT, C, SAMPLE_GRADS, DOT><<<(unsigned)blocks, threads, 0, stream>>>(
+  const dim3 grid((warps + (threads / 32) - 1) / (threads / 32), n);  // (a view's warps, views)
+  dfa3d_bwd_kernel<VT, DT, C, SAMPLE_GRADS, DOT><<<grid, threads, 0, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
       counts, static_cast<const VT*>(g), d_value, d_depth, d_locs, d_attn, n,
       h, w, heads, dsize, k, p);

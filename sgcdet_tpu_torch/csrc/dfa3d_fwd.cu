@@ -88,14 +88,14 @@ __global__ void __launch_bounds__(256, 3) dfa3d_fwd_kernel(
     VT* __restrict__ out,            // (N, K, heads*c)
     int n, int h, int w, int heads, int dsize, int k, int p) {
   using Rows = sgc::WarpRows<32 / (C / 8)>;
-  const long long warp_id =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (warp_id >= Rows::warps(n, k, heads)) return;
-  const Rows r(warp_id, k, heads, counts);
+  const int warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (warp >= Rows::per_view(k, heads)) return;
+  const int cam = blockIdx.y;
   const long long hw = (long long)h * w;
-  const sgc::GlobalDepth<DT> dep{depth + r.cam * hw * dsize, nullptr, dsize};
-  sgc::mh_fwd_warp<VT, DT, C, PG>(value + r.cam * hw * heads * C, locs, attn, out, r.row0,
-                                  r.nrows, r.nlive, h, w, heads, dsize, p, dep);
+  const sgc::GlobalDepth<DT> dep{depth + cam * hw * dsize, nullptr, dsize};
+  sgc::mh_fwd_warp<VT, DT, C, PG>(value + cam * hw * heads * C, locs, attn, out,
+                                  Rows::of(cam, warp, k, heads, counts), h, w, heads,
+                                  dsize, p, dep);
 }
 
 // One point a head (stage 1: heads = P = 1, K2 and K2'): a warp per
@@ -177,9 +177,9 @@ void launch(const void* value, const void* depth, const float* locs,
       return;
     }
   }
-  const long long warps = sgc::WarpRows<32 / (C / 8)>::warps(n, k, heads);
-  const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
-  dfa3d_fwd_kernel<VT, DT, C, 2><<<(unsigned)blocks, threads, 0, stream>>>(
+  const int warps = sgc::WarpRows<32 / (C / 8)>::per_view(k, heads);
+  const dim3 grid((warps + (threads / 32) - 1) / (threads / 32), n);  // (a view's warps, views)
+  dfa3d_fwd_kernel<VT, DT, C, 2><<<grid, threads, 0, stream>>>(
       static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
       counts, static_cast<VT*>(out), n, h, w, heads, dsize, k, p);
 }

@@ -120,36 +120,46 @@ struct WindowDepth {
 // * heads + head, and a warp holds HPW = 32 / (C / 8) of them.  Where a
 // query's heads fill less than a warp, the warp takes as many whole
 // queries of one view as it holds (HPW / heads: at C = 16 and 8 heads two
-// queries, at C = 32 and 8 heads one), else HPW heads of one query.
+// queries, at C = 32 and 8 heads one), else HPW heads of one query.  The
+// templates launch a grid of (warps of a view, views) so that a warp finds
+// its rows by 32-bit arithmetic.
 template <int HPW>
 struct WarpRows {
   long long row0;  // the warp's first row
   int nrows;       // its rows (HPW or fewer)
   int nlive;       // the first nlive of them are counted queries' rows
-  int cam;
+  int head0;       // the head of its first row
 
   static __host__ __device__ __forceinline__ int queries(int heads) {
     return heads < HPW ? HPW / heads : 1;
   }
-  // warps of a call
-  static __host__ __device__ __forceinline__ long long warps(int n, int k, int heads) {
+  // warps a view takes
+  static __host__ __device__ __forceinline__ int per_view(int k, int heads) {
     const int qpw = queries(heads);
-    return (long long)n * ((k + qpw - 1) / qpw) * ((heads + HPW - 1) / HPW);
+    return (k + qpw - 1) / qpw * ((heads + HPW - 1) / HPW);
   }
-  // the rows of warp `warp` (< warps(n, k, heads)); counts null: every query counts
-  __device__ __forceinline__ WarpRows(long long warp, int k, int heads,
-                                      const int* __restrict__ counts) {
+  // the rows of warp `warp` (< per_view(k, heads)) of view `cam`; counts
+  // null: every query counts
+  static __device__ __forceinline__ WarpRows of(int cam, int warp, int k, int heads,
+                                                const int* __restrict__ counts) {
     const int qpw = queries(heads), hgroups = (heads + HPW - 1) / HPW;
-    const int qblocks = (k + qpw - 1) / qpw;
-    const long long vq = warp / hgroups;  // view * qblocks + query block
-    const int head0 = (int)(warp % hgroups) * HPW;
-    const int q0 = (int)(vq % qblocks) * qpw;
-    cam = (int)(vq / qblocks);
-    const int nq = min(qpw, k - q0), nh = min(HPW, heads - head0);
+    const int q0 = warp / hgroups * qpw, h0 = warp % hgroups * HPW;
+    const int nq = min(qpw, k - q0), nh = min(HPW, heads - h0);
     const int count = counts == nullptr ? k : counts[cam];
-    row0 = ((long long)cam * k + q0) * heads + head0;
-    nrows = nq * nh;
-    nlive = min(max(count - q0, 0), nq) * nh;  // counted queries come first
+    // counted queries come first
+    return {((long long)cam * k + q0) * heads + h0, nq * nh,
+            min(max(count - q0, 0), nq) * nh, h0};
+  }
+  // heads [h0, h0 + HPW) of the query at row nq = view * K + q (the
+  // windowed kernels' warps)
+  static __device__ __forceinline__ WarpRows query(long long nq, bool counted, int h0,
+                                                   int heads) {
+    const int nh = min(HPW, heads - h0);
+    return {nq * heads + h0, nh, counted ? nh : 0, h0};
+  }
+  // the head of the warp's row i (a valid head for any i < HPW)
+  __device__ __forceinline__ int head(int i, int heads) const {
+    return i < heads - head0 ? head0 + i : i % heads;
   }
 };
 
@@ -162,8 +172,8 @@ struct WarpRows {
 template <typename VT, typename DT, int C, int PG, typename Depth>
 __device__ __forceinline__ void mh_fwd_warp(
     const VT* __restrict__ vmap, const float* __restrict__ locs,
-    const float* __restrict__ attn, VT* __restrict__ out, long long row0, int nrows,
-    int nlive, int h, int w, int heads, int dsize, int p, const Depth& dep) {
+    const float* __restrict__ attn, VT* __restrict__ out, const WarpRows<32 / (C / 8)>& r,
+    int h, int w, int heads, int dsize, int p, const Depth& dep) {
   static_assert(C % 8 == 0 && C <= 256, "a head is 1-32 lanes of 8 channels");
   constexpr int VEC = 8;          // channels per lane
   constexpr int LANES = C / VEC;  // lanes per row
@@ -171,8 +181,9 @@ __device__ __forceinline__ void mh_fwd_warp(
   const int cfull = heads * C;
   const int hl = lane / LANES;  // this lane's row in the warp
   const int sub = lane % LANES;
-  const long long row = row0 + min(hl, nrows - 1);
-  VT* orow = out + row * C + sub * VEC;
+  const long long row0 = r.row0;
+  const int nrows = r.nrows, nlive = r.nlive;
+  VT* orow = out + (row0 + min(hl, nrows - 1)) * C + sub * VEC;
 
   float acc[VEC];
 #pragma unroll
@@ -180,7 +191,7 @@ __device__ __forceinline__ void mh_fwd_warp(
 
   if (nlive > 0) {
     const bool live = hl < nlive;
-    const VT* vbase = vmap + (int)(row % heads) * C + sub * VEC;
+    const VT* vbase = vmap + r.head(hl, heads) * C + sub * VEC;
     int cpix[4];
     float bw[4], dp0[4], dp1[4], wd0, wd1;
     for (int pb = 0; pb < p; pb += LANES) {
@@ -274,13 +285,15 @@ __device__ __forceinline__ void mh_bwd_warp(
     const VT* __restrict__ vmap, const float* __restrict__ locs,
     const float* __restrict__ attn, const VT* __restrict__ g,
     float* __restrict__ dvmap, float* __restrict__ d_locs,
-    float* __restrict__ d_attn, long long row0, int nrows, int nlive, int h,
-    int w, int heads, int dsize, int p, const Depth& dep) {
+    float* __restrict__ d_attn, const WarpRows<32 / (C / 8)>& r, int h, int w, int heads,
+    int dsize, int p, const Depth& dep) {
   constexpr int VEC = 8;           // channels per lane
   constexpr int LANES = C / VEC;   // lanes per row
   const int lane = threadIdx.x & 31;
   const int sub = lane % LANES;
   const int cfull = heads * C;
+  const long long row0 = r.row0;
+  const int nrows = r.nrows, nlive = r.nlive;
 
   if (nlive == 0) {
     if (SAMPLE_GRADS) {
@@ -301,7 +314,7 @@ __device__ __forceinline__ void mh_bwd_warp(
   load_f32<VT, VEC>(g + row * C + sub * VEC, gv);
   const float* lp = locs + row * p * 3;
   const float* ap = attn + row * p;
-  const VT* vbase = vmap + (int)(row % heads) * C + sub * VEC;
+  const VT* vbase = vmap + r.head(hl, heads) * C + sub * VEC;
   // d_value is written in SLOTS instructions per corner; slot s covers the
   // warp's channels [128 s, 128 s + 128) in row order, four per lane, so
   // each instruction adds four whole 128-byte rows.  A lane therefore
@@ -312,11 +325,10 @@ __device__ __forceinline__ void mh_bwd_warp(
   float gw[SLOTS][4];
 #pragma unroll
   for (int sl = 0; sl < SLOTS; ++sl) {
-    const int f = 128 * sl + 4 * lane, hiw = f / C;
-    const long long wrow = row0 + min(hiw, nrows - 1);
+    const int f = 128 * sl + 4 * lane, hiw = f / C, wr = min(hiw, nrows - 1);
     wsrc[sl] = hiw * LANES;
-    woff[sl] = (int)(wrow % heads) * C + f % C;
-    load_f32<VT, 4>(g + wrow * C + f % C, gw[sl]);
+    woff[sl] = r.head(wr, heads) * C + f % C;
+    load_f32<VT, 4>(g + (row0 + wr) * C + f % C, gw[sl]);
   }
 
   for (int pt = 0; pt < p; ++pt) {

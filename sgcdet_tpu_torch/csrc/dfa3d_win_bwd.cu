@@ -93,12 +93,12 @@ __global__ void __launch_bounds__(kThreads, 3) dfa3d_win_bwd_kernel(
   const sgc::WindowDepth<DT, false> dep{{depth + cam * hw * dsize, ddmap, dsize}, nullptr,
                                         s_dd, base, staged ? span : 0};
   for (int item = threadIdx.x >> 5; item < (q1 - q0) * hgroups; item += kThreads / 32) {
-    const int q = q0 + item / hgroups, head0 = (item % hgroups) * HPW;
-    const int nh = min(HPW, heads - head0);
+    const int q = q0 + item / hgroups;
     sgc::mh_bwd_warp<VT, DT, kC, SAMPLE_GRADS, DOT>(
         value + cam * vstride, locs, attn, g, d_value + cam * vstride, d_locs, d_attn,
-        ((long long)cam * k + q) * heads + head0, nh, q < count ? nh : 0, h, w, heads,
-        dsize, p, dep);
+        sgc::WarpRows<HPW>::query((long long)cam * k + q, q < count, (item % hgroups) * HPW,
+                                  heads),
+        h, w, heads, dsize, p, dep);
   }
   if (staged) {  // uniform over the block
     __syncthreads();

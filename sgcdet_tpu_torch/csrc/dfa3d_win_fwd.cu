@@ -91,11 +91,12 @@ __global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
                                  staged ? span : 0};
   const VT* vmap = value + cam * hw * heads * C;
   for (int item = threadIdx.x >> 5; item < (q1 - q0) * hgroups; item += kMhThreads / 32) {
-    const int q = q0 + item / hgroups, head0 = (item % hgroups) * HPW;
-    const int nh = min(HPW, heads - head0);
-    sgc::mh_fwd_warp<VT, DT, C, 1>(vmap, locs, attn, out,
-                                   ((long long)cam * k + q) * heads + head0, nh,
-                                   q < count ? nh : 0, h, w, heads, dsize, p, dep);
+    const int q = q0 + item / hgroups;
+    sgc::mh_fwd_warp<VT, DT, C, 1>(
+        vmap, locs, attn, out,
+        sgc::WarpRows<HPW>::query((long long)cam * k + q, q < count, (item % hgroups) * HPW,
+                                  heads),
+        h, w, heads, dsize, p, dep);
   }
 }
 
