@@ -20,7 +20,10 @@ Phases, each fatal on failure:
               uncounted bf16/bf16 multi-head with a 12-bin depth (packed
               quads), uncounted f32/f32 and bf16/f32 stage 1 and multi-head
               (v1, v3); and F.grid_sample, the library call that computes the
-              2D stage 1, against the kernel at f32.  At a small size: a
+              2D stage 1, against the kernel at f32.  The instances at the
+              ScanNet200-L widths, K2 at c = 128 and K3 at 16 a head, at its
+              level-2 shape (80 x 80 x 32 grid, top-k 51,200, exact auto
+              budget), bf16/f32 and f32/f32, counted.  At a small size: a
               sweep whose 7 x 9 map and 5 planes fill no tile or plane group
               of K1 (with NaN / inf coordinates), and DFA3D stage 2 with 1,
               2 and 6 heads x 4 points and 8 heads x 3 points (head groups
@@ -28,7 +31,8 @@ Phases, each fatal on failure:
               uncounted.  Prints each max abs error with its worst ratio to
               the per-element tolerance, and the warm time of kernel, plain
               version and library call, with the earlier times of K1, K2,
-              K3, K2' and K3' (PERF.md) beside this run's.
+              K3, K2' and K3', and K3's at 16 a head with one query a warp
+              (PERF.md), beside this run's.
 3b. backward — every backward kernel against its plain version (the VJP of
               the plain forward) on the card, at the train path's shapes:
               bf16 and f32 value with f32 depth; out-of-image, behind-camera,
@@ -46,15 +50,18 @@ Phases, each fatal on failure:
               view counted to 0, and operands that are views breaking
               16-byte alignment; a DFA3D stage 1 at level 2 whose counted
               queries of each view all sample one pixel centre (lists of
-              4608 entries, K6's long pass) with view 0 counted to 0.
+              4608 entries, K6's long pass) with view 0 counted to 0.  K6 at
+              c = 128 and K5 at 16 a head at the ScanNet200-L level-2 shape,
+              bf16/f32 and f32/f32, with its long lists at c = 128.
               aten's grid_sampler_2d_backward, the library call that
               computes K4's d_src, against K4 at f32.  The partial head
               groups of phase 3 through K5.  Prints each gradient's max abs
               error, its worst ratio to the per-element tolerance, the warm
               time of kernel, plain version and library call (with the
-              earlier times of K6, K6' and the f32 stage 1 beside this
-              run's), the global atomic operations of K4 and K5 (vector and
-              scalar, counted from the design) with their rate, and for K6
+              earlier times of K6, K6' and the f32 stage 1, and K5's at 16
+              a head with one query a warp, beside this run's), the global
+              atomic operations of K4 and K5 (vector and scalar, counted
+              from the design) with their rate, and for K6
               and K6' the lists the call builds (entries, pixels, the
               longest list, the lists of more than 32 entries).
 4. slice    — the ScanNet forward at compute_dtype=float32 with TF32 off, on
@@ -129,17 +136,28 @@ Phases, each fatal on failure:
               attribute_probes) and the device work of one call by
               torch.profiler, which must be the probe's own kernels only: one
               for a gather, at most three for a scatter-add.
+12. large   — the ScanNet200-L config (scannet200_large: embed 128, so K2
+              and K6 at c = 128 and K3 and K5 at 16 a head; 80 x 80 x 32
+              grid, top-k 6400 / 51,200; 189 classes) with its exact auto
+              budget at 40 views: the f32 scene through the kernels and the
+              plain versions (as phase 4), one f32 train step through both
+              (as phase 6), 3 bf16 scenes through infer.detect (launches per
+              scene: 2 sweep, 3 K2 and 3 K3 at the -L widths) and 4 bf16 train
+              steps (per step also 2 sweep bwd, 3 K6 and 3 K5 at the -L
+              widths), with seconds per scene and step and peak memory.
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
 DFA3D and serving paths, the bf16 2D lifting run's for the bf16-depth
-instances, the sorted train run's for the windowed kernels and the probes'
-run's for the probe kernels), the card's name and power limit, and the
+instances, the sorted train run's for the windowed kernels, the probes'
+run's for the probe kernels and the ScanNet200-L train run's for the
+instances at its widths), the card's name and power limit, and the
 device record (one JSON object).  The script imports torch and
 sgcdet_tpu_torch only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -181,6 +199,11 @@ KERNEL_INFO = {
     "dfa3d_bwd_mh_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
                         f"{_OPS}dfa3d_pallas2.py:318 at bf16 depth (the 2D "
                         "path's stage 2)"),
+    # the instances at the -L configs' widths (phase 12's path)
+    "dfa3d_fwd_s1_c128": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu", f"{_OPS}dfa3d_pallas.py:303"),
+    "dfa3d_fwd_mh_c16": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu", f"{_OPS}dfa3d_pallas2.py:267"),
+    "dfa3d_bwd_s1_c128": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu", f"{_OPS}dfa3d_pallas.py:439"),
+    "dfa3d_bwd_mh_c16": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu", f"{_OPS}dfa3d_pallas2.py:318"),
     "dfa3d_win_fwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_win_fwd.cu",
                          f"{_EXP}dfa3d_pallas4.py:130; {_EXP}dfa3d_pallas4.py:418; "
                          f"{_EXP}dfa3d_pallas5.py:185"),
@@ -198,6 +221,16 @@ KERNELS_2D = ("dfa3d_fwd_s1_bd", "dfa3d_fwd_mh_bd", "dfa3d_bwd_s1_bd",
               "dfa3d_bwd_mh_bd")
 # the windowed kernels, launched by the sorted path
 KERNELS_SORTED = ("dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
+# the instances at the -L configs' widths, launched by the ScanNet200-L path
+KERNELS_LARGE = ("dfa3d_fwd_s1_c128", "dfa3d_fwd_mh_c16", "dfa3d_bwd_s1_c128",
+                 "dfa3d_bwd_mh_c16")
+LARGE = "scannet200_large"
+# phase 12's f32 train step: the relative size of the noise on the plain
+# DFA3D outputs whose move of each gradient enters its tolerance, as large
+# as the kernels' own f32 differences from the plain versions at the -L
+# level-2 shape (phase 3: up to ~4e-6 of the output's scale, so Gaussian
+# noise of 1e-6 reaches it over ~10^7 elements)
+LARGE_OUTPUT_NUDGE = 1e-6
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and f32 flop/s outside
 # the tensor cores, where every kernel here computes
 HBM_BYTES_PER_S = 3.35e12
@@ -214,6 +247,12 @@ LAUNCHES_PER_SCENE_SORTED = {"sweep_fwd": 2, "dfa3d_fwd_s1": 3,
 LAUNCHES_PER_STEP_SORTED = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1": 3,
                             "dfa3d_bwd_s1": 3, "dfa3d_win_fwd_mh": 3,
                             "dfa3d_win_bwd_mh": 3}
+# ... and on the ScanNet200-L path: the DFA3D instances at c = 128 (stage 1)
+# and 16 a head (stage 2)
+LAUNCHES_PER_SCENE_LARGE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c128": 3, "dfa3d_fwd_mh_c16": 3}
+LAUNCHES_PER_STEP_LARGE = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c128": 3,
+                           "dfa3d_bwd_s1_c128": 3, "dfa3d_fwd_mh_c16": 3,
+                           "dfa3d_bwd_mh_c16": 3}
 TRAIN_STEPS = 4
 # the forward kernels' earlier times (PERF.md section 6, rows 1, 2, 4, 5,
 # 8-10, 12, 13: this script on an H100 80GB HBM3 at 700 W), printed beside
@@ -231,7 +270,11 @@ EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
               # before the sorted path sent it to K2)
               "win s1 sorted": 0.2314, "win mh sorted": 0.3878,
               "win mh random": 0.4341, "win bwd sorted": 1.2569,
-              "win bwd random": 1.2202}
+              "win bwd random": 1.2202,
+              # K3 and K5 at c = 16 a head with one query a warp (lanes 16-31
+              # idle at 8 heads), before two queries shared a warp (PERF.md
+              # section 6, the -L rows)
+              "K3 c16 one query a warp": 0.6100, "K5 c16 one query a warp": 1.8714}
 # small DFA3D stage-2 shapes whose head groups fill only part of a warp of
 # eight 4-lane heads at c = 32: (heads, points)
 PARTIAL_HEADS = ((1, 4), (2, 4), (6, 4), (8, 3))
@@ -382,11 +425,11 @@ def sweep_work(args, outs, backward):
 # ---------------------------------------------------------------------------
 
 
-def _scene_and_cfg():
-    from sgcdet_tpu_torch.configs import scannet
+def _scene_and_cfg(config="scannet"):
+    from sgcdet_tpu_torch import configs
     from sgcdet_tpu_torch.scene import example_scene
 
-    cfg = scannet()
+    cfg = getattr(configs, config)()
     scene = example_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
                           trajectory="indoor")
     return cfg, scene
@@ -397,6 +440,19 @@ def _auto_budget(cfg, scene):
 
     return derive_visibility_budgets([(scene["origin"], scene["proj_img"])],
                                      cfg.data.img_shape, cfg.model)
+
+
+def _kept_queries(torch, mcfg):
+    """K' per level: the queries a camera keeps under ``mcfg``'s budget
+    (``compact_queries``' rounding; K where nothing is compacted)."""
+    from sgcdet_tpu_torch.models.view_transformer import compact_queries
+
+    ks = [math.prod(mcfg.n_voxels_list[0])] + list(mcfg.topk_list)
+    kept = []
+    for k, frac in zip(ks, mcfg.visibility_budget):
+        compact = compact_queries(torch.ones((1, k), dtype=torch.bool), frac)
+        kept.append(k if compact is None else compact[0].shape[1])
+    return kept
 
 
 def _sweep_cases(torch, dev, cfg, scene, gen):
@@ -719,6 +775,30 @@ def phase_kernels(torch, dev, report):
                   "dfa3d_fwd_mh_bd", (vp.to(bf), dpt_bf, x["locs2"], x["attn2"],
                                       x["heads"], None), time="log")
 
+    # the -L configs' instances, K2 at c = 128 and K3 at 16 a head, at the
+    # ScanNet200-L level-2 shape (80 x 80 x 32 grid, top-k 51,200, its exact
+    # auto budget); K3 beside its time with one query a warp
+    lcfg, lscene = _scene_and_cfg(LARGE)
+    lbudget = _auto_budget(lcfg, lscene)
+    log(f"[kernels] {LARGE} auto visibility budget per level: "
+        f"{[round(b, 4) for b in lbudget]}")
+    x = _lifting_inputs(torch, dev, lcfg, lscene, 2, lbudget[2], gen)
+    shape = f"({N_VIEWS},{x['h']},{x['w']}) K'={x['kb']}"
+    for vdt in (torch.bfloat16, torch.float32):
+        bf16 = vdt == torch.bfloat16
+        tag = "bf16/f32" if bf16 else "f32/f32"
+        counts = x["counts"]
+        s1 = (x["value"].to(vdt), x["depth"], x["locs1"], x["attn1"], 1, counts)
+        dfa3d(f"-L stage1 c=128 {tag} {shape} counted", "dfa3d_fwd_s1_c128", s1,
+              _zeros_past_count(torch, counts), time="main" if bf16 else "log")
+        vp = torch.randn((N_VIEWS, x["h"], x["w"], lcfg.model.embed_dims), device=dev,
+                         generator=gen).to(vdt)
+        s2 = (vp, x["depth"], x["locs2"], x["attn2"], x["heads"], counts)
+        dfa3d(f"-L stage2 c=16 {tag} {shape} counted", "dfa3d_fwd_mh_c16", s2,
+              _zeros_past_count(torch, counts), time="main" if bf16 else "log",
+              earlier="K3 c16 one query a warp" if bf16 else None)
+    del x, s1, s2, vp
+
     # stage 2 with head groups that fill only part of a warp, every type
     # pair, counted and uncounted
     for name, args in _partial_head_cases(torch, dev, gen):
@@ -766,6 +846,11 @@ def phase_kernels(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 
+def _tag(config):
+    """A phase's log tag suffix for ``config``: none for ScanNet's."""
+    return "" if config == "scannet" else f" {config}"
+
+
 def _compare_heads(torch, tag, got, want, rel):
     """Identical ``valid`` and every head output within ``rel`` of its
     scale."""
@@ -781,18 +866,18 @@ def _compare_heads(torch, tag, got, want, rel):
             check(err <= tol, f"{tag}: {name} level {lvl} differs")
 
 
-def phase_slice_f32(torch, dev, sort_queries=False):
-    """The f32 scene through kernels and plain versions; returns the
-    kernels' outputs."""
+def phase_slice_f32(torch, dev, sort_queries=False, config="scannet"):
+    """The f32 scene of ``config`` through kernels and plain versions;
+    returns the kernels' outputs."""
     from sgcdet_tpu_torch.infer import forward_scene
     from sgcdet_tpu_torch.models import SGCDet
     from sgcdet_tpu_torch.ops import plain_ops
 
-    tag = "sorted slice f32" if sort_queries else "slice f32"
+    tag = ("sorted slice f32" if sort_queries else "slice f32") + _tag(config)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, scene = _scene_and_cfg()
+    cfg, scene = _scene_and_cfg(config)
     mcfg = dataclasses.replace(cfg.model, compute_dtype="float32",
                                visibility_budget=_auto_budget(cfg, scene),
                                sort_queries=sort_queries)
@@ -817,24 +902,26 @@ def phase_slice_f32(torch, dev, sort_queries=False):
     return out_k
 
 
-def phase_serving(torch, dev, kernels, sort_queries=False):
+def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet"):
     import numpy as np
 
-    from sgcdet_tpu_torch.infer import detect
+    from sgcdet_tpu_torch.infer import detect, forward_scene
     from sgcdet_tpu_torch.models import SGCDet
+    from sgcdet_tpu_torch.models.det_head import decode_bboxes
     from sgcdet_tpu_torch.scene import example_scene
 
-    tag = "sorted serving" if sort_queries else "serving"
-    per_scene = LAUNCHES_PER_SCENE_SORTED if sort_queries else LAUNCHES_PER_SCENE
-    cfg, _ = _scene_and_cfg()
+    tag = ("sorted serving" if sort_queries else "serving") + _tag(config)
+    per_scene = (LAUNCHES_PER_SCENE_SORTED if sort_queries else
+                 LAUNCHES_PER_SCENE_LARGE if config == LARGE else LAUNCHES_PER_SCENE)
+    cfg, _ = _scene_and_cfg(config)
     scenes = [example_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
                             rng=np.random.RandomState(i), trajectory="indoor")
               for i in range(SERVE_SCENES)]
     mcfg = dataclasses.replace(cfg.model, visibility_budget=_auto_budget(cfg, scenes[0]),
                                sort_queries=sort_queries)
-    log(f"[{tag}] config scannet, compute {mcfg.compute_dtype}, budget "
-        f"{[round(b, 4) for b in mcfg.visibility_budget]}, sort_queries "
-        f"{sort_queries}, {N_VIEWS} views")
+    log(f"[{tag}] config {config}, compute {mcfg.compute_dtype}, budget "
+        f"{[round(b, 4) for b in mcfg.visibility_budget]} (K' per level "
+        f"{_kept_queries(torch, mcfg)}), sort_queries {sort_queries}, {N_VIEWS} views")
     model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
                    generator=torch.Generator().manual_seed(0))
     log(f"[{tag}] parameters: {sum(p.numel() for p in model.parameters())}")
@@ -853,6 +940,17 @@ def phase_serving(torch, dev, kernels, sort_queries=False):
             f"{len(boxes)} boxes, {times[-1]:.4f} s")
     launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
+    # where a warm scene's time goes: the forward (synchronized), then the
+    # host's copy of the head outputs, decode and NMS (infer.detect's parts)
+    t0 = time.perf_counter()
+    out = forward_scene(model, scenes[-1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    head_outs = [tuple(t.cpu().numpy() for t in scale) for scale in out["head_outs"]]
+    decode_bboxes(head_outs, out["valid"].cpu().numpy(), scenes[-1]["origin"],
+                  model.cfg.voxel_size, model.cfg)
+    log(f"[{tag}] a warm scene apart: forward {t1 - t0:.4f} s, copy + decode + NMS "
+        f"{time.perf_counter() - t1:.4f} s")
     log(f"[{tag}] warm seconds per scene: {sum(times[1:]) / len(times[1:]):.4f}")
     log(f"[{tag}] peak memory allocated: {peak / 2**30:.3f} GiB")
     log(f"[{tag}] kernel launches over {SERVE_SCENES} scenes: {launches}")
@@ -1208,6 +1306,52 @@ def phase_backward(torch, dev, report):
                       "dfa3d_bwd_mh_bd", (vp, dpt_bf) + s2[2:6] + (None,),
                       time="log")
 
+    # the -L configs' instances, K6 at c = 128 and K5 at 16 a head (two
+    # queries a warp), at the ScanNet200-L level-2 shape, with the model's
+    # gradients and all of them; K6's long lists: every query of a view on
+    # one pixel centre, view 0 counted to 0 (lists of K' entries)
+    lcfg, lscene = _scene_and_cfg(LARGE)
+    x = _lifting_inputs(torch, dev, lcfg, lscene, 2, _auto_budget(lcfg, lscene)[2], gen)
+    shape = f"({N_VIEWS},{x['h']},{x['w']}) K'={x['kb']}"
+    counts = x["counts"]
+    past_zero = _zeros_past_count(torch, counts, rows=2)
+    for vdt in (torch.bfloat16, torch.float32):
+        bf16 = vdt == torch.bfloat16
+        tag = "bf16/f32" if bf16 else "f32/f32"
+        timed = "main" if bf16 else "log"
+        value = x["value"].to(vdt)
+        g1 = torch.randn((N_VIEWS, x["kb"], value.shape[-1]), device=dev,
+                         generator=gen).to(vdt)
+        locs1 = _edge_locs(x["locs1"], x["w"], x["h"])
+        s1 = (value, x["depth"], locs1, x["attn1"], g1, 1, counts)
+        dfa3d(f"-L stage1 bwd c=128 {tag} {shape} counted", "dfa3d_bwd_s1_c128", s1, True,
+              past_zero)
+        dfa3d(f"-L stage1 bwd c=128 {tag} {shape} counted", "dfa3d_bwd_s1_c128", s1, False,
+              time=timed)
+        vp = torch.randn((N_VIEWS, x["h"], x["w"], value.shape[-1]), device=dev,
+                         generator=gen).to(vdt)
+        s2 = (vp, x["depth"], _edge_locs(x["locs2"], x["w"], x["h"]), x["attn2"], g1,
+              x["heads"], counts)
+        dfa3d(f"-L stage2 bwd c=16 {tag} {shape} counted", "dfa3d_bwd_mh_c16", s2,
+              extra=past_zero, time=timed,
+              earlier="K5 c16 one query a warp" if bf16 else None)
+        if bf16:
+            cx = torch.tensor(_exact_centres(x["w"]), device=dev)
+            cy = torch.tensor(_exact_centres(x["h"]), device=dev)
+            pv = torch.arange(N_VIEWS, device=dev)
+            one1 = locs1.clone()
+            one1[..., 0] = ((cx[pv % cx.numel()] + 0.5) / x["w"])[:, None, None, None]
+            one1[..., 1] = ((cy[pv % cy.numel()] + 0.5) / x["h"])[:, None, None, None]
+            call = torch.full_like(counts, x["kb"])
+            call[0] = 0
+            s1_long = (value, x["depth"], one1, x["attn1"], g1, 1, call)
+            name1 = (f"-L stage1 bwd c=128 {tag} {shape} every query of a view on one "
+                     f"pixel centre, view 0 counted to 0")
+            dfa3d(name1, "dfa3d_bwd_s1_c128", s1_long, True,
+                  _zeros_past_count(torch, call, rows=2))
+            dfa3d(name1, "dfa3d_bwd_s1_c128", s1_long, False, time="log")
+    del x, s1, s2, vp, g1, value
+
     # stage 2 with head groups that fill only part of a warp (the lanes K5
     # masks past the last head), every type pair, counted and uncounted
     for name, (value, dpt, locs, attn, heads, counts) in _partial_head_cases(
@@ -1275,14 +1419,14 @@ def phase_backward(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 
-def _train_setup(torch, dev, **model_kw):
-    """bench.py's train setting (exact auto budget, depth loss on) on the
-    indoor 40-view train scene, with ``model_kw`` overrides; the model's
-    weights come from a seeded init."""
+def _train_setup(torch, dev, config="scannet", **model_kw):
+    """bench.py's train setting (exact auto budget, depth loss on) of
+    ``config`` on the indoor 40-view train scene, with ``model_kw``
+    overrides; the model's weights come from a seeded init."""
     from sgcdet_tpu_torch.scene import example_train_scene
     from sgcdet_tpu_torch.train import init_train_state, make_train_step
 
-    cfg, scene = _scene_and_cfg()
+    cfg, scene = _scene_and_cfg(config)
     mcfg = dataclasses.replace(cfg.model, visibility_budget=_auto_budget(cfg, scene),
                                depth_loss=True, **model_kw)
     cfg = dataclasses.replace(cfg, model=mcfg)
@@ -1292,7 +1436,34 @@ def _train_setup(torch, dev, **model_kw):
     return cfg, scene, model, make_train_step(model, cfg, optimizer)
 
 
-def phase_train_f32(torch, dev):
+@contextlib.contextmanager
+def _perturbed_dfa3d(torch, dev, rel):
+    """The plain DFA3D forward with its output multiplied by 1 + rel * n,
+    n standard normal from a seeded generator: noise of the size of the
+    kernels' own f32 summation differences, where they arise."""
+    from sgcdet_tpu_torch.ops import dfa3d
+
+    plain = dfa3d.dfa3d_attention_plain
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def perturbed(*args, **kw):
+        out = plain(*args, **kw)
+        return out * (1 + rel * torch.randn(out.shape, device=out.device, generator=gen))
+
+    dfa3d.dfa3d_attention_plain = perturbed
+    try:
+        yield
+    finally:
+        dfa3d.dfa3d_attention_plain = plain
+
+
+def phase_train_f32(torch, dev, config="scannet", output_nudge=None):
+    """One f32 train step through the kernels against the plain versions.
+    ``output_nudge``: also measure how far each gradient (and the gradient
+    norm) moves when the plain DFA3D outputs carry noise of that relative
+    size, and count that move in the gradients' tolerance beside the image
+    nudge's (phase 12: the -L step is that sensitive, and the image nudge
+    does not reach it)."""
     import numpy as np
 
     from sgcdet_tpu_torch.ops import plain_ops
@@ -1306,14 +1477,15 @@ def phase_train_f32(torch, dev):
     # differ only where the kernels sum in another order than the plain
     # versions
     torch.backends.cudnn.deterministic = True
+    tag = "train f32" + _tag(config)
     kw = dict(compute_dtype="float32", ffn_dropout=0.0)
-    cfg, scene, model_k, step_k = _train_setup(torch, dev, **kw)
+    cfg, scene, model_k, step_k = _train_setup(torch, dev, config, **kw)
     gen = torch.Generator(device=dev).manual_seed(1)
     t0 = time.perf_counter()
     m_k = step_k(scene, gen)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    log(f"[train f32] step through kernels {t1 - t0:.3f} s (cold)")
+    log(f"[{tag}] step through kernels {t1 - t0:.3f} s (cold)")
     # the plain versions twice: on the scene, and on its images moved by
     # 1e-7 relative noise (the size of the kernels' own rounding
     # differences), which measures how far rounding alone moves each
@@ -1322,61 +1494,80 @@ def phase_train_f32(torch, dev):
     imgs = scene["imgs"]
     nudged = dict(scene, imgs=(imgs * (1 + 1e-7 * rng.randn(*imgs.shape))).astype(imgs.dtype))
     runs = []
-    for sc in (scene, nudged):
-        _, _, model_p, step_p = _train_setup(torch, dev, **kw)
+    plain_runs = [(scene, contextlib.nullcontext()), (nudged, contextlib.nullcontext())]
+    if output_nudge is not None:
+        plain_runs.append((scene, _perturbed_dfa3d(torch, dev, output_nudge)))
+    for sc, perturbation in plain_runs:
+        _, _, model_p, step_p = _train_setup(torch, dev, config, **kw)
         t1 = time.perf_counter()
-        with plain_ops():
+        with plain_ops(), perturbation:
             metrics = step_p(sc, gen)
         torch.cuda.synchronize()
-        log(f"[train f32] step through plain versions {time.perf_counter() - t1:.3f} s")
+        log(f"[{tag}] step through plain versions {time.perf_counter() - t1:.3f} s")
         runs.append((metrics, {n: p.grad for n, p in model_p.named_parameters()}))
         del model_p, step_p
-    (m_p, grads_p), (_, grads_q) = runs
+    m_p, grads_p = runs[0]
+    nudges = runs[1:]
     # loss terms: the kernels and the plain versions sum in other orders
+    # (checked after the gradients are logged)
+    differ = []
     for name in m_p:
         a, b = float(m_k[name]), float(m_p[name])
         tol = 1e-4 * max(abs(b), 1e-3)
-        log(f"[train f32] {name}: kernels {a:.6f}, plain {b:.6f} (tol {tol:.1e})")
-        check(abs(a - b) <= tol, f"train f32: {name} differs")
+        if output_nudge is not None and name == "grad_norm":  # as the gradients
+            tol += 4 * max(abs(float(m[name]) - b) for m, _ in nudges)
+        log(f"[{tag}] {name}: kernels {a:.6f}, plain {b:.6f} (tol {tol:.1e}; the "
+            f"nudged plain runs {', '.join(f'{float(m[name]):.6f}' for m, _ in nudges)})")
+        if abs(a - b) > tol:
+            differ.append(name)
     # every parameter's gradient (after the clip, which scales both alike).
     # Each tensor is held to 2e-3 of its largest plain gradient (floored at
     # 1e-5 of the largest anywhere in the model) plus 4x the move of its
-    # plain gradient under the 1e-7 nudge.  The second term covers the
-    # train-mode BatchNorm nets (depth U-Nets, 3D neck), whose gradients in
-    # this state are determined by rounding to about 1e-2 only.
+    # plain gradient under the nudges (the 1e-7 image nudge and, with
+    # output_nudge, the noise on the DFA3D outputs).  The second term
+    # covers the train-mode BatchNorm nets (depth U-Nets, 3D neck), whose
+    # gradients in this state are determined by rounding to about 1e-2
+    # only.
     floor = 1e-5 * max(float(g.abs().max()) for g in grads_p.values())
     rows = []
     for name, p in model_k.named_parameters():
         want = grads_p[name]
         check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
-              f"train f32: gradient of {name} missing or non-finite")
+              f"{tag}: gradient of {name} missing or non-finite")
         scale = max(float(want.abs().max()), floor)
-        spread = float((grads_q[name] - want).abs().max())
+        spread = max(float((g[name] - want).abs().max()) for _, g in nudges)
         tol = 2e-3 * scale + 4 * spread
         err = float((p.grad - want).abs().max())
         rows.append((err / tol, name, err, scale, spread, param_label(name)))
     rows.sort(reverse=True)
-    log(f"[train f32] gradient scale floor {floor:.3e}; worst err/tol: "
+    log(f"[{tag}] gradient scale floor {floor:.3e}; worst err/tol: "
         + "; ".join(f"{n} ({lbl}) {r:.3f}: err {e:.2e}, scale {m:.2e}, nudge {s:.2e}"
                     for r, n, e, m, s, lbl in rows[:5]))
+    if output_nudge is not None:
+        moved = sum(float((nudges[-1][1][n] - grads_p[n]).abs().max()) > 2e-3 * m
+                    for _, n, _, m, _, _ in rows)
+        log(f"[{tag}] the DFA3D-output nudge ({output_nudge:.0e}) alone moves {moved} of "
+            f"{len(rows)} tensors by more than 2e-3 of their scale")
     by_nudge = sum(e > 2e-3 * m for _, _, e, m, _, _ in rows)
-    log(f"[train f32] {by_nudge} of {len(rows)} tensors differ by more than 2e-3 of "
+    log(f"[{tag}] {by_nudge} of {len(rows)} tensors differ by more than 2e-3 of "
         f"their scale; the largest nudge move is "
         f"{max(s / m for _, _, _, m, s, _ in rows):.3e} of its tensor's scale")
+    check(not differ, f"{tag}: {differ} differ")
     bad = [n for r, n, *_ in rows if r > 1.0]
-    check(not bad, f"train f32: gradients differ: {bad}")
-    log(f"[train f32] all {len(rows)} parameter gradients match")
+    check(not bad, f"{tag}: gradients differ: {bad}")
+    log(f"[{tag}] all {len(rows)} parameter gradients match")
     (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
      torch.backends.cudnn.deterministic) = flags
 
 
-def phase_train(torch, dev, kernels, sort_queries=False):
+def phase_train(torch, dev, kernels, sort_queries=False, config="scannet"):
     from sgcdet_tpu_torch.train import param_label
 
-    tag = "sorted train" if sort_queries else "train"
-    per_step = LAUNCHES_PER_STEP_SORTED if sort_queries else LAUNCHES_PER_STEP
-    cfg, scene, model, step = _train_setup(torch, dev, sort_queries=sort_queries)
-    log(f"[{tag}] config scannet, compute {cfg.model.compute_dtype}, ffn_dropout "
+    tag = ("sorted train" if sort_queries else "train") + _tag(config)
+    per_step = (LAUNCHES_PER_STEP_SORTED if sort_queries else
+                LAUNCHES_PER_STEP_LARGE if config == LARGE else LAUNCHES_PER_STEP)
+    cfg, scene, model, step = _train_setup(torch, dev, config, sort_queries=sort_queries)
+    log(f"[{tag}] config {config}, compute {cfg.model.compute_dtype}, ffn_dropout "
         f"{cfg.model.ffn_dropout}, depth loss on, budget "
         f"{[round(b, 4) for b in cfg.model.visibility_budget]}, sort_queries "
         f"{sort_queries}, {N_VIEWS} views")
@@ -2013,6 +2204,25 @@ def phase_probes(torch, dev, report):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the ScanNet200-L config
+# ---------------------------------------------------------------------------
+
+
+def phase_large(torch, dev, kernels, serving, train):
+    """``scannet200_large`` (embed 128: K2 / K6 at c = 128, K3 / K5 at 16 a
+    head) at 40 views: the f32 scene and one f32 train step through the
+    kernels against the plain versions, then the bf16 serving and train
+    loops with their launch counts, seconds and peak memory."""
+    phase_slice_f32(torch, dev, config=LARGE)
+    torch.cuda.empty_cache()
+    phase_train_f32(torch, dev, config=LARGE, output_nudge=LARGE_OUTPUT_NUDGE)
+    torch.cuda.empty_cache()
+    serving.update(phase_serving(torch, dev, kernels, config=LARGE))
+    torch.cuda.empty_cache()
+    train.update(phase_train(torch, dev, kernels, config=LARGE))
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     if not (repo / "sgcdet_tpu_torch").is_dir():
@@ -2055,6 +2265,7 @@ def main() -> int:
     report = {name: {} for name in KERNEL_INFO}
     serving, train, lifting_2d, f32_scene = {}, {}, {}, {}
     sorted_serving, sorted_train, probe_runs = {}, {}, {}
+    large_serving, large_train = {}, {}
     for name, fn in (
             ("kernels", lambda: phase_kernels(torch, dev, report)),
             ("backward", lambda: phase_backward(torch, dev, report)),
@@ -2066,7 +2277,8 @@ def main() -> int:
             ("windowed", lambda: phase_windowed(torch, dev, report)),
             ("sorted", lambda: phase_sorted(torch, dev, KERNELS, f32_scene,
                                             sorted_serving, sorted_train)),
-            ("probes", lambda: probe_runs.update(phase_probes(torch, dev, report)))):
+            ("probes", lambda: probe_runs.update(phase_probes(torch, dev, report))),
+            ("large", lambda: phase_large(torch, dev, KERNELS, large_serving, large_train))):
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
@@ -2075,13 +2287,16 @@ def main() -> int:
         rec = report[name]
         # launches: the main path of each kernel (the train step; the bf16
         # 2D lifting run for the bf16-depth instances; the sorted train
-        # step for the windowed kernels; the probes' run for theirs)
+        # step for the windowed kernels; the probes' run for theirs; the
+        # ScanNet200-L train step for the -L instances)
         if name in KERNELS_2D:
             launches, served = lifting_2d[name], 0
         elif name in KERNELS_SORTED:
             launches, served = sorted_train[name], sorted_serving[name]
         elif name in PROBE_MAIN:
             launches, served = probe_runs[name], 0
+        elif name in KERNELS_LARGE:
+            launches, served = large_train[name], large_serving[name]
         else:
             launches, served = train[name], serving[name]
         missing = [key for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",

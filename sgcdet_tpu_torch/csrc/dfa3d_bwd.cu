@@ -38,7 +38,7 @@
 // both are off (the 2D stage 1) nothing needs t, so DOT is off too: no
 // value row is read and no dot product taken.
 //
-// Multi-head (K5, K5', c = 32 per head: every model path's): the scatter.
+// Multi-head (K5, K5', c = 32 per head, ScanNet's, or 16, the -L configs'): the scatter.
 // Per (query, head, point, corner) the
 // kernel gathers two depth bins and, with DOT, one c-channel value row, and
 // adds c (+ 2) f32 values by atomics into zero-filled (N, H, W, C) (and
@@ -48,7 +48,10 @@
 // sgc::mh_bwd_warp in csrc/dfa3d_mh.cuh, which the windowed backward of
 // the sorted path shares): eight contiguous channels per lane (one 16-byte
 // load of a bf16 row piece, two of f32), so a head of c = 32 channels
-// takes four lanes and a warp one query's eight heads.
+// takes four lanes and a warp one query's eight heads; at c = 16 a head
+// takes two lanes and a warp two queries' (sgc::WarpRows, as K3; one query
+// a warp left half of the d_value writes below empty and measured 1.87 ms
+// against 1.84 on an H100 at the -L level 2, PERF.md).
 // The incoming gradient row is loaded once into registers, in 16-byte
 // pieces; each corner's dot product t is a reduction over the head's lanes
 // (2 shuffle steps), after which every lane of the
@@ -57,12 +60,12 @@
 // bins in one instruction (a single L2 request for the pair).  d_value
 // takes two 16-byte vector reductions per lane per corner, laid out so
 // that each instruction adds four whole 128-byte rows (a lane takes its
-// target head's weight and pixel by shuffle): at c = 32 that is eight
+// target row's weight and pixel by shuffle): at c = 32 that is eight
 // vector operations and two line requests per head and corner where the
 // one-head-per-warp layout issued 32 scalar ones, and a warp walks its
 // eight heads' samples side by side instead of one after another.
-// Counted-out queries are per warp: zero location and attention gradients
-// for its heads, nothing scattered.  launch_sg turns DOT off only with
+// Counted-out queries get zero location and attention gradients and
+// scatter nothing (a warp with none counted returns after the zeros).  launch_sg turns DOT off only with
 // SAMPLE_GRADS off and a null d_depth.
 //
 // Stage 1 (K6, K6'): the sum where the output lives.  At the finest level
@@ -746,7 +749,7 @@ int launch_s1(const void* value, const void* depth, const float* locs,
 }  // namespace
 
 // The multi-head backward (K5, K5'; stage 1 is sgc_dfa3d_bwd_s1's): value
-// (N, H, W, heads*c) of type vdtype, c = 32, depth (N, H, W, dsize) of type
+// (N, H, W, heads*c) of type vdtype, c = 16 or 32, depth (N, H, W, dsize) of type
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
 // (N,) int32 or null, g (N, K, heads*c) of type vdtype -> d_value (f32,
 // zero-initialised by the caller), d_depth (likewise, or null: not
@@ -780,7 +783,7 @@ extern "C" int sgc_dfa3d_bwd(int vdtype, int ddtype, const void* value,
 // scratch (ops/dfa3d.py::s1_scratch_ints int32, uninitialised) -> d_value
 // (vdtype) and d_depth (ddtype, or null: not computed), every element
 // written, and, where both pointers are non-null, d_locs and d_attn (f32).
-// c = 32 or 256; at most kMaxViews views and kMaxMapPixels pixels a map,
+// c = 32, 128 or 256; at most kMaxViews views and kMaxMapPixels pixels a map,
 // and a long pass whose shared memory fits a block (the wrapper,
 // ops/dfa3d.py::check_bwd_sizes, refuses other sizes before the launch).
 extern "C" int sgc_dfa3d_bwd_s1(int vdtype, int ddtype, const void* value,

@@ -29,8 +29,10 @@
 // independent template parameters, instantiated for the pairs the TPU
 // kernels take: bf16 value with f32 depth (the DFA3D main path), f32/f32
 // (the f32 config) and bf16/bf16 (the 2D path at bf16; the packed-quad
-// kernels), at c = 256 (stage 1) and c = 32 (stage 2).  The math is f32
-// and the output is written once, in the value type.
+// kernels), at the widths of the ScanNet config (c = 256 at stage 1, 32 a
+// head at stage 2) and of the -L configs (128 and 16), and multi-head at
+// 128 and 256 too.  The math is f32 and the output is written once, in the
+// value type.
 //
 // What bounds it on this card: bytes.  Per (query, head, point) the kernel
 // reads four data-dependent value rows (c channels each) and two depth
@@ -45,28 +47,34 @@
 // which the windowed forward of the sorted path shares): eight contiguous
 // channels per lane (one 16-byte load of a bf16 row piece, two of f32), so
 // a head of c channels takes LANES = c / 8 lanes and a warp takes HPW = 32
-// / LANES heads of one (view, query): at c = 32 a warp is one query's eight
-// heads, four lanes each.  Any c that is a multiple of 8 up to 256 fits the
-// layout.
+// / LANES (query, head) rows of one view (sgc::WarpRows): at c = 32 a warp
+// is one query's eight heads, four lanes each; where a query's heads fill
+// less than a warp, whole queries share it (at c = 16 and 8 heads, two
+// queries of eight 2-lane heads: one query a warp left lanes 16-31 idle
+// and measured 0.61 ms against 0.51 on an H100 at the -L level 2, PERF.md).
+// Any c that is a multiple of 8 up to 256 fits the layout.
 //   1. The sample quantities are computed once per (head, point), not once
-//      per lane: lane i of the warp takes the group's i-th (head, point)
-//      sample (at 8 heads x 4 points the 32 lanes are exactly the 32
-//      samples; otherwise the samples are walked in chunks of 32), loads
-//      its location and attention (contiguous across the warp, so the loads
-//      coalesce), computes the four corner pixels (-1 off the image) and
-//      bilinear x attention weights, and issues the loads of its two depth
-//      bins per corner.
-//   2. A head's lanes take each point's corner pixels by shuffle and issue
+//      per lane: in a round, lane sub of a row takes the row's point sub of
+//      the round's LANES points (at c = 32 and 4 points the 32 lanes are
+//      exactly the warp's 32 samples, one round; at c = 16 two rounds of
+//      two points), loads its location and attention (a row's points are
+//      contiguous, so the loads coalesce), computes the four corner pixels
+//      (-1 off the image) and bilinear x attention weights, and issues the
+//      loads of its two depth bins per corner.
+//   2. A row's lanes take each point's corner pixels by shuffle and issue
 //      the corner loads of two points (8 loads of 16 bytes) before any
 //      multiply-add.  Only then are the depth scores folded into the
 //      weights and the weights shuffled over, so the value and depth loads
 //      are in flight together: location, then value and depth, is the whole
 //      chain of dependent loads.
-//   3. The group's output row is stored by one coalesced instruction (8
+//   3. The warp's output rows are stored by one coalesced instruction (8
 //      heads x 32 channels = 512 bytes at c = 32).
-// Counted-out queries are per warp: the warp writes its zeros and returns.
-// Lanes past the last head of a partial group (heads not a multiple of
-// HPW) take part in the shuffles and write nothing.
+// Counted-out queries come last in a view: a warp with none counted writes
+// its zeros and returns, and the rows of a partly counted warp past its
+// counted queries take part in the shuffles, load nothing and write zeros.
+// Lanes past the last row (heads not a multiple of HPW, a view's last
+// queries) take part in the shuffles and write nothing.  The grid is (a
+// view's warps, views), so a warp finds its rows by 32-bit arithmetic.
 // The one-point case (stage 1, K2 and K2') keeps the earlier design: a
 // warp per (view, query, head), c / 32 channels a lane, every lane
 // computing the sample itself.  Off-image corners are never loaded.  No

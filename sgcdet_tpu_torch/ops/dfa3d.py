@@ -206,18 +206,26 @@ def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
     return value, depth, loc, att, counts, stage1, sizes
 
 
-# the widths of the -L configs, whose f32-depth launches count apart
+# the widths of the -L configs, by stage 1 or not, whose f32-depth launches
+# count apart
 LARGE_WIDTH = {True: 128, False: 16}
+# the launch counters by (backward, stage 1): f32 depth, bf16 depth, f32
+# depth at the -L width
+_COUNTERS = {
+    (False, True): (DFA3D_FWD_S1, DFA3D_FWD_S1_BD, DFA3D_FWD_S1_C128),
+    (False, False): (DFA3D_FWD_MH, DFA3D_FWD_MH_BD, DFA3D_FWD_MH_C16),
+    (True, True): (DFA3D_BWD_S1, DFA3D_BWD_S1_BD, DFA3D_BWD_S1_C128),
+    (True, False): (DFA3D_BWD_MH, DFA3D_BWD_MH_BD, DFA3D_BWD_MH_C16),
+}
 
 
-def _pick(kernels, stage1, depth, c):
-    """The launch counter of this call from ``kernels`` = (stage 1, multi-
-    head, stage 1 at bf16 depth, multi-head at bf16 depth, stage 1 at c =
-    128, multi-head at c = 16): bf16 depth counts by stage, f32 depth by
-    stage and by whether c is the -L configs' width."""
+def _pick(backward, stage1, depth, c):
+    """The launch counter of this call: by direction and stage, bf16 depth
+    apart, and at f32 depth the -L configs' width apart."""
+    f32, bf16, large = _COUNTERS[backward, stage1]
     if depth.dtype == torch.bfloat16:
-        return kernels[2 + (not stage1)]
-    return kernels[4 * (c == LARGE_WIDTH[stage1]) + (not stage1)]
+        return bf16
+    return large if c == LARGE_WIDTH[stage1] else f32
 
 
 def _ptr(t):
@@ -234,8 +242,7 @@ def dfa3d_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
-    kernel = _pick((DFA3D_FWD_S1, DFA3D_FWD_MH, DFA3D_FWD_S1_BD, DFA3D_FWD_MH_BD,
-                    DFA3D_FWD_S1_C128, DFA3D_FWD_MH_C16), stage1, depth, c)
+    kernel = _pick(False, stage1, depth, c)
     kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
            value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
            _ptr(counts), out.data_ptr(), *sizes)
@@ -323,13 +330,12 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     d_locs = torch.empty(loc.shape, **f32) if sample_grads else None
     d_attn = torch.empty(att.shape, **f32) if sample_grads else None
     codes = DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype]
+    kernel = _pick(True, stage1, depth, c)
     if stage1:
         d_value = torch.empty_like(value)
         d_depth = torch.empty_like(depth) if depth_grad else None
         scratch = torch.empty(s1_scratch_ints(n, h, w, k), dtype=torch.int32,
                               device=value.device)
-        kernel = _pick((DFA3D_BWD_S1, None, DFA3D_BWD_S1_BD, None, DFA3D_BWD_S1_C128),
-                       stage1, depth, c)
         kernel(value.device, *codes, value.data_ptr(), depth.data_ptr(),
                loc.data_ptr(), att.data_ptr(), _ptr(counts), gg.data_ptr(),
                d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs), _ptr(d_attn),
@@ -337,8 +343,6 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     else:
         d_value = zeros_f32(value.shape, value.device)
         d_depth = torch.zeros(depth.shape, **f32) if depth_grad else None
-        kernel = _pick((None, DFA3D_BWD_MH, None, DFA3D_BWD_MH_BD, None, DFA3D_BWD_MH_C16),
-                       stage1, depth, c)
         kernel(value.device, *codes, value.data_ptr(), depth.data_ptr(),
                loc.data_ptr(), att.data_ptr(), _ptr(counts), gg.data_ptr(),
                d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs), _ptr(d_attn), *sizes)

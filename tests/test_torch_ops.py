@@ -6,8 +6,10 @@
   through the source camera, plus NaN / inf coordinates;
 * DFA3D: the port's plain version vs the oracle ``msda.dfa3d_attention`` at
   stage-1 (heads = P = 1) and stage-2 (heads 4, P 2; c = 32 with 1, 2, 6
-  heads x 4 points and 8 heads x 3 points) shapes, with
-  out-of-range locations, counted-out queries and NaN locations;
+  heads x 4 points and 8 heads x 3 points) shapes and at the -L configs'
+  widths (stage 1 at c = 128, 8 heads x 4 points at 16), with
+  out-of-range locations, counted-out queries and NaN locations; at the -L
+  widths its VJP against ``jax.vjp`` of the oracle too;
 * the depth dtype rule: depth is read in f32 even with bf16 values;
 * host NMS vs the JAX package's copy.
 
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from sgcdet_tpu.models.depth_net import plane_sweep_correlation as jax_sweep
@@ -26,7 +29,7 @@ from sgcdet_tpu.ops.msda import dfa3d_attention as jax_oracle
 from sgcdet_tpu.ops.nms import aligned_3d_nms as jax_nms
 
 from sgcdet_tpu_torch.ops import aligned_3d_nms, dfa3d_attend
-from sgcdet_tpu_torch.ops.dfa3d import dfa3d_attention_plain
+from sgcdet_tpu_torch.ops.dfa3d import dfa3d_attention_plain, dfa3d_bwd_plain
 from sgcdet_tpu_torch.ops.sweep import (
     plane_sweep_correlation,
     plane_sweep_correlation_plain,
@@ -146,7 +149,10 @@ STAGES = [pytest.param(1, 1, 64, id="stage1_h1_p1"),
           pytest.param(1, 4, 32, id="stage2_h1_p4"),
           pytest.param(2, 4, 32, id="stage2_h2_p4"),
           pytest.param(6, 4, 32, id="stage2_h6_p4"),
-          pytest.param(8, 3, 32, id="stage2_h8_p3")]
+          pytest.param(8, 3, 32, id="stage2_h8_p3"),
+          # the -L configs' widths: stage 1 at c = 128, 8 heads x 4 points at 16
+          pytest.param(1, 1, 128, id="stage1_h1_p1_c128"),
+          pytest.param(8, 4, 16, id="stage2_h8_p4_c16")]
 
 
 @pytest.mark.parametrize("heads,p,c", STAGES)
@@ -163,6 +169,34 @@ def test_plain_dfa3d_matches_oracle(heads, p, c):
     # the CPU dispatch takes the plain version
     disp = dfa3d_attend(*map(torch.from_numpy, (value, dpt, locs, attn)), heads)
     np.testing.assert_array_equal(disp.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("heads,p,c", STAGES[-2:])
+def test_plain_dfa3d_vjp_matches_jax_vjp(heads, p, c):
+    """The plain version's VJP (``dfa3d_bwd_plain``, the card backward's
+    reference) at the -L widths against ``jax.vjp`` of the oracle: value,
+    depth, location and attention gradients, a view counted to 0 and one
+    in part."""
+    value, dpt, locs, attn = dfa3d_inputs(heads, p, c, seed=7)
+    n, k = locs.shape[:2]
+    counts = np.array([0, 17, k], np.int32)
+    g = np.random.RandomState(8).randn(n, k, heads * c).astype(np.float32)
+    got = dfa3d_bwd_plain(*map(torch.from_numpy, (value, dpt, locs, attn, g)), heads,
+                          valid_counts=torch.from_numpy(counts))
+    h, w = value.shape[1:3]
+
+    def oracle(v, d, lo, at):
+        out, _ = jax_oracle(v.reshape(n, h * w, heads, c), d.reshape(n, h * w, -1),
+                            ((h, w),), lo[:, :, :, None], at[:, :, :, None])
+        return out
+
+    live = (np.arange(k)[None, :] < counts[:, None])[..., None]
+    _, vjp = jax.vjp(oracle, *map(jnp.asarray, (value, dpt, locs, attn)))
+    want = vjp(jnp.asarray(g * live))
+    for name, a, b in zip(("d_value", "d_dpt", "d_locs", "d_attn"), got, want):
+        assert_close_scaled(a.numpy(), np.asarray(b), 1e-5, f"vjp {name}")
+    for cam, cnt in enumerate(counts):
+        assert (got[2][cam, cnt:] == 0).all() and (got[3][cam, cnt:] == 0).all()
 
 
 @pytest.mark.parametrize("heads,p,c", STAGES)
