@@ -74,11 +74,15 @@ Phases, each fatal on failure:
               counts of the run (2 sweep, 3 stage-1, 3 stage-2 per scene).
 6. train f32 — one train step (train.make_train_step) at compute_dtype=
               float32, TF32 off, ffn_dropout 0, depth loss on, on the indoor
-              40-view train scene, through the kernels and through the plain
-              versions from the same seeded weights: matching loss terms and
-              matching gradients of every parameter, each within 2e-3 of its
-              scale plus 4x how far a 1e-7 nudge of the images moves it
-              through the plain versions (a third step).
+              40-view train scene, through the plain versions and through
+              the kernels from the same seeded weights, the kernel step on
+              the plain step's discrete decisions (occupancy top-k picks and
+              the side of 0 of every ReLU input; the kernel step's own
+              scores and inputs held to the plain step's): matching loss
+              terms and matching gradients of every parameter, each within
+              2e-3 of its scale plus 4x how far a 1e-7 nudge of the images
+              moves it through the plain versions (a third step, on the same
+              decisions).
 7. train    — the train setting of bench.py (default bf16 config, exact auto
               budget, depth loss on, dropout 0.1): 4 steps, the first a
               warm-up; finite losses and gradient norms, every trainable
@@ -141,7 +145,7 @@ Phases, each fatal on failure:
               grid, top-k 6400 / 51,200; 189 classes) with its exact auto
               budget at 40 views: the f32 scene through the kernels and the
               plain versions (as phase 4), one f32 train step through both
-              (as phase 6), 3 bf16 scenes through infer.detect (launches per
+              (as phase 6, at its bounds), 3 bf16 scenes through infer.detect (launches per
               scene: 2 sweep, 3 K2 and 3 K3 at the -L widths) and 4 bf16 train
               steps (per step also 2 sweep bwd, 3 K6 and 3 K5 at the -L
               widths), with seconds per scene and step and peak memory.
@@ -170,35 +174,37 @@ from pathlib import Path
 N_VIEWS = 40
 SERVE_SCENES = 3
 
-# TPU kernels each Hopper kernel replaces, and its source in this repo
+# TPU kernels each Hopper kernel of the paths replaces, and its source in
+# this repo (built DFA3D instances that no path runs, such as K3 at c = 128,
+# have launch counters but no entry)
 _OPS = "sgcdet_tpu/ops/"
 _EXP = "experiments/"
 KERNEL_INFO = {
     "sweep_fwd": ("sgcdet_tpu_torch/csrc/sweep_fwd.cu",
                   f"{_OPS}sweep_pallas.py:233; {_OPS}sweep_pallas.py:225"),
-    "dfa3d_fwd_s1": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
-                     f"{_OPS}dfa3d_pallas.py:303; {_OPS}dfa3d_pallas3.py:179; "
-                     f"{_EXP}dfa3d_pallas4.py:174"),
-    "dfa3d_fwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
-                     f"{_OPS}dfa3d_pallas2.py:267; {_OPS}dfa3d_pallas.py:262; "
-                     f"{_OPS}dfa3d_pallas3.py:154"),
+    "dfa3d_fwd_s1_c256": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
+                          f"{_OPS}dfa3d_pallas.py:303; {_OPS}dfa3d_pallas3.py:179; "
+                          f"{_EXP}dfa3d_pallas4.py:174"),
+    "dfa3d_fwd_mh_c32": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
+                         f"{_OPS}dfa3d_pallas2.py:267; {_OPS}dfa3d_pallas.py:262; "
+                         f"{_OPS}dfa3d_pallas3.py:154"),
     "sweep_bwd": ("sgcdet_tpu_torch/csrc/sweep_bwd.cu",
                   f"{_OPS}sweep_pallas.py:243"),
-    "dfa3d_bwd_s1": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
-                     f"{_OPS}dfa3d_pallas.py:439; {_OPS}dfa3d_pallas3.py:257"),
-    "dfa3d_bwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
-                     f"{_OPS}dfa3d_pallas2.py:318; {_OPS}dfa3d_pallas.py:394; "
-                     f"{_OPS}dfa3d_pallas3.py:227"),
-    "dfa3d_fwd_s1_bd": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
-                        f"{_OPS}dfa3d_pallas3.py:699"),
-    "dfa3d_fwd_mh_bd": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
-                        f"{_OPS}dfa3d_pallas3.py:665"),
-    "dfa3d_bwd_s1_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
-                        f"{_OPS}dfa3d_pallas.py:439 at bf16 depth (the backward "
-                        "of pq_s1 / pq_s1c)"),
-    "dfa3d_bwd_mh_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
-                        f"{_OPS}dfa3d_pallas2.py:318 at bf16 depth (the 2D "
-                        "path's stage 2)"),
+    "dfa3d_bwd_s1_c256": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
+                          f"{_OPS}dfa3d_pallas.py:439; {_OPS}dfa3d_pallas3.py:257"),
+    "dfa3d_bwd_mh_c32": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
+                         f"{_OPS}dfa3d_pallas2.py:318; {_OPS}dfa3d_pallas.py:394; "
+                         f"{_OPS}dfa3d_pallas3.py:227"),
+    "dfa3d_fwd_s1_c256_bd": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
+                             f"{_OPS}dfa3d_pallas3.py:699"),
+    "dfa3d_fwd_mh_c32_bd": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu",
+                            f"{_OPS}dfa3d_pallas3.py:665"),
+    "dfa3d_bwd_s1_c256_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
+                             f"{_OPS}dfa3d_pallas.py:439 at bf16 depth (the backward "
+                             "of pq_s1 / pq_s1c)"),
+    "dfa3d_bwd_mh_c32_bd": ("sgcdet_tpu_torch/csrc/dfa3d_bwd.cu",
+                            f"{_OPS}dfa3d_pallas2.py:318 at bf16 depth (the 2D "
+                            "path's stage 2)"),
     # the instances at the -L configs' widths (phase 12's path)
     "dfa3d_fwd_s1_c128": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu", f"{_OPS}dfa3d_pallas.py:303"),
     "dfa3d_fwd_mh_c16": ("sgcdet_tpu_torch/csrc/dfa3d_fwd.cu", f"{_OPS}dfa3d_pallas2.py:267"),
@@ -217,35 +223,29 @@ KERNEL_INFO = {
                         f"{_EXP}probe_window_lowering.py:63; {_EXP}probe_f32_onehot.py:20"),
 }
 # the bf16-depth instances, launched by the 2D lifting path
-KERNELS_2D = ("dfa3d_fwd_s1_bd", "dfa3d_fwd_mh_bd", "dfa3d_bwd_s1_bd",
-              "dfa3d_bwd_mh_bd")
+KERNELS_2D = ("dfa3d_fwd_s1_c256_bd", "dfa3d_fwd_mh_c32_bd", "dfa3d_bwd_s1_c256_bd",
+              "dfa3d_bwd_mh_c32_bd")
 # the windowed kernels, launched by the sorted path
 KERNELS_SORTED = ("dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
 # the instances at the -L configs' widths, launched by the ScanNet200-L path
 KERNELS_LARGE = ("dfa3d_fwd_s1_c128", "dfa3d_fwd_mh_c16", "dfa3d_bwd_s1_c128",
                  "dfa3d_bwd_mh_c16")
 LARGE = "scannet200_large"
-# phase 12's f32 train step: the relative size of the noise on the plain
-# DFA3D outputs whose move of each gradient enters its tolerance, as large
-# as the kernels' own f32 differences from the plain versions at the -L
-# level-2 shape (phase 3: up to ~4e-6 of the output's scale, so Gaussian
-# noise of 1e-6 reaches it over ~10^7 elements)
-LARGE_OUTPUT_NUDGE = 1e-6
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and f32 flop/s outside
 # the tensor cores, where every kernel here computes
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # launches of each kernel per scene on the serving path
-LAUNCHES_PER_SCENE = {"sweep_fwd": 2, "dfa3d_fwd_s1": 3, "dfa3d_fwd_mh": 3}
+LAUNCHES_PER_SCENE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c256": 3, "dfa3d_fwd_mh_c32": 3}
 # ... and per step on the train path
-LAUNCHES_PER_STEP = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1": 3,
-                     "dfa3d_bwd_s1": 3, "dfa3d_fwd_mh": 3, "dfa3d_bwd_mh": 3}
+LAUNCHES_PER_STEP = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c256": 3,
+                     "dfa3d_bwd_s1_c256": 3, "dfa3d_fwd_mh_c32": 3, "dfa3d_bwd_mh_c32": 3}
 # ... and on the sorted path (sort_queries): K2 and K6 for stage 1, the
 # windowed multi-head forward and backward
-LAUNCHES_PER_SCENE_SORTED = {"sweep_fwd": 2, "dfa3d_fwd_s1": 3,
+LAUNCHES_PER_SCENE_SORTED = {"sweep_fwd": 2, "dfa3d_fwd_s1_c256": 3,
                              "dfa3d_win_fwd_mh": 3}
-LAUNCHES_PER_STEP_SORTED = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1": 3,
-                            "dfa3d_bwd_s1": 3, "dfa3d_win_fwd_mh": 3,
+LAUNCHES_PER_STEP_SORTED = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c256": 3,
+                            "dfa3d_bwd_s1_c256": 3, "dfa3d_win_fwd_mh": 3,
                             "dfa3d_win_bwd_mh": 3}
 # ... and on the ScanNet200-L path: the DFA3D instances at c = 128 (stage 1)
 # and 16 a head (stage 2)
@@ -335,6 +335,11 @@ def compare_tensors(torch, name, got, want, f32_rel=1e-4):
         f"(tol {tol_desc}) {'ok' if ok else 'FAIL'}")
     check(ok, f"{name}: kernel disagrees with plain version")
     return err
+
+
+def _launched(launches):
+    """The counters of ``launches`` that are not 0 (the logs' view)."""
+    return {name: n for name, n in launches.items() if n}
 
 
 def nbytes(t, frac=1.0):
@@ -739,27 +744,27 @@ def phase_kernels(torch, dev, report):
             s1 = (value, x["depth"], x["locs1"], x["attn1"], 1, counts)
             bf16 = vdt == torch.bfloat16
             timed = level == 2 and ("main" if bf16 else "log")
-            dfa3d(f"stage1 {tag} {shape} counted", "dfa3d_fwd_s1", s1,
+            dfa3d(f"stage1 {tag} {shape} counted", "dfa3d_fwd_s1_c256", s1,
                   _zeros_past_count(torch, counts), time=timed,
                   earlier="K2" if bf16 else None)
             vp = torch.randn((N_VIEWS, x["h"], x["w"], value.shape[-1]),
                              device=dev, generator=gen).to(vdt)
             s2 = (vp, x["depth"], x["locs2"], x["attn2"], x["heads"], counts)
-            dfa3d(f"stage2 {tag} {shape} counted", "dfa3d_fwd_mh", s2,
+            dfa3d(f"stage2 {tag} {shape} counted", "dfa3d_fwd_mh_c32", s2,
                   _zeros_past_count(torch, counts), time=timed,
                   earlier="K3" if bf16 else None)
             if level == 2 and vdt == torch.bfloat16:
                 locs_nan = x["locs2"].clone()
                 locs_nan.view(-1)[::997] = float("nan")
-                dfa3d(f"stage2 {tag} {shape} uncounted, NaN locs", "dfa3d_fwd_mh",
+                dfa3d(f"stage2 {tag} {shape} uncounted, NaN locs", "dfa3d_fwd_mh_c32",
                       (vp, x["depth"], locs_nan, x["attn2"], x["heads"], None))
             if level == 2:
                 # the v1 (_fwd_kernel) and v3 (_fwd_kernel_q / _q_s1) rows:
                 # uncounted, f32 and bf16 value with f32 depth
-                dfa3d(f"stage1 {tag} {shape} uncounted (v3 q_s1)", "dfa3d_fwd_s1",
+                dfa3d(f"stage1 {tag} {shape} uncounted (v3 q_s1)", "dfa3d_fwd_s1_c256",
                       s1[:5] + (None,), time="log",
                       earlier=None if bf16 else "K2 f32/f32 uncounted")
-                dfa3d(f"stage2 {tag} {shape} uncounted (v1, v3 q)", "dfa3d_fwd_mh",
+                dfa3d(f"stage2 {tag} {shape} uncounted (v1, v3 q)", "dfa3d_fwd_mh_c32",
                       s2[:5] + (None,), time="log",
                       earlier=None if bf16 else "K3 f32/f32 uncounted")
         # the packed-quad rows with a real 12-bin depth in bf16: counted
@@ -768,11 +773,11 @@ def phase_kernels(torch, dev, report):
             bf = torch.bfloat16
             dpt_bf = x["depth"].to(bf)
             dfa3d(f"stage1 bf16/bf16 {shape} counted, 12-bin depth (pq_s1c)",
-                  "dfa3d_fwd_s1_bd",
+                  "dfa3d_fwd_s1_c256_bd",
                   (x["value"].to(bf), dpt_bf, x["locs1"], x["attn1"], 1, x["counts"]),
                   _zeros_past_count(torch, x["counts"]), time="log")
             dfa3d(f"stage2 bf16/bf16 {shape} uncounted, 12-bin depth (pq)",
-                  "dfa3d_fwd_mh_bd", (vp.to(bf), dpt_bf, x["locs2"], x["attn2"],
+                  "dfa3d_fwd_mh_c32_bd", (vp.to(bf), dpt_bf, x["locs2"], x["attn2"],
                                       x["heads"], None), time="log")
 
     # the -L configs' instances, K2 at c = 128 and K3 at 16 a head, at the
@@ -803,8 +808,8 @@ def phase_kernels(torch, dev, report):
     # pair, counted and uncounted
     for name, args in _partial_head_cases(torch, dev, gen):
         counts = args[-1]
-        dfa3d(f"stage2 {name}", "dfa3d_fwd_mh_bd" if args[1].dtype == torch.bfloat16
-              else "dfa3d_fwd_mh", args,
+        dfa3d(f"stage2 {name}", "dfa3d_fwd_mh_c32_bd" if args[1].dtype == torch.bfloat16
+              else "dfa3d_fwd_mh_c32", args,
               None if counts is None else _zeros_past_count(torch, counts))
 
     # the 2D lifting path: bf16 value with bf16 (uniform) depth, uncounted
@@ -816,14 +821,14 @@ def phase_kernels(torch, dev, report):
         last = level == 2
         grid = stage1_grid(y["locs1"], torch.bfloat16)
         library = (lambda: grid_sample_stage1(torch, s1[0], grid)) if last else None
-        dfa3d(f"2D stage1 bf16/bf16 {shape}", "dfa3d_fwd_s1_bd", s1,
+        dfa3d(f"2D stage1 bf16/bf16 {shape}", "dfa3d_fwd_s1_c256_bd", s1,
               time=last and "main", run_library=library, earlier="K2' 2D")
-        dfa3d(f"2D stage2 bf16/bf16 {shape}", "dfa3d_fwd_mh_bd", s2,
+        dfa3d(f"2D stage2 bf16/bf16 {shape}", "dfa3d_fwd_mh_c32_bd", s2,
               time=last and "main", earlier="K3' 2D")
         if last:
             locs_nan = y["locs2"].clone()
             locs_nan.view(-1)[::997] = float("nan")
-            dfa3d(f"2D stage2 bf16/bf16 {shape}, NaN locs", "dfa3d_fwd_mh_bd",
+            dfa3d(f"2D stage2 bf16/bf16 {shape}, NaN locs", "dfa3d_fwd_mh_c32_bd",
                   s2[:2] + (locs_nan,) + s2[3:])
             # F.grid_sample computes the same function as the 2D stage 1
             # (checked at f32: in bf16 it takes its grid in bf16 too, so its
@@ -953,7 +958,7 @@ def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet"):
         f"{time.perf_counter() - t1:.4f} s")
     log(f"[{tag}] warm seconds per scene: {sum(times[1:]) / len(times[1:]):.4f}")
     log(f"[{tag}] peak memory allocated: {peak / 2**30:.3f} GiB")
-    log(f"[{tag}] kernel launches over {SERVE_SCENES} scenes: {launches}")
+    log(f"[{tag}] kernel launches over {SERVE_SCENES} scenes: {_launched(launches)}")
     for name in kernels:
         want = per_scene.get(name, 0) * SERVE_SCENES
         check(launches[name] == want,
@@ -1228,25 +1233,25 @@ def phase_backward(torch, dev, report):
                              generator=gen).to(vdt)
             locs1 = _edge_locs(x["locs1"], x["w"], x["h"])
             s1 = (value, x["depth"], locs1, x["attn1"], g1, 1, counts)
-            dfa3d(f"stage1 bwd {tag} {shape} counted", "dfa3d_bwd_s1", s1, True,
+            dfa3d(f"stage1 bwd {tag} {shape} counted", "dfa3d_bwd_s1_c256", s1, True,
                   past_zero)
             # stage 1 as the model runs it: no location/attention grads
             timed = level == 2 and ("main" if vdt == torch.bfloat16 else "log")
-            dfa3d(f"stage1 bwd {tag} {shape} counted", "dfa3d_bwd_s1", s1, False,
+            dfa3d(f"stage1 bwd {tag} {shape} counted", "dfa3d_bwd_s1_c256", s1, False,
                   time=timed, earlier="K6" if timed == "main" else None)
             vp = torch.randn((N_VIEWS, x["h"], x["w"], value.shape[-1]),
                              device=dev, generator=gen).to(vdt)
             locs2 = _edge_locs(x["locs2"], x["w"], x["h"])
             s2 = (vp, x["depth"], locs2, x["attn2"], g1, x["heads"], counts)
-            dfa3d(f"stage2 bwd {tag} {shape} counted", "dfa3d_bwd_mh", s2,
+            dfa3d(f"stage2 bwd {tag} {shape} counted", "dfa3d_bwd_mh_c32", s2,
                   extra=past_zero, time=timed)
             if level == 2 and vdt == torch.bfloat16:
                 locs_nan = locs2.clone()
                 locs_nan.view(-1)[::997] = float("nan")
-                dfa3d(f"stage2 bwd {tag} {shape} uncounted, NaN locs", "dfa3d_bwd_mh",
+                dfa3d(f"stage2 bwd {tag} {shape} uncounted, NaN locs", "dfa3d_bwd_mh_c32",
                       (vp, x["depth"], locs_nan, x["attn2"], g1, x["heads"], None))
                 dfa3d(f"stage2 bwd {tag} {shape} counted, value and g misaligned views",
-                      "dfa3d_bwd_mh", (_misaligned(torch, vp), x["depth"], locs2,
+                      "dfa3d_bwd_mh_c32", (_misaligned(torch, vp), x["depth"], locs2,
                                        x["attn2"], _misaligned(torch, g1)) + s2[5:],
                       extra=past_zero)
             if level == 2:
@@ -1267,7 +1272,7 @@ def phase_backward(torch, dev, report):
                     dtag = tag if dpt.dtype == torch.float32 else "bf16/bf16"
                     dfa3d(f"stage2 bwd {dtag} {shape} one pixel centre per query "
                           f"({cx.numel() * cy.numel()} centres), view 0 counted to 0",
-                          "dfa3d_bwd_mh" if dpt.dtype == torch.float32 else "dfa3d_bwd_mh_bd",
+                          "dfa3d_bwd_mh_c32" if dpt.dtype == torch.float32 else "dfa3d_bwd_mh_c32_bd",
                           (vp, dpt, one, x["attn2"], g1, x["heads"], c0),
                           extra=_zeros_past_count(torch, c0, rows=2))
                 # stage 1's long lists: every query of a view on one pixel
@@ -1283,7 +1288,7 @@ def phase_backward(torch, dev, report):
                 for dpt in ddt:
                     dtag = tag if dpt.dtype == torch.float32 else "bf16/bf16"
                     s1_long = (value, dpt, one1, x["attn1"], g1, 1, call)
-                    k6 = "dfa3d_bwd_s1" if dpt.dtype == torch.float32 else "dfa3d_bwd_s1_bd"
+                    k6 = "dfa3d_bwd_s1_c256" if dpt.dtype == torch.float32 else "dfa3d_bwd_s1_c256_bd"
                     name1 = (f"stage1 bwd {dtag} {shape} every query of a view on one "
                              f"pixel centre, view 0 counted to 0")
                     dfa3d(name1, k6, s1_long, True, _zeros_past_count(torch, call, rows=2))
@@ -1291,19 +1296,19 @@ def phase_backward(torch, dev, report):
             if level == 2 and vdt == torch.float32:
                 # the v1 (_bwd_kernel) and v3 (_bwd_kernel_q / _q_s1) rows:
                 # uncounted f32
-                dfa3d(f"stage1 bwd {tag} {shape} uncounted (v3 q_s1)", "dfa3d_bwd_s1",
+                dfa3d(f"stage1 bwd {tag} {shape} uncounted (v3 q_s1)", "dfa3d_bwd_s1_c256",
                       s1[:6] + (None,), time="log", earlier="K6 f32/f32 uncounted")
                 dfa3d(f"stage2 bwd {tag} {shape} uncounted (v1, v3 q)",
-                      "dfa3d_bwd_mh", s2[:6] + (None,), time="log")
+                      "dfa3d_bwd_mh_c32", s2[:6] + (None,), time="log")
             if level == 2 and vdt == torch.bfloat16:
                 # the backward of pq_s1c and of the bf16 multi-head with a
                 # real 12-bin depth in bf16
                 dpt_bf = x["depth"].to(torch.bfloat16)
                 dfa3d(f"stage1 bwd bf16/bf16 {shape} counted, 12-bin depth",
-                      "dfa3d_bwd_s1_bd", (value, dpt_bf) + s1[2:], True, past_zero,
+                      "dfa3d_bwd_s1_c256_bd", (value, dpt_bf) + s1[2:], True, past_zero,
                       time="log")
                 dfa3d(f"stage2 bwd bf16/bf16 {shape} uncounted, 12-bin depth",
-                      "dfa3d_bwd_mh_bd", (vp, dpt_bf) + s2[2:6] + (None,),
+                      "dfa3d_bwd_mh_c32_bd", (vp, dpt_bf) + s2[2:6] + (None,),
                       time="log")
 
     # the -L configs' instances, K6 at c = 128 and K5 at 16 a head (two
@@ -1358,8 +1363,8 @@ def phase_backward(torch, dev, report):
             torch, dev, gen):
         g = torch.randn(locs.shape[:2] + value.shape[-1:], device=dev,
                         generator=gen).to(value.dtype)
-        dfa3d(f"stage2 bwd {name}", "dfa3d_bwd_mh_bd" if dpt.dtype == torch.bfloat16
-              else "dfa3d_bwd_mh", (value, dpt, locs, attn, g, heads, counts),
+        dfa3d(f"stage2 bwd {name}", "dfa3d_bwd_mh_c32_bd" if dpt.dtype == torch.bfloat16
+              else "dfa3d_bwd_mh_c32", (value, dpt, locs, attn, g, heads, counts),
               extra=None if counts is None else _zeros_past_count(torch, counts, rows=2))
 
     # the 2D lifting path: bf16 value with bf16 (uniform) depth, uncounted;
@@ -1377,23 +1382,23 @@ def phase_backward(torch, dev, report):
         last = level == 2
         grid = stage1_grid(locs1, torch.bfloat16)
         library = (lambda: grid_sample_stage1_bwd(torch, g, s1[0], grid)) if last else None
-        dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_bd", s1, False,
+        dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_c256_bd", s1, False,
               time=last and "main", depth_grad=False, run_library=library,
               earlier="K6' 2D" if last else None)
-        dfa3d(f"2D stage2 bwd bf16/bf16 {shape}", "dfa3d_bwd_mh_bd", s2,
+        dfa3d(f"2D stage2 bwd bf16/bf16 {shape}", "dfa3d_bwd_mh_c32_bd", s2,
               time=last and "main", depth_grad=False)
         if last:
             # ... with the depth gradient (the value gather, the dot products
             # and the depth atomics on top of the scatter), and every gradient
-            dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_bd", s1, False,
+            dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_c256_bd", s1, False,
                   time="log")
-            dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_bd", s1, True,
+            dfa3d(f"2D stage1 bwd bf16/bf16 {shape}", "dfa3d_bwd_s1_c256_bd", s1, True,
                   time="log")
-            dfa3d(f"2D stage2 bwd bf16/bf16 {shape}", "dfa3d_bwd_mh_bd", s2,
+            dfa3d(f"2D stage2 bwd bf16/bf16 {shape}", "dfa3d_bwd_mh_c32_bd", s2,
                   time="log")
             locs_nan = y["locs2"].clone()
             locs_nan.view(-1)[::997] = float("nan")
-            dfa3d(f"2D stage2 bwd bf16/bf16 {shape}, NaN locs", "dfa3d_bwd_mh_bd",
+            dfa3d(f"2D stage2 bwd bf16/bf16 {shape}, NaN locs", "dfa3d_bwd_mh_c32_bd",
                   s2[:2] + (locs_nan,) + s2[3:])
             # aten's grid_sampler_2d_backward computes the 2D stage 1's
             # d_value (checked at f32, as the forward's yardstick)
@@ -1437,33 +1442,75 @@ def _train_setup(torch, dev, config="scannet", **model_kw):
 
 
 @contextlib.contextmanager
-def _perturbed_dfa3d(torch, dev, rel):
-    """The plain DFA3D forward with its output multiplied by 1 + rel * n,
-    n standard normal from a seeded generator: noise of the size of the
-    kernels' own f32 summation differences, where they arise."""
-    from sgcdet_tpu_torch.ops import dfa3d
+def _pinned_decisions(torch, tag, ref):
+    """Give a train step the discrete decisions of a reference step: the
+    sparse volume's occupancy top-k (``sparse_head.top_k_indices``, once a
+    finer level) and the sign of every ReLU's input (``F.relu``, which
+    ``nn.ReLU`` calls too).  With ``ref`` empty, record them into it; else
+    take the reference's, after holding this step's occupancy scores to the
+    reference's (1e-3 of their scale, phase 4's bound on head outputs) and
+    each ReLU input whose sign differs to 1e-4 of its call's largest
+    magnitude (the forward kernels' f32 bound), and log how many differ.
+    Kernels and plain versions sum in other orders, so an input within
+    rounding of a kink lands on either side of it: the forward moves by
+    that rounding only, but the backward passes or stops a whole gradient
+    element there.  Where the loss's gradient sits on a few voxels (the
+    FCOS positives of the -L step), one such ReLU in the 3D neck moves a
+    weight gradient by percents of its scale."""
+    from torch.nn import functional as F
 
-    plain = dfa3d.dfa3d_attention_plain
-    gen = torch.Generator(device=dev).manual_seed(3)
+    from sgcdet_tpu_torch.models import sparse_head
 
-    def perturbed(*args, **kw):
-        out = plain(*args, **kw)
-        return out * (1 + rel * torch.randn(out.shape, device=out.device, generator=gen))
+    top_k, relu = sparse_head.top_k_indices, F.relu
+    recording = not ref
+    if recording:
+        ref.update(picks=[], masks=[])
+    picks, masks = iter(list(ref["picks"])), iter(list(ref["masks"]))
+    flips = []  # per ReLU call: inputs whose sign differs, their largest |x| / scale
 
-    dfa3d.dfa3d_attention_plain = perturbed
+    def pinned_top_k(scores, k):
+        idx = top_k(scores, k)
+        if recording:
+            ref["picks"].append((scores.detach().clone(), idx))
+            return idx
+        scores = scores.detach()
+        want_scores, want = next(picks)
+        scale = float(want_scores.abs().max())
+        err = float((scores - want_scores).abs().max())
+        flipped = idx[~torch.isin(idx, want)]
+        log(f"[{tag}] occupancy top-{k} of {scores.numel()}: score max_abs_err "
+            f"{err:.3e} (tol {1e-3 * scale:.3e}); {len(flipped)} of this step's own "
+            f"picks differ from the reference's")
+        check(err <= 1e-3 * scale, f"{tag}: occupancy scores differ")
+        return want
+
+    def pinned_relu(x, inplace=False):
+        if recording:
+            ref["masks"].append(x.detach() > 0)
+            return relu(x, inplace=inplace)
+        want = next(masks)
+        mag = x.detach().abs()
+        differ = (x.detach() > 0) != want
+        n = int(differ.sum())
+        flips.append((n, float(mag[differ].max()) / max(float(mag.max()), 1e-30) if n else 0.0))
+        return torch.where(want, x, 0.0)
+
+    sparse_head.top_k_indices, F.relu = pinned_top_k, pinned_relu
     try:
         yield
     finally:
-        dfa3d.dfa3d_attention_plain = plain
+        sparse_head.top_k_indices, F.relu = top_k, relu
+    if not recording:
+        worst = max(r for _, r in flips)
+        log(f"[{tag}] ReLU inputs on the other side of 0 than the reference's: "
+            f"{sum(n for n, _ in flips)} in {sum(n > 0 for n, _ in flips)} of "
+            f"{len(flips)} calls, at most {worst:.3e} of their call's largest (tol 1e-4)")
+        check(worst <= 1e-4, f"{tag}: a ReLU input differs from the reference's")
 
 
-def phase_train_f32(torch, dev, config="scannet", output_nudge=None):
-    """One f32 train step through the kernels against the plain versions.
-    ``output_nudge``: also measure how far each gradient (and the gradient
-    norm) moves when the plain DFA3D outputs carry noise of that relative
-    size, and count that move in the gradients' tolerance beside the image
-    nudge's (phase 12: the -L step is that sensitive, and the image nudge
-    does not reach it)."""
+def phase_train_f32(torch, dev, config="scannet"):
+    """One f32 train step through the kernels against the plain versions,
+    both on the plain step's discrete decisions (``_pinned_decisions``)."""
     import numpy as np
 
     from sgcdet_tpu_torch.ops import plain_ops
@@ -1479,78 +1526,64 @@ def phase_train_f32(torch, dev, config="scannet", output_nudge=None):
     torch.backends.cudnn.deterministic = True
     tag = "train f32" + _tag(config)
     kw = dict(compute_dtype="float32", ffn_dropout=0.0)
-    cfg, scene, model_k, step_k = _train_setup(torch, dev, config, **kw)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    t0 = time.perf_counter()
-    m_k = step_k(scene, gen)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    log(f"[{tag}] step through kernels {t1 - t0:.3f} s (cold)")
-    # the plain versions twice: on the scene, and on its images moved by
-    # 1e-7 relative noise (the size of the kernels' own rounding
-    # differences), which measures how far rounding alone moves each
-    # gradient in this state
-    rng = np.random.RandomState(2)
-    imgs = scene["imgs"]
-    nudged = dict(scene, imgs=(imgs * (1 + 1e-7 * rng.randn(*imgs.shape))).astype(imgs.dtype))
-    runs = []
-    plain_runs = [(scene, contextlib.nullcontext()), (nudged, contextlib.nullcontext())]
-    if output_nudge is not None:
-        plain_runs.append((scene, _perturbed_dfa3d(torch, dev, output_nudge)))
-    for sc, perturbation in plain_runs:
-        _, _, model_p, step_p = _train_setup(torch, dev, config, **kw)
-        t1 = time.perf_counter()
-        with plain_ops(), perturbation:
-            metrics = step_p(sc, gen)
+    # three steps from the same seeded weights: through the plain versions
+    # on the scene (the reference, whose decisions all three take),
+    # through the kernels, and through the plain versions on the scene's
+    # images moved by 1e-7 relative noise (the size of the kernels' own
+    # rounding differences), which measures how far rounding alone moves
+    # each gradient in this state
+    decisions, runs, scene = {}, {}, None
+    for name, route in (("plain", plain_ops), ("kernels", contextlib.nullcontext),
+                        ("nudged plain", plain_ops)):
+        _, made, model, step = _train_setup(torch, dev, config, **kw)
+        scene = made if scene is None else scene
+        sc = scene
+        if name == "nudged plain":
+            imgs = scene["imgs"]
+            noise = 1e-7 * np.random.RandomState(2).randn(*imgs.shape)
+            sc = dict(scene, imgs=(imgs * (1 + noise)).astype(imgs.dtype))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        t0 = time.perf_counter()
+        with route(), _pinned_decisions(torch, f"{tag}, {name}", decisions):
+            metrics = step(sc, gen)
         torch.cuda.synchronize()
-        log(f"[{tag}] step through plain versions {time.perf_counter() - t1:.3f} s")
-        runs.append((metrics, {n: p.grad for n, p in model_p.named_parameters()}))
-        del model_p, step_p
-    m_p, grads_p = runs[0]
-    nudges = runs[1:]
+        log(f"[{tag}] step through {name} {time.perf_counter() - t0:.3f} s")
+        runs[name] = metrics, {n: p.grad for n, p in model.named_parameters()}
+        del model, step
+    (m_p, grads_p), (m_k, grads_k), (m_n, grads_n) = runs.values()
     # loss terms: the kernels and the plain versions sum in other orders
     # (checked after the gradients are logged)
     differ = []
     for name in m_p:
         a, b = float(m_k[name]), float(m_p[name])
         tol = 1e-4 * max(abs(b), 1e-3)
-        if output_nudge is not None and name == "grad_norm":  # as the gradients
-            tol += 4 * max(abs(float(m[name]) - b) for m, _ in nudges)
         log(f"[{tag}] {name}: kernels {a:.6f}, plain {b:.6f} (tol {tol:.1e}; the "
-            f"nudged plain runs {', '.join(f'{float(m[name]):.6f}' for m, _ in nudges)})")
+            f"nudged plain step {float(m_n[name]):.6f})")
         if abs(a - b) > tol:
             differ.append(name)
     # every parameter's gradient (after the clip, which scales both alike).
     # Each tensor is held to 2e-3 of its largest plain gradient (floored at
     # 1e-5 of the largest anywhere in the model) plus 4x the move of its
-    # plain gradient under the nudges (the 1e-7 image nudge and, with
-    # output_nudge, the noise on the DFA3D outputs).  The second term
-    # covers the train-mode BatchNorm nets (depth U-Nets, 3D neck), whose
-    # gradients in this state are determined by rounding to about 1e-2
-    # only.
+    # plain gradient under the image nudge.  The second term covers the
+    # train-mode BatchNorm nets (depth U-Nets, 3D neck), whose gradients in
+    # this state are determined by rounding to about 1e-2 only.
     floor = 1e-5 * max(float(g.abs().max()) for g in grads_p.values())
     rows = []
-    for name, p in model_k.named_parameters():
-        want = grads_p[name]
-        check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+    for name, want in grads_p.items():
+        got = grads_k[name]
+        check(got is not None and bool(torch.isfinite(got).all()),
               f"{tag}: gradient of {name} missing or non-finite")
         scale = max(float(want.abs().max()), floor)
-        spread = max(float((g[name] - want).abs().max()) for _, g in nudges)
+        spread = float((grads_n[name] - want).abs().max())
         tol = 2e-3 * scale + 4 * spread
-        err = float((p.grad - want).abs().max())
+        err = float((got - want).abs().max())
         rows.append((err / tol, name, err, scale, spread, param_label(name)))
     rows.sort(reverse=True)
     log(f"[{tag}] gradient scale floor {floor:.3e}; worst err/tol: "
         + "; ".join(f"{n} ({lbl}) {r:.3f}: err {e:.2e}, scale {m:.2e}, nudge {s:.2e}"
                     for r, n, e, m, s, lbl in rows[:5]))
-    if output_nudge is not None:
-        moved = sum(float((nudges[-1][1][n] - grads_p[n]).abs().max()) > 2e-3 * m
-                    for _, n, _, m, _, _ in rows)
-        log(f"[{tag}] the DFA3D-output nudge ({output_nudge:.0e}) alone moves {moved} of "
-            f"{len(rows)} tensors by more than 2e-3 of their scale")
-    by_nudge = sum(e > 2e-3 * m for _, _, e, m, _, _ in rows)
-    log(f"[{tag}] {by_nudge} of {len(rows)} tensors differ by more than 2e-3 of "
-        f"their scale; the largest nudge move is "
+    log(f"[{tag}] {sum(e > 2e-3 * m for _, _, e, m, _, _ in rows)} of {len(rows)} "
+        f"tensors differ by more than 2e-3 of their scale; the largest nudge move is "
         f"{max(s / m for _, _, _, m, s, _ in rows):.3e} of its tensor's scale")
     check(not differ, f"{tag}: {differ} differ")
     bad = [n for r, n, *_ in rows if r > 1.0]
@@ -1594,7 +1627,8 @@ def phase_train(torch, dev, kernels, sort_queries=False, config="scannet"):
             + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
         expected = {name: per_step.get(name, 0) for name in kernels}
         check(step_launches == expected,
-              f"{tag} step {i}: launches {step_launches}, expected {expected}")
+              f"{tag} step {i}: launches {_launched(step_launches)}, expected "
+              f"{_launched(expected)}")
     launches = {name: k.launches for name, k in kernels.items()}
     peak = torch.cuda.max_memory_allocated(dev)
     after = model.state_dict()
@@ -1618,7 +1652,7 @@ def phase_train(torch, dev, kernels, sort_queries=False, config="scannet"):
         f"statistics did not")
     log(f"[{tag}] warm seconds per step: {sum(times[1:]) / len(times[1:]):.4f}")
     log(f"[{tag}] peak memory allocated: {peak / 2**30:.3f} GiB")
-    log(f"[{tag}] kernel launches over {TRAIN_STEPS} steps: {launches}")
+    log(f"[{tag}] kernel launches over {TRAIN_STEPS} steps: {_launched(launches)}")
     return launches
 
 
@@ -1735,9 +1769,10 @@ def phase_lifting_2d(torch, dev, kernels):
             f"2D lifting bf16 level {level}: non-finite output or gradient")
     launches = {name: k.launches for name, k in kernels.items()}
     log(f"[2D lifting] bf16 kernel launches over 3 levels (forward + backward): "
-        f"{launches}")
+        f"{_launched(launches)}")
     expected = {name: (3 if name in KERNELS_2D else 0) for name in kernels}
-    check(launches == expected, f"2D lifting launches {launches}, expected {expected}")
+    check(launches == expected, f"2D lifting launches {_launched(launches)}, expected "
+          f"{_launched(expected)}")
 
     for level, model in enumerate(bf16_models):
         feat = levels[level][1].to(torch.bfloat16)
@@ -1882,6 +1917,7 @@ def ptxas_resources(log):
 PTXAS_KERNELS = {"K2": "dfa3d_fwd_one_point_kernelI13__nv_bfloat16fLi8EE",
                  "K3": "dfa3d_fwd_kernelI13__nv_bfloat16fLi32ELi2E",
                  "K5": "dfa3d_bwd_kernelI13__nv_bfloat16fLi32ELb1ELb1E",
+                 "K5' bf16/bf16": "dfa3d_bwd_kernelI13__nv_bfloat16S1_Li32ELb1ELb1E",
                  "K6 pixel pass": "s1_pixels_kernelI13__nv_bfloat16fLi256ELb0ELb1EE",
                  "K6 long pass": "s1_long_kernelI13__nv_bfloat16fLi256ELb0ELb1EE",
                  "dfa3d_win_fwd_mh": "dfa3d_win_fwd_mh_kernelI13__nv_bfloat16fLi32E",
@@ -1891,7 +1927,7 @@ PTXAS_KERNELS = {"K2": "dfa3d_fwd_one_point_kernelI13__nv_bfloat16fLi8EE",
 def log_resources(torch, x):
     """Each windowed kernel's resources at level 2 (CUDA runtime), and
     ptxas's registers and spills of its bf16/f32 instance beside K2's, K3's,
-    K5's and K6's."""
+    K5's, K5′'s at bf16 depth and K6's."""
     from sgcdet_tpu_torch.ops import LIBRARY
     from sgcdet_tpu_torch.ops.dfa3d_windowed import kernel_resources, window_length
 
@@ -1914,7 +1950,7 @@ def log_resources(torch, x):
             hits = [v for k, v in found.items() if key in k]
             if hits:
                 parts.append(f"{label} {hits[0][0]} registers, {hits[0][1]} B spill stores")
-        log("[windowed] ptxas, bf16/f32: " + "; ".join(parts))
+        log("[windowed] ptxas, bf16/f32 unless named: " + "; ".join(parts))
 
 
 def phase_windowed(torch, dev, report):
@@ -1998,7 +2034,7 @@ def phase_windowed(torch, dev, report):
         """The sorted path's stage 1, which the windowed op sends to K2 (K2'
         at bf16 depth), vs the plain version on sorted queries; timed, K2
         beside the windowed stage 1's earlier time."""
-        kernel_name = "dfa3d_fwd_s1_bd" if args[1].dtype == torch.bfloat16 else "dfa3d_fwd_s1"
+        kernel_name = "dfa3d_fwd_s1_c256_bd" if args[1].dtype == torch.bfloat16 else "dfa3d_fwd_s1_c256"
         got = dfa3d_attention_windowed(*args[:5], valid_counts=args[5])
         want = dfa3d_attention_plain(*args)
         torch.cuda.synchronize()
@@ -2216,7 +2252,7 @@ def phase_large(torch, dev, kernels, serving, train):
     loops with their launch counts, seconds and peak memory."""
     phase_slice_f32(torch, dev, config=LARGE)
     torch.cuda.empty_cache()
-    phase_train_f32(torch, dev, config=LARGE, output_nudge=LARGE_OUTPUT_NUDGE)
+    phase_train_f32(torch, dev, config=LARGE)
     torch.cuda.empty_cache()
     serving.update(phase_serving(torch, dev, kernels, config=LARGE))
     torch.cuda.empty_cache()
@@ -2260,8 +2296,8 @@ def main() -> int:
 
     from sgcdet_tpu_torch.experiments import probes
 
-    check(set(KERNEL_INFO) == set(KERNELS) | set(probes.KERNELS),
-          "KERNEL_INFO does not list every launch counter")
+    check(set(KERNEL_INFO) <= set(KERNELS) | set(probes.KERNELS),
+          "KERNEL_INFO names a kernel that has no launch counter")
     report = {name: {} for name in KERNEL_INFO}
     serving, train, lifting_2d, f32_scene = {}, {}, {}, {}
     sorted_serving, sorted_train, probe_runs = {}, {}, {}

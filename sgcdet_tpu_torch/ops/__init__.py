@@ -1,23 +1,8 @@
 """Ops of the port: the hand-written Hopper kernels behind their wrappers,
 their plain PyTorch versions, and host-side NMS."""
 from ._cuda import LIBRARY, plain_ops
-from .dfa3d import (
-    DFA3D_BWD_MH,
-    DFA3D_BWD_MH_BD,
-    DFA3D_BWD_MH_C16,
-    DFA3D_BWD_S1,
-    DFA3D_BWD_S1_BD,
-    DFA3D_BWD_S1_C128,
-    DFA3D_FWD_MH,
-    DFA3D_FWD_MH_BD,
-    DFA3D_FWD_MH_C16,
-    DFA3D_FWD_S1,
-    DFA3D_FWD_S1_BD,
-    DFA3D_FWD_S1_C128,
-    dfa3d_attend,
-    dfa3d_attention_plain,
-    msda_2d_attend,
-)
+from .dfa3d import COUNTERS as DFA3D_COUNTERS
+from .dfa3d import dfa3d_attend, dfa3d_attention_plain, msda_2d_attend
 from .dfa3d_windowed import (
     DFA3D_WIN_BWD_MH,
     DFA3D_WIN_FWD_MH,
@@ -31,25 +16,14 @@ from .sweep import (
     plane_sweep_correlation_plain,
 )
 
-# every kernel of the serving, train, 2D lifting and sorted paths, by the
-# name chip_smoke.py reports ("_bd": the bf16-depth instances of the 2D path;
-# "_c128", "_c16": the instances at the -L configs' widths; "_win": the
-# windowed kernels of the sort_queries path)
+# every kernel's launch counter, by the name chip_smoke.py reports: the
+# sweep's, one for each built DFA3D instance ("dfa3d_{fwd,bwd}_{s1,mh}_c<c>",
+# "_bd" at bf16 depth: ops/dfa3d.py::counter_name) and the windowed kernels'
+# of the sort_queries path ("_win")
 KERNELS = {
     "sweep_fwd": SWEEP_FWD,
-    "dfa3d_fwd_s1": DFA3D_FWD_S1,
-    "dfa3d_fwd_mh": DFA3D_FWD_MH,
     "sweep_bwd": SWEEP_BWD,
-    "dfa3d_bwd_s1": DFA3D_BWD_S1,
-    "dfa3d_bwd_mh": DFA3D_BWD_MH,
-    "dfa3d_fwd_s1_bd": DFA3D_FWD_S1_BD,
-    "dfa3d_fwd_mh_bd": DFA3D_FWD_MH_BD,
-    "dfa3d_bwd_s1_bd": DFA3D_BWD_S1_BD,
-    "dfa3d_bwd_mh_bd": DFA3D_BWD_MH_BD,
-    "dfa3d_fwd_s1_c128": DFA3D_FWD_S1_C128,
-    "dfa3d_fwd_mh_c16": DFA3D_FWD_MH_C16,
-    "dfa3d_bwd_s1_c128": DFA3D_BWD_S1_C128,
-    "dfa3d_bwd_mh_c16": DFA3D_BWD_MH_C16,
+    **DFA3D_COUNTERS,
     "dfa3d_win_fwd_mh": DFA3D_WIN_FWD_MH,
     "dfa3d_win_bwd_mh": DFA3D_WIN_BWD_MH,
 }

@@ -25,12 +25,12 @@ plain version as in the kernels, and get zero gradients.
   ``dfa3d_bwd_plain`` — its VJP, recomputed under autograd.
 * ``dfa3d_fwd_cuda`` — kernels K2 (heads = P = 1) and K3 (multi-head),
   and their bf16-depth instances K2' and K3', one entry point of
-  csrc/dfa3d_fwd.cu with a launch count each; ``dfa3d_bwd_cuda`` — kernels
-  K6 (stage 1) and K5 (stage 2), and K6' / K5' at bf16 depth, two entry
-  points of csrc/dfa3d_bwd.cu (stage 1 its own: the gradients summed where
-  they live, several CUDA kernels behind one launch count).  The instances
-  at the -L configs' widths (K2 and K6 at c = 128, K3 and K5 at c = 16 a
-  head) count apart (``FWD_WIDTHS``, ``BWD_WIDTHS``, ``_pick``).
+  csrc/dfa3d_fwd.cu; ``dfa3d_bwd_cuda`` — kernels K6 (stage 1) and K5
+  (stage 2), and K6' / K5' at bf16 depth, two entry points of
+  csrc/dfa3d_bwd.cu (stage 1 its own: the gradients summed where they
+  live, several CUDA kernels behind one launch count).  Each instance (the
+  widths of ``FWD_WIDTHS`` / ``BWD_WIDTHS``, at f32 or bf16 depth) counts
+  its launches apart (``COUNTERS``, ``counter_name``).
 * ``dfa3d_attend`` — the differentiable op the model calls;
   ``msda_2d_attend`` — 2D multi-scale deformable attention as DFA3D with a
   uniform depth (the ``use_depth=False`` lifting path).
@@ -48,28 +48,43 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # sgc_dfa3d_fwd(vdtype, ddtype, value, depth, locs, attn, counts, out,
 #               n, h, w, heads, c, dsize, k, p, stream)
 _FWD_ARGS = [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I]
-DFA3D_FWD_S1 = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)  # stage 1 launches (K2)
-DFA3D_FWD_MH = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)  # stage 2 launches (K3)
-# ... with bf16 value and bf16 depth (K2', K3')
-DFA3D_FWD_S1_BD = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
-DFA3D_FWD_MH_BD = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
-# ... and at the -L configs' widths, f32 depth: K2 at c = 128, K3 at c = 16
-DFA3D_FWD_S1_C128 = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
-DFA3D_FWD_MH_C16 = Kernel("sgc_dfa3d_fwd", _FWD_ARGS)
 # sgc_dfa3d_bwd(vdtype, ddtype, value, depth, locs, attn, counts, g,
 #               d_value, d_depth, d_locs, d_attn,
 #               n, h, w, heads, c, dsize, k, p, stream)
 _BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 8
-DFA3D_BWD_MH = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # stage 2 launches (K5)
-DFA3D_BWD_MH_BD = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # ... at bf16 depth (K5')
-DFA3D_BWD_MH_C16 = Kernel("sgc_dfa3d_bwd", _BWD_ARGS)  # ... at c = 16, f32 depth (-L)
 # sgc_dfa3d_bwd_s1(vdtype, ddtype, value, depth, locs, attn, counts, g,
 #                  d_value, d_depth, d_locs, d_attn, scratch,
 #                  n, h, w, c, dsize, k, stream)
 _BWD_S1_ARGS = [_I, _I] + [_P] * 11 + [_I] * 6
-DFA3D_BWD_S1 = Kernel("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS)  # stage 1 launches (K6)
-DFA3D_BWD_S1_BD = Kernel("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS)  # ... at bf16 depth (K6')
-DFA3D_BWD_S1_C128 = Kernel("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS)  # ... at c = 128, f32 depth (-L)
+
+# the channel widths c a head that the kernels are built for, by stage 1
+# (heads = P = 1) or not: the forward (csrc/dfa3d_fwd.cu::dispatch_c; K2
+# takes whole 32-channel lanes, K3 any) and the backward (csrc/dfa3d_bwd.cu:
+# K6, K5)
+FWD_WIDTHS = {True: (32, 128, 256), False: (16, 32, 128, 256)}
+BWD_WIDTHS = {True: (32, 128, 256), False: (16, 32)}
+
+
+def counter_name(backward, stage1, c, depth_dtype):
+    """The name of one built instance's launch counter: direction, stage 1
+    or multi-head, the width c a head, and ``_bd`` at bf16 depth."""
+    return (f"dfa3d_{'bwd' if backward else 'fwd'}_{'s1' if stage1 else 'mh'}_c{c}"
+            + ("_bd" if depth_dtype == torch.bfloat16 else ""))
+
+
+def _counters():
+    entries = {(False, True): ("sgc_dfa3d_fwd", _FWD_ARGS),
+               (False, False): ("sgc_dfa3d_fwd", _FWD_ARGS),
+               (True, True): ("sgc_dfa3d_bwd_s1", _BWD_S1_ARGS),
+               (True, False): ("sgc_dfa3d_bwd", _BWD_ARGS)}
+    return {counter_name(backward, stage1, c, dd): Kernel(*entries[backward, stage1])
+            for backward, widths in ((False, FWD_WIDTHS), (True, BWD_WIDTHS))
+            for stage1, cs in widths.items() for c in cs
+            for dd in (torch.float32, torch.bfloat16)}
+
+
+# a launch counter for every built instance, by ``counter_name``
+COUNTERS = _counters()
 
 # elements of one gathered corner tensor per query chunk of the plain version
 _PLAIN_CHUNK_ELEMS = 1 << 25
@@ -162,15 +177,6 @@ def check_dtypes(value_img, dpt_img):
                         f"{value_img.dtype}")
 
 
-# the channel widths c a head that the forward kernels are built for
-# (csrc/dfa3d_fwd.cu::dispatch_c), by stage 1 (heads = P = 1, K2: whole
-# 32-channel lanes) or not (K3): 16 and 128 for the -L configs (stage 2 and
-# stage 1), 32 and 256 for ScanNet's
-FWD_WIDTHS = {True: (32, 128, 256), False: (16, 32, 128, 256)}
-# ... and the backward kernels (csrc/dfa3d_bwd.cu): K6 and K5
-BWD_WIDTHS = {True: (32, 128, 256), False: (16, 32)}
-
-
 def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
     """Validated kernel operands and sizes, shared by K2/K3 and K5/K6; a
     width c that no forward kernel is built for raises (the backward's
@@ -206,28 +212,6 @@ def _check(value_img, dpt_img, locs, attn, num_heads, valid_counts):
     return value, depth, loc, att, counts, stage1, sizes
 
 
-# the widths of the -L configs, by stage 1 or not, whose f32-depth launches
-# count apart
-LARGE_WIDTH = {True: 128, False: 16}
-# the launch counters by (backward, stage 1): f32 depth, bf16 depth, f32
-# depth at the -L width
-_COUNTERS = {
-    (False, True): (DFA3D_FWD_S1, DFA3D_FWD_S1_BD, DFA3D_FWD_S1_C128),
-    (False, False): (DFA3D_FWD_MH, DFA3D_FWD_MH_BD, DFA3D_FWD_MH_C16),
-    (True, True): (DFA3D_BWD_S1, DFA3D_BWD_S1_BD, DFA3D_BWD_S1_C128),
-    (True, False): (DFA3D_BWD_MH, DFA3D_BWD_MH_BD, DFA3D_BWD_MH_C16),
-}
-
-
-def _pick(backward, stage1, depth, c):
-    """The launch counter of this call: by direction and stage, bf16 depth
-    apart, and at f32 depth the -L configs' width apart."""
-    f32, bf16, large = _COUNTERS[backward, stage1]
-    if depth.dtype == torch.bfloat16:
-        return bf16
-    return large if c == LARGE_WIDTH[stage1] else f32
-
-
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -242,7 +226,7 @@ def dfa3d_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
-    kernel = _pick(False, stage1, depth, c)
+    kernel = COUNTERS[counter_name(False, stage1, c, depth.dtype)]
     kernel(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
            value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
            _ptr(counts), out.data_ptr(), *sizes)
@@ -330,7 +314,7 @@ def dfa3d_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     d_locs = torch.empty(loc.shape, **f32) if sample_grads else None
     d_attn = torch.empty(att.shape, **f32) if sample_grads else None
     codes = DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype]
-    kernel = _pick(True, stage1, depth, c)
+    kernel = COUNTERS[counter_name(True, stage1, c, depth.dtype)]
     if stage1:
         d_value = torch.empty_like(value)
         d_depth = torch.empty_like(depth) if depth_grad else None

@@ -38,8 +38,8 @@ from sgcdet_tpu_torch.models.depth_net import _warp_grid
 from sgcdet_tpu_torch.models.layers import init_weights, set_compute_dtype
 from sgcdet_tpu_torch.models.view_transformer import ViewTransformer
 from sgcdet_tpu_torch.ops import KERNELS, dfa3d_attend, plain_ops
-from sgcdet_tpu_torch.ops.dfa3d import (dfa3d_attention_plain, dfa3d_bwd_cuda,
-                                        dfa3d_bwd_plain, dfa3d_fwd_cuda)
+from sgcdet_tpu_torch.ops.dfa3d import (counter_name, dfa3d_attention_plain,
+                                        dfa3d_bwd_cuda, dfa3d_bwd_plain, dfa3d_fwd_cuda)
 from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, WIN_CAP,
                                                  dfa3d_attention_windowed,
                                                  dfa3d_win_bwd_cuda, dfa3d_win_fwd_cuda,
@@ -87,13 +87,9 @@ DFA3D_TYPES = [pytest.param(torch.bfloat16, torch.float32, id="bf16_f32"),
 
 
 def _dfa3d_kernel_name(direction, heads, p, c, ddtype):
-    """The launch counter of a DFA3D call (ops/dfa3d.py::_pick): by stage,
-    bf16 depth, and at f32 depth the -L configs' widths apart."""
-    stage1 = heads == p == 1
-    name = f"dfa3d_{direction}_{'s1' if stage1 else 'mh'}"
-    if ddtype == torch.bfloat16:
-        return name + "_bd"
-    return name + {(True, 128): "_c128", (False, 16): "_c16"}.get((stage1, c), "")
+    """The launch counter of a DFA3D call: its instance's
+    (ops/dfa3d.py::counter_name)."""
+    return counter_name(direction == "bwd", heads == p == 1, c, ddtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -169,6 +165,9 @@ DFA3D_SHAPES = [pytest.param(1, 1, 256, id="stage1"), pytest.param(8, 4, 32, id=
                 pytest.param(8, 4, 16, id="stage2_c16"),
                 pytest.param(1, 4, 16, id="stage2_c16_h1"),
                 pytest.param(6, 4, 16, id="stage2_c16_h6")]
+# the forward also takes multi-head c = 128 (16 lanes a head, two heads a
+# warp); the backward does not
+DFA3D_FWD_SHAPES = DFA3D_SHAPES + [pytest.param(2, 4, 128, id="stage2_c128_h2")]
 
 
 def _counts(counted, device):
@@ -176,7 +175,7 @@ def _counts(counted, device):
             if counted else None)
 
 
-@pytest.mark.parametrize("heads,p,c", DFA3D_SHAPES)
+@pytest.mark.parametrize("heads,p,c", DFA3D_FWD_SHAPES)
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
 @pytest.mark.parametrize("counted", [True, False], ids=["counted", "uncounted"])
 def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype, ddtype, counted):
@@ -413,8 +412,9 @@ def test_2d_lifting_kernels_match_plain(cuda_device, dtype):
                                     [feat] + list(model.parameters()))
         return [out.detach()] + list(grads)
 
-    suffix = "_bd" if dtype == torch.bfloat16 else ""
-    names = [f"dfa3d_{d}_{s}{suffix}" for d in ("fwd", "bwd") for s in ("s1", "mh")]
+    depth_dtype = torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+    names = [counter_name(backward, stage1, 256 if stage1 else 32, depth_dtype)
+             for backward in (False, True) for stage1 in (True, False)]
     before = [KERNELS[nm].launches for nm in names]
     got = run()
     assert [KERNELS[nm].launches - b for nm, b in zip(names, before)] == [1, 1, 1, 1]
@@ -663,7 +663,7 @@ def test_windowed_stage1_backward_is_k6(cuda_device):
                                   torch.float32, "coherent")
     args[0].requires_grad_()
     args[1].requires_grad_()
-    names = ("dfa3d_fwd_s1", "dfa3d_bwd_s1", "dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
+    names = ("dfa3d_fwd_s1_c256", "dfa3d_bwd_s1_c256", "dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
     before = {n: KERNELS[n].launches for n in names}
     out = dfa3d_attention_windowed(*args, 1, valid_counts=counts)
     torch.autograd.grad(out, args[:2], torch.ones_like(out))
@@ -721,8 +721,8 @@ def test_sorted_lifting_kernels_match_plain(cuda_device, dtype):
                                     [feat, dpt] + list(model.parameters()))
         return [out.detach()] + list(grads)
 
-    names = ["dfa3d_fwd_s1", "dfa3d_win_fwd_mh", "dfa3d_bwd_s1", "dfa3d_win_bwd_mh",
-             "dfa3d_fwd_mh", "dfa3d_bwd_mh"]
+    names = ["dfa3d_fwd_s1_c256", "dfa3d_win_fwd_mh", "dfa3d_bwd_s1_c256", "dfa3d_win_bwd_mh",
+             "dfa3d_fwd_mh_c32", "dfa3d_bwd_mh_c32"]
     before = [KERNELS[nm].launches for nm in names]
     got = run()
     assert [KERNELS[nm].launches - b for nm, b in zip(names, before)] == [1, 1, 1, 1, 0, 0]
