@@ -76,13 +76,11 @@ Phases, each fatal on failure:
               float32, TF32 off, ffn_dropout 0, depth loss on, on the indoor
               40-view train scene, through the plain versions and through
               the kernels from the same seeded weights, the kernel step on
-              the plain step's discrete decisions (occupancy top-k picks and
-              the side of 0 of every ReLU input; the kernel step's own
-              scores and inputs held to the plain step's): matching loss
-              terms and matching gradients of every parameter, each within
-              2e-3 of its scale plus 4x how far a 1e-7 nudge of the images
-              moves it through the plain versions (a third step, on the same
-              decisions).
+              the plain step's side of 0 of every ReLU input (its own
+              inputs held to the plain step's): matching loss terms and
+              matching gradients of every parameter, each within 2e-3 of
+              its scale plus 4x how far a 1e-7 nudge of the images moves it
+              through the plain versions (a third step, on the same signs).
 7. train    — the train setting of bench.py (default bf16 config, exact auto
               budget, depth loss on, dropout 0.1): 4 steps, the first a
               warm-up; finite losses and gradient norms, every trainable
@@ -1442,64 +1440,41 @@ def _train_setup(torch, dev, config="scannet", **model_kw):
 
 
 @contextlib.contextmanager
-def _pinned_decisions(torch, tag, ref):
-    """Give a train step the discrete decisions of a reference step: the
-    sparse volume's occupancy top-k (``sparse_head.top_k_indices``, once a
-    finer level) and the sign of every ReLU's input (``F.relu``, which
-    ``nn.ReLU`` calls too).  With ``ref`` empty, record them into it; else
-    take the reference's, after holding this step's occupancy scores to the
-    reference's (1e-3 of their scale, phase 4's bound on head outputs) and
-    each ReLU input whose sign differs to 1e-4 of its call's largest
-    magnitude (the forward kernels' f32 bound), and log how many differ.
-    Kernels and plain versions sum in other orders, so an input within
-    rounding of a kink lands on either side of it: the forward moves by
-    that rounding only, but the backward passes or stops a whole gradient
-    element there.  Where the loss's gradient sits on a few voxels (the
-    FCOS positives of the -L step), one such ReLU in the 3D neck moves a
-    weight gradient by percents of its scale."""
+def _relu_signs_of(torch, tag, ref):
+    """Give a train step the side of 0 of every ReLU input of a reference
+    step (``F.relu``, which ``nn.ReLU`` calls too).  With ``ref`` empty,
+    record the signs into it; else hold each input whose sign differs to
+    1e-4 of its call's largest magnitude (the forward kernels' f32 bound),
+    log how many differ, and take the reference's.  Kernels and plain
+    versions sum in other orders, so an input within rounding of 0 lands
+    on either side: the forward moves by that rounding only, but the
+    backward passes or stops a whole gradient element there.  Where the
+    loss's gradient sits on a few voxels (the FCOS positives of the -L
+    step), one such ReLU in the 3D neck moves a weight gradient by percents
+    of its scale."""
     from torch.nn import functional as F
 
-    from sgcdet_tpu_torch.models import sparse_head
-
-    top_k, relu = sparse_head.top_k_indices, F.relu
+    relu = F.relu
     recording = not ref
-    if recording:
-        ref.update(picks=[], masks=[])
-    picks, masks = iter(list(ref["picks"])), iter(list(ref["masks"]))
-    flips = []  # per ReLU call: inputs whose sign differs, their largest |x| / scale
+    signs = iter(list(ref))
+    flips = []  # per call: inputs whose sign differs, their largest |x| / scale
 
-    def pinned_top_k(scores, k):
-        idx = top_k(scores, k)
+    def pinned(x, inplace=False):
         if recording:
-            ref["picks"].append((scores.detach().clone(), idx))
-            return idx
-        scores = scores.detach()
-        want_scores, want = next(picks)
-        scale = float(want_scores.abs().max())
-        err = float((scores - want_scores).abs().max())
-        flipped = idx[~torch.isin(idx, want)]
-        log(f"[{tag}] occupancy top-{k} of {scores.numel()}: score max_abs_err "
-            f"{err:.3e} (tol {1e-3 * scale:.3e}); {len(flipped)} of this step's own "
-            f"picks differ from the reference's")
-        check(err <= 1e-3 * scale, f"{tag}: occupancy scores differ")
-        return want
-
-    def pinned_relu(x, inplace=False):
-        if recording:
-            ref["masks"].append(x.detach() > 0)
+            ref.append(x.detach() > 0)
             return relu(x, inplace=inplace)
-        want = next(masks)
+        want = next(signs)
         mag = x.detach().abs()
         differ = (x.detach() > 0) != want
         n = int(differ.sum())
         flips.append((n, float(mag[differ].max()) / max(float(mag.max()), 1e-30) if n else 0.0))
         return torch.where(want, x, 0.0)
 
-    sparse_head.top_k_indices, F.relu = pinned_top_k, pinned_relu
+    F.relu = pinned
     try:
         yield
     finally:
-        sparse_head.top_k_indices, F.relu = top_k, relu
+        F.relu = relu
     if not recording:
         worst = max(r for _, r in flips)
         log(f"[{tag}] ReLU inputs on the other side of 0 than the reference's: "
@@ -1510,7 +1485,7 @@ def _pinned_decisions(torch, tag, ref):
 
 def phase_train_f32(torch, dev, config="scannet"):
     """One f32 train step through the kernels against the plain versions,
-    both on the plain step's discrete decisions (``_pinned_decisions``)."""
+    both on the plain step's ReLU signs (``_relu_signs_of``)."""
     import numpy as np
 
     from sgcdet_tpu_torch.ops import plain_ops
@@ -1527,12 +1502,12 @@ def phase_train_f32(torch, dev, config="scannet"):
     tag = "train f32" + _tag(config)
     kw = dict(compute_dtype="float32", ffn_dropout=0.0)
     # three steps from the same seeded weights: through the plain versions
-    # on the scene (the reference, whose decisions all three take),
+    # on the scene (the reference, whose ReLU signs all three take),
     # through the kernels, and through the plain versions on the scene's
     # images moved by 1e-7 relative noise (the size of the kernels' own
     # rounding differences), which measures how far rounding alone moves
     # each gradient in this state
-    decisions, runs, scene = {}, {}, None
+    signs, runs, scene = [], {}, None
     for name, route in (("plain", plain_ops), ("kernels", contextlib.nullcontext),
                         ("nudged plain", plain_ops)):
         _, made, model, step = _train_setup(torch, dev, config, **kw)
@@ -1544,7 +1519,7 @@ def phase_train_f32(torch, dev, config="scannet"):
             sc = dict(scene, imgs=(imgs * (1 + noise)).astype(imgs.dtype))
         gen = torch.Generator(device=dev).manual_seed(1)
         t0 = time.perf_counter()
-        with route(), _pinned_decisions(torch, f"{tag}, {name}", decisions):
+        with route(), _relu_signs_of(torch, f"{tag}, {name}", signs):
             metrics = step(sc, gen)
         torch.cuda.synchronize()
         log(f"[{tag}] step through {name} {time.perf_counter() - t0:.3f} s")
