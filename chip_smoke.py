@@ -32,7 +32,12 @@ Phases, each fatal on failure:
               the per-element tolerance, and the warm time of kernel, plain
               version and library call, with the earlier times of K1, K2,
               K3, K2' and K3', and K3's at 16 a head with one query a warp
-              (PERF.md), beside this run's.
+              (PERF.md), beside this run's, and K2's of its parent design
+              (a warp a query) at c = 256 and 128.  Stage 1 at c = 32
+              (built, though no config reaches it) at every type pair, and
+              a multi-head call with one point, which K3 runs and counts,
+              each against its plain version.  ptxas's registers and spill
+              bytes of every K2 and gather-epilogue instance.
 3b. backward — every backward kernel against its plain version (the VJP of
               the plain forward) on the card, at the train path's shapes:
               bf16 and f32 value with f32 depth; out-of-image, behind-camera,
@@ -132,7 +137,13 @@ Phases, each fatal on failure:
               own run (sgcdet_tpu_torch.experiments.probes.run_probes):
               rows/s, GB/s, plain and bound ms beside torch.index_select and
               index_add_, with PERF.md rows 24 and 29 set beside their library
-              call; for the windowed gathers, the direct bf16 gather and the
+              call, and row 28 (the gather with the DFA3D corner epilogue)
+              beside its parent design's time (PERF.md); the epilogue on
+              jittered rows whose chunks fit a window, direct and windowed,
+              each against its plain version and timed, and on random rows
+              beside the same call with every index in 8 rows (its L2
+              gathers removed); for the windowed
+              gathers, the direct bf16 gather and the
               windowed scatters, where a call's device time goes (whole call,
               kernel alone, the wrapper's torch ops alone: probes.
               attribute_probes) and the device work of one call by
@@ -256,7 +267,7 @@ TRAIN_STEPS = 4
 # 8-10, 12, 13: this script on an H100 80GB HBM3 at 700 W), printed beside
 # this run's: K1 and K3 before their 16-byte-lane layouts, K2 before the
 # one-point case had a kernel of its own
-EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
+EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K3": 0.4746,
               "K2' 2D": 0.1157, "K3' 2D": 1.2694, "K3 f32/f32 uncounted": 0.9651,
               "K2 f32/f32 uncounted": 0.1146,
               # K6 (rows 7 and 15) and K6' before the stage-1 backward summed
@@ -272,7 +283,15 @@ EARLIER_MS = {"K1 bf16": 0.3748, "K1 f32": 0.3599, "K2": 0.0627, "K3": 0.4746,
               # K3 and K5 at c = 16 a head with one query a warp (lanes 16-31
               # idle at 8 heads), before two queries shared a warp (PERF.md
               # section 6, the -L rows)
-              "K3 c16 one query a warp": 0.6100, "K5 c16 one query a warp": 1.8714}
+              "K3 c16 one query a warp": 0.6100, "K5 c16 one query a warp": 1.8714,
+              # K2 at stage 1 with a warp a query (PERF.md section 6, rows 4
+              # and 4L), before a warp took four rounds of queries
+              "K2 c256 a warp a query": 0.0579, "K2 c128 a warp a query": 0.2790,
+              # row 28, the gather with the DFA3D corner epilogue, with a
+              # warp an output row and a lane a channel (PERF.md section 6),
+              # before a row's lanes took its channels and summed its corner
+              # rows
+              "p4+epi a lane a channel": 0.2016}
 # small DFA3D stage-2 shapes whose head groups fill only part of a warp of
 # eight 4-lane heads at c = 32: (heads, points)
 PARTIAL_HEADS = ((1, 4), (2, 4), (6, 4), (8, 3))
@@ -690,22 +709,27 @@ def _zeros_past_count(torch, counts, rows=0):
 
 
 def phase_kernels(torch, dev, report):
-    from sgcdet_tpu_torch.ops.dfa3d import dfa3d_attention_plain, dfa3d_fwd_cuda
+    from sgcdet_tpu_torch.ops import KERNELS
+    from sgcdet_tpu_torch.ops.dfa3d import counter_name, dfa3d_attention_plain, dfa3d_fwd_cuda
     from sgcdet_tpu_torch.ops.sweep import sweep_fwd_cuda, sweep_fwd_plain
 
+    log_ptxas_instances()
     cfg, scene = _scene_and_cfg()
     budget = _auto_budget(cfg, scene)
     log(f"[kernels] auto visibility budget per level: {[round(b, 4) for b in budget]}")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def compare(name, kernel_name, run_kernel, run_plain, extra=None):
+        before = KERNELS[kernel_name].launches if kernel_name in KERNELS else None
         out_k = run_kernel()
+        check(before is None or KERNELS[kernel_name].launches == before + 1,
+              f"{name}: {kernel_name} did not launch once")
         out_p = run_plain()
         torch.cuda.synchronize()
         err = compare_tensors(torch, name, out_k, out_p)
         if extra is not None:
             extra(out_k)
-        rec = report[kernel_name]
+        rec = report.setdefault(kernel_name, {})
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
 
     def dfa3d(name, kernel_name, args, extra=None, time=None, run_library=None,
@@ -744,7 +768,7 @@ def phase_kernels(torch, dev, report):
             timed = level == 2 and ("main" if bf16 else "log")
             dfa3d(f"stage1 {tag} {shape} counted", "dfa3d_fwd_s1_c256", s1,
                   _zeros_past_count(torch, counts), time=timed,
-                  earlier="K2" if bf16 else None)
+                  earlier="K2 c256 a warp a query" if bf16 else None)
             vp = torch.randn((N_VIEWS, x["h"], x["w"], value.shape[-1]),
                              device=dev, generator=gen).to(vdt)
             s2 = (vp, x["depth"], x["locs2"], x["attn2"], x["heads"], counts)
@@ -777,6 +801,20 @@ def phase_kernels(torch, dev, report):
             dfa3d(f"stage2 bf16/bf16 {shape} uncounted, 12-bin depth (pq)",
                   "dfa3d_fwd_mh_c32_bd", (vp.to(bf), dpt_bf, x["locs2"], x["attn2"],
                                       x["heads"], None), time="log")
+            # stage 1 at c = 32, which K2 is built for at every type pair
+            # though no config reaches it
+            for vdt, ddt in ((bf, torch.float32), (torch.float32, torch.float32), (bf, bf)):
+                tag = f"{str(vdt)[6:]}/{str(ddt)[6:]}".replace("bfloat16", "bf16").replace(
+                    "float32", "f32")
+                dfa3d(f"stage1 c=32 {tag} {shape} counted", counter_name(False, True, 32, ddt),
+                      (x["value"][..., :32].contiguous().to(vdt), x["depth"].to(ddt),
+                       x["locs1"], x["attn1"], 1, x["counts"]),
+                      _zeros_past_count(torch, x["counts"]), time="log")
+            # a multi-head call with one point: K3's, and counted as K3's
+            dfa3d(f"stage2 bf16/f32 {shape} counted, one point", "dfa3d_fwd_mh_c32",
+                  (vp.to(bf), x["depth"], x["locs2"][:, :, :, :1].contiguous(),
+                   x["attn2"][..., :1].contiguous(), x["heads"], x["counts"]),
+                  _zeros_past_count(torch, x["counts"]))
 
     # the -L configs' instances, K2 at c = 128 and K3 at 16 a head, at the
     # ScanNet200-L level-2 shape (80 x 80 x 32 grid, top-k 51,200, its exact
@@ -793,7 +831,8 @@ def phase_kernels(torch, dev, report):
         counts = x["counts"]
         s1 = (x["value"].to(vdt), x["depth"], x["locs1"], x["attn1"], 1, counts)
         dfa3d(f"-L stage1 c=128 {tag} {shape} counted", "dfa3d_fwd_s1_c128", s1,
-              _zeros_past_count(torch, counts), time="main" if bf16 else "log")
+              _zeros_past_count(torch, counts), time="main" if bf16 else "log",
+              earlier="K2 c128 a warp a query" if bf16 else None)
         vp = torch.randn((N_VIEWS, x["h"], x["w"], lcfg.model.embed_dims), device=dev,
                          generator=gen).to(vdt)
         s2 = (vp, x["depth"], x["locs2"], x["attn2"], x["heads"], counts)
@@ -1887,9 +1926,42 @@ def ptxas_resources(log):
     return found
 
 
+def _template_args(mangled, kernel):
+    """The template arguments of one instance of ``kernel`` from its
+    mangled name: types as bf16 / f32 / int32 / int64, integers as they
+    are (``bf16/f32/256``)."""
+    rest, args = mangled.split(kernel + "I", 1)[1], []
+    while rest and rest[0] != "E":
+        m = re.match(r"13__nv_bfloat16|S\d*_|[fix]|Li(\d+)E", rest)
+        if m is None:
+            break
+        tok = m.group(0)
+        args.append(m.group(1) if m.group(1) else
+                    {"f": "f32", "i": "int32", "x": "int64"}.get(tok, "bf16"))
+        rest = rest[m.end():]
+    return "/".join(args)
+
+
+# the kernels whose every instance's ptxas resources phase 3 prints
+PTXAS_INSTANCES = ("dfa3d_fwd_s1_kernel", "gather_epilogue_kernel")
+
+
+def log_ptxas_instances():
+    """ptxas's registers and spill bytes of every instance of the kernels
+    of PTXAS_INSTANCES, where this process built the library."""
+    from sgcdet_tpu_torch.ops import LIBRARY
+
+    found = ptxas_resources(LIBRARY.log)
+    for kernel in PTXAS_INSTANCES:
+        parts = [f"{_template_args(name, kernel)} {regs} registers, {spill} B spill stores"
+                 for name, (regs, spill) in sorted(found.items()) if kernel + "I" in name]
+        log(f"[kernels] ptxas {kernel}: " + ("; ".join(parts) if parts else
+                                             "not built by this process"))
+
+
 # ptxas names of the bf16/f32 instances of K2, K3, K5 (every gradient), K6's
 # pixel pass (as the model runs it) and the windowed kernels
-PTXAS_KERNELS = {"K2": "dfa3d_fwd_one_point_kernelI13__nv_bfloat16fLi8EE",
+PTXAS_KERNELS = {"K2": "dfa3d_fwd_s1_kernelI13__nv_bfloat16fLi256EE",
                  "K3": "dfa3d_fwd_kernelI13__nv_bfloat16fLi32ELi2E",
                  "K5": "dfa3d_bwd_kernelI13__nv_bfloat16fLi32ELb1ELb1E",
                  "K5' bf16/bf16": "dfa3d_bwd_kernelI13__nv_bfloat16S1_Li32ELb1ELb1E",
@@ -2135,6 +2207,8 @@ def phase_sorted(torch, dev, kernels, unsorted_f32, serving, train):
 PROBE_MAIN = {"row_gather": "lowering bf16 row copies (4944, 1072), direct",
               "row_scatter_add": "lowering scatter-add u (2^20, 1072) -> 4944 rows, "
                                  "windowed 256"}
+# the probe cases printed beside an earlier design's time (EARLIER_MS)
+PROBE_EARLIER = {"gather_batch p4+epi f32 w=176": "p4+epi a lane a channel"}
 # PERF.md rows 24 and 29, the probe cases that lost to their library call
 PROBE_ROWS = {"24 w128": "window_matmul bf16 (4944, 1072), w128 cm128",
               "24 w256": "window_matmul bf16 (4944, 1072), w256 cm256",
@@ -2182,9 +2256,12 @@ def phase_probes(torch, dev, report):
         lib = ("" if r["library_ms"] is None else
                f"; library {r['library_ms']:.4f} ms "
                f"({r['bytes'] / r['library_ms'] / 1e6:.1f} GB/s)")
+        earlier = PROBE_EARLIER.get(r["name"])
         log(f"[probes] {r['name']}: {r['ms']:.4f} ms, {r['rows_per_s'] / 1e6:.1f} M "
             f"rows/s, {r['gb_per_s']:.1f} GB/s; plain {plain_ms[r['name']]:.4f} ms; "
-            f"bound {bound_ms:.4f} ms ({bound_by}){lib}")
+            f"bound {bound_ms:.4f} ms ({bound_by}){lib}"
+            + ("" if earlier is None else
+               f"; earlier {EARLIER_MS[earlier]:.4f} ms ({earlier}, PERF.md)"))
         if PROBE_MAIN[r["kernel"]] == r["name"]:
             report[r["kernel"]].update(ms=r["ms"], plain_ms=plain_ms[r["name"]],
                                        bound_ms=bound_ms, bound_by=bound_by,
@@ -2199,6 +2276,35 @@ def phase_probes(torch, dev, report):
         log(f"[probes] row {row} ({name}): {r['ms']:.4f} ms, bound {bound_ms:.4f} ms, "
             f"library {r['library_ms']:.4f} ms: "
             f"{'no slower than' if r['ms'] <= r['library_ms'] else 'SLOWER than'} the library")
+    # the epilogue's window: four points' jittered monotone rows
+    # (probe_window_matmul.py's regime), whose chunks fit a window of 256
+    gen = torch.Generator(device=dev).manual_seed(4)
+    m = probes.STEPS * probes.QB
+    img = torch.randn((probes.RQ, 176), device=dev, generator=gen)
+    t = torch.arange(m, device=dev) * (probes.RQ - 1) // (m - 1)
+    rows = torch.stack([(t + torch.randint(-40, 40, (m,), device=dev, generator=gen))
+                        .clamp(0, probes.RQ - 1) for _ in range(4)])
+    winfo = torch.rand((4, m, 8), device=dev, generator=gen)
+    winfo[..., 6:8] = torch.floor(winfo[..., 6:8] * 12)
+    share = float(probes.plan_rows(rows, probes.CM, 256)[2].float().mean())
+    for window in (None, 256):
+        tag = f"p4+epi f32 w=176, jittered rows, {'windowed 256' if window else 'direct'}"
+        got = probes.gather_epilogue(img, rows, winfo, window)
+        want = probes.gather_epilogue_plain(img, rows, winfo, window)
+        torch.cuda.synchronize()
+        compare_tensors(torch, f"probe {tag}", got, want, f32_rel=1e-5)
+        ms = cuda_ms(torch, lambda: probes.gather_epilogue(img, rows, winfo, window))
+        log(f"[probes] {tag}: {ms:.4f} ms ({share:.3f} of chunks fit the window)")
+    # what the gathered corner rows cost: row 28's call beside the same call
+    # with every index in 8 rows, which stay in L1
+    rows = torch.randint(0, probes.RQ, (4, m), device=dev, generator=gen)
+    ms = cuda_ms(torch, lambda: probes.gather_epilogue(img, rows, winfo))
+    ms8 = cuda_ms(torch, lambda: probes.gather_epilogue(img, rows % 8, winfo))
+    gathered = m * 16 * (128 + 2 * 32)  # 16 value pieces, 32 depth sectors a row
+    log(f"[probes] p4+epi f32 w=176, random rows: {ms:.4f} ms, every index in 8 rows "
+        f"{ms8:.4f} ms; the random rows' {gathered / 1e6:.0f} MB of corner pieces and "
+        f"depth sectors at {gathered / ms / 1e6:.0f} GB/s from L2")
+    del img, rows, winfo, got, want
     # where the device time of a call goes, and the device work of one call
     attributed = [c for c in probes.probe_cases(dev) if c.prepare is not None]
     for r in probes.attribute_probes(dev, attributed):

@@ -112,6 +112,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
 
+// N = 4 or 8 bytes from global to shared memory (through L1, the only
+// way cp.async moves fewer than 16), without a register round trip; both
+// addresses N-byte aligned.
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* smem, const void* gmem) {
+  static_assert(N == 4 || N == 8, "cp.async moves 4, 8 or 16 bytes; cp_async16 the 16");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N));
+}
+
 // Wait for every cp.async this thread issued.
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");

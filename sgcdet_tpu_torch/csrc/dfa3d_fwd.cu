@@ -1,7 +1,8 @@
 // Fused DFA3D sampling forward (kernels K2 `dfa3d_fwd_s1`, K3
 // `dfa3d_fwd_mh` and their bf16-depth instances K2' `dfa3d_fwd_s1_bd`, K3'
-// `dfa3d_fwd_mh_bd`): a one-point template (stage 1) and a multi-head one,
-// behind one entry point; the wrapper counts the four apart.
+// `dfa3d_fwd_mh_bd`): a stage-1 template (heads = P = 1) and a multi-head
+// one (any other heads and P), behind one entry point; the wrapper counts
+// the four apart.
 //
 // Replaces every Pallas DFA3D forward of sgcdet_tpu/ops, which compute one
 // function at different type pairs, head counts and counted or not:
@@ -75,10 +76,37 @@
 // Lanes past the last row (heads not a multiple of HPW, a view's last
 // queries) take part in the shuffles and write nothing.  The grid is (a
 // view's warps, views), so a warp finds its rows by 32-bit arithmetic.
-// The one-point case (stage 1, K2 and K2') keeps the earlier design: a
-// warp per (view, query, head), c / 32 channels a lane, every lane
-// computing the sample itself.  Off-image corners are never loaded.  No
-// pair/quad row images (those worked around Mosaic).
+//
+// Design of stage 1 (K2, K2'; heads = P = 1: one sample a query, C channels),
+// which PERF.md's row 4L found at 2.2x its bound with a warp a query: the
+// lanes loaded the same location and attention, walked the chain location
+// -> depth bins -> weights -> value rows one query at a time, and moved 8
+// bytes each at c = 128.  Now a warp takes QW consecutive queries of one
+// view, on a grid of (a view's warps, views), so its rows follow by 32-bit
+// arithmetic:
+//   1. lane i < QW loads query i's location and attention (one coalesced
+//      load each), computes its four corner pixels (-1 off the image) and
+//      bilinear x attention weights and the depth lerp, and issues the
+//      eight depth-bin loads together;
+//   2. the warp walks its queries in rounds: a query's row is moved in
+//      16-byte lanes (C / 8 of them at bf16, C / 4 at f32, at most 32, so
+//      a lane takes 16 or 32 bytes of a row), so a round takes 32 / lanes
+//      queries: two at c = 128 bf16, eight at c = 32, one at c = 256.  A
+//      lane takes its round's corner pixels by shuffle and issues the
+//      corner loads of RG = 2 rounds (8 loads of 16 bytes at bf16) before
+//      the weights, which wait on the depth loads, are folded and shuffled
+//      over; then every lane stores its 16 bytes (a round's rows are one
+//      contiguous piece of the output).
+// A warp takes kS1Rounds = 4 rounds, so QW is 4 queries at c = 256 bf16, 8
+// at c = 128 and 32 at c = 32.  32 queries a warp at every width (16 and 32
+// rounds) ran the counted c = 256 calls slower than a warp a query: their
+// views' counted queries leave about one wave of long warps, whose last
+// ones run alone.  Fewer rounds a warp shorten that tail (PERF.md;
+// python -m sgcdet_tpu_torch.experiments.variants).
+// Queries at or past the view's count are written as zeros (a warp with
+// none counted writes its zeros and returns), and a ragged last warp
+// writes nothing past K.  Off-image corners are never loaded.  No pair /
+// quad row images (those worked around Mosaic).
 #include "dfa3d_mh.cuh"
 
 namespace {
@@ -106,85 +134,172 @@ __global__ void __launch_bounds__(256, 3) dfa3d_fwd_kernel(
                                   dsize, p, dep);
 }
 
-// One point a head (stage 1: heads = P = 1, K2 and K2'): a warp per
-// (view, query, head), C / 32 channels a lane; every lane computes the
-// sample from broadcast loads and walks the corners one after another.  A
-// warp has a single sample, so sharing its arithmetic gains nothing, and
-// the multi-head layout ran this case slower in f32 (PERF.md).
-template <typename VT, typename DT, int VEC>
-__global__ void __launch_bounds__(256) dfa3d_fwd_one_point_kernel(
-    const VT* __restrict__ value,    // (N, H, W, heads*c)
+// Rounds of queries a stage-1 warp takes (up to 32 queries).
+constexpr int kS1Rounds = 4;
+
+// The stage-1 warp's layout at value type VT and C channels.
+template <typename VT, int C>
+struct S1Layout {
+  static constexpr int VEC = 16 / sizeof(VT);                // elements a 16-byte move
+  static constexpr int LANES = C / VEC < 32 ? C / VEC : 32;  // lanes of a query's row
+  static constexpr int CPL = C / LANES;                      // channels a lane
+  static constexpr int NV = CPL / VEC;                       // 16-byte moves a lane and corner
+  static constexpr int QPR = 32 / LANES;                     // queries a round
+  static constexpr int QW = QPR * kS1Rounds < 32 ? QPR * kS1Rounds : 32;  // queries a warp
+  static_assert(C % VEC == 0 && CPL % VEC == 0 && 32 % LANES == 0,
+                "a query's row is whole 16-byte lanes of a warp");
+};
+
+// Stage 1 (heads = P = 1, K2 and K2'): a warp takes QW consecutive
+// queries of view blockIdx.y, as the design above says.
+template <typename VT, typename DT, int C>
+__global__ void __launch_bounds__(128) dfa3d_fwd_s1_kernel(
+    const VT* __restrict__ value,    // (N, H, W, C)
     const DT* __restrict__ depth,    // (N, H, W, D)
-    const float* __restrict__ locs,  // (N, K, heads, 1, 3) normalized (u, v, d)
-    const float* __restrict__ attn,  // (N, K, heads, 1)
+    const float* __restrict__ locs,  // (N, K, 1, 1, 3) normalized (u, v, d)
+    const float* __restrict__ attn,  // (N, K, 1, 1)
     const int* __restrict__ counts,  // (N,) visible-query counts, or null
-    VT* __restrict__ out,            // (N, K, heads*c)
-    int n, int h, int w, int heads, int dsize, int k) {
-  static_assert(VEC >= 1, "the one-point kernel takes c = 32 * VEC channels");
-  constexpr int C = 32 * VEC;  // channels per head
+    VT* __restrict__ out,            // (N, K, C)
+    int h, int w, int dsize, int k) {
+  using L = S1Layout<VT, C>;
+  constexpr int VEC = L::VEC, LANES = L::LANES, CPL = L::CPL, NV = L::NV, QPR = L::QPR;
+  constexpr int QW = L::QW;
+  constexpr int RG = 2;  // rounds loaded together
+  using Raw = sgc::Vec<VT, VEC>;
   const int lane = threadIdx.x & 31;
-  const long long warp_id =
-      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (warp_id >= (long long)n * k * heads) return;
-  const int head = (int)(warp_id % heads);
-  const long long nq = warp_id / heads;  // cam * k + q
-  const int q = (int)(nq % k);
-  const int cam = (int)(nq / k);
-  const int cfull = heads * C;
-
-  float acc[VEC];
+  const int q0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * QW;
+  if (q0 >= k) return;
+  const int cam = blockIdx.y;
+  const int nq = min(QW, k - q0);
+  const int nlive = counts == nullptr ? nq : min(max(counts[cam] - q0, 0), nq);
+  const long long row0 = (long long)cam * k + q0;  // the warp's first query row
+  VT* obase = out + row0 * C;
+  if (nlive == 0) {
+    Raw zero;
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+    for (int e = 0; e < VEC; ++e) zero.v[e] = sgc::from_f32<VT>(0.f);
+    for (int i = lane; i < nq * (C / VEC); i += 32) reinterpret_cast<Raw*>(obase)[i] = zero;
+    return;
+  }
+  const int hw = h * w;
+  const VT* vmap = value + (long long)cam * hw * C;
 
-  if (counts == nullptr || q < counts[cam]) {
-    const long long hw = (long long)h * w;
-    const float* lp = locs + warp_id * 3;
-    const VT* vbase = value + cam * hw * cfull + head * C + lane * VEC;
-    const DT* dbase = depth + cam * hw * dsize;
-    const float u = sgc::clip_coord(lp[0] * w - 0.5f, -4.f, w + 4.f);
-    const float v = sgc::clip_coord(lp[1] * h - 0.5f, -4.f, h + 4.f);
-    const float dd = sgc::clip_coord(lp[2] * dsize - 0.5f, -4.f, dsize + 4.f);
-    const float a = attn[warp_id];
+  // 1. lane i's sample (query q0 + i) and the loads of its depth bins
+  int cpix[4];
+  float bw[4], dp0[4], dp1[4], wd0 = 0.f, wd1 = 0.f;
+#pragma unroll
+  for (int corner = 0; corner < 4; ++corner) {
+    cpix[corner] = -1;
+    bw[corner] = dp0[corner] = dp1[corner] = 0.f;
+  }
+  if (lane < nlive) {
+    const float* l = locs + (row0 + lane) * 3;
+    const float u = sgc::GlobalDepth<DT>::coord(l[0], w);
+    const float v = sgc::GlobalDepth<DT>::coord(l[1], h);
+    const float dd = sgc::GlobalDepth<DT>::coord(l[2], dsize);
+    const float a = attn[row0 + lane];
     const float x0f = floorf(u), y0f = floorf(v), d0f = floorf(dd);
     const float lx = u - x0f, ly = v - y0f, ld = dd - d0f;
     const int x0 = (int)x0f, y0 = (int)y0f, d0 = (int)d0f;
-    const float wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
-    const float wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
+    wd0 = (d0 >= 0 && d0 <= dsize - 1) ? 1.f - ld : 0.f;
+    wd1 = (d0 + 1 >= 0 && d0 + 1 <= dsize - 1) ? ld : 0.f;
     const int d0c = min(max(d0, 0), dsize - 1);
     const int d1c = min(max(d0 + 1, 0), dsize - 1);
+    const DT* dmap = depth + (long long)cam * hw * dsize;
 #pragma unroll
     for (int corner = 0; corner < 4; ++corner) {
       const int dy = corner >> 1, dx = corner & 1;
       const int yi = y0 + dy, xi = x0 + dx;
-      if (yi < 0 || yi > h - 1 || xi < 0 || xi > w - 1) continue;
-      const long long pix = (long long)yi * w + xi;
-      const DT* drow = dbase + pix * dsize;
-      const float ds = sgc::to_f32(drow[d0c]) * wd0 + sgc::to_f32(drow[d1c]) * wd1;
-      const float wgt = ((dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a) * ds;
-      float val[VEC];
-      sgc::load_f32<VT, VEC>(vbase + pix * cfull, val);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] += wgt * val[i];
+      const bool in = yi >= 0 && yi <= h - 1 && xi >= 0 && xi <= w - 1;
+      cpix[corner] = in ? yi * w + xi : -1;
+      bw[corner] = (dy ? ly : 1.f - ly) * (dx ? lx : 1.f - lx) * a;
+      if (in) {
+        const DT* drow = dmap + cpix[corner] * dsize;
+        dp0[corner] = sgc::to_f32(drow[d0c]);
+        dp1[corner] = sgc::to_f32(drow[d1c]);
+      }
     }
   }
-  sgc::store_from_f32<VT, VEC>(out + nq * cfull + head * C + lane * VEC, acc);
+
+  // 2. the rounds, RG at a time: this lane's slice `sub` of query qs of
+  // each round
+  const int sub = lane % LANES, qs = lane / LANES;
+  const int rounds = (nq + QPR - 1) / QPR;
+  for (int r0 = 0; r0 < rounds; r0 += RG) {
+    int pix[RG][4];
+#pragma unroll
+    for (int i = 0; i < RG; ++i) {
+      const int src = ((r0 + i) * QPR + qs) & 31;  // lane holding the query
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner) {
+        const int ps = __shfl_sync(0xffffffffu, cpix[corner], src);
+        pix[i][corner] = r0 + i < rounds ? ps : -1;
+      }
+    }
+    Raw raw[RG][4][NV];
+#pragma unroll
+    for (int i = 0; i < RG; ++i)
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner)
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          if (pix[i][corner] >= 0) {
+            raw[i][corner][j] = *reinterpret_cast<const Raw*>(
+                vmap + pix[i][corner] * C + sub * CPL + j * VEC);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) raw[i][corner][j].v[e] = sgc::from_f32<VT>(0.f);
+          }
+        }
+    float cw[4];  // waits on the depth loads
+#pragma unroll
+    for (int corner = 0; corner < 4; ++corner)
+      cw[corner] = bw[corner] * (dp0[corner] * wd0 + dp1[corner] * wd1);
+#pragma unroll
+    for (int i = 0; i < RG; ++i) {
+      const int src = ((r0 + i) * QPR + qs) & 31;
+      float acc[CPL];
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) acc[e] = 0.f;
+#pragma unroll
+      for (int corner = 0; corner < 4; ++corner) {
+        const float wgt = __shfl_sync(0xffffffffu, cw[corner], src);
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[j * VEC + e] += wgt * sgc::to_f32(raw[i][corner][j].v[e]);
+      }
+      const int q = (r0 + i) * QPR + qs;
+      if (r0 + i < rounds && q < nq) {
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          float part[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) part[e] = acc[j * VEC + e];
+          sgc::store_from_f32<VT, VEC>(obase + q * C + sub * CPL + j * VEC, part);
+        }
+      }
+    }
+  }
 }
 
 template <typename VT, typename DT, int C>
 void launch(const void* value, const void* depth, const float* locs,
             const float* attn, const int* counts, void* out, int n, int h,
             int w, int heads, int dsize, int k, int p, cudaStream_t stream) {
-  const int threads = 256;
-  if constexpr (C % 32 == 0) {  // the one-point kernel takes whole lanes of channels
-    if (p == 1) {
-      const long long warps = (long long)n * k * heads;
-      const long long blocks = (warps + (threads / 32) - 1) / (threads / 32);
-      dfa3d_fwd_one_point_kernel<VT, DT, C / 32><<<(unsigned)blocks, threads, 0, stream>>>(
+  if constexpr (C >= 32) {  // the stage-1 widths (ops/dfa3d.py::FWD_WIDTHS)
+    if (heads == 1 && p == 1) {
+      constexpr int threads = 128;
+      const int warps = (k + S1Layout<VT, C>::QW - 1) / S1Layout<VT, C>::QW;  // a view's
+      const dim3 grid((warps + threads / 32 - 1) / (threads / 32), n);
+      dfa3d_fwd_s1_kernel<VT, DT, C><<<grid, threads, 0, stream>>>(
           static_cast<const VT*>(value), static_cast<const DT*>(depth), locs, attn,
-          counts, static_cast<VT*>(out), n, h, w, heads, dsize, k);
+          counts, static_cast<VT*>(out), h, w, dsize, k);
       return;
     }
   }
+  const int threads = 256;
   const int warps = sgc::WarpRows<32 / (C / 8)>::per_view(k, heads);
   const dim3 grid((warps + (threads / 32) - 1) / (threads / 32), n);  // (a view's warps, views)
   dfa3d_fwd_kernel<VT, DT, C, 2><<<grid, threads, 0, stream>>>(

@@ -24,28 +24,42 @@
 // by the kernels themselves; a chunk whose span exceeds the window takes
 // the direct path.
 //
-// Gather.  A block takes 64 output rows (direct), 128 (windowed) or a
-// whole chunk (with the epilogue) and a 256-byte column tile (the epilogue
-// whole rows); each thread moves 16 bytes.  Windowed, the block reduces its
-// chunk's indices to the plan and, where the chunk spans at most the
-// window and kStageRows rows, stages that span of its tile in shared
-// memory with cp.async and gathers from there: shared memory is reserved
-// for the rows a block stages (24 KB a block), not for the window, so the
-// window no longer sets the occupancy (blocks that also staged the next
-// chunk while storing this one, two stages a block, ran 1.3x slower: fewer
-// blocks fit an SM).  What bounds it: the bytes written; the source rows
-// come from L2.
+// Gather.  A block takes 64 output rows (direct) or 128 (windowed) and a
+// 256-byte column tile; each thread moves 16 bytes.  Windowed, the block
+// reduces its chunk's indices to the plan and, where the chunk spans at
+// most the window and kStageRows rows, stages that span of its tile in
+// shared memory with cp.async and gathers from there: shared memory is
+// reserved for the rows a block stages (24 KB a block), not for the
+// window, so the window no longer sets the occupancy (blocks that also
+// staged the next chunk while storing this one, two stages a block, ran
+// 1.3x slower: fewer blocks fit an SM).  What bounds it: the bytes
+// written; the source rows come from L2.
 //
-// Scatter.  Up to three kernels: the plan, where one block cannot hold
-// every index; the sum where the output lives (each block owns 8 output
-// rows x 128 columns, finds the indices of the windowed chunks that name
-// its rows by warp ballots, and adds their u rows in index order by
-// 16-byte loads, so every output element is stored once, rows no index
-// names as zeros, and the result is the same from run to run); then the
-// direct chunks (all of them without a window), added by 16-byte vector
-// reductions.  The kernels after the first start while the one ahead
-// ends (programmatic dependent launch).  What bounds it: the bytes of u,
-// read once.
+// Gather with the epilogue, a kernel of its own (gather_epilogue_kernel).
+// Its earlier form, the copy kernel with a warp an output row and a lane a
+// channel, re-read a point's index, its 8 winfo floats and a corner's two
+// depth bins for every channel and ran the index -> row -> depth ->
+// weight chain 16 times in series a row (PERF.md row 28: 0.2016 ms, 17 %
+// of its bound).  Now a block takes kEpiBlockRows output rows of a chunk
+// (1024 blocks at the probe's 131,072 rows) and first copies their
+// indices and winfo into shared memory, every copy in flight at once.  A
+// warp then takes kEpiWarpRows = 4 output rows at a time:
+//   1. a table of the rows' (row, point, corner) entries, one a lane (16
+//      at P = 4, so two a lane): the source row and the corner's weight x
+//      depth sum, its two depth bins loaded with the other entries';
+//   2. a row's 8 lanes own its 32-channel pieces, 16 bytes a lane, and sum
+//      its entries' value pieces themselves, 8 corner loads in flight
+//      before the multiply-adds, so no sum crosses lanes;
+//   3. every output row, zero tail included, is written by 16-byte stores.
+// A first form kept a lane a (row, point, corner) for the loads too,
+// shuffled the pieces over and reduced them across the row's lanes; it ran
+// no faster with its gathers served from L1, or with its winfo prefetched
+// or staged as now, and issued more instructions a row: the per-row
+// shuffles and reductions, not the memory, set its time (PERF.md).
+// At most 64 registers a thread (four blocks an SM).  What bounds it: the
+// bytes written (704 a row at the probe's width, 576 of them the zero
+// tail).  Staging a chunk's window in shared memory does not pay here (the
+// image is in L2; PERF.md); the windowed mode stays, the plain version's.
 #include "common.cuh"
 
 #include <climits>
@@ -57,6 +71,12 @@ constexpr int kThreads = 256;
 constexpr int kStageRows = 96;     // most rows of a column tile a windowed gather stages
 constexpr int kWindowBlockRows = 128;  // output rows of a windowed gather block
 constexpr int kDirectBlockRows = 64;   // and of a direct one
+constexpr int kEpiBlockRows = 128;     // output rows of an epilogue block
+constexpr int kEpiThreads = 256;       // threads of an epilogue block
+constexpr int kEpiSmemBytes = 212 * 1024;  // its dynamic shared memory, at most
+constexpr int kEpiMaxPoints = 8;       // points of an output row (4 P corner rows)
+constexpr int kEpiWarpRows = 4;        // output rows an epilogue warp takes at a time
+constexpr int kEpiTable = kEpiWarpRows * (4 * kEpiMaxPoints + 1);  // a warp's table entries
 constexpr int kScatterRows = 8;    // output rows of a scatter block, one a warp
 constexpr int kScatterTile = 2048; // indices a scatter block scans at a time
 constexpr int kScatterList = 64;   // matches a warp holds before it adds them
@@ -90,23 +110,18 @@ __device__ __forceinline__ int2 chunk_bounds(int n, F at, int* s_box) {
   return make_int2(s_box[0], s_box[1]);
 }
 
-// out[m, tile] = img[rows[m], tile] (EPI false; p = 1), or, with EPI (f32,
-// whole rows of width l = 4 (c + D)), for every output row m:
-//   out[m, :c] = sum_pt sum_j winfo[pt, m, j] * <row_j depth, dvec> * row_j value
-//   out[m, c:] = 0,  row = img[rows[pt, m]], dvec = the lerp bins of winfo.
-// wwin > 0: a chunk spanning at most wwin rows is staged in shared memory.
-template <typename T, typename I, bool EPI>
+// out[m, tile] = img[rows[m], tile].  wwin > 0: a chunk spanning at most
+// wwin rows is staged in shared memory.
+template <typename T, typename I>
 __global__ void __launch_bounds__(kThreads) row_gather_kernel(
-    const T* __restrict__ img, const I* __restrict__ rows,
-    const float* __restrict__ winfo, T* __restrict__ out, int l, int m, int p,
-    int cm, int br, int wwin, int c, int dsize) {
+    const T* __restrict__ img, const I* __restrict__ rows, T* __restrict__ out, int l,
+    int m, int cm, int br, int wwin) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_box[2];
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte move
-  const int row_bytes = l * (int)sizeof(T);
-  const int col0 = EPI ? 0 : blockIdx.x * (kTileBytes / (int)sizeof(T));
-  const int tile_vecs = EPI ? row_bytes / 16 : min(kTileBytes, row_bytes - col0 * (int)sizeof(T)) / 16;
-  const int s_stride = EPI ? l : kTileBytes / (int)sizeof(T);  // smem row, elements
+  constexpr int s_stride = kTileBytes / sizeof(T);  // smem row, elements
+  const int col0 = blockIdx.x * s_stride;
+  const int tile_vecs = min(kTileBytes, (l - col0) * (int)sizeof(T)) / 16;
   // the block's br output rows of its chunk (blocks along y, then z)
   const int parts = (cm + br - 1) / br;
   const int blk = blockIdx.z * gridDim.y + blockIdx.y;
@@ -114,11 +129,8 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
   const int chunk = blk / parts, c0 = chunk * cm, c1 = min(m, c0 + cm);
   const int m0 = c0 + (blk - chunk * parts) * br, m1 = min(c1, m0 + br);
   int base = 0, span = -1;
-  if (wwin > 0) {  // the chunk's plan, over all p rows of it
-    const int n = c1 - c0;
-    const int2 b = chunk_bounds(
-        p * n, [&](int i) { const int pt = i / n; return (int)rows[(long long)pt * m + c0 + i - pt * n]; },
-        s_box);
+  if (wwin > 0) {  // the chunk's plan
+    const int2 b = chunk_bounds(c1 - c0, [&](int i) { return (int)rows[c0 + i]; }, s_box);
     base = b.x;
     span = b.y - b.x + 1 <= wwin ? b.y - b.x + 1 : -1;
   }
@@ -132,40 +144,159 @@ __global__ void __launch_bounds__(kThreads) row_gather_kernel(
     sgc::cp_async_wait_all();
   }
   __syncthreads();
-  // the source row's tile, from the window where it lies there
-  auto src = [&](int row) -> const T* {
-    const int rel = row - base;
-    return (span > 0 && rel >= 0 && rel < span) ? s + rel * s_stride
-                                                : img + (long long)row * l + col0;
-  };
-  if constexpr (!EPI) {
-    for (int i = threadIdx.x; i < (m1 - m0) * tile_vecs; i += kThreads) {
-      const int mi = i / tile_vecs, v = i - mi * tile_vecs;
-      const uint4 x = reinterpret_cast<const uint4*>(src((int)rows[m0 + mi]))[v];
-      reinterpret_cast<uint4*>(out + (long long)(m0 + mi) * l + col0)[v] = x;
+  for (int i = threadIdx.x; i < (m1 - m0) * tile_vecs; i += kThreads) {
+    const int mi = i / tile_vecs, v = i - mi * tile_vecs;
+    const int row = (int)rows[m0 + mi], rel = row - base;
+    const T* src = (span > 0 && rel >= 0 && rel < span) ? s + rel * s_stride
+                                                       : img + (long long)row * l + col0;
+    reinterpret_cast<uint4*>(out + (long long)(m0 + mi) * l + col0)[v] =
+        reinterpret_cast<const uint4*>(src)[v];
+  }
+}
+
+// The gather with the DFA3D corner epilogue (f32 quad rows of width l =
+// 4 (c + dsize): four corners' c value lanes, then their dsize depth
+// lanes), for every output row m:
+//   out[m, :c] = sum_pt sum_j winfo[pt, m, j] * <row_j depth, dvec> * row_j value
+//   out[m, c:] = 0,  row = img[rows[pt, m]], dvec = the lerp bins of winfo
+// (p <= kEpiMaxPoints; VEC = 4 where c is a multiple of 4, else 1).  wwin >
+// 0: a chunk spanning at most wwin rows is staged in shared memory.
+template <typename I, int VEC>
+__global__ void __launch_bounds__(kEpiThreads, 4) gather_epilogue_kernel(
+    const float* __restrict__ img, const I* __restrict__ rows,
+    const float* __restrict__ winfo, float* __restrict__ out, int l, int m, int p,
+    int cm, int br, int wwin, int c, int dsize) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_box[2];
+  // per warp, the (row, point, corner) table of its kEpiWarpRows rows: the
+  // source row and the weight x depth sum (rows padded by one entry, so
+  // that a row's lanes read other banks than the next row's)
+  __shared__ const float* s_ptr[kEpiThreads / 32][kEpiTable];
+  __shared__ float s_wt[kEpiThreads / 32][kEpiTable];
+  using Raw = sgc::Vec<float, VEC>;
+  constexpr int kGroup = 32 / kEpiWarpRows;  // lanes of a row's piece
+  constexpr int kPiece = kGroup * VEC;       // its channels
+  constexpr int kLoads = 8;                  // corner loads a lane issues together
+  const int parts = (cm + br - 1) / br;
+  const int blk = blockIdx.z * gridDim.y + blockIdx.y;
+  if (blk >= (m + cm - 1) / cm * parts) return;
+  const int chunk = blk / parts, c0 = chunk * cm, c1 = min(m, c0 + cm);
+  const int m0 = c0 + (blk - chunk * parts) * br, m1 = min(c1, m0 + br), nr = m1 - m0;
+  // dynamic shared memory: the window (wwin rows of l), then the block's
+  // rows' winfo (two float4 a (point, row), a point's br rows padded by one)
+  // and indices (likewise)
+  float* s = reinterpret_cast<float*>(smem);
+  float4* s_w = reinterpret_cast<float4*>(s + (size_t)max(wwin, 0) * l);
+  I* s_idx = reinterpret_cast<I*>(s_w + p * (2 * br + 1));
+  // the block's winfo and indices, every copy in flight at once
+  const float4* w4 = reinterpret_cast<const float4*>(winfo);
+  for (int i = threadIdx.x; i < 2 * p * nr; i += kEpiThreads) {
+    const int pt = i / (2 * nr), j = i - pt * 2 * nr;
+    sgc::cp_async16(s_w + pt * (2 * br + 1) + j, w4 + ((long long)pt * m + m0) * 2 + j);
+  }
+  for (int i = threadIdx.x; i < p * nr; i += kEpiThreads) {
+    const int pt = i / nr, r = i - pt * nr;
+    sgc::cp_async_ca<sizeof(I)>(s_idx + pt * (br + 1) + r, rows + (long long)pt * m + m0 + r);
+  }
+  int base = 0, span = -1;
+  if (wwin > 0) {  // the chunk's plan, over all p rows of it
+    const int n = c1 - c0;
+    const int2 b = chunk_bounds(
+        p * n, [&](int i) { const int pt = i / n; return (int)rows[(long long)pt * m + c0 + i - pt * n]; },
+        s_box);
+    base = b.x;
+    span = b.y - b.x + 1 <= wwin ? b.y - b.x + 1 : -1;
+  }
+  if (span > 0) {
+    const int vecs = l / 4;
+    for (int i = threadIdx.x; i < span * vecs; i += kEpiThreads) {
+      const int r = i / vecs, v = i - r * vecs;
+      sgc::cp_async16(s + r * l + 4 * v, img + (long long)(base + r) * l + 4 * v);
     }
-  } else {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int mi = m0 + warp; mi < m1; mi += kThreads / 32) {
-      float* orow = reinterpret_cast<float*>(out) + (long long)mi * l;
-      for (int ch = lane; ch < c; ch += 32) {
-        float acc = 0.f;
-        for (int pt = 0; pt < p; ++pt) {
-          const long long sm = (long long)pt * m + mi;
-          const float* row = reinterpret_cast<const float*>(src((int)rows[sm]));
-          const float* wi = winfo + sm * 8;
-          const int d0 = (int)wi[6], d1 = (int)wi[7];
+  }
+  sgc::cp_async_wait_all();
+  __syncthreads();
+  // the source row, from the window where it lies there
+  auto src = [&](int row) -> const float* {
+    const int rel = row - base;
+    return (span > 0 && rel >= 0 && rel < span) ? s + rel * l : img + (long long)row * l;
+  };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_row = 4 * p;           // (point, corner) rows of an output row
+  const int pstride = per_row + 1;     // a row's table entries, padded
+  const int gr = lane / kGroup, g = lane % kGroup;  // this lane's row of the warp's, piece lane
+  const int tail = (c + 3) / 4 * 4;    // first 16-byte-aligned column of the zero tail
+  const float** t_ptr = s_ptr[warp];
+  float* t_wt = s_wt[warp];
+  for (int r0 = m0 + warp * kEpiWarpRows; r0 < m1; r0 += (kEpiThreads / 32) * kEpiWarpRows) {
+    const int nrows = min(kEpiWarpRows, m1 - r0);
+    // 1. the table, an entry a lane: the (row, point, corner)'s source row
+    // and weight x depth sum (its two depth bins loaded with the others')
+    __syncwarp();  // the previous rows' table has been read
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float* dj = row + 4 * c + j * dsize;
-            const float ds = (d0 >= 0 && d0 < dsize ? dj[d0] * wi[4] : 0.f)
-                             + (d1 >= 0 && d1 < dsize ? dj[d1] * wi[5] : 0.f);
-            acc += (wi[j] * ds) * row[j * c + ch];
-          }
+    for (int k = 0; k < kEpiWarpRows * 4 * kEpiMaxPoints / 32; ++k) {
+      const int e = lane + 32 * k, er = e / per_row, es = e - er * per_row;
+      if (er < kEpiWarpRows) {
+        const float* rowp = nullptr;
+        float wgt = 0.f;
+        if (er < nrows) {
+          const int pt = es >> 2, j = es & 3, rr = r0 - m0 + er;
+          rowp = src((int)s_idx[pt * (br + 1) + rr]);
+          const float4 wa = s_w[pt * (2 * br + 1) + 2 * rr], wb = s_w[pt * (2 * br + 1) + 2 * rr + 1];
+          const float wj = j == 0 ? wa.x : j == 1 ? wa.y : j == 2 ? wa.z : wa.w;
+          const int d0 = (int)wb.z, d1 = (int)wb.w;
+          const float* dj = rowp + 4 * c + j * dsize;
+          // a bin outside the range adds nothing, whatever its lerp weight
+          const float s0 = d0 >= 0 && d0 < dsize ? dj[d0] * wb.x : 0.f;
+          const float s1 = d1 >= 0 && d1 < dsize ? dj[d1] * wb.y : 0.f;
+          wgt = wj * (s0 + s1);
         }
-        orow[ch] = acc;
+        t_ptr[er * pstride + es] = rowp;
+        t_wt[er * pstride + es] = wgt;
       }
-      for (int ch = c + lane; ch < l; ch += 32) orow[ch] = 0.f;
+    }
+    __syncwarp();
+    // 2. a row's kGroup lanes sum its (point, corner) rows' value pieces,
+    // kLoads corner loads at a time, and store the piece
+    const float** my_ptr = t_ptr + gr * pstride;
+    const float* my_wt = t_wt + gr * pstride;
+    for (int ch0 = 0; ch0 < c; ch0 += kPiece) {
+      const int ch = ch0 + g * VEC;
+      float acc[VEC];
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+      for (int e0 = 0; e0 < per_row; e0 += kLoads) {
+        Raw raw[kLoads];
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const float* rp = e0 + u < per_row ? my_ptr[e0 + u] : nullptr;
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) raw[u].v[v] = 0.f;
+          if (rp != nullptr && ch < c)
+            raw[u] = *reinterpret_cast<const Raw*>(rp + ((e0 + u) & 3) * c + ch);
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const float wt = e0 + u < per_row ? my_wt[e0 + u] : 0.f;
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) acc[v] += wt * raw[u].v[v];
+        }
+      }
+      if (gr < nrows && ch < c) {
+        float* o = out + (long long)(r0 + gr) * l + ch;
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<float4*>(o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        } else {
+          o[0] = acc[0];
+        }
+      }
+    }
+    // 3. the zero tail of the rows: [c, tail) one by one, [tail, l) by 16 bytes
+    for (int r = 0; r < nrows; ++r) {
+      float* orow = out + (long long)(r0 + r) * l;
+      if (c + lane < tail) orow[c + lane] = 0.f;
+      for (int v = tail / 4 + lane; v < l / 4; v += 32)
+        reinterpret_cast<float4*>(orow)[v] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 }
@@ -359,25 +490,47 @@ cudaError_t launch(void (*kernel)(Params...), dim3 grid, cudaStream_t s, bool ea
   return sgc::launch_kernel(kernel, grid, dim3(kThreads), 0, s, early, args...);
 }
 
-template <typename T, typename I, bool EPI>
-int launch_gather(const void* img, const void* rows, const float* winfo, void* out,
-                  int l, int m, int p, int cm, int wwin, int c, int dsize,
-                  cudaStream_t stream) {
+template <typename T, typename I>
+int launch_gather(const void* img, const void* rows, void* out, int l, int m, int cm,
+                  int wwin, cudaStream_t stream) {
   const int row_bytes = l * (int)sizeof(T);
-  const int tiles = EPI ? 1 : (row_bytes + kTileBytes - 1) / kTileBytes;
+  const int tiles = (row_bytes + kTileBytes - 1) / kTileBytes;
   const int nchunks = (m + cm - 1) / cm;
-  if (!EPI && wwin > 0) wwin = min(wwin, kStageRows);
-  const size_t smem = wwin > 0 ? (size_t)wwin * (EPI ? row_bytes : kTileBytes) : 0;
-  const int br = EPI ? cm : min(cm, wwin > 0 ? kWindowBlockRows : kDirectBlockRows);
-  auto kernel = row_gather_kernel<T, I, EPI>;
+  if (wwin > 0) wwin = min(wwin, kStageRows);
+  const size_t smem = (size_t)wwin * kTileBytes;
+  const int br = min(cm, wwin > 0 ? kWindowBlockRows : kDirectBlockRows);
+  auto kernel = row_gather_kernel<T, I>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = nchunks * ((cm + br - 1) / br), max_y = 65535;
   const dim3 grid(tiles, min(blocks, max_y), (blocks + max_y - 1) / max_y);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(img), static_cast<const I*>(rows), winfo,
-      static_cast<T*>(out), l, m, p, cm, br, wwin, c, dsize);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(img),
+                                           static_cast<const I*>(rows),
+                                           static_cast<T*>(out), l, m, cm, br, wwin);
+  return (int)cudaGetLastError();
+}
+
+template <typename I>
+int launch_epilogue(const void* img, const void* rows, const float* winfo, void* out,
+                    int l, int m, int p, int cm, int wwin, int c, int dsize,
+                    cudaStream_t stream) {
+  if (p < 1 || p > kEpiMaxPoints) return (int)cudaErrorInvalidValue;
+  const int nchunks = (m + cm - 1) / cm;
+  const int br = min(cm, kEpiBlockRows);
+  // the block's winfo and indices take their room; the window what is left
+  const size_t meta = (size_t)p * ((2 * br + 1) * sizeof(float4) + (br + 1) * sizeof(I));
+  if (wwin > 0) wwin = min(wwin, (int)((kEpiSmemBytes - meta) / (l * sizeof(float))));
+  const size_t smem = (size_t)wwin * l * sizeof(float) + meta;
+  auto kernel = c % 4 == 0 ? gather_epilogue_kernel<I, 4> : gather_epilogue_kernel<I, 1>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = nchunks * ((cm + br - 1) / br), max_y = 65535;
+  const dim3 grid(1, min(blocks, max_y), (blocks + max_y - 1) / max_y);
+  kernel<<<grid, kEpiThreads, smem, stream>>>(
+      static_cast<const float*>(img), static_cast<const I*>(rows), winfo,
+      static_cast<float*>(out), l, m, p, cm, br, wwin, c, dsize);
   return (int)cudaGetLastError();
 }
 
@@ -387,13 +540,13 @@ int dispatch_gather(int dtype, const void* img, const void* rows, const float* w
                     cudaStream_t s) {
   if (winfo != nullptr) {
     if (dtype != sgc::kFloat32 || 4 * (c + dsize) != l) return (int)cudaErrorInvalidValue;
-    return launch_gather<float, I, true>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s);
+    return launch_epilogue<I>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s);
   }
   if (p != 1) return (int)cudaErrorInvalidValue;
   if (dtype == sgc::kBFloat16)
-    return launch_gather<__nv_bfloat16, I, false>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s);
+    return launch_gather<__nv_bfloat16, I>(img, rows, out, l, m, cm, wwin, s);
   if (dtype == sgc::kFloat32)
-    return launch_gather<float, I, false>(img, rows, winfo, out, l, m, p, cm, wwin, c, dsize, s);
+    return launch_gather<float, I>(img, rows, out, l, m, cm, wwin, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -423,9 +576,9 @@ int launch_scatter(const float* u, const void* rows_v, int* meta, float* out, in
 // img (R, L) of type dtype with L * sizeof(dtype) a multiple of 16; rows
 // (P, M) int32 (idx64 0) or int64 (idx64 1) in [0, R); winfo null (copy:
 // P = 1, out (M, L) of type dtype) or (P, M, 8) f32 (epilogue: f32 only,
-// quad rows of c value and dsize depth lanes per corner, L = 4 (c +
-// dsize), out (M, L) f32); wwin 0 (direct) or the most rows a chunk of cm
-// indices may span to be served from shared memory.
+// P at most 8, quad rows of c value and dsize depth lanes per corner, L =
+// 4 (c + dsize), out (M, L) f32); wwin 0 (direct) or the most rows a chunk
+// of cm indices may span to be served from shared memory.
 extern "C" int sgc_row_gather(int dtype, const void* img, const void* rows, int idx64,
                               const float* winfo, void* out, int l, int m, int p,
                               int cm, int wwin, int c, int dsize, void* stream) {

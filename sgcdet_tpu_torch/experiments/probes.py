@@ -48,6 +48,7 @@ SMEM = 200 * 1024   # most shared memory a window may take
 TILE_BYTES = 256    # the kernels' column tile (csrc/rows.cu)
 
 INDEX_TYPES = (torch.int32, torch.int64)  # read as they come, with no cast
+EPI_MAX_POINTS = 8   # most points of a gather_epilogue row (csrc/rows.cu: 4 P lanes a row)
 SCATTER_TILE = 2048  # most indices a windowed scatter chunk may hold (csrc/rows.cu)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -170,6 +171,9 @@ def _gather_prepare(img, rows, winfo, window, chunk):
         wi = check_cuda_input(winfo.float(), "winfo", (torch.float32,), 3, dev)
         if wi.shape != (p, m, 8):
             raise ValueError(f"winfo {tuple(wi.shape)} must be {(p, m, 8)}")
+        if p > EPI_MAX_POINTS:
+            raise ValueError(f"the gather epilogue takes at most {EPI_MAX_POINTS} points, "
+                             f"got {p}")
     wwin = 0 if window is None else _window_rows(l * im.element_size(), window,
                                                  winfo is not None)
     out = torch.empty((m, l), dtype=im.dtype, device=dev)
@@ -197,7 +201,8 @@ def row_gather(img, rows, window=None, chunk=CM):
 
 def gather_epilogue(img, rows, winfo, window=None, chunk=CM):
     """The ``p4+epi`` probe through kernel ``row_gather`` with its epilogue
-    for a CUDA ``img``; the plain version for a CPU one."""
+    (at most ``EPI_MAX_POINTS`` points) for a CUDA ``img``; the plain
+    version for a CPU one."""
     if not use_kernel(img):
         return gather_epilogue_plain(img, rows, winfo, window, chunk)
     return _gather_cuda(img, rows, winfo, window, chunk)

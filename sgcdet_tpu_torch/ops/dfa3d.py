@@ -58,9 +58,9 @@ _BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 8
 _BWD_S1_ARGS = [_I, _I] + [_P] * 11 + [_I] * 6
 
 # the channel widths c a head that the kernels are built for, by stage 1
-# (heads = P = 1) or not: the forward (csrc/dfa3d_fwd.cu::dispatch_c; K2
-# takes whole 32-channel lanes, K3 any) and the backward (csrc/dfa3d_bwd.cu:
-# K6, K5)
+# (heads = P = 1: K2, K6) or not (K3, K5, which take any other heads and
+# P): the forward (csrc/dfa3d_fwd.cu::launch, dispatch_c) and the backward
+# (csrc/dfa3d_bwd.cu)
 FWD_WIDTHS = {True: (32, 128, 256), False: (16, 32, 128, 256)}
 BWD_WIDTHS = {True: (32, 128, 256), False: (16, 32)}
 

@@ -3,7 +3,11 @@ the forward kernels K1-K3 (and K2'/K3' at bf16 depth), and the backward
 kernels K4-K6 (K6'/K5') through autograd (the ops' ``torch.autograd.
 Function``s) against the plain versions' VJPs, the DFA3D ones counted and
 uncounted, also with head groups that fill only part of a warp, and K1 on a
-map and plane count that no tile or plane group divides; the 2D lifting path
+map and plane count that no tile or plane group divides; K2's warps of
+four rounds of queries at every built stage-1 width (counts and K that end
+inside a warp and inside a round, views counted to 0, locations past the
+map and depth bins past the range, the sorted query order); the 2D lifting
+path
 (``ViewTransformer(use_depth=False)``) through the kernels against its plain
 run; the DFA3D kernels also at the -L configs' widths (K2 and K6 at c =
 128, K3 and K5 at 16 a head, two queries a warp), and the windowed
@@ -18,7 +22,9 @@ past it, every sample of a chunk on one pixel, misaligned views, and their
 shared memory against the plan's reservation; the sorted
 ``ViewTransformer`` through them; the row gather/scatter probe
 kernels against their plain versions (int32 and int64 indices, ragged last
-chunks, chunks exceeding the window, the windows of probe_window_matmul.py),
+chunks, chunks exceeding the window, the windows of probe_window_matmul.py;
+the gather epilogue at 1-8 points, on rows that fit its window or not, and
+its refusal of more points),
 a permutation moved bit for bit, the scatter equal from run to run and
 within f32 summation error at probe_f32_onehot.py's shape, and the device
 work of a probe call counted by torch.profiler.
@@ -157,17 +163,21 @@ def test_sweep_kernel_ragged_tile_and_plane_group(cuda_device, dtype):
 # 8 heads x 3 points, 24 samples for 32 lanes); then the -L configs'
 # widths: stage 1 at c = 128, stage 2 at 16 a head (a warp of 16 2-lane
 # rows: two queries of 8 heads, 16 of 1 head, and with 6 heads two
-# queries on 12 of its rows)
+# queries on 12 of its rows); and stage 1 at c = 32, built though no
+# config reaches it
 DFA3D_SHAPES = [pytest.param(1, 1, 256, id="stage1"), pytest.param(8, 4, 32, id="stage2"),
                 pytest.param(1, 4, 32, id="stage2_h1"), pytest.param(2, 4, 32, id="stage2_h2"),
                 pytest.param(6, 4, 32, id="stage2_h6"), pytest.param(8, 3, 32, id="stage2_p3"),
                 pytest.param(1, 1, 128, id="stage1_c128"),
                 pytest.param(8, 4, 16, id="stage2_c16"),
                 pytest.param(1, 4, 16, id="stage2_c16_h1"),
-                pytest.param(6, 4, 16, id="stage2_c16_h6")]
+                pytest.param(6, 4, 16, id="stage2_c16_h6"),
+                pytest.param(1, 1, 32, id="stage1_c32")]
 # the forward also takes multi-head c = 128 (16 lanes a head, two heads a
-# warp); the backward does not
-DFA3D_FWD_SHAPES = DFA3D_SHAPES + [pytest.param(2, 4, 128, id="stage2_c128_h2")]
+# warp), which the backward does not, and a multi-head call with one
+# point, which goes to K3 and is counted as such
+DFA3D_FWD_SHAPES = DFA3D_SHAPES + [pytest.param(2, 4, 128, id="stage2_c128_h2"),
+                                   pytest.param(8, 1, 32, id="stage2_h8_p1")]
 
 
 def _counts(counted, device):
@@ -196,6 +206,53 @@ def test_dfa3d_kernel_matches_plain(cuda_device, heads, p, c, vdtype, ddtype, co
                         _rel(vdtype), "dfa3d kernel")
     for cam, cnt in enumerate(counts.tolist() if counted else []):
         assert (got[cam, cnt:] == 0).all()
+
+
+def _pixel_order(locs, h, w):
+    """Each view's queries of ``locs`` (N, K, 1, 1, 3) reordered by the
+    pixel their location falls on, as the sorted path orders them."""
+    pix = (torch.floor(locs[:, :, 0, 0, 1] * h) * w + torch.floor(locs[:, :, 0, 0, 0] * w))
+    order = torch.argsort(pix, dim=1, stable=True)
+    return torch.gather(locs, 1, order[:, :, None, None, None].expand_as(locs))
+
+
+@pytest.mark.parametrize("order", ["index", "sorted"])
+@pytest.mark.parametrize("c", [32, 128, 256])
+@pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
+def test_stage1_kernel_warp_and_round_edges(cuda_device, vdtype, ddtype, c, order):
+    """K2 takes four rounds of queries of a view a warp, a round 32 / (c /
+    8) queries at bf16 (eight at c = 32, two at 128, one at 256) and 32 /
+    (c / 4) at f32, at most 32 a warp: K = 75 leaves a ragged last warp at
+    every width; the counts end at a view's start (0), one query into a
+    warp (33), inside a round of two and of eight (45), inside the ragged
+    last warp at c = 32 (70) and at K; locations past the map and depth
+    bins past either end (with NaN ones), in index order and sorted by
+    pixel."""
+    n, h, w, d, k = 5, 14, 20, 12, 75
+    value, dpt, locs, attn = dfa3d_inputs(1, 1, c, n=n, h=h, w=w, d=d, k=k, seed=11)
+    locs[:, ::9, ..., 0] = np.nan
+    locs[:, 4::13, ..., 2] = -0.4  # both depth bins below the range
+    locs[:, 5::13, ..., 2] = 1.4   # and above it
+    args = [torch.from_numpy(a).to(cuda_device) for a in (value, dpt, locs, attn)]
+    args[0], args[1] = args[0].to(vdtype), args[1].to(ddtype)
+    if order == "sorted":
+        args[2] = _pixel_order(args[2], h, w)
+    counts = torch.tensor([0, 33, 45, 70, k], dtype=torch.int32, device=cuda_device)
+    name = counter_name(False, True, c, ddtype)
+    before = KERNELS[name].launches
+    got = dfa3d_fwd_cuda(*args, 1, counts)
+    assert KERNELS[name].launches == before + 1
+    want = dfa3d_attention_plain(*args, 1, counts)
+    torch.cuda.synchronize()
+    assert got.dtype == vdtype and torch.isfinite(got.float()).all()
+    assert_close_scaled(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                        _rel(vdtype), f"stage 1 c={c} {order}")
+    for cam, cnt in enumerate(counts.tolist()):
+        assert (got[cam, cnt:] == 0).all()
+    uncounted = dfa3d_fwd_cuda(*args, 1)
+    assert_close_scaled(uncounted.float().cpu().numpy(),
+                        dfa3d_attention_plain(*args, 1).float().cpu().numpy(),
+                        _rel(vdtype), f"stage 1 c={c} {order} uncounted")
 
 
 def test_dfa3d_kernel_rejects_cpu_operands_on_the_card_path(cuda_device):
@@ -264,10 +321,12 @@ def _contention_case(case, device, vdtype, ddtype, c=None):
 
 
 # the contention cases at the ScanNet widths, and at the -L configs': K6's
-# long lists at c = 128, K5's cases at 16 a head (two queries a warp)
+# long lists at c = 128, K5's cases at 16 a head (two queries a warp); and
+# K6's long lists at c = 32, built though no config reaches it
 CONTENTION_WIDTHS = ([pytest.param(case, None, id=case)
                       for case in DFA3D_CONTENTION + DFA3D_S1_CONTENTION]
-                     + [pytest.param("s1_long_list", 128, id="s1_long_list_c128")]
+                     + [pytest.param("s1_long_list", 128, id="s1_long_list_c128"),
+                        pytest.param("s1_long_list", 32, id="s1_long_list_c32")]
                      + [pytest.param(case, 16, id=f"{case}_c16") for case in DFA3D_CONTENTION])
 
 
@@ -737,6 +796,10 @@ def test_sorted_lifting_kernels_match_plain(cuda_device, dtype):
                             f"sorted lifting tensor {i}")
 
 
+PROBE_INDEX_TYPES = [pytest.param(torch.int32, id="int32"),
+                     pytest.param(torch.int64, id="int64")]
+
+
 @pytest.mark.parametrize("window", [None, 512], ids=["direct", "windowed"])
 def test_gather_epilogue_kernel_matches_plain(cuda_device, window):
     gen = torch.Generator(cuda_device).manual_seed(1)
@@ -748,6 +811,54 @@ def test_gather_epilogue_kernel_matches_plain(cuda_device, window):
     want = probes.gather_epilogue_plain(img, rows, winfo, window)
     torch.cuda.synchronize()
     assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, "p4+epi")
+
+
+# (points, row width): the probe's four points at w = 176 (c = 32, 12
+# bins), one point (eight output rows a warp), three (24 of a warp's 32
+# lanes), eight (one row a warp), and four at w = 180, whose c = 33 takes
+# the kernel's one-channel lanes
+EPILOGUE_SHAPES = [pytest.param(4, 176, id="p4"), pytest.param(1, 176, id="p1"),
+                   pytest.param(3, 176, id="p3"), pytest.param(8, 176, id="p8"),
+                   pytest.param(4, 180, id="p4_c33")]
+
+
+@pytest.mark.parametrize("index_dtype", PROBE_INDEX_TYPES)
+@pytest.mark.parametrize("kind,window", [("random", None), ("jittered", None),
+                                         ("jittered", 256)],
+                         ids=["random-direct", "jittered-direct", "jittered-w256"])
+@pytest.mark.parametrize("p,width", EPILOGUE_SHAPES)
+def test_gather_epilogue_kernel_edges(cuda_device, p, width, kind, window, index_dtype):
+    """The epilogue kernel with M = 999 output rows (a ragged last chunk of
+    231, whose second block of 103 rows leaves a warp 3 of its 4 rows),
+    int32 and int64 indices, direct and windowed (jittered rows, whose
+    chunks fit the window), depth bins past either end of the range; one
+    launch, every element of the output written."""
+    gen = torch.Generator(cuda_device).manual_seed(12)
+    m, r = 999, 400
+    img = torch.randn((r, width), device=cuda_device, generator=gen)
+    rows = torch.stack([_probe_rows(kind, m, r, index_dtype, cuda_device, seed=pt)
+                        for pt in range(p)]) if kind == "jittered" else \
+        torch.randint(0, r, (p, m), device=cuda_device, generator=gen).to(index_dtype)
+    if window:
+        assert probes.plan_rows(rows, probes.CM, window)[2].all()
+    winfo = torch.rand((p, m, 8), device=cuda_device, generator=gen)
+    winfo[..., 6:8] = torch.floor(winfo[..., 6:8] * 14) - 1  # bins -1 .. 12 of 12
+    before = probes.KERNELS["row_gather"].launches
+    got = probes.gather_epilogue(img, rows, winfo, window)
+    assert probes.KERNELS["row_gather"].launches == before + 1
+    want = probes.gather_epilogue_plain(img, rows, winfo, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert_close_scaled(got.cpu().numpy(), want.cpu().numpy(), 1e-5, f"p{p}+epi w={width}")
+    assert (got[:, probes.quad_widths(width)[0]:] == 0).all()
+
+
+def test_gather_epilogue_kernel_refuses_more_points(cuda_device):
+    img = torch.randn((50, 176), device=cuda_device)
+    n = probes.EPI_MAX_POINTS + 1
+    rows = torch.zeros((n, 10), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="at most"):
+        probes.gather_epilogue(img, rows, torch.zeros((n, 10, 8), device=cuda_device))
 
 
 def _probe_rows(kind, m, r, dtype, device, chunk=probes.CM, seed=0):
@@ -767,8 +878,6 @@ def _probe_rows(kind, m, r, dtype, device, chunk=probes.CM, seed=0):
     return rows.to(dtype)
 
 
-PROBE_INDEX_TYPES = [pytest.param(torch.int32, id="int32"),
-                     pytest.param(torch.int64, id="int64")]
 # (index order, M, chunk, window): every chunk windowed; ragged last chunks
 # (M not a multiple of the chunk); unsorted chunks exceeding the window
 PROBE_CASES = [pytest.param("sorted", 20000, 256, None, id="sorted-direct"),

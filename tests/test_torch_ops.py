@@ -143,13 +143,15 @@ def _oracle(value, dpt, locs, attn, heads):
 
 # stage 1, stage 2, and stage 2 at c = 32 with head groups that do not
 # fill the kernels' warps (8 heads of 4 lanes): 1, 2 and 6 heads, and 8
-# heads x 3 points (24 samples of a warp's 32 lanes)
+# heads x 3 points (24 samples of a warp's 32 lanes); 8 heads x 1 point,
+# a multi-head call that the card runs through K3
 STAGES = [pytest.param(1, 1, 64, id="stage1_h1_p1"),
           pytest.param(4, 2, 8, id="stage2_h4_p2"),
           pytest.param(1, 4, 32, id="stage2_h1_p4"),
           pytest.param(2, 4, 32, id="stage2_h2_p4"),
           pytest.param(6, 4, 32, id="stage2_h6_p4"),
           pytest.param(8, 3, 32, id="stage2_h8_p3"),
+          pytest.param(8, 1, 32, id="stage2_h8_p1"),
           # the -L configs' widths: stage 1 at c = 128, 8 heads x 4 points at 16
           pytest.param(1, 1, 128, id="stage1_h1_p1_c128"),
           pytest.param(8, 4, 16, id="stage2_h8_p4_c16")]
