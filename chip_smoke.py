@@ -71,8 +71,10 @@ Phases, each fatal on failure:
               longest list, the lists of more than 32 entries).
 4. slice    — the ScanNet forward at compute_dtype=float32 with TF32 off, on
               the indoor 40-view scene, once through the kernels and once
-              through the plain versions: identical `valid`, matching
-              depth distributions and head outputs.
+              through the plain versions, the plain run on the kernel run's
+              occupancy top-k picks: matching occupancy scores, picks that
+              differ only within rounding of the k-th score, identical
+              `valid`, matching depth distributions and head outputs.
 5. serving  — the default bf16 ScanNet config with the exact auto visibility
               budget: infer.detect on 3 scenes (the first warms up); finite
               detections, seconds per scene, peak memory, and the launch
@@ -81,8 +83,9 @@ Phases, each fatal on failure:
               float32, TF32 off, ffn_dropout 0, depth loss on, on the indoor
               40-view train scene, through the plain versions and through
               the kernels from the same seeded weights, the kernel step on
-              the plain step's side of 0 of every ReLU input (its own
-              inputs held to the plain step's): matching loss terms and
+              the plain step's side of 0 of every ReLU input and on its
+              occupancy top-k picks (its own inputs and scores held to the
+              plain step's): matching loss terms and
               matching gradients of every parameter, each within 2e-3 of
               its scale plus 4x how far a 1e-7 nudge of the images moves it
               through the plain versions (a third step, on the same signs).
@@ -158,15 +161,40 @@ Phases, each fatal on failure:
               scene: 2 sweep, 3 K2 and 3 K3 at the -L widths) and 4 bf16 train
               steps (per step also 2 sweep bwd, 3 K6 and 3 K5 at the -L
               widths), with seconds per scene and step and peak memory.
+13. arkit   — the ARKit head (head_type "sunrgbd": yawed boxes, the rotated
+              3D IoU loss, rotated BEV NMS), for arkit and for arkit_large
+              (its -L widths), each with its exact auto budget at 40 views of
+              the indoor scene at ARKit's 240 x 320 frames (60 x 80 value
+              maps at level 2): K2, K3, K6 and K5 of the config's widths
+              against their plain versions at its level-2 shape (bf16/f32 and
+              f32/f32, counted; the bf16/f32 ones timed beside their bounds),
+              and for arkit K1 and K4 on ARKit's rig; the f32 scene through
+              kernels and plain versions (as phase 4); one f32 train step
+              through both on the yawed synthetic ground truth (as phase 6,
+              at its bounds), which must have FCOS positives and a nonzero
+              loss_bbox; bf16 serving, a warm-up forward and then
+              ARKIT_SERVE_SCENES timed infer.detect calls, each split into
+              the forward and the host decode + rotated NMS, (M, 7) boxes,
+              launches per scene 2 sweep, 3 K2 and 3 K3 at the config's
+              widths; 4 bf16 train steps (per step also 2 sweep bwd, 3 K6 and
+              3 K5), with seconds per step and peak memory.
+14. eval    — the port's indoor_eval (mAP) on the scenes phases 5 and 13
+              served (ScanNet's aligned boxes, ARKit's yawed ones) against
+              synthetic GT (the boxes of scene.example_train_scene):
+              mAP@0.25 and @0.5 finite; then the GT given back as
+              detections of score 1: AP 1.0 for every class present.
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
 DFA3D and serving paths, the bf16 2D lifting run's for the bf16-depth
 instances, the sorted train run's for the windowed kernels, the probes'
 run's for the probe kernels and the ScanNet200-L train run's for the
-instances at its widths), the card's name and power limit, and the
-device record (one JSON object).  The script imports torch and
-sgcdet_tpu_torch only.
+instances at its widths; ``serving_launches`` the matching serving run's;
+``arkit_launches`` and ``arkit_serving_launches`` the ARKit train and
+serving runs' of phase 13, arkit's for ScanNet's widths and
+arkit_large's for the -L ones, 0 for the kernels they do not run), the
+card's name and power limit, and the device record (one JSON object).
+The script imports torch and sgcdet_tpu_torch only.
 """
 from __future__ import annotations
 
@@ -240,6 +268,15 @@ KERNELS_SORTED = ("dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
 KERNELS_LARGE = ("dfa3d_fwd_s1_c128", "dfa3d_fwd_mh_c16", "dfa3d_bwd_s1_c128",
                  "dfa3d_bwd_mh_c16")
 LARGE = "scannet200_large"
+# the ARKit head's configs (phase 13), and the configs at the -L widths
+ARKIT_CONFIGS = ("arkit", "arkit_large")
+LARGE_CONFIGS = (LARGE, "arkit_large")
+# timed detect calls a config of phase 13 serves (its host decode runs the
+# rotated BEV NMS over every candidate of every class: score_thr 0)
+ARKIT_SERVE_SCENES = 2
+# the ScanNet200-L train step's peak (PERF.md section 5), printed beside
+# arkit_large's
+LARGE_TRAIN_PEAK_GIB = 18.654
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and f32 flop/s outside
 # the tensor cores, where every kernel here computes
 HBM_BYTES_PER_S = 3.35e12
@@ -908,9 +945,53 @@ def _compare_heads(torch, tag, got, want, rel):
             check(err <= tol, f"{tag}: {name} level {lvl} differs")
 
 
+@contextlib.contextmanager
+def _occupancy_picks_of(torch, tag, ref):
+    """Give a forward the occupancy top-k picks of a reference forward
+    (``models/sparse_head.py::top_k_indices``, each level's selection of
+    the voxels to lift).  With ``ref`` empty, record each call's scores and
+    picks into it; else hold each call's scores to the reference's (1e-4
+    of their largest, the forward kernels' f32 bound), hold every voxel
+    picked by one side only to within that of the reference's k-th score,
+    log how many differ, and take the reference's picks.  Kernels and
+    plain versions sum in other orders, so scores within rounding of the
+    k-th land on either side of the cut, and each swapped voxel then holds
+    a lifted feature in one run and an upsampled one in the other."""
+    from sgcdet_tpu_torch.models import sparse_head
+
+    top_k = sparse_head.top_k_indices
+    recording = not ref
+    calls = iter(list(ref))
+
+    def pinned(scores, k):
+        own = top_k(scores, k)
+        if recording:
+            ref.append((scores.detach().clone(), own))
+            return own
+        want_scores, want = next(calls)
+        tol = 1e-4 * float(want_scores.abs().max())
+        err = float((scores - want_scores).abs().max())
+        swapped = torch.cat([own[~torch.isin(own, want)], want[~torch.isin(want, own)]])
+        kth = want_scores[want[-1]]
+        margin = float((want_scores[swapped] - kth).abs().max()) if swapped.numel() else 0.0
+        log(f"[{tag}] occupancy top-{k} of {scores.numel()}: scores max_abs_err "
+            f"{err:.3e}, {swapped.numel() // 2} picks differ, at most {margin:.3e} from "
+            f"the reference's k-th score (tol {tol:.3e})")
+        check(err <= tol and margin <= tol,
+              f"{tag}: occupancy scores or picks differ beyond rounding")
+        return want
+
+    sparse_head.top_k_indices = pinned
+    try:
+        yield
+    finally:
+        sparse_head.top_k_indices = top_k
+
+
 def phase_slice_f32(torch, dev, sort_queries=False, config="scannet"):
-    """The f32 scene of ``config`` through kernels and plain versions;
-    returns the kernels' outputs."""
+    """The f32 scene of ``config`` through kernels and plain versions, the
+    plain run on the kernel run's occupancy picks
+    (``_occupancy_picks_of``); returns the kernels' outputs."""
     from sgcdet_tpu_torch.infer import forward_scene
     from sgcdet_tpu_torch.models import SGCDet
     from sgcdet_tpu_torch.ops import plain_ops
@@ -925,11 +1006,13 @@ def phase_slice_f32(torch, dev, sort_queries=False, config="scannet"):
                                sort_queries=sort_queries)
     model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
                    generator=torch.Generator().manual_seed(0))
+    picks = []
     t0 = time.perf_counter()
-    out_k = forward_scene(model, scene)
+    with _occupancy_picks_of(torch, f"{tag}, kernels", picks):
+        out_k = forward_scene(model, scene)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    with plain_ops():
+    with plain_ops(), _occupancy_picks_of(torch, f"{tag}, plain", picks):
         out_p = forward_scene(model, scene)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -944,7 +1027,10 @@ def phase_slice_f32(torch, dev, sort_queries=False, config="scannet"):
     return out_k
 
 
-def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet"):
+def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet",
+                  detections=None):
+    """``infer.detect`` on SERVE_SCENES scenes (the first warms up); returns
+    the launches and appends each scene's detections to ``detections``."""
     import numpy as np
 
     from sgcdet_tpu_torch.infer import detect, forward_scene
@@ -954,7 +1040,7 @@ def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet"):
 
     tag = ("sorted serving" if sort_queries else "serving") + _tag(config)
     per_scene = (LAUNCHES_PER_SCENE_SORTED if sort_queries else
-                 LAUNCHES_PER_SCENE_LARGE if config == LARGE else LAUNCHES_PER_SCENE)
+                 LAUNCHES_PER_SCENE_LARGE if config in LARGE_CONFIGS else LAUNCHES_PER_SCENE)
     cfg, _ = _scene_and_cfg(config)
     scenes = [example_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
                             rng=np.random.RandomState(i), trajectory="indoor")
@@ -978,6 +1064,8 @@ def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet"):
         times.append(time.perf_counter() - t0)
         check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
               f"{tag} scene {i}: non-finite detections")
+        if detections is not None:
+            detections.append((boxes, scores, labels))
         log(f"[{tag}] scene {i}{' (warm-up)' if i == 0 else ''}: "
             f"{len(boxes)} boxes, {times[-1]:.4f} s")
     launches = {name: k.launches for name, k in kernels.items()}
@@ -1463,8 +1551,9 @@ def phase_backward(torch, dev, report):
 
 def _train_setup(torch, dev, config="scannet", **model_kw):
     """bench.py's train setting (exact auto budget, depth loss on) of
-    ``config`` on the indoor 40-view train scene, with ``model_kw``
-    overrides; the model's weights come from a seeded init."""
+    ``config`` on the indoor 40-view train scene (its yawed ground truth for
+    the ARKit head), with ``model_kw`` overrides; the model's weights come
+    from a seeded init."""
     from sgcdet_tpu_torch.scene import example_train_scene
     from sgcdet_tpu_torch.train import init_train_state, make_train_step
 
@@ -1473,7 +1562,8 @@ def _train_setup(torch, dev, config="scannet", **model_kw):
                                depth_loss=True, **model_kw)
     cfg = dataclasses.replace(cfg, model=mcfg)
     scene = example_train_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
-                                mcfg.n_classes, mcfg.downsample_factor)
+                                mcfg.n_classes, mcfg.downsample_factor,
+                                yawed=mcfg.head_type == "sunrgbd")
     model, optimizer = init_train_state(cfg, torch.Generator().manual_seed(0), dev)
     return cfg, scene, model, make_train_step(model, cfg, optimizer)
 
@@ -1524,7 +1614,8 @@ def _relu_signs_of(torch, tag, ref):
 
 def phase_train_f32(torch, dev, config="scannet"):
     """One f32 train step through the kernels against the plain versions,
-    both on the plain step's ReLU signs (``_relu_signs_of``)."""
+    both on the plain step's ReLU signs (``_relu_signs_of``) and occupancy
+    picks (``_occupancy_picks_of``)."""
     import numpy as np
 
     from sgcdet_tpu_torch.ops import plain_ops
@@ -1546,7 +1637,7 @@ def phase_train_f32(torch, dev, config="scannet"):
     # images moved by 1e-7 relative noise (the size of the kernels' own
     # rounding differences), which measures how far rounding alone moves
     # each gradient in this state
-    signs, runs, scene = [], {}, None
+    signs, picks, runs, scene = [], [], {}, None
     for name, route in (("plain", plain_ops), ("kernels", contextlib.nullcontext),
                         ("nudged plain", plain_ops)):
         _, made, model, step = _train_setup(torch, dev, config, **kw)
@@ -1558,13 +1649,19 @@ def phase_train_f32(torch, dev, config="scannet"):
             sc = dict(scene, imgs=(imgs * (1 + noise)).astype(imgs.dtype))
         gen = torch.Generator(device=dev).manual_seed(1)
         t0 = time.perf_counter()
-        with route(), _relu_signs_of(torch, f"{tag}, {name}", signs):
+        with (route(), _relu_signs_of(torch, f"{tag}, {name}", signs),
+              _occupancy_picks_of(torch, f"{tag}, {name}", picks)):
             metrics = step(sc, gen)
         torch.cuda.synchronize()
         log(f"[{tag}] step through {name} {time.perf_counter() - t0:.3f} s")
         runs[name] = metrics, {n: p.grad for n, p in model.named_parameters()}
         del model, step
     (m_p, grads_p), (m_k, grads_k), (m_n, grads_n) = runs.values()
+    log(f"[{tag}] n_pos {float(m_p['n_pos']):.0f} (kernels {float(m_k['n_pos']):.0f}), "
+        f"loss_bbox {float(m_p['loss_bbox']):.6f} (kernels {float(m_k['loss_bbox']):.6f})")
+    if config in ARKIT_CONFIGS:  # the step must train the rotated IoU loss
+        check(all(float(m["n_pos"]) > 0 and float(m["loss_bbox"]) != 0 for m in (m_p, m_k)),
+              f"{tag}: no FCOS positive or a zero loss_bbox")
     # loss terms: the kernels and the plain versions sum in other orders
     # (checked after the gradients are logged)
     differ = []
@@ -1612,7 +1709,7 @@ def phase_train(torch, dev, kernels, sort_queries=False, config="scannet"):
 
     tag = ("sorted train" if sort_queries else "train") + _tag(config)
     per_step = (LAUNCHES_PER_STEP_SORTED if sort_queries else
-                LAUNCHES_PER_STEP_LARGE if config == LARGE else LAUNCHES_PER_STEP)
+                LAUNCHES_PER_STEP_LARGE if config in LARGE_CONFIGS else LAUNCHES_PER_STEP)
     cfg, scene, model, step = _train_setup(torch, dev, config, sort_queries=sort_queries)
     log(f"[{tag}] config {config}, compute {cfg.model.compute_dtype}, ffn_dropout "
         f"{cfg.model.ffn_dropout}, depth loss on, budget "
@@ -1665,7 +1762,9 @@ def phase_train(torch, dev, kernels, sort_queries=False, config="scannet"):
         f"{len(frozen)} frozen ones and {len(backbone_stats)} frozen BN "
         f"statistics did not")
     log(f"[{tag}] warm seconds per step: {sum(times[1:]) / len(times[1:]):.4f}")
-    log(f"[{tag}] peak memory allocated: {peak / 2**30:.3f} GiB")
+    log(f"[{tag}] peak memory allocated: {peak / 2**30:.3f} GiB"
+        + (f" ({LARGE}'s step: {LARGE_TRAIN_PEAK_GIB} GiB, PERF.md)"
+           if config == "arkit_large" else ""))
     log(f"[{tag}] kernel launches over {TRAIN_STEPS} steps: {_launched(launches)}")
     return launches
 
@@ -2340,6 +2439,270 @@ def phase_large(torch, dev, kernels, serving, train):
     train.update(phase_train(torch, dev, kernels, config=LARGE))
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the ARKit head (arkit, arkit_large)
+# ---------------------------------------------------------------------------
+
+
+def _arkit_kernels(torch, dev, report, config):
+    """The DFA3D kernels of ``config``'s widths against their plain versions
+    at its level-2 shape (ARKit's 240-row frames: 60 x 80 value maps; the
+    exact auto budget's K'), bf16/f32 and f32/f32, counted: K2 and K3
+    forward, K6 (as the model runs it, no sample gradients) and K5
+    backward on phase 3b's edge locations, each bf16/f32 one timed beside
+    its bound; for ``arkit`` also
+    the sweep forward and backward (K1, K4) on ARKit's rig.  Errors join
+    the kernel report's max_abs_err."""
+    from sgcdet_tpu_torch.ops import KERNELS
+    from sgcdet_tpu_torch.ops.dfa3d import (
+        counter_name,
+        dfa3d_attention_plain,
+        dfa3d_bwd_cuda,
+        dfa3d_bwd_plain,
+        dfa3d_fwd_cuda,
+    )
+    from sgcdet_tpu_torch.ops.sweep import (
+        sweep_bwd_cuda,
+        sweep_bwd_plain,
+        sweep_fwd_cuda,
+        sweep_fwd_plain,
+    )
+
+    tag = f"kernels {config}"
+    cfg, scene = _scene_and_cfg(config)
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def compare(name, kernel_name, run_kernel, run_plain, labels, work):
+        before = KERNELS[kernel_name].launches
+        outs_k = run_kernel()
+        check(KERNELS[kernel_name].launches == before + 1,
+              f"{tag} {name}: {kernel_name} did not launch once")
+        outs_p = run_plain()
+        torch.cuda.synchronize()
+        outs_k = outs_k if isinstance(outs_k, tuple) else (outs_k,)
+        outs_p = outs_p if isinstance(outs_p, tuple) else (outs_p,)
+        err = 0.0
+        for label, got, want in zip(labels, outs_k, outs_p):
+            if want is None:
+                check(got is None, f"{tag} {name} {label}: kernel returned a gradient "
+                                   "the plain version did not")
+                continue
+            err = max(err, compare_tensors(torch, f"{config} {name} {label}", got, want,
+                                           f32_rel=1e-5 if len(labels) > 1 else 1e-4))
+        rec = report.setdefault(kernel_name, {})
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        if work is not None:
+            _timing(torch, report, f"{config} {name}", kernel_name, run_kernel, run_plain,
+                    work)
+
+    if config == "arkit":
+        for name, src, ref, xe, ye in _sweep_cases(torch, dev, cfg, scene, gen):
+            bf16 = src.dtype == torch.bfloat16
+            f_args = (src, ref, xe, ye)
+            compare(name, "sweep_fwd", lambda: sweep_fwd_cuda(*f_args),
+                    lambda: sweep_fwd_plain(*f_args), ("out",),
+                    (lambda outs: sweep_work(f_args, outs, False)) if bf16 else None)
+            b_args = f_args + (torch.randn(xe.shape, device=dev, generator=gen),)
+            compare(name.replace("sweep", "sweep bwd"), "sweep_bwd",
+                    lambda: sweep_bwd_cuda(*b_args), lambda: sweep_bwd_plain(*b_args),
+                    ("d_src", "d_ref"),
+                    (lambda outs: sweep_work(b_args, outs, True)) if bf16 else None)
+
+    budget = _auto_budget(cfg, scene)
+    x = _lifting_inputs(torch, dev, cfg, scene, 2, budget[2], gen)
+    shape = f"({N_VIEWS},{x['h']},{x['w']}) K'={x['kb']}"
+    log(f"[{tag}] auto visibility budget per level {[round(b, 4) for b in budget]}; "
+        f"level 2: {shape}")
+    c1, heads = cfg.model.embed_dims, x["heads"]
+    counts = x["counts"]
+    grads = ("d_value", "d_dpt", "d_locs", "d_attn")
+    for vdt in (torch.bfloat16, torch.float32):
+        bf16 = vdt == torch.bfloat16
+        dtag = "bf16/f32" if bf16 else "f32/f32"
+        value = x["value"].to(vdt)
+        vp = torch.randn((N_VIEWS, x["h"], x["w"], c1), device=dev, generator=gen).to(vdt)
+        g = torch.randn((N_VIEWS, x["kb"], c1), device=dev, generator=gen).to(vdt)
+        s1 = (value, x["depth"], x["locs1"], x["attn1"], 1, counts)
+        s2 = (vp, x["depth"], x["locs2"], x["attn2"], heads, counts)
+        for stage, args, c in (("stage1", s1, c1), ("stage2", s2, c1 // heads)):
+            stage1 = stage == "stage1"
+            compare(f"{stage} c={c} {dtag} {shape} counted", counter_name(False, stage1, c,
+                                                                          torch.float32),
+                    lambda: dfa3d_fwd_cuda(*args), lambda: dfa3d_attention_plain(*args),
+                    ("out",),
+                    (lambda outs: dfa3d_work(args[:4], outs, counts, False)) if bf16 else None)
+            # the backward on phase 3b's locations (samples on the edges)
+            b_args = (args[:2] + (_edge_locs(args[2], x["w"], x["h"]), args[3], g)
+                      + args[4:])
+            kw = dict(sample_grads=not stage1)
+            compare(f"{stage} bwd c={c} {dtag} {shape} counted",
+                    counter_name(True, stage1, c, torch.float32),
+                    lambda: dfa3d_bwd_cuda(*b_args, **kw),
+                    lambda: dfa3d_bwd_plain(*b_args, **kw), grads,
+                    (lambda outs: dfa3d_work(b_args[:5], outs, counts, True))
+                    if bf16 else None)
+    del x, value, vp, g
+
+
+def phase_serving_split(torch, dev, kernels, config, detections):
+    """``infer.detect`` of ``config`` at bf16 on ARKIT_SERVE_SCENES scenes
+    after a warm-up forward; each call's time split into the forward (to the
+    head outputs on the host) and the host decode + NMS
+    (``decode_bboxes``, timed inside ``detect``).  Returns the launches and
+    appends each scene's detections to ``detections``."""
+    import numpy as np
+
+    from sgcdet_tpu_torch import infer
+    from sgcdet_tpu_torch.models import SGCDet
+    from sgcdet_tpu_torch.scene import example_scene
+
+    tag = f"serving {config}"
+    per_scene = LAUNCHES_PER_SCENE_LARGE if config in LARGE_CONFIGS else LAUNCHES_PER_SCENE
+    cfg, _ = _scene_and_cfg(config)
+    scenes = [example_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
+                            rng=np.random.RandomState(i), trajectory="indoor")
+              for i in range(ARKIT_SERVE_SCENES)]
+    mcfg = dataclasses.replace(cfg.model, visibility_budget=_auto_budget(cfg, scenes[0]))
+    log(f"[{tag}] compute {mcfg.compute_dtype}, head {mcfg.head_type}, "
+        f"{mcfg.n_classes} classes, test_cfg {mcfg.test_cfg}, budget "
+        f"{[round(b, 4) for b in mcfg.visibility_budget]} (K' per level "
+        f"{_kept_queries(torch, mcfg)}), {N_VIEWS} views")
+    model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    log(f"[{tag}] parameters: {sum(p.numel() for p in model.parameters())}")
+    t0 = time.perf_counter()
+    infer.forward_scene(model, scenes[0])
+    torch.cuda.synchronize()
+    log(f"[{tag}] warm-up forward {time.perf_counter() - t0:.4f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+    decode, decode_s = infer.decode_bboxes, []
+
+    def timed_decode(*args):
+        t = time.perf_counter()
+        out = decode(*args)
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    totals = []
+    infer.decode_bboxes = timed_decode
+    try:
+        for i, scene in enumerate(scenes):
+            t0 = time.perf_counter()
+            boxes, scores, labels = infer.detect(model, scene)
+            totals.append(time.perf_counter() - t0)
+            check(boxes.ndim == 2 and boxes.shape[1] == 7 and len(boxes) > 0,
+                  f"{tag} scene {i}: boxes of shape {boxes.shape}, expected (M, 7)")
+            check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
+                  f"{tag} scene {i}: non-finite detections")
+            check(len(boxes) <= mcfg.test_cfg.nms_pre, f"{tag}: more than nms_pre boxes")
+            detections.append((boxes, scores, labels))
+            log(f"[{tag}] scene {i}: {len(boxes)} boxes of width {boxes.shape[1]}, "
+                f"{len(set(labels.tolist()))} classes; {totals[-1]:.4f} s: forward "
+                f"{totals[-1] - decode_s[-1]:.4f} s, host decode + NMS {decode_s[-1]:.4f} s")
+    finally:
+        infer.decode_bboxes = decode
+    launches = {name: k.launches for name, k in kernels.items()}
+    n = len(scenes)
+    log(f"[{tag}] seconds per scene: {sum(totals) / n:.4f} (forward "
+        f"{sum(t - d for t, d in zip(totals, decode_s)) / n:.4f}, host decode + NMS "
+        f"{sum(decode_s) / n:.4f})")
+    log(f"[{tag}] peak memory allocated: "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    log(f"[{tag}] kernel launches over {n} scenes: {_launched(launches)}")
+    for name in kernels:
+        want = per_scene.get(name, 0) * n
+        check(launches[name] == want, f"{tag} {name}: {launches[name]} launches, "
+                                      f"expected {want}")
+    return launches
+
+
+def phase_arkit(torch, dev, kernels, report, runs, detections):
+    """The ARKit head's configs at 40 views with their exact auto budgets:
+    the kernels at each config's level-2 shape, the f32 scene and one f32
+    train step through kernels and plain versions, then bf16 serving and 4
+    bf16 train steps with their launches, seconds and peak memory."""
+    for config in ARKIT_CONFIGS:
+        t0 = time.perf_counter()
+        _arkit_kernels(torch, dev, report, config)
+        torch.cuda.empty_cache()
+        phase_slice_f32(torch, dev, config=config)
+        torch.cuda.empty_cache()
+        phase_train_f32(torch, dev, config=config)
+        torch.cuda.empty_cache()
+        served = phase_serving_split(torch, dev, kernels, config,
+                                     detections.setdefault(config, []))
+        torch.cuda.empty_cache()
+        runs[config] = dict(serving=served, train=phase_train(torch, dev, kernels,
+                                                              config=config))
+        torch.cuda.empty_cache()
+        log(f"[arkit] {config}: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the indoor mAP eval of the served scenes
+# ---------------------------------------------------------------------------
+
+
+class _EvalLog:
+    """indoor_eval's logger: keeps the per-class table, logs its last row."""
+
+    def info(self, report):
+        log(f"[eval]   {report.strip().splitlines()[-1]}")
+
+
+def phase_eval(torch, detections):
+    """``eval.indoor_eval`` of the port on the scenes phases 5 and 13 served
+    (ScanNet's aligned boxes, ARKit's yawed ones) against synthetic GT: the
+    yawed or aligned boxes of ``scene.example_train_scene`` for every
+    scene; mAP@0.25 and @0.5 finite.  Then the GT given back as detections
+    of score 1: AP 1.0 for every class present."""
+    import numpy as np
+
+    from sgcdet_tpu_torch import configs
+    from sgcdet_tpu_torch.eval import indoor_eval
+    from sgcdet_tpu_torch.geometry import DepthBoxes3D
+    from sgcdet_tpu_torch.scene import example_train_scene
+
+    for config, dets in detections.items():
+        cfg = configs.get_config(config)
+        yawed = cfg.model.head_type == "sunrgbd"
+        width = 7 if yawed else 6
+        truth = example_train_scene(cfg.data.img_shape, cfg.data.pad_size, 2,
+                                    cfg.model.n_classes, 1, yawed=yawed)
+        mask = truth["gt_mask"]
+        gt = dict(gt_num=int(mask.sum()),
+                  gt_boxes_upright_depth=truth["gt_boxes"][mask][:, :width],
+                  **{"class": truth["gt_labels"][mask].astype(np.int64)})
+        label2cat = dict(enumerate(cfg.data.classes))
+
+        def annos(scene_dets):
+            return [dict(boxes_3d=DepthBoxes3D(b, box_dim=width, with_yaw=yawed,
+                                               origin=(0.5, 0.5, 0.5)),
+                         scores_3d=s, labels_3d=l) for b, s, l in scene_dets]
+
+        t0 = time.perf_counter()
+        res = indoor_eval([gt] * len(dets), annos(dets), [0.25, 0.5], label2cat,
+                          logger=_EvalLog())
+        maps = (res["mAP_0.25"], res["mAP_0.50"])
+        log(f"[eval] {config}: {len(dets)} served scenes, "
+            f"{sum(len(d[0]) for d in dets)} detections ({width} wide), {gt['gt_num']} GT "
+            f"boxes a scene: mAP@0.25 {maps[0]:.6f}, mAP@0.5 {maps[1]:.6f}, mAR@0.25 "
+            f"{res['mAR_0.25']:.6f} ({time.perf_counter() - t0:.3f} s)")
+        check(all(math.isfinite(m) for m in maps), f"eval {config}: mAP not finite")
+        perfect = [(gt["gt_boxes_upright_depth"], np.ones(gt["gt_num"], np.float32),
+                    gt["class"])] * len(dets)
+        res = indoor_eval([gt] * len(dets), annos(perfect), [0.25, 0.5], label2cat,
+                          logger=_EvalLog())
+        present = sorted({label2cat[int(c)] for c in gt["class"]})
+        aps = [res[f"{c}_AP_{t}"] for c in present for t in ("0.25", "0.50")]
+        log(f"[eval] {config}: GT as detections of score 1: AP over {len(present)} classes "
+            f"present min {min(aps):.6f}, mAP@0.25 {res['mAP_0.25']:.6f}, "
+            f"@0.5 {res['mAP_0.50']:.6f}")
+        check(all(ap >= 1.0 - 1e-6 for ap in aps), f"eval {config}: GT as detections, AP < 1")
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     if not (repo / "sgcdet_tpu_torch").is_dir():
@@ -2383,11 +2746,13 @@ def main() -> int:
     serving, train, lifting_2d, f32_scene = {}, {}, {}, {}
     sorted_serving, sorted_train, probe_runs = {}, {}, {}
     large_serving, large_train = {}, {}
+    arkit_runs, detections = {}, {}
     for name, fn in (
             ("kernels", lambda: phase_kernels(torch, dev, report)),
             ("backward", lambda: phase_backward(torch, dev, report)),
             ("slice f32", lambda: f32_scene.update(phase_slice_f32(torch, dev))),
-            ("serving", lambda: serving.update(phase_serving(torch, dev, KERNELS))),
+            ("serving", lambda: serving.update(phase_serving(
+                torch, dev, KERNELS, detections=detections.setdefault("scannet", [])))),
             ("train f32", lambda: phase_train_f32(torch, dev)),
             ("train", lambda: train.update(phase_train(torch, dev, KERNELS))),
             ("2D lifting", lambda: lifting_2d.update(phase_lifting_2d(torch, dev, KERNELS))),
@@ -2395,7 +2760,10 @@ def main() -> int:
             ("sorted", lambda: phase_sorted(torch, dev, KERNELS, f32_scene,
                                             sorted_serving, sorted_train)),
             ("probes", lambda: probe_runs.update(phase_probes(torch, dev, report))),
-            ("large", lambda: phase_large(torch, dev, KERNELS, large_serving, large_train))):
+            ("large", lambda: phase_large(torch, dev, KERNELS, large_serving, large_train)),
+            ("arkit", lambda: phase_arkit(torch, dev, KERNELS, report, arkit_runs,
+                                          detections)),
+            ("eval", lambda: phase_eval(torch, detections))):
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
@@ -2416,6 +2784,9 @@ def main() -> int:
             launches, served = large_train[name], large_serving[name]
         else:
             launches, served = train[name], serving[name]
+        # the ARKit runs' launches of the kernels they share: the arkit
+        # config's of ScanNet's widths, arkit_large's of the -L ones
+        arkit = arkit_runs["arkit_large" if name in KERNELS_LARGE else "arkit"]
         missing = [key for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms") if key not in rec]
         check(not missing, f"{name}: no {missing} measured")
@@ -2424,7 +2795,9 @@ def main() -> int:
                             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-                            serving_launches=served))
+                            serving_launches=served,
+                            arkit_launches=arkit["train"].get(name, 0),
+                            arkit_serving_launches=arkit["serving"].get(name, 0)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,11 @@ Layout:
   models/   torch modules, one per module of sgcdet_tpu/models
   ops/      kernel wrappers with their plain PyTorch versions, host NMS
   csrc/     hand-written CUDA C++ kernels for sm_90a, built at first use
-  configs.py  the ScanNet config (the JAX package's field names)
+  geometry/ NumPy boxes and rotated IoU; the rotated IoU in torch (loss)
+  data/     host data pipeline: infos-pkl datasets, preprocessing, loader
+  eval/     indoor_eval: the indoor mAP protocol
+  configs.py  the four configs (ScanNet, ARKit, their -L variants; the JAX
+            package's field names), get_config(name)
   voxel_grid.py, visibility.py  NumPy voxel grid, projection, exact budgets
   scene.py  NumPy synthetic scene
   convert.py  flax params -> the port's state_dict

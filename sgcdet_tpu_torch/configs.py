@@ -1,17 +1,29 @@
 """Configuration of the port: the fields of sgcdet_tpu/configs/config.py that
-the eval forward, decode, NMS, losses and the train step read, with the same
-names and the ScanNet defaults (configs/SGCDet_ScanNet.py of the reference),
-and the ScanNet200 -L config (``scannet200_large``).
+the eval forward, decode, NMS, losses, the train step and the host data
+pipeline read, with the same names and defaults, and the four released
+configs (``get_config``): ScanNet, ARKitScenes and their -L variants.
 
 ``SGCDet``, ``decode_bboxes``, ``compute_losses`` and the train step read
 attributes only, so the JAX package's configs work in their place; the tests
-hold ``scannet()`` and ``scannet200_large()`` here field by field against
-the JAX package's.
+hold every config here field by field against the JAX package's.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
+
+SCANNET_CLASSES = (
+    "cabinet", "bed", "chair", "sofa", "table", "door", "window", "bookshelf",
+    "picture", "counter", "desk", "curtain", "refrigerator", "showercurtrain",
+    "toilet", "sink", "bathtub", "garbagebin",
+)
+
+ARKIT_CLASSES = (
+    "cabinet", "refrigerator", "shelf", "stove", "bed", "sink", "washer",
+    "toilet", "bathtub", "oven", "dishwasher", "fireplace", "stool", "chair",
+    "table", "tv_monitor", "sofa",
+)
 
 # the 189 ScanNet200 classes the -L config detects (configs/
 # SGCDet_large_ScanNet200.py of the reference), in its label order
@@ -55,6 +67,8 @@ class TestConfig:
     nms_pre: int = 1000
     score_thr: float = 0.01
     iou_thr: float = 0.25  # aligned 3D NMS threshold (ScanNet head)
+    nms_thr: float = 0.15  # rotated BEV NMS threshold (ARKit head)
+    use_rotate_nms: bool = False
 
 
 @dataclass(frozen=True)
@@ -62,7 +76,7 @@ class ModelConfig:
     embed_dims: int = 256
     n_classes: int = 18
     n_reg_outs: int = 6
-    head_type: str = "scannet"  # the port runs the ScanNet head only
+    head_type: str = "scannet"  # 'scannet' (aligned boxes) | 'sunrgbd' (yawed)
     # adaptive sparse volume (coarse -> fine)
     voxel_size_list: Tuple[Tuple[float, float, float], ...] = (
         (0.64, 0.64, 0.8),
@@ -123,10 +137,28 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    # resized (pre-pad) image shape for ScanNet's 968x1296 frames, and the
-    # padded shape the network sees
-    img_shape: Tuple[int, int] = (239, 320)
+    dataset: str = "scannet"  # scannet | scannet200 | arkit
+    data_root: str = "data/scannet/"
+    ann_train: str = "scannet_infos_train.pkl"
+    ann_val: str = "scannet_infos_val.pkl"
+    classes: Tuple[str, ...] = SCANNET_CLASSES
+    n_images_train: int = 40
+    n_images_test: int = 100
+    sample_method_train: str = "random"  # random | uniform_random | linear
+    # resize target (w, h) keep-ratio, then pad to pad_size (h, w)
+    img_scale: Tuple[int, int] = (320, 240)
     pad_size: Tuple[int, int] = (240, 320)
+    # static resized (pre-pad) shape for the dataset's native resolution;
+    # ScanNet 968x1296 -> (239, 320)
+    img_shape: Tuple[int, int] = (239, 320)
+    ori_shape: Tuple[int, int] = (968, 1296)
+    mean: Tuple[float, float, float] = (123.675, 116.28, 103.53)
+    std: Tuple[float, float, float] = (58.395, 57.12, 57.375)
+    depth_shift: float = 1000.0
+    origin: str = "fixed"  # fixed [0, 0, .5] | pose_center (ARKit)
+    shift_origin_std: Tuple[float, float, float] = (0.7, 0.7, 0.0)
+    repeat_times: int = 6
+    filter_empty_gt: bool = True
     max_boxes: int = 128  # static GT padding
 
 
@@ -156,6 +188,34 @@ def scannet() -> SGCDetConfig:
     return SGCDetConfig(name="sgcdet_scannet")
 
 
+def arkit() -> SGCDetConfig:
+    """configs/SGCDet_ARKit.py: yawed boxes (the 'sunrgbd' head, rotated IoU
+    loss, rotated BEV NMS) on ARKitScenes' 1440x1920 frames."""
+    return SGCDetConfig(
+        name="sgcdet_arkit",
+        model=ModelConfig(
+            n_classes=len(ARKIT_CLASSES),
+            n_reg_outs=7,
+            head_type="sunrgbd",
+            downsample_factor=4,
+            test_cfg=TestConfig(score_thr=0.0, nms_thr=0.15, use_rotate_nms=True),
+        ),
+        data=DataConfig(
+            dataset="arkit",
+            data_root="data/arkit/",
+            ann_train="arkit_infos_train.pkl",
+            ann_val="arkit_infos_val.pkl",
+            classes=ARKIT_CLASSES,
+            sample_method_train="uniform_random",
+            img_shape=(240, 320),
+            ori_shape=(1440, 1920),
+            origin="pose_center",
+            repeat_times=3,
+        ),
+        train=TrainConfig(training_steps=4498 * 18),
+    )
+
+
 # the sparse volume of the -L configs: one level finer (80 x 80 x 32 at
 # 8 cm), 8x the top-k, and half the embedding width (c = 128 at stage 1,
 # 16 a head at stage 2)
@@ -169,9 +229,40 @@ _LARGE_SPARSE = dict(
 
 def scannet200_large() -> SGCDetConfig:
     """configs/SGCDet_large_ScanNet200.py: ScanNet200's 189 classes on
-    ScanNet's frames (the data fields are ScanNet's)."""
+    ScanNet's frames."""
     return SGCDetConfig(
         name="sgcdet_large_scannet200",
         model=ModelConfig(n_classes=len(SCANNET200_CLASSES), **_LARGE_SPARSE),
+        data=DataConfig(
+            dataset="scannet200",
+            ann_train="scannet200_infos_train.pkl",
+            ann_val="scannet200_infos_val.pkl",
+            classes=SCANNET200_CLASSES,
+            repeat_times=3,
+        ),
         train=TrainConfig(training_steps=1201 * 45),
     )
+
+
+def arkit_large() -> SGCDetConfig:
+    """configs/SGCDet_large_ARKit.py: ``arkit`` with the -L sparse volume."""
+    base = arkit()
+    return dataclasses.replace(
+        base,
+        name="sgcdet_large_arkit",
+        model=dataclasses.replace(base.model, **_LARGE_SPARSE),
+    )
+
+
+_REGISTRY = {
+    "scannet": scannet,
+    "arkit": arkit,
+    "scannet200_large": scannet200_large,
+    "arkit_large": arkit_large,
+}
+
+
+def get_config(name: str) -> SGCDetConfig:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown config '{name}'; available: {sorted(_REGISTRY)}")
+    return _REGISTRY[name]()

@@ -22,10 +22,12 @@ def forward_scene(model, scene) -> dict:
 
 
 def detect(model, scene):
-    """Detections of one scene: (boxes (M, 6) center form (cx, cy, cz, dx,
-    dy, dz) with z at the geometric center, scores (M,), labels (M,)),
-    NumPy, after decode and aligned 3D NMS with the model config's
-    test settings."""
+    """Detections of one scene, NumPy, after the host decode and NMS with
+    the model config's test settings: (boxes, scores (M,), labels (M,)).
+    The ScanNet head gives boxes (M, 6) in center form (cx, cy, cz, dx, dy,
+    dz) after the aligned 3D NMS; the ARKit head (``head_type="sunrgbd"``)
+    gives yawed boxes (M, 7) (cx, cy, cz, dx, dy, dz, yaw) after the
+    per-class rotated BEV NMS.  z is at the geometric center."""
     out = forward_scene(model, scene)
     head_outs = [tuple(t.cpu().numpy() for t in scale) for scale in out["head_outs"]]
     origin = scene["origin"]

@@ -1,8 +1,11 @@
-"""Anchor-free FCOS-style 3D detection head, ScanNet variant
-(sgcdet_tpu/models/det_head.py; reference ScanNetImVoxelHeadV2): shared
-3x3x3 conv heads over the scales with a learned exp scale per scale; the
-FCOS target assignment over a padded GT set and the head's three losses
-(``head_loss_single``); and the host-side (NumPy) decode + aligned NMS."""
+"""Anchor-free FCOS-style 3D detection head (sgcdet_tpu/models/det_head.py;
+reference ScanNetImVoxelHeadV2 and SunRgbdImVoxelHeadV2): shared 3x3x3 conv
+heads over the scales with a learned exp scale per scale; the FCOS target
+assignment over a padded GT set and the head's three losses
+(``head_loss_single``); and the host-side (NumPy) decode.  The ScanNet head
+(``head_type="scannet"``) predicts axis-aligned boxes, decoded through the
+aligned 3D NMS; the ARKit head (``"sunrgbd"``) adds a yaw, trains on the
+rotated 3D IoU and decodes through the per-class rotated BEV NMS."""
 from __future__ import annotations
 
 import math
@@ -11,10 +14,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.nms import aligned_3d_nms
+from ..geometry.boxes import rotation_3d_in_axis
+from ..ops.nms import aligned_3d_nms, box3d_multiclass_nms
 from ..voxel_grid import voxel_centers_zero_origin
 from .layers import Conv3d
-from .losses import axis_aligned_iou_loss, bce_with_logits, sigmoid_focal_loss
+from .losses import (
+    axis_aligned_iou_loss,
+    bce_with_logits,
+    rotated_iou_loss,
+    sigmoid_focal_loss,
+)
 
 
 class Scale(nn.Module):
@@ -24,8 +33,10 @@ class Scale(nn.Module):
 
 
 class ImVoxelHead(nn.Module):
-    def __init__(self, n_channels, n_classes=18, n_reg_outs=6, n_scales=3):
+    def __init__(self, n_channels, n_classes=18, n_reg_outs=6, n_scales=3,
+                 head_type="scannet"):
         super().__init__()
+        self.yawed = head_type == "sunrgbd"
         self.centerness_conv = Conv3d(n_channels, 1, 3, padding=1, bias=False)
         self.reg_conv = Conv3d(n_channels, n_reg_outs, 3, padding=1, bias=False)
         self.cls_conv = Conv3d(n_channels, n_classes, 3, padding=1)
@@ -44,9 +55,12 @@ class ImVoxelHead(nn.Module):
         (centerness (B,1,...), bbox_pred (B,R,...), cls_score (B,nc,...))."""
         outs = []
         for x, s in zip(xs, self.scales):
-            outs.append((self.centerness_conv(x),
-                         torch.exp(s.scale * self.reg_conv(x)),
-                         self.cls_conv(x)))
+            reg = self.reg_conv(x)
+            if self.yawed:  # six distances, then the yaw as it comes
+                bbox = torch.cat([torch.exp(s.scale * reg[:, :6]), reg[:, 6:]], 1)
+            else:
+                bbox = torch.exp(s.scale * reg)
+            outs.append((self.centerness_conv(x), bbox, self.cls_conv(x)))
         return outs
 
 
@@ -80,8 +94,20 @@ def bbox_pred_to_corner(points, pred):
     ], -1)
 
 
+def bbox_pred_to_yawed(points, pred):
+    """Rotated distances and yaw -> (center, size, yaw) boxes (P, 7); NumPy
+    arrays or torch tensors."""
+    xp = torch if torch.is_tensor(points) else np
+    shift = xp.stack([(pred[:, 1] - pred[:, 0]) / 2, (pred[:, 3] - pred[:, 2]) / 2,
+                      (pred[:, 5] - pred[:, 4]) / 2], -1)[:, None, :]
+    shift = rotation_3d_in_axis(shift, pred[:, 6], axis=2)[:, 0, :]
+    size = xp.stack([pred[:, 0] + pred[:, 1], pred[:, 2] + pred[:, 3],
+                     pred[:, 4] + pred[:, 5]], -1)
+    return xp.concatenate([points + shift, size, pred[:, 6:7]], -1)
+
+
 # ---------------------------------------------------------------------------
-# target assignment and losses (det_head.py:80-286, axis-aligned branch)
+# target assignment and losses (det_head.py:80-286)
 # ---------------------------------------------------------------------------
 
 
@@ -123,17 +149,24 @@ def _best_scale(inside_mask, level_sizes, n_scales, limit):
 
 
 def fcos_targets(points, scales, level_sizes, gt_boxes, gt_labels, gt_mask,
-                 n_scales, limit, centerness_topk):
-    """FCOS target assignment over padded GT, axis-aligned boxes.
+                 n_scales, limit, centerness_topk, yawed=False):
+    """FCOS target assignment over padded GT.
 
     points: (P, 3); gt_boxes: (B, 7) gravity-centre (x, y, z, dx, dy, dz,
     yaw); gt_labels: (B,) int; gt_mask: (B,) bool (False = padding).
-    Returns (centerness_targets (P,), corner target boxes (P, 6),
+    ``yawed`` measures each point in each box's own frame (the ARKit head).
+    Returns (centerness_targets (P,), target boxes: the corner boxes (P, 6)
+    of the ScanNet head or the selected GT boxes (P, 7) of the yawed one,
     labels (P,) with -1 for background, geo_occ (P,))."""
     float_max = 1e8
     volumes = (gt_boxes[:, 3] * gt_boxes[:, 4] * gt_boxes[:, 5])[None]  # (1, B)
-    local = points[:, None, :]
     centers = gt_boxes[None, :, :3]
+    if yawed:
+        shift = points[None, :, :] - gt_boxes[:, None, :3]  # (B, P, 3)
+        shift = rotation_3d_in_axis(shift, -gt_boxes[:, 6], axis=2).transpose(0, 1)
+        local = centers + shift
+    else:
+        local = points[:, None, :]
     half = gt_boxes[None, :, 3:6] / 2
     d_min = local - (centers - half)  # (P, B, 3)
     d_max = (centers + half) - local
@@ -156,17 +189,18 @@ def fcos_targets(points, scales, level_sizes, gt_boxes, gt_labels, gt_mask,
     tgt6 = bbox_targets6[torch.arange(points.shape[0], device=points.device), min_inds]
     centerness_targets = compute_centerness(tgt6)
     geo_occ = inside.any(1)
+    if yawed:
+        return centerness_targets, gt_boxes[min_inds], labels, geo_occ
     return centerness_targets, bbox_pred_to_corner(points, tgt6), labels, geo_occ
 
 
 def head_loss_single(head_outs, valids_flat, points, scales, level_sizes,
                      gt_boxes, gt_labels, gt_mask, cfg):
     """Losses of one scene.  head_outs: per scale (centerness (1, ...),
-    bbox_pred (6, ...), cls_score (nc, ...)) without the batch dim;
+    bbox_pred (6 or 7, ...), cls_score (nc, ...)) without the batch dim;
     valids_flat: (P,) bool.  Returns (loss_centerness, loss_bbox, loss_cls,
     labels, geo_occ, n_pos)."""
-    if cfg.head_type != "scannet":
-        raise NotImplementedError("the port trains the ScanNet head only")
+    yawed = cfg.head_type == "sunrgbd"
 
     def flat(i, width):
         return torch.cat([h[i].permute(1, 2, 3, 0).reshape(-1, width)
@@ -177,7 +211,7 @@ def head_loss_single(head_outs, valids_flat, points, scales, level_sizes,
     flat_cls = flat(2, cfg.n_classes)
     centerness_t, bbox_t, labels, geo_occ = fcos_targets(
         points, scales, level_sizes, gt_boxes, gt_labels, gt_mask,
-        cfg.n_scales, cfg.limit, cfg.centerness_topk)
+        cfg.n_scales, cfg.limit, cfg.centerness_topk, yawed)
 
     pos = (labels >= 0) & valids_flat
     n_pos = pos.sum().float()
@@ -185,21 +219,27 @@ def head_loss_single(head_outs, valids_flat, points, scales, level_sizes,
     loss_cls = sigmoid_focal_loss(flat_cls, labels, cfg.n_classes, valids_flat, avg)
     loss_centerness = bce_with_logits(flat_centerness, centerness_t, pos, avg)
     weight = centerness_t * pos.float()
-    loss_bbox = axis_aligned_iou_loss(bbox_pred_to_corner(points, flat_bbox),
-                                      bbox_t, weight, weight.sum())
+    if yawed:
+        loss_bbox = rotated_iou_loss(bbox_pred_to_yawed(points, flat_bbox), bbox_t,
+                                     weight, weight.sum())
+    else:
+        loss_bbox = axis_aligned_iou_loss(bbox_pred_to_corner(points, flat_bbox),
+                                          bbox_t, weight, weight.sum())
     return loss_centerness, loss_bbox, loss_cls, labels, geo_occ, n_pos
 
 
 def decode_bboxes(head_outs, valid, origin, voxel_size, cfg):
-    """Decode one scene's detections on the host (ScanNet head).
+    """Decode one scene's detections on the host.
 
-    head_outs: per scale (centerness (1,...), bbox_pred (6,...),
+    head_outs: per scale (centerness (1,...), bbox_pred (6 or 7,...),
     cls (nc,...)) NumPy arrays; valid: (X, Y, Z) float; origin: (3,).
-    Returns (boxes (M, 6) center form (cx, cy, cz, dx, dy, dz) with z at the
-    geometric center, scores (M,), labels (M,)).
+    Returns (boxes, scores (M,), labels (M,)): the ScanNet head's boxes (M,
+    6) in center form (cx, cy, cz, dx, dy, dz) after the aligned 3D NMS,
+    the ARKit head's (M, 7) (cx, cy, cz, dx, dy, dz, yaw) after the
+    per-class BEV NMS (rotated with ``test_cfg.use_rotate_nms``), at most
+    ``nms_pre`` of them; z at the geometric center.
     """
-    if cfg.head_type != "scannet":
-        raise NotImplementedError("the port decodes the ScanNet head only")
+    yawed = cfg.head_type == "sunrgbd"
     t = cfg.test_cfg
     mlvl_bboxes, mlvl_scores = [], []
     for i, (centerness, bbox_pred, cls_score) in enumerate(head_outs):
@@ -217,11 +257,19 @@ def decode_bboxes(head_outs, valid, origin, voxel_size, cfg):
         if len(s) > t.nms_pre > 0:
             ids = np.argpartition(-max_scores, t.nms_pre - 1)[:t.nms_pre]
             b, s, points = b[ids], s[ids], points[ids]
-        mlvl_bboxes.append(bbox_pred_to_corner(points, b))
+        to_boxes = bbox_pred_to_yawed if yawed else bbox_pred_to_corner
+        mlvl_bboxes.append(to_boxes(points.astype(np.float32), b))
         mlvl_scores.append(s)
 
     bboxes = np.concatenate(mlvl_bboxes)
     scores = np.concatenate(mlvl_scores)
+    if yawed:
+        scores_bg = np.concatenate([scores, np.zeros((len(scores), 1), scores.dtype)], 1)
+        bev = np.stack([bboxes[:, 0] - bboxes[:, 3] / 2, bboxes[:, 1] - bboxes[:, 4] / 2,
+                        bboxes[:, 0] + bboxes[:, 3] / 2, bboxes[:, 1] + bboxes[:, 4] / 2,
+                        bboxes[:, 6]], axis=1)
+        return box3d_multiclass_nms(bboxes, bev, scores_bg, t.score_thr, t.nms_pre,
+                                    t.nms_thr, use_rotate_nms=t.use_rotate_nms)
     labels = scores.argmax(axis=1)
     max_scores = scores.max(axis=1)
     ids = max_scores > t.score_thr

@@ -40,8 +40,8 @@ class SGCDet(nn.Module):
             raise RuntimeError(
                 f"device {device} requested but torch sees no CUDA device; pass "
                 "device='cpu' to run the plain PyTorch versions on the CPU")
-        if cfg.head_type != "scannet":
-            raise NotImplementedError("the port runs the ScanNet head only")
+        if cfg.head_type not in ("scannet", "sunrgbd"):
+            raise ValueError(f"unknown head_type {cfg.head_type!r}")
         # options of the JAX package's ModelConfig that the port does not run
         if getattr(cfg, "use_gt_dpt", False) or getattr(cfg, "sweep_band", None) is not None:
             raise NotImplementedError("sweep_band and use_gt_dpt are not ported")
@@ -63,7 +63,7 @@ class SGCDet(nn.Module):
         self.neck_3d = FastIndoorImVoxelNeck(
             cfg.embed_dims, cfg.neck3d_out_channels, cfg.neck3d_n_blocks)
         self.bbox_head = ImVoxelHead(cfg.neck3d_out_channels, cfg.n_classes,
-                                     cfg.n_reg_outs, cfg.n_scales)
+                                     cfg.n_reg_outs, cfg.n_scales, cfg.head_type)
         init_weights(self, generator if generator is not None
                      else torch.Generator().manual_seed(0))
         self.compute_dtype = (torch.float32 if cfg.compute_dtype == "float32"

@@ -1,12 +1,13 @@
-"""Training losses of the ScanNet head (sgcdet_tpu/models/losses.py): masked,
-static-shape versions of mmdet's FocalLoss, CrossEntropyLoss(use_sigmoid)
-and AxisAlignedIoULoss, and the aligned IoU of
-sgcdet_tpu/geometry/boxes.py::axis_aligned_overlaps_3d.  The yawed
-``rotated_iou_loss`` belongs to the ARKit head, which the port does not run
-yet."""
+"""Training losses of the detection heads (sgcdet_tpu/models/losses.py):
+masked, static-shape versions of mmdet's FocalLoss,
+CrossEntropyLoss(use_sigmoid), AxisAlignedIoULoss (the ScanNet head, on the
+aligned IoU of sgcdet_tpu/geometry/boxes.py::axis_aligned_overlaps_3d) and
+RotatedIoU3DLoss (the ARKit head, on ``geometry.rotated_iou_3d_torch``)."""
 from __future__ import annotations
 
 import torch
+
+from ..geometry.rotated_iou import rotated_iou_3d_torch
 
 
 def axis_aligned_overlaps_3d(boxes1, boxes2, eps=1e-6):
@@ -53,4 +54,11 @@ def bce_with_logits(logits, targets, mask, avg_factor):
 def axis_aligned_iou_loss(pred, target, weight, avg_factor):
     """1 - axis-aligned 3D IoU on corner boxes, weighted."""
     loss = (1.0 - axis_aligned_overlaps_3d(pred, target)) * weight
+    return loss.sum() / torch.clamp(avg_factor, min=1e-6)
+
+
+def rotated_iou_loss(pred, target, weight, avg_factor):
+    """1 - rotated 3D IoU on (x, y, z_center, dx, dy, dz, yaw) boxes,
+    weighted."""
+    loss = (1.0 - rotated_iou_3d_torch(pred, target)) * weight
     return loss.sum() / torch.clamp(avg_factor, min=1e-6)

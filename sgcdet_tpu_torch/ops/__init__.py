@@ -8,7 +8,7 @@ from .dfa3d_windowed import (
     DFA3D_WIN_FWD_MH,
     dfa3d_attention_windowed,
 )
-from .nms import aligned_3d_nms
+from .nms import aligned_3d_nms, box3d_multiclass_nms, nms_bev, nms_normal_bev
 from .sweep import (
     SWEEP_BWD,
     SWEEP_FWD,
@@ -31,5 +31,6 @@ KERNELS = {
 __all__ = [
     "KERNELS", "LIBRARY", "plain_ops", "dfa3d_attend", "dfa3d_attention_plain",
     "dfa3d_attention_windowed", "msda_2d_attend",
-    "aligned_3d_nms", "plane_sweep_correlation", "plane_sweep_correlation_plain",
+    "aligned_3d_nms", "box3d_multiclass_nms", "nms_bev", "nms_normal_bev",
+    "plane_sweep_correlation", "plane_sweep_correlation_plain",
 ]

@@ -58,12 +58,18 @@ def example_scene(img_shape, pad, n_views, rng=None, trajectory="ring"):
 
 
 def example_train_scene(img_shape, pad, n_views, n_classes, downsample_factor,
-                        trajectory="indoor"):
+                        trajectory="indoor", yawed=False):
     """``example_scene`` plus the train step's synthetic ground truth, as
     ``bench.py::train_step_time`` builds it (bench.py:299-316): 16 padded
     gravity-centre boxes of which the first 8 are real, random labels, and
     metric depth maps at ``downsample_factor`` x the stride-4 grid, all from
     ``RandomState(3)``.
+
+    ``yawed`` (the ARKit head's ground truth) replaces the boxes with 12
+    real ones of 16 from ``RandomState(4)``, each with a yaw, standing where
+    the indoor walkthrough's cameras look: centres 1.2-2.4 m from the
+    loop's axis at any bearing, 0.2-1.2 m high, 0.5-1.4 m a side (the
+    labels and depth maps stay the draws of ``RandomState(3)``).
 
     Adds gt_boxes (16, 7) f32, gt_labels (16,) int32, gt_mask (16,) bool and
     gt_depth (N, pad_h / 4 * ds, pad_w / 4 * ds) f32."""
@@ -73,6 +79,8 @@ def example_train_scene(img_shape, pad, n_views, n_classes, downsample_factor,
     boxes = np.zeros((max_boxes, 7), np.float32)
     boxes[:, :3] = rng.uniform(-2, 2, (max_boxes, 3))
     boxes[:, 3:6] = rng.uniform(0.3, 1.5, (max_boxes, 3))
+    if yawed:
+        boxes, n_real = _yawed_boxes(max_boxes), 12
     dh = pad[0] // 4 * downsample_factor
     dw = pad[1] // 4 * downsample_factor
     return dict(
@@ -82,3 +90,16 @@ def example_train_scene(img_shape, pad, n_views, n_classes, downsample_factor,
         gt_mask=np.arange(max_boxes) < n_real,
         gt_depth=rng.uniform(0.5, 4.5, (n_views, dh, dw)).astype(np.float32),
     )
+
+
+def _yawed_boxes(n):
+    """(n, 7) yawed gravity-centre boxes around the indoor loop (see
+    ``example_train_scene``)."""
+    rng = np.random.RandomState(4)
+    radius = rng.uniform(1.2, 2.4, n)
+    bearing = rng.uniform(-np.pi, np.pi, n)
+    boxes = np.stack([radius * np.cos(bearing), radius * np.sin(bearing),
+                      rng.uniform(0.2, 1.2, n)], 1)
+    sizes = rng.uniform(0.5, 1.4, (n, 3))
+    yaw = rng.uniform(-np.pi, np.pi, (n, 1))
+    return np.concatenate([boxes, sizes, yaw], 1).astype(np.float32)

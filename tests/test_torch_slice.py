@@ -5,7 +5,9 @@
   identical decoded boxes through ``infer.detect``;
 * ``state_dict_from_flax`` round trip through ``convert_torch_state_dict``;
 * ``scene.example_scene`` vs ``__graft_entry__._example_scene``;
-* the port imports and serves with JAX made unimportable;
+* the port imports (its data, eval and geometry packages too) and serves
+  the ScanNet and ARKit heads, and scores detections with its indoor eval,
+  with JAX, the JAX package, OpenCV and PIL made unimportable;
 * ``chip_smoke.py`` refuses to run without a GPU, and without the repo.
 """
 import dataclasses
@@ -142,26 +144,43 @@ def test_scene_matches_graft_entry(trajectory):
 
 _NO_JAX = """
 import sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
-sys.modules["sgcdet_tpu"] = None
+# the JAX package and its frameworks, and the image libraries, which the
+# card's machine lacks (the data pipeline imports them where it reads files)
+for name in ("jax", "flax", "sgcdet_tpu", "cv2", "PIL"):
+    sys.modules[name] = None
 sys.path.insert(0, {repo!r})
 sys.path.insert(0, {tests!r})
+import dataclasses
+import numpy as np
 import torch
+import sgcdet_tpu_torch.data, sgcdet_tpu_torch.eval, sgcdet_tpu_torch.geometry
 from sgcdet_tpu_torch import configs
+from sgcdet_tpu_torch.eval import indoor_eval
+from sgcdet_tpu_torch.geometry import DepthBoxes3D
 from sgcdet_tpu_torch.infer import detect, forward_scene
 from sgcdet_tpu_torch.models import SGCDet
 from sgcdet_tpu_torch.scene import example_scene
-from torch_port_tiny import IMG_SHAPE, N_VIEWS, PAD, tiny_model_cfg
+from torch_port_tiny import IMG_SHAPE, N_VIEWS, PAD, TINY_MODEL, tiny_model_cfg
+scene = example_scene(IMG_SHAPE, PAD, N_VIEWS, trajectory="indoor")
 for dtype in ("float32", "bfloat16"):
     model = SGCDet(tiny_model_cfg(dtype, configs), IMG_SHAPE, device="cpu",
                    generator=torch.Generator().manual_seed(1))
-    scene = example_scene(IMG_SHAPE, PAD, N_VIEWS, trajectory="indoor")
     out = forward_scene(model, scene)
     assert all(torch.isfinite(t).all() for s in out["head_outs"] for t in s)
     boxes, scores, labels = detect(model, scene)
     print(dtype, boxes.shape, flush=True)
-assert not any(m == "jax" or m.startswith(("jax.", "flax", "sgcdet_tpu."))
+# the ARKit head: yawed boxes after the rotated BEV NMS, scored by the eval
+arkit = dataclasses.replace(configs.arkit().model, compute_dtype="float32", **TINY_MODEL)
+model = SGCDet(arkit, IMG_SHAPE, device="cpu", generator=torch.Generator().manual_seed(1))
+boxes, scores, labels = detect(model, scene)
+assert boxes.shape[1] == 7 and len(boxes) > 0, boxes.shape
+gt = dict(gt_num=len(boxes), gt_boxes_upright_depth=boxes, **{{"class": labels}})
+dt = dict(boxes_3d=DepthBoxes3D(boxes, origin=(0.5, 0.5, 0.5)), scores_3d=scores,
+          labels_3d=labels)
+res = indoor_eval([gt], [dt], [0.25, 0.5], {{i: str(i) for i in range(3)}})
+assert res["mAP_0.25"] == res["mAP_0.50"] == 1.0, res
+print("arkit", boxes.shape, flush=True)
+assert not any(m == "jax" or m.startswith(("jax.", "flax", "sgcdet_tpu.", "cv2", "PIL"))
                for m in sys.modules if sys.modules[m] is not None)
 print("NO_JAX_OK")
 """
