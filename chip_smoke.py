@@ -186,6 +186,34 @@ Phases, each fatal on failure:
               synthetic GT (the boxes of scene.example_train_scene):
               mAP@0.25 and @0.5 finite; then the GT given back as
               detections of score 1: AP 1.0 for every class present.
+15. cli     — the CLI (sgcdet_tpu_torch.cli.run) on the ScanNet config at
+              full width, bf16, --visibility_budget auto, data.repeat_times=1,
+              model.ffn_dropout=0.0, over in-memory datasets (no dataset is
+              stored on the card's host): 2 train scenes at 40 views with the yawless
+              ground truth of scene.example_train_scene and 2 val scenes at
+              the config's 100 views, behind the CLI's SceneLoader, log
+              folders under build/cli_smoke/.  Train 3 steps (an epoch is 2:
+              saves and 100-view evals at steps 2 and 3, a final save):
+              metrics.jsonl has train/ and val/ lines, config.json, step_2,
+              step_3 and last -> step_3, the launches of phase 7 per step and
+              of phase 5 per eval scene; a fresh model and optimizer restored
+              from step 3 bit-equal to the trained ones; --resume to step 4
+              runs one step; --mode eval of step 2 gives the in-training
+              eval's mAP dict; --mode show (score_thr 0, nms_pre 50: the
+              seeded model scores no box above 0.01) writes the .npy dumps
+              and a render per view (.png.npy without cv2) with infer.detect's
+              detections;
+              one data-parallel step at world size 1 on NCCL (FileStore, in
+              this process) against the single-device step from the same
+              weights and scene (f32, TF32 off): loss terms within 1e-4, n_pos
+              equal, every trainable parameter moved and no frozen one, the
+              same launches, and one all-reduce each way per synced BN plus
+              one each for n_pos, the gradients, the metrics and the BN
+              statistics.  Then phase 4 at 100 views (f32 through kernels and
+              plain versions) and phase 5 at 100 views (a warm-up forward and
+              3 timed bf16 infer.detect calls: seconds per scene split into
+              forward + copy, decode and NMS, peak memory, K' per level,
+              launches per scene).
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
@@ -205,7 +233,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -493,12 +523,12 @@ def sweep_work(args, outs, backward):
 # ---------------------------------------------------------------------------
 
 
-def _scene_and_cfg(config="scannet"):
+def _scene_and_cfg(config="scannet", n_views=N_VIEWS):
     from sgcdet_tpu_torch import configs
     from sgcdet_tpu_torch.scene import example_scene
 
     cfg = getattr(configs, config)()
-    scene = example_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
+    scene = example_scene(cfg.data.img_shape, cfg.data.pad_size, n_views,
                           trajectory="indoor")
     return cfg, scene
 
@@ -1003,19 +1033,23 @@ def _occupancy_picks_of(torch, tag, ref):
         sparse_head.top_k_indices = top_k
 
 
-def phase_slice_f32(torch, dev, sort_queries=False, config="scannet", pin_picks=False):
-    """The f32 scene of ``config`` through kernels and plain versions (with
-    ``pin_picks``, the plain run on the kernel run's occupancy picks,
-    ``_occupancy_picks_of``); returns the kernels' outputs."""
+def phase_slice_f32(torch, dev, sort_queries=False, config="scannet", pin_picks=False,
+                    n_views=N_VIEWS):
+    """The f32 scene of ``config`` at ``n_views`` through kernels and plain
+    versions (with ``pin_picks``, the plain run on the kernel run's
+    occupancy picks, ``_occupancy_picks_of``); returns the kernels'
+    outputs."""
     from sgcdet_tpu_torch.infer import forward_scene
     from sgcdet_tpu_torch.models import SGCDet
     from sgcdet_tpu_torch.ops import plain_ops
 
     tag = ("sorted slice f32" if sort_queries else "slice f32") + _tag(config)
+    if n_views != N_VIEWS:
+        tag += f" {n_views} views"
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, scene = _scene_and_cfg(config)
+    cfg, scene = _scene_and_cfg(config, n_views)
     mcfg = dataclasses.replace(cfg.model, compute_dtype="float32",
                                visibility_budget=_auto_budget(cfg, scene),
                                sort_queries=sort_queries)
@@ -1045,7 +1079,8 @@ def phase_slice_f32(torch, dev, sort_queries=False, config="scannet", pin_picks=
 
 
 def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet",
-                  detections=None, n_scenes=SERVE_SCENES, warm_up="detect"):
+                  detections=None, n_scenes=SERVE_SCENES, warm_up="detect",
+                  n_views=N_VIEWS):
     """``infer.detect`` on ``n_scenes`` scenes after a warm-up: the first
     of them (``warm_up="detect"``) or a forward of the first (``"forward"``,
     every call timed).  Each call's time is split into the forward with the
@@ -1060,10 +1095,12 @@ def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet",
     from sgcdet_tpu_torch.scene import example_scene
 
     tag = ("sorted serving" if sort_queries else "serving") + _tag(config)
+    if n_views != N_VIEWS:
+        tag += f" {n_views} views"
     per_scene = (LAUNCHES_PER_SCENE_SORTED if sort_queries else
                  LAUNCHES_PER_SCENE_LARGE if config in LARGE_CONFIGS else LAUNCHES_PER_SCENE)
     cfg, _ = _scene_and_cfg(config)
-    scenes = [example_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
+    scenes = [example_scene(cfg.data.img_shape, cfg.data.pad_size, n_views,
                             rng=np.random.RandomState(i), trajectory="indoor")
               for i in range(n_scenes)]
     mcfg = dataclasses.replace(cfg.model, visibility_budget=_auto_budget(cfg, scenes[0]),
@@ -1072,7 +1109,7 @@ def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet",
     log(f"[{tag}] config {config}, compute {mcfg.compute_dtype}, head {mcfg.head_type}, "
         f"{mcfg.n_classes} classes, {mcfg.test_cfg}, budget "
         f"{[round(b, 4) for b in mcfg.visibility_budget]} (K' per level "
-        f"{_kept_queries(torch, mcfg)}), sort_queries {sort_queries}, {N_VIEWS} views")
+        f"{_kept_queries(torch, mcfg)}), sort_queries {sort_queries}, {n_views} views")
     model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
                    generator=torch.Generator().manual_seed(0))
     log(f"[{tag}] parameters: {sum(p.numel() for p in model.parameters())}")
@@ -2680,6 +2717,362 @@ def phase_eval(torch, detections):
         check(all(ap >= 1.0 - 1e-6 for ap in aps), f"eval {config}: GT as detections, AP < 1")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the CLI (train, eval, show), checkpoints, resume, data parallel
+# at world size 1, and 100-view serving
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN_SCENES = 2
+CLI_VAL_SCENES = 2
+CLI_STEPS = 3
+# the loss terms of the DP step at world size 1 against the single-device
+# step from the same weights, f32 with TF32 off: relative tolerance
+DP_LOSS_RTOL = 1e-4
+
+
+class _MemoryScenes:
+    """``MultiViewDataset``'s interface (``__len__``, ``__getitem__``,
+    ``gt_anno``, ``scene_poses``) over synthetic indoor scenes of
+    ``scene.py``: the images of ``RandomState(seed + i)``, the yawless
+    ground truth of ``example_train_scene`` (its 8 real boxes).  The card's
+    host holds no dataset, so the CLI reads these from memory instead of an
+    on-disk set."""
+
+    def __init__(self, cfg, n_scenes, n_views, train, seed):
+        import numpy as np
+
+        from sgcdet_tpu_torch.scene import example_scene, example_train_scene
+
+        truth = example_train_scene(cfg.data.img_shape, cfg.data.pad_size, 2,
+                                    cfg.model.n_classes, 1)
+        mask = truth["gt_mask"]
+        self.boxes, self.labels = truth["gt_boxes"][mask], truth["gt_labels"][mask]
+        self.train = train
+        self.scenes = [example_scene(cfg.data.img_shape, cfg.data.pad_size, n_views,
+                                     rng=np.random.RandomState(seed + i), trajectory="indoor")
+                       for i in range(n_scenes)]
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def __getitem__(self, i):
+        scene = dict(self.scenes[i], index=i)
+        if self.train:
+            scene.update(gt_boxes=self.boxes, gt_labels=self.labels)
+        return scene
+
+    def gt_anno(self, i):
+        import numpy as np
+
+        return dict(gt_num=len(self.boxes), gt_boxes_upright_depth=self.boxes[:, :6],
+                    **{"class": self.labels.astype(np.int64)})
+
+    def scene_poses(self, i):
+        s = self.scenes[i]
+        return s["origin"], s["proj_img"], s["proj_feat4"]
+
+
+def _cli_run(torch, kernels, flags, datasets, built):
+    """``cli.run`` of ``flags`` on the in-memory datasets; records each
+    model the run builds (with its optimizer and config) in ``built`` and
+    the launches of each train step and each eval forward.  Returns (the
+    run's result, step launches, eval launches)."""
+    from sgcdet_tpu_torch import cli, infer
+    from sgcdet_tpu_torch import train as port_train
+
+    steps, evals = [], []
+
+    def counted(fn, into):
+        def call(*args, **kw):
+            before = {name: k.launches for name, k in kernels.items()}
+            out = fn(*args, **kw)
+            into.append({name: k.launches - before[name] for name, k in kernels.items()})
+            return out
+        return call
+
+    def init(config, *args, **kw):
+        model, optimizer = originals[0](config, *args, **kw)
+        built.append((model, optimizer, config))
+        return model, optimizer
+
+    def make_step(*args, **kw):
+        return counted(originals[1](*args, **kw), steps)
+
+    originals = (port_train.init_train_state, port_train.make_train_step,
+                 infer.forward_scene)
+    port_train.init_train_state, port_train.make_train_step = init, make_step
+    infer.forward_scene = counted(originals[2], evals)
+    try:
+        ret = cli.run(cli.parse_args(flags), *datasets)
+    finally:
+        (port_train.init_train_state, port_train.make_train_step,
+         infer.forward_scene) = originals
+    torch.cuda.synchronize()
+    return ret, steps, evals
+
+
+def _check_launches(tag, runs, per_call, what):
+    for i, got in enumerate(runs):
+        want = {name: per_call.get(name, 0) for name in got}
+        check(got == want, f"{tag} {what} {i}: launches {_launched(got)}, expected "
+              f"{_launched(want)}")
+    log(f"[{tag}] {len(runs)} {what}s, each {_launched(runs[0]) if runs else {}}")
+
+
+def _state_equal(torch, a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_cli(torch, dev, kernels, root):
+    """The CLI on the ScanNet config at full width (bf16, ``--visibility_budget
+    auto``, ``data.repeat_times=1``, ``model.ffn_dropout=0.0``) over in-memory
+    datasets in ``root``: train, restore, resume, eval, show; one
+    data-parallel step at world size 1 on NCCL against a single-device step;
+    the 100-view f32 scene through kernels and plain versions and 100-view
+    bf16 serving."""
+    cwd = os.getcwd()
+    os.chdir(root)  # the CLI writes logs/<folder> where it runs
+    try:
+        _phase_cli(torch, dev, kernels, root)
+    finally:
+        os.chdir(cwd)
+
+
+def _phase_cli(torch, dev, kernels, root):
+    import numpy as np
+
+    from sgcdet_tpu_torch import configs
+    from sgcdet_tpu_torch.train import checkpoint, init_train_state
+
+    tag = "cli"
+    cfg = configs.scannet()
+    train_ds = _MemoryScenes(cfg, CLI_TRAIN_SCENES, cfg.data.n_images_train, True, 0)
+    val_ds = _MemoryScenes(cfg, CLI_VAL_SCENES, cfg.data.n_images_test, False, 10)
+    try:
+        import cv2
+        decoder = f"cv2 {cv2.__version__}"
+    except Exception:
+        decoder = "no cv2"
+    log(f"[{tag}] datasets in memory (this host holds no dataset; its image "
+        f"decoder: {decoder}): {len(train_ds)} train scenes at {cfg.data.n_images_train} views "
+        f"and {len(val_ds)} val scenes at {cfg.data.n_images_test} views of the indoor "
+        f"trajectory, behind the CLI's SceneLoader; log folders in {root}")
+    common = ["--config", "scannet", "--device", str(dev), "--num_workers", "2",
+              "--override", "data.repeat_times=1", "--override", "model.ffn_dropout=0.0"]
+    datasets = (train_ds, val_ds)
+    ckpt_dir = root / "logs/run/ckpt"
+
+    # 1. train 3 steps: an epoch is 2 steps, so a save and a 100-view eval
+    # at step 2, and (the JAX package's loop counts the cut epoch as one) a
+    # save and an eval at step 3, then the final save
+    built = []
+    t0 = time.perf_counter()
+    _, steps, evals = _cli_run(torch, kernels, common + [
+        "--mode", "train", "--log_folder", "run", "--visibility_budget", "auto",
+        "--max_steps", str(CLI_STEPS), "--eval_every_epochs", "1"], datasets, built)
+    model, optimizer, run_cfg = built[-1]
+    budget = run_cfg.model.visibility_budget
+    log(f"[{tag}] train: {CLI_STEPS} steps with the evals at steps 2 and 3 in "
+        f"{time.perf_counter() - t0:.1f} s; budget {[round(b, 4) for b in budget]}")
+    lines = [json.loads(x) for x in (root / "logs/run/metrics.jsonl").read_text().splitlines()]
+    train_lines = [x for x in lines if "train/loss" in x]
+    val_lines = [x for x in lines if "val/mAP_0.25" in x]
+    log(f"[{tag}] metrics.jsonl: {train_lines[-1] if train_lines else None}; "
+        f"{val_lines[-1] if val_lines else None}")
+    check((root / "logs/run/config.json").is_file(), f"{tag}: no config.json")
+    check(len(train_lines) == 2 and all(math.isfinite(x["train/loss"]) for x in train_lines),
+          f"{tag}: train/ lines {train_lines}")
+    check([x["step"] for x in val_lines] == [2, 3], f"{tag}: val/ lines {val_lines}")
+    check((ckpt_dir / "step_2").is_file() and (ckpt_dir / "step_3").is_file()
+          and (ckpt_dir / "last").read_text() == "step_3",
+          f"{tag}: checkpoints {sorted(p.name for p in ckpt_dir.iterdir())}")
+    check(len(steps) == CLI_STEPS and len(evals) == 2 * CLI_VAL_SCENES,
+          f"{tag}: {len(steps)} steps and {len(evals)} eval forwards")
+    _check_launches(tag, steps, LAUNCHES_PER_STEP, "train step")
+    _check_launches(tag, evals, LAUNCHES_PER_SCENE, "100-view eval scene")
+
+    # 2. a fresh model and optimizer restored from step 3 hold the trained
+    # ones' bits
+    fresh, fresh_opt = init_train_state(run_cfg, torch.Generator().manual_seed(1), dev)
+    check(not _state_equal(torch, fresh.state_dict(), model.state_dict()),
+          f"{tag}: the fresh model already equals the trained one")
+    step = checkpoint.restore_checkpoint(str(ckpt_dir / "step_3"), fresh, fresh_opt)
+    check(step == CLI_STEPS, f"{tag}: restored step {step}")
+    check(_state_equal(torch, fresh.state_dict(), model.state_dict()),
+          f"{tag}: the restored state_dict differs from the trained one")
+    moments = [(optimizer.adamw.state[pa], fresh_opt.adamw.state[pb])
+               for ga, gb in zip(optimizer.adamw.param_groups, fresh_opt.adamw.param_groups)
+               for pa, pb in zip(ga["params"], gb["params"])]
+    check(fresh_opt.count == optimizer.count == CLI_STEPS
+          and all(_state_equal(torch, a, b) for a, b in moments),
+          f"{tag}: the restored optimizer state differs")
+    log(f"[{tag}] restore: {len(model.state_dict())} tensors and {len(moments)} "
+        f"parameters' AdamW moments bit-equal at step {step}")
+    del fresh, fresh_opt, built[:]
+    torch.cuda.empty_cache()
+
+    # 3. resume to step 4: one step, last -> step_4
+    _, steps, _ = _cli_run(torch, kernels, common + [
+        "--mode", "train", "--log_folder", "run", "--visibility_budget", "auto",
+        "--max_steps", "4", "--resume", "--eval_every_epochs", "0"], datasets, built)
+    check(len(steps) == 1 and (ckpt_dir / "last").read_text() == "step_4",
+          f"{tag}: resume ran {len(steps)} steps, last {(ckpt_dir / 'last').read_text()}")
+    _check_launches(tag, steps, LAUNCHES_PER_STEP, "resumed step")
+    del built[:]
+
+    # 4. eval of step 2 at 100 views, with the budget the training derived
+    # (an override: the in-training eval ran with it)
+    pinned = ["--override", f"model.visibility_budget={tuple(budget)}"]
+    t0 = time.perf_counter()
+    ret, _, evals = _cli_run(torch, kernels, common + pinned + [
+        "--mode", "eval", "--log_folder", "eval", "--ckpt_path",
+        str(ckpt_dir / "step_2")], datasets, built)
+    maps = {k: v for k, v in ret.items() if k.startswith("mA")}
+    trained = {k[4:]: v for k, v in val_lines[0].items() if k.startswith("val/")}
+    diff = max(abs(maps[k] - trained[k]) for k in trained)
+    log(f"[{tag}] eval of step 2: {maps} ({time.perf_counter() - t0:.1f} s); the "
+        f"in-training eval at step 2: {trained}; largest difference {diff:.3e}")
+    check(maps == trained, f"{tag}: the eval's mAP differs from the in-training eval's")
+    _check_launches(tag, evals, LAUNCHES_PER_SCENE, "100-view eval scene")
+    del built[:]
+
+    # 5. show: the .npy dumps and the per-view renders; its detections are
+    # infer.detect's on the same scenes.  The seeded model scores no box
+    # above score_thr 0.01: the show keeps every candidate (score_thr 0),
+    # 50 a scale before the NMS, so that it has boxes to dump and draw
+    t0 = time.perf_counter()
+    _, _, evals = _cli_run(torch, kernels, common + pinned + [
+        "--override", "model.test_cfg.score_thr=0.0", "--override",
+        "model.test_cfg.nms_pre=50", "--mode", "show", "--log_folder", "show",
+        "--ckpt_path", str(ckpt_dir / "step_2")], datasets, built)
+    show_s = time.perf_counter() - t0
+    show = root / "logs/show/show"
+    try:
+        import cv2  # noqa: F401
+        suffix = ".png"
+    except Exception:
+        suffix = ".png.npy"
+    from sgcdet_tpu_torch import infer
+
+    shown = built[-1][0]
+    for i in range(CLI_VAL_SCENES):
+        for kind in ("pred_corners", "gt_corners", "scores", "labels"):
+            check((show / f"{i:05d}_{kind}.npy").is_file(), f"{tag}: no {i:05d}_{kind}.npy")
+        renders = list((show / f"{i:05d}").glob(f"view_*{suffix}"))
+        check(len(renders) == cfg.data.n_images_test,
+              f"{tag}: {len(renders)} renders of scene {i}")
+        boxes, scores, labels = infer.detect(shown, val_ds[i])
+        dumped = np.load(show / f"{i:05d}_scores.npy")
+        same = dumped.shape == scores.shape and np.array_equal(
+            np.load(show / f"{i:05d}_labels.npy"), labels)
+        err = float(np.abs(dumped - scores).max()) if same and len(scores) else 0.0
+        log(f"[{tag}] show scene {i}: {len(dumped)} detections, infer.detect's "
+            f"{len(scores)} (scores max_abs_err {err:.3e}), {len(renders)} renders "
+            f"({suffix})")
+        check(same and err <= 1e-5 and len(dumped) > 0,
+              f"{tag}: the show dumps differ from infer.detect's, or are empty")
+    log(f"[{tag}] show: {show_s:.1f} s")
+    del built[:], shown
+    torch.cuda.empty_cache()
+
+    # 6. one data-parallel step at world size 1 on NCCL against the
+    # single-device step: same weights and scene, f32 with TF32 off
+    phase_dp(torch, dev, kernels, root, train_ds)
+
+    # 7. 100-view serving
+    torch.cuda.empty_cache()
+    phase_slice_f32(torch, dev, n_views=cfg.data.n_images_test)
+    torch.cuda.empty_cache()
+    phase_serving(torch, dev, kernels, n_views=cfg.data.n_images_test, warm_up="forward")
+    torch.cuda.empty_cache()
+
+
+def phase_dp(torch, dev, kernels, root, train_ds):
+    """One data-parallel train step at world size 1 (NCCL through a
+    FileStore in ``root``) and the single-device step from the same weights
+    on ``train_ds[0]``, f32 with TF32 off: loss terms, n_pos, launches, the
+    all-reduces by kind, every trainable parameter moved."""
+    import torch.distributed as dist
+
+    from sgcdet_tpu_torch import configs, parallel
+    from sgcdet_tpu_torch.data import pad_gt
+    from sgcdet_tpu_torch.models import layers
+    from sgcdet_tpu_torch.train import init_train_state, make_train_step, param_label
+
+    tag = "dp"
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    base = configs.scannet()
+    scene = train_ds[0]  # padded as the CLI's loader pads it
+    scene["gt_boxes"], scene["gt_labels"], scene["gt_mask"] = pad_gt(
+        scene["gt_boxes"], scene["gt_labels"], base.data.max_boxes)
+    mcfg = dataclasses.replace(base.model, compute_dtype="float32", ffn_dropout=0.0,
+                               visibility_budget=_auto_budget(base, scene))
+    cfg = dataclasses.replace(base, model=mcfg)
+    store = root / "dp_store"
+    if dev.type == "cuda":
+        dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0,
+                                world_size=1, device_id=dev)
+    else:  # a rehearsal on the CPU
+        dist.init_process_group("gloo", store=dist.FileStore(str(store), 1), rank=0,
+                                world_size=1)
+    try:
+        runs = {}
+        for name, group in (("single", None), ("dp", dist.group.WORLD)):
+            model, optimizer = init_train_state(cfg, torch.Generator().manual_seed(0), dev)
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            step = make_train_step(model, cfg, optimizer, group=group)
+            counts = dict(parallel.COUNTS)
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            metrics = step(scene, torch.Generator(device=dev).manual_seed(1))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = {n: k.launches for n, k in kernels.items()}
+            reduces = {k: v - counts[k] for k, v in parallel.COUNTS.items()}
+            moved = {n: not torch.equal(before[n], p.detach())
+                     for n, p in model.named_parameters()}
+            has_grad = {n: bool(p.grad.any()) for n, p in model.named_parameters()}
+            n_bn = sum(1 for m in model.modules()
+                       if isinstance(m, layers._F32BatchNorm) and not m.frozen)
+            runs[name] = ({k: float(v) for k, v in metrics.items()}, launches, reduces)
+            log(f"[{tag}] {name} step (f32, TF32 off): {secs:.3f} s; launches "
+                f"{_launched(launches)}; all-reduces {reduces}")
+            expected = {n: LAUNCHES_PER_STEP.get(n, 0) for n in kernels}
+            check(launches == expected, f"{tag} {name}: launches {_launched(launches)}")
+            frozen = [n for n in moved if param_label(n) == "frozen"]
+            stuck = [n for n in moved if param_label(n) != "frozen" and has_grad[n]
+                     and not moved[n]]
+            check(not stuck and not any(moved[n] for n in frozen),
+                  f"{tag} {name}: stuck {stuck[:3]}, frozen moved "
+                  f"{[n for n in frozen if moved[n]][:3]}")
+            del model, optimizer, step
+            torch.cuda.empty_cache()
+        (m_s, _, r_s), (m_d, _, r_d) = runs["single"], runs["dp"]
+        check(not any(r_s.values()), f"{tag}: the single-device step all-reduced {r_s}")
+        want = dict(bn_sync=n_bn, bn_sync_backward=n_bn, n_pos=1, gradients=1,
+                    metrics=1, bn_stats=1)
+        check(r_d == want, f"{tag}: all-reduces {r_d}, expected {want}")
+        for k in m_s:
+            log(f"[{tag}] {k}: dp {m_d[k]:.6f}, single {m_s[k]:.6f}")
+        losses = [k for k in m_s if k.startswith("loss")]
+        bad = [k for k in losses
+               if abs(m_d[k] - m_s[k]) > DP_LOSS_RTOL * max(abs(m_s[k]), 1e-3)]
+        check(not bad and m_d["n_pos"] == m_s["n_pos"],
+              f"{tag}: loss terms {bad} or n_pos differ from the single-device step")
+        log(f"[{tag}] loss terms within {DP_LOSS_RTOL:.0e} and n_pos equal; every "
+            f"trainable parameter with a gradient moved and no frozen one; {n_bn} "
+            f"synced BNs, one all-reduce each way")
+    finally:
+        dist.destroy_process_group()
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     if not (repo / "sgcdet_tpu_torch").is_dir():
@@ -2724,6 +3117,9 @@ def main() -> int:
     sorted_serving, sorted_train, probe_runs = {}, {}, {}
     large_serving, large_train = {}, {}
     arkit_runs, detections = {}, {}
+    cli_root = repo / "build" / "cli_smoke"
+    shutil.rmtree(cli_root, ignore_errors=True)
+    cli_root.mkdir(parents=True)
     for name, fn in (
             ("kernels", lambda: phase_kernels(torch, dev, report)),
             ("backward", lambda: phase_backward(torch, dev, report)),
@@ -2740,7 +3136,8 @@ def main() -> int:
             ("large", lambda: phase_large(torch, dev, KERNELS, large_serving, large_train)),
             ("arkit", lambda: phase_arkit(torch, dev, KERNELS, report, arkit_runs,
                                           detections)),
-            ("eval", lambda: phase_eval(torch, detections))):
+            ("eval", lambda: phase_eval(torch, detections)),
+            ("cli", lambda: phase_cli(torch, dev, KERNELS, cli_root))):
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")

@@ -1,7 +1,10 @@
-"""Configuration of the port: the fields of sgcdet_tpu/configs/config.py that
-the eval forward, decode, NMS, losses, the train step and the host data
-pipeline read, with the same names and defaults, and the four released
-configs (``get_config``): ScanNet, ARKitScenes and their -L variants.
+"""Configuration of the port: every field of sgcdet_tpu/configs/config.py,
+with the same names, order and defaults (the options the port does not run,
+``sweep_band``, ``depth_remat`` and ``use_gt_dpt``, are refused by
+``SGCDet``), the four released configs (``get_config``): ScanNet,
+ARKitScenes and their -L variants, the CLI's ``section.key=value``
+overrides (``apply_overrides``) and its ``config.json`` dump
+(``config_json``).
 
 ``SGCDet``, ``decode_bboxes``, ``compute_losses`` and the train step read
 attributes only, so the JAX package's configs work in their place; the tests
@@ -92,10 +95,24 @@ class ModelConfig:
     # depth head
     dbound: Tuple[float, float, float] = (0.2, 5.0, 0.4)
     neighbor_img_num: int = 2
-    # attention
+    # the banded plane sweep (XLA only in the JAX package): not ported,
+    # SGCDet refuses any value but None
+    sweep_band: int | None = None
+    # losses; the depth loss reads GT depth maps at downsample_factor x the
+    # stride-4 prediction grid
+    downsample_factor: int = 8
+    depth_loss_weight: float = 0.5
+    depth_max_tol: int = 0
+    # rematerialize the depth net in the backward: not ported, SGCDet
+    # refuses True
+    depth_remat: bool = False
+    # attention (num_levels and attn_dropout are read by no model path, as
+    # in the JAX package)
     num_heads: int = 8
     num_points: int = 4
+    num_levels: int = 1
     ffn_dropout: float = 0.1
+    attn_dropout: float = 0.0
     # per-camera visible-query compaction budget: a fraction of K for every
     # level, a tuple of per-level fractions (1.0 disables a level), or None
     # (off); see visibility.derive_visibility_budgets for an exact one
@@ -110,13 +127,10 @@ class ModelConfig:
     n_scales: int = 3
     limit: int = 27
     centerness_topk: int = 18
-    # losses; the depth loss reads GT depth maps at downsample_factor x the
-    # stride-4 prediction grid
     occ_loss: bool = True
     depth_loss: bool = False
-    downsample_factor: int = 8
-    depth_loss_weight: float = 0.5
-    depth_max_tol: int = 0
+    # supervise with the one-hot GT depth: not ported, SGCDet refuses True
+    use_gt_dpt: bool = False
     # 'bfloat16' (default) or 'float32'; BatchNorm statistics, the depth
     # softmax, sampling coordinates and kernel accumulation stay f32
     compute_dtype: str = "bfloat16"
@@ -266,3 +280,44 @@ def get_config(name: str) -> SGCDetConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown config '{name}'; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def apply_overrides(config: SGCDetConfig, overrides) -> SGCDetConfig:
+    """Apply ``section.key=value`` strings onto a (frozen) config
+    (sgcdet_tpu/configs/config.py::apply_overrides): values are parsed with
+    ast.literal_eval (falling back to the raw string), and dotted paths
+    descend nested dataclasses, e.g. ``model.embed_dims=32`` or
+    ``model.test_cfg.nms_pre=100``.  An unknown field raises KeyError, an
+    item without ``=`` ValueError."""
+    import ast
+
+    def set_path(obj, path, value):
+        key = path[0]
+        if not hasattr(obj, key):
+            raise KeyError(
+                f"config has no field '{key}' at {type(obj).__name__}"
+            )
+        if len(path) == 1:
+            return dataclasses.replace(obj, **{key: value})
+        return dataclasses.replace(
+            obj, **{key: set_path(getattr(obj, key), path[1:], value)}
+        )
+
+    for item in overrides or ():
+        path_s, _, value_s = item.partition("=")
+        if not _:
+            raise ValueError(f"override '{item}' is not of the form key=value")
+        try:
+            value = ast.literal_eval(value_s)
+        except (ValueError, SyntaxError):
+            value = value_s
+        config = set_path(config, path_s.strip().split("."), value)
+    return config
+
+
+def config_json(config: SGCDetConfig) -> str:
+    """The ``config.json`` the CLI writes into a run's log folder (the
+    JAX package's bytes for the same config)."""
+    import json
+
+    return json.dumps(dataclasses.asdict(config), indent=2, default=str)

@@ -34,6 +34,7 @@ class MultiViewDataset:
         self.cfg = data_cfg
         self.train = train
         self.load_depth = load_depth
+        self.seed = seed
         self.rng = np.random.RandomState(seed)
         ann = data_cfg.ann_train if train else data_cfg.ann_val
         self.infos = load_infos(osp.join(data_cfg.data_root, ann))
@@ -42,6 +43,14 @@ class MultiViewDataset:
 
     def __len__(self):
         return len(self.infos)
+
+    def set_epoch(self, epoch):
+        """Reseed the train draws (view sampling, origin jitter) from the
+        seed and ``epoch``, so an epoch's scenes do not depend on the
+        epochs before it: a run resumed at an epoch's start draws what the
+        uninterrupted run drew, when one thread reads the scenes in order.
+        (The JAX package's dataset has no such method.)"""
+        self.rng = np.random.RandomState([self.seed, epoch])
 
     def gt_arrays(self, index):
         """(boxes (G, 7) gravity-center form, labels (G,)) for one scene."""

@@ -3,8 +3,9 @@ sgcdet_tpu/data/loader.py: a pool of ``num_workers`` scene-decoder threads
 (OpenCV's image decode releases the GIL, so threads scale across host cores
 without pickling scene dicts between processes); per-scene futures are
 submitted with a bounded window and assembled into batches in deterministic
-order; per-host sharding keeps each process on its slice of the epoch; GT
-is padded to a static (max_boxes,) so every step sees one shape.
+order; per-host sharding keeps each process on its slice of the epoch (in
+train mode, an equal number of batches on every host); GT is padded to a
+static (max_boxes,) so every step sees one shape.
 """
 from __future__ import annotations
 
@@ -72,6 +73,13 @@ class SceneLoader:
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
+        if self.drop_last and self.num_hosts > 1:
+            # every host runs the same number of batches: the epoch keeps
+            # whole rounds of num_hosts x batch_size scenes.  With one
+            # scene a host, host h's batch b is scene h of batch b of one
+            # host with num_hosts scenes a batch
+            idx = idx[: len(idx) // (self.num_hosts * self.batch_size)
+                      * self.num_hosts * self.batch_size]
         # per-host contiguous shard (DistributedSampler-style interleave)
         return idx[self.host_id :: self.num_hosts]
 

@@ -16,6 +16,7 @@ from torch import nn
 
 from ..geometry.boxes import rotation_3d_in_axis
 from ..ops.nms import aligned_3d_nms, box3d_multiclass_nms
+from ..parallel import all_reduce_mean_
 from ..voxel_grid import voxel_centers_zero_origin
 from .layers import Conv3d
 from .losses import (
@@ -195,11 +196,13 @@ def fcos_targets(points, scales, level_sizes, gt_boxes, gt_labels, gt_mask,
 
 
 def head_loss_single(head_outs, valids_flat, points, scales, level_sizes,
-                     gt_boxes, gt_labels, gt_mask, cfg):
+                     gt_boxes, gt_labels, gt_mask, cfg, group=None):
     """Losses of one scene.  head_outs: per scale (centerness (1, ...),
     bbox_pred (6 or 7, ...), cls_score (nc, ...)) without the batch dim;
-    valids_flat: (P,) bool.  Returns (loss_centerness, loss_bbox, loss_cls,
-    labels, geo_occ, n_pos)."""
+    valids_flat: (P,) bool.  With a process ``group`` the losses' average
+    factor is the positive count averaged over the ranks (the reference's
+    reduce_mean, imvoxel_head_v2.py:207).  Returns (loss_centerness,
+    loss_bbox, loss_cls, labels, geo_occ, n_pos), n_pos this rank's."""
     yawed = cfg.head_type == "sunrgbd"
 
     def flat(i, width):
@@ -215,7 +218,10 @@ def head_loss_single(head_outs, valids_flat, points, scales, level_sizes,
 
     pos = (labels >= 0) & valids_flat
     n_pos = pos.sum().float()
-    avg = n_pos.clamp(min=1.0)
+    n_pos_avg = n_pos
+    if group is not None:
+        n_pos_avg = all_reduce_mean_(n_pos.clone(), group, "n_pos")
+    avg = n_pos_avg.clamp(min=1.0)
     loss_cls = sigmoid_focal_loss(flat_cls, labels, cfg.n_classes, valids_flat, avg)
     loss_centerness = bce_with_logits(flat_centerness, centerness_t, pos, avg)
     weight = centerness_t * pos.float()

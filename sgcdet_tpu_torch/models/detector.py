@@ -119,19 +119,21 @@ def flatten_valids(valid, featmap_sizes):
 
 
 def compute_losses(cfg, outputs, origin, gt_boxes, gt_labels, gt_mask,
-                   gt_depth=None):
+                   gt_depth=None, group=None):
     """The loss dict of one scene (detector.py:126-157) and n_pos.
 
     gt_boxes: (B, 7) gravity-centre boxes (padded); gt_labels: (B,);
     gt_mask: (B,) bool; gt_depth: (N, H, W) metric depth at
-    downsample_factor x the stride-4 grid, read when ``cfg.depth_loss``."""
+    downsample_factor x the stride-4 grid, read when ``cfg.depth_loss``;
+    group: the process group of a data-parallel step (the head's average
+    factor is then the ranks' mean positive count)."""
     head_outs = outputs["head_outs"]
     featmap_sizes = [h[0].shape[-3:] for h in head_outs]
     points, scales, level_sizes = head_points(featmap_sizes, cfg.voxel_size, origin)
     valids_flat = flatten_valids(outputs["valid"], featmap_sizes)
     loss_centerness, loss_bbox, loss_cls, _, geo_occ, n_pos = head_loss_single(
         head_outs, valids_flat, points, scales, level_sizes, gt_boxes,
-        gt_labels, gt_mask, cfg)
+        gt_labels, gt_mask, cfg, group)
     losses = dict(loss_centerness=loss_centerness, loss_bbox=loss_bbox,
                   loss_cls=loss_cls)
     if cfg.occ_loss and outputs["occ_preds"] is not None:

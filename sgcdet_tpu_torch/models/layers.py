@@ -6,6 +6,9 @@
   there is no process-global knob.
 * BatchNorm computes in f32 and casts back to the input dtype
   (layers.py:229-232); a plain ``nn.BatchNorm2d`` on bf16 input does not.
+  Inside ``sync_batchnorm(group)`` (the data-parallel train step) every
+  train-mode BN that is not frozen averages its batch statistics over the
+  ranks, as the JAX package's BN does under a mesh (layers.py:210-225).
 * LayerNorm, MultiheadAttention and the interpolations follow the JAX code
   step by step, including its dtype promotion (bf16 activations times f32
   parameters give f32).
@@ -16,12 +19,15 @@ reads.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import mean_over_ranks
 
 
 class _Cast:
@@ -69,6 +75,21 @@ class Linear(_Cast, nn.Linear):
                         self._cast(self.bias))
 
 
+_BN_SYNC = {"group": None}
+
+
+@contextlib.contextmanager
+def sync_batchnorm(group):
+    """Within the block, train-mode BNs that are not frozen sync their batch
+    statistics over the ranks of ``group`` (None: no sync)."""
+    previous = _BN_SYNC["group"]
+    _BN_SYNC["group"] = group
+    try:
+        yield
+    finally:
+        _BN_SYNC["group"] = previous
+
+
 class _F32BatchNorm:
     """BatchNorm in f32, result in the input dtype (layers.py:187-232).
 
@@ -76,16 +97,43 @@ class _F32BatchNorm:
     never updated.  Train mode: biased batch statistics over (N, spatial),
     and the running variance moves by the unbiased n/(n-1) estimate with
     momentum 0.1, which is what ``F.batch_norm`` does.  A frozen BN's affine
-    still gets gradients (the optimizer leaves it alone)."""
+    still gets gradients (the optimizer leaves it alone).
+
+    Train mode inside ``sync_batchnorm(group)``: the f32 per-channel mean and
+    mean of squares are averaged over the ranks (``parallel.mean_over_ranks``,
+    whose backward averages their gradients too), var = mean2 - mean^2, and
+    the running variance moves by var * n / (n - 1) with n the local count
+    of elements a channel, as the JAX package does.  (Not
+    ``nn.SyncBatchNorm``, which weighs by the global count.)"""
 
     def __init__(self, *args, frozen: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
         self.frozen = frozen
 
     def forward(self, x):
+        train = self.training and not self.frozen
+        if train and _BN_SYNC["group"] is not None:
+            return self._synced(x, _BN_SYNC["group"])
         y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, self.training and not self.frozen,
-                         self.momentum, self.eps)
+                         self.weight, self.bias, train, self.momentum, self.eps)
+        return y.to(x.dtype)
+
+    def _synced(self, x, group):
+        ch = x.shape[1]
+        axes = (0,) + tuple(range(2, x.ndim))
+        xf = x.float()
+        stats = mean_over_ranks(torch.cat([xf.mean(axes), xf.square().mean(axes)]), group)
+        mean, mean2 = stats[:ch], stats[ch:]
+        var = mean2 - mean.square()
+        n = x.numel() // ch
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var
+                                   + m * (var * n / max(n - 1, 1)))
+        shape = (1, ch) + (1,) * (x.ndim - 2)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = xf * inv.reshape(shape) + (self.bias - mean * inv).reshape(shape)
         return y.to(x.dtype)
 
 

@@ -19,6 +19,10 @@ and what this module does instead:
 * optax's AdamW updates a parameter whose gradient is zero (weight decay
   still moves it); torch's skips parameters without a ``.grad``, so a
   missing gradient is given as zeros.
+
+``Optimizer.state_dict`` holds the update count and AdamW's moments and
+steps, without the groups' schedule closures (``torch.save`` cannot pickle
+them); ``load_state_dict`` keeps the closures built from ``train_cfg``.
 """
 from __future__ import annotations
 
@@ -88,6 +92,27 @@ class Optimizer:
         self.adamw = torch.optim.AdamW(groups, lr=train_cfg.lr, betas=(0.9, 0.999),
                                        eps=1e-8, weight_decay=train_cfg.weight_decay)
         self.count = 0  # updates so far: the schedules' step
+
+    def state_dict(self) -> dict:
+        """{"count": updates so far, "adamw": AdamW's state dict without
+        the groups' ``schedule``}; ``torch.save`` takes it."""
+        sd = self.adamw.state_dict()
+        groups = [{k: v for k, v in g.items() if k != "schedule"}
+                  for g in sd["param_groups"]]
+        return {"count": self.count,
+                "adamw": {"state": sd["state"], "param_groups": groups}}
+
+    def load_state_dict(self, state: dict):
+        """Restore ``state_dict()``'s count, moments and steps; each group
+        keeps its schedule from ``train_cfg``."""
+        saved = state["adamw"]["param_groups"]
+        if [g["label"] for g in saved] != [g["label"] for g in self.adamw.param_groups]:
+            raise ValueError("optimizer state of other parameter groups")
+        groups = [dict(g, schedule=own["schedule"])
+                  for g, own in zip(saved, self.adamw.param_groups)]
+        self.adamw.load_state_dict({"state": state["adamw"]["state"],
+                                    "param_groups": groups})
+        self.count = int(state["count"])
 
     def zero_grad(self):
         for _, p in self.named:

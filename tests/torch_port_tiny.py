@@ -280,3 +280,227 @@ def dfa3d_contention_case(name, n=3, h=8, w=16, d=8, k=20, heads=8, p=4, c=32,
     else:
         raise ValueError(name)
     return value, dpt, locs, attn, g, counts
+
+
+# ---------------------------------------------------------------------------
+# the CLI's on-disk synthetic ScanNet set (tests/test_torch_cli.py,
+# tests/test_torch_parallel.py)
+# ---------------------------------------------------------------------------
+
+# tiny-model overrides of tests/test_cli_end_to_end.py with ffn_dropout 0,
+# and the data fields for write_scannet_set's small frames (90 x 128,
+# resized to 45 x 64 and padded to 48 x 64)
+CLI_OVERRIDES = [
+    "model.n_voxels_list=((2,2,1),(4,4,2),(8,8,4))",
+    "model.voxel_size_list=((1.28,1.28,1.6),(0.64,0.64,0.8),(0.32,0.32,0.4))",
+    "model.topk_list=(32,256)",
+    "model.embed_dims=16",
+    "model.num_heads=2",
+    "model.dbound=(0.2,5.0,0.8)",
+    "model.limit=4",
+    "model.centerness_topk=4",
+    "model.test_cfg.nms_pre=64",
+    "model.ffn_dropout=0.0",
+    "data.img_scale=(64,48)",
+    "data.pad_size=(48,64)",
+    "data.img_shape=(45,64)",
+    "data.ori_shape=(90,128)",
+    "data.n_images_train=4",
+    "data.n_images_test=4",
+    "data.max_boxes=8",
+    "data.repeat_times=1",
+]
+
+CLI_FRAME = (90, 128)
+
+
+def write_scannet_set(root, n_train=2, n_val=2, n_views=5):
+    """ScanNet-format infos pkls of ``n_train`` / ``n_val`` scenes under
+    ``root`` (JPEG frames, uint16 PNG depth maps, 4x4 intrinsics and
+    extrinsics, two aligned GT boxes a scene), cameras on a small loop
+    looking outward, as in tests/test_cli_end_to_end.py at small frames."""
+    import pickle
+    from pathlib import Path
+
+    import cv2
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(0)
+
+    def cam_to_world(s, v):
+        ang = 2 * np.pi * v / n_views + 0.3 * s
+        c, si = np.cos(ang), np.sin(ang)
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3] = np.array([[c, 0, si], [-si, 0, c], [0, -1, 0]], np.float32)
+        m[:3, 3] = [0.4 * c, 0.4 * si, 1.2 + 0.1 * s]
+        return m
+
+    def scene(split, s):
+        info = dict(img_paths=[], depth_paths=[], extrinsics=[])
+        for v in range(n_views):
+            ip, dp = f"{split}{s}_v{v}.jpg", f"{split}{s}_v{v}.png"
+            cv2.imwrite(str(root / ip), rng.randint(0, 255, CLI_FRAME + (3,), np.uint8))
+            cv2.imwrite(str(root / dp), rng.randint(0, 5000, (60, 80)).astype(np.uint16))
+            info["img_paths"].append(ip)
+            info["depth_paths"].append(dp)
+            info["extrinsics"].append(cam_to_world(s, v))
+        intr = np.eye(4, dtype=np.float32)
+        intr[0, 0] = intr[1, 1] = 100.0
+        intr[0, 2], intr[1, 2] = 64.0, 45.0
+        info["intrinsics"] = intr
+        boxes = np.array([[0.3, 0.2, 0.6, 0.8, 0.8, 0.6],
+                          [-0.5, -0.4, 0.8, 0.6, 0.6, 0.5]], np.float32)
+        info["annos"] = dict(axis_align_matrix=np.eye(4, dtype=np.float32), gt_num=2,
+                             gt_boxes_upright_depth=boxes, **{"class": np.array([2, 7])})
+        return info
+
+    for split, n in (("train", n_train), ("val", n_val)):
+        with open(root / f"scannet_infos_{split}.pkl", "wb") as f:
+            pickle.dump([scene(split, s) for s in range(n)], f)
+    return root
+
+
+def ring_scene_pairs(mcfg):
+    """The two ranks' scenes of the data-parallel tests, each pair from the
+    ring-rig train scene of tests/test_torch_train.py (``a``):
+
+    * ``"targets"``: ``a``, and ``a`` with other ground truth (the boxes
+      turned by 180 degrees about z, the next labels);
+    * ``"images"``: ``a``, and ``a`` with the images of RandomState(5).
+
+    In the second pair the ranks' batch statistics differ, and the
+    gradients are decided by rounding at these widths: a 1e-7 relative
+    nudge of the images moves the JAX package's own mesh-step gradients of
+    the depth net (its U-Nets at their 3 x 4 bottoms, the matching
+    extractor) by up to 2 % of their scale, as much as they differ from the
+    port's; the two packages' gradients differ by 1-24 % for each of the
+    draws RandomState(20)-(35) tried in its place, and the port's sampling
+    offsets' gradients move by 0.2 % with its thread count."""
+    from sgcdet_tpu_torch.scene import example_scene, example_train_scene
+
+    a = example_train_scene(IMG_SHAPE, PAD, N_VIEWS, mcfg.n_classes,
+                            mcfg.downsample_factor, trajectory="ring")
+    boxes = a["gt_boxes"].copy()
+    boxes[:, :2] *= -1
+    other = example_scene(IMG_SHAPE, PAD, N_VIEWS, rng=np.random.RandomState(5),
+                          trajectory="ring")["imgs"]
+    return {"targets": [a, dict(a, gt_boxes=boxes,
+                                gt_labels=(a["gt_labels"] + 1) % mcfg.n_classes)],
+            "images": [a, dict(a, imgs=other)]}
+
+
+def state_digest(state):
+    """{name: sha1 of the tensor's bytes} of a state dict."""
+    import hashlib
+
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, v in state.items()}
+
+
+def bn_sync_case():
+    """Inputs of the synced-BatchNorm test: per rank an input (3, 6, 5, 4, 2)
+    and an output gradient, and the BN's scale, bias and running
+    statistics."""
+    rng = np.random.RandomState(10)
+    xs = [(rng.randn(3, 6, 5, 4, 2) * s + m).astype(np.float32) for s, m in ((2, 1), (1, -2))]
+    gs = [rng.randn(3, 6, 5, 4, 2).astype(np.float32) for _ in xs]
+    params = dict(scale=rng.uniform(0.5, 2, 6).astype(np.float32),
+                  bias=rng.randn(6).astype(np.float32),
+                  mean=(rng.randn(6) * 0.2).astype(np.float32),
+                  var=rng.uniform(0.7, 1.2, 6).astype(np.float32))
+    return xs, gs, params
+
+
+def _dp_worker(out_dir, weights):
+    """One rank of the data-parallel tests (gloo, from torchrun's
+    environment): the synced BN of ``bn_sync_case`` and one DP train step
+    of the tiny config from ``weights`` on its scene of
+    each pair of ``ring_scene_pairs``; writes ``rank<r>.pt``."""
+    import dataclasses
+
+    from sgcdet_tpu_torch import configs, parallel
+    from sgcdet_tpu_torch.models import SGCDet, layers
+    from sgcdet_tpu_torch.train import make_optimizer, make_train_step
+
+    ctx = parallel.from_env("cpu")
+    out = {}
+    xs, gs, p = bn_sync_case()
+    bn = layers.BatchNorm3d(6).train()
+    with torch.no_grad():
+        for name, key in (("weight", "scale"), ("bias", "bias"),
+                          ("running_mean", "mean"), ("running_var", "var")):
+            getattr(bn, name).copy_(torch.from_numpy(p[key]))
+    x = torch.from_numpy(xs[ctx.rank]).requires_grad_()
+    with layers.sync_batchnorm(ctx.group):
+        y = bn(x)
+    (y * torch.from_numpy(gs[ctx.rank])).sum().backward()
+    grads = torch.cat([bn.weight.grad, bn.bias.grad])
+    parallel.all_reduce_mean_(grads, ctx.group, "gradients")
+    out["bn"] = dict(y=y.detach(), x_grad=x.grad, weight_grad=grads[:6],
+                     bias_grad=grads[6:], running_mean=bn.running_mean.clone(),
+                     running_var=bn.running_var.clone())
+    with torch.no_grad():  # eval mode and frozen BNs do not communicate
+        before = dict(parallel.COUNTS)
+        bn.eval()(x)
+        frozen = layers.BatchNorm3d(6, frozen=True).train()
+        with layers.sync_batchnorm(ctx.group):
+            frozen(x)
+        out["bn_quiet"] = parallel.COUNTS == before
+
+    base = configs.scannet()
+    mcfg = dataclasses.replace(tiny_model_cfg(configs=configs), ffn_dropout=0.0)
+    cfg = dataclasses.replace(base, model=mcfg, data=dataclasses.replace(
+        base.data, img_shape=IMG_SHAPE, pad_size=PAD))
+    for pair, scenes in ring_scene_pairs(mcfg).items():
+        model = SGCDet(mcfg, IMG_SHAPE, device="cpu")
+        model.load_state_dict(torch.load(weights, weights_only=True))
+        optimizer = make_optimizer(model, cfg.train)
+        step = make_train_step(model, cfg, optimizer, group=ctx.group)
+        counts = dict(parallel.COUNTS)
+        metrics = step(scenes[ctx.rank], torch.Generator().manual_seed(0))
+        run = dict(counts={k: v - counts[k] for k, v in parallel.COUNTS.items()},
+                   n_bn=sum(isinstance(m, layers._F32BatchNorm) and not m.frozen
+                            for m in model.modules()),
+                   metrics={k: v.detach() for k, v in metrics.items()},
+                   digest=state_digest(model.state_dict()))
+        if ctx.rank == 0:  # the ranks' states are compared by digest
+            run["grads"] = {n: q.grad for n, q in model.named_parameters()}
+            run["stats"] = {n: b for n, b in model.state_dict().items()
+                            if n.endswith(("running_mean", "running_var"))}
+        out[pair] = run
+    torch.save(out, f"{out_dir}/rank{ctx.rank}.pt")
+    parallel.shutdown(ctx)
+
+
+# ``python tests/torch_port_tiny.py --cli <flags>`` runs the port's CLI (and
+# ``--dp <out_dir> <weights>`` one rank of ``_dp_worker``) in a subprocess
+# of the tests, which then asserts that it imported none of jax, flax and
+# the JAX package (tensorflow, which torch's tensorboard writer would import
+# slowly, is blocked).  With SGCDET_TEST_DUMP set, the CLI's model is saved
+# there as rank<r>.pt when it returns.
+PORT_ONLY = "port only: jax, flax and sgcdet_tpu absent"
+
+if __name__ == "__main__":
+    import os
+    import sys
+
+    sys.modules["tensorflow"] = None
+    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "2")))
+    if sys.argv[1] == "--cli":
+        import sgcdet_tpu_torch.train as port_train
+        from sgcdet_tpu_torch.cli import main
+
+        built = []
+        init_train_state = port_train.init_train_state
+        port_train.init_train_state = lambda *a, **k: built.append(
+            init_train_state(*a, **k)) or built[-1]
+        main(sys.argv[2:])
+        if os.environ.get("SGCDET_TEST_DUMP"):
+            torch.save(built[-1][0].state_dict(), os.path.join(
+                os.environ["SGCDET_TEST_DUMP"], f"rank{os.environ.get('RANK', '0')}.pt"))
+    elif sys.argv[1] == "--dp":
+        _dp_worker(*sys.argv[2:4])
+    present = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sgcdet_tpu")]
+    assert not present, present
+    print(PORT_ONLY)
