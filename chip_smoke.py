@@ -123,7 +123,14 @@ Phases, each fatal on failure:
               blocks an SM (CUDA runtime), and the registers and spills of
               K3, K5 and the windowed kernels from ptxas; at level 2 also
               the windows' cost as torch ops, and the template kernels on
-              the same queries in sorted and in index order.  Fails unless some case ran
+              the same queries in sorted and in index order.  Then the
+              instances at c = 16 (the sorted -L stage 2, two queries a
+              warp) on ScanNet200-L's sorted level-2 queries (K' = 36,608,
+              8 heads x 4 points, 12 bins) at every type pair, forward and
+              backward with and without the sample gradients, against
+              their plain versions and K3 / K5 at c = 16; the bf16/f32 ones
+              timed beside K3 and K5 on the same input (their ratio) and
+              their bound, with their resources.  Fails unless some case ran
               each branch.
 10. sorted  — the ScanNet config with sort_queries=True and the exact auto
               budget: the f32 scene (TF32 off) through the kernels and the
@@ -160,6 +167,12 @@ Phases, each fatal on failure:
               scene: 2 sweep, 3 K2 and 3 K3 at the -L widths) and 4 bf16 train
               steps (per step also 2 sweep bwd, 3 K6 and 3 K5 at the -L
               widths), with seconds per scene and step and peak memory.
+              Then the same config with sort_queries: the f32 scene through
+              kernels and plain versions and against the unsorted one
+              (identical `valid`, heads within 1e-4 of scale), 3 bf16
+              scenes (2 sweep, 3 K2 at c = 128, 3 windowed forwards at c =
+              16 a scene) and 4 bf16 train steps (also 2 sweep bwd, 3 K6
+              and 3 windowed backwards at c = 16 a step).
 13. arkit   — the ARKit head (head_type "sunrgbd": yawed boxes, the rotated
               3D IoU loss, rotated BEV NMS), for arkit and for arkit_large
               (its -L widths), each with its exact auto budget at 40 views of
@@ -181,6 +194,8 @@ Phases, each fatal on failure:
               at the config's widths; 4 bf16 train steps (per step also 2
               sweep bwd, 3 K6 and 3 K5), with seconds per step and peak
               memory (arkit_large's beside ScanNet200-L's of phase 12).
+              For arkit_large also the windowed kernels at c = 16 on its
+              sorted level-2 queries against their plain versions.
 14. eval    — the port's indoor_eval (mAP) on the scenes phases 5 and 13
               served (ScanNet's aligned boxes, ARKit's yawed ones) against
               synthetic GT (the boxes of scene.example_train_scene):
@@ -213,12 +228,37 @@ Phases, each fatal on failure:
               plain versions) and phase 5 at 100 views (a warm-up forward and
               3 timed bf16 infer.detect calls: seconds per scene split into
               forward + copy, decode and NMS, peak memory, K' per level,
-              launches per scene).
+              launches per scene).  Also an eval of step 2 with
+              --sweep_band auto: the band is the largest
+              visibility.required_sweep_band of the val rigs if at most 20
+              rows (else None), and a kept band launches no K1.
+16. remat   — depth_remat on scannet200_large: the f32 train step with and
+              without it through the kernels (TF32 off, cuDNN
+              deterministic; a second step without it measures the
+              kernels' run-to-run rounding): loss terms and BN running
+              statistics within 1e-6 of scale, every gradient within 2e-3
+              of its scale plus 4x its run-to-run move, the depth net's BN
+              statistics moved once, K1 launched twice more (the
+              recomputation); then the bf16 step with and without it at
+              40 and 100 views: seconds a step and peak memory (a step
+              that does not fit the card is reported as such; the remat
+              step must fit).
+17. sweep band — the banded-Gram sweep on the indoor 40-view rig:
+              required_sweep_band, 0 violations at it, the depth net's
+              dpt_dist through the banded path against K1's (f32 within
+              1e-4; bf16 no further from the f32 K1 one than 2x K1's own
+              bf16 distance plus 1e-4), one neighbour's correlation timed
+              beside K1.
+18. gt depth — use_gt_dpt (ScanNet, bf16, downsample_factor 4, synthetic GT
+              depth at the padded image's size): a forward whose dpt_dist
+              is the GT one-hot and one train step whose depth head has
+              zero gradients, neither launching a sweep kernel.
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
 DFA3D and serving paths, the bf16 2D lifting run's for the bf16-depth
-instances, the sorted train run's for the windowed kernels, the probes'
+instances, the sorted train run's for the windowed kernels (the sorted
+ScanNet200-L train run's for their c = 16 instances), the probes'
 run's for the probe kernels and the ScanNet200-L train run's for the
 instances at its widths; ``serving_launches`` the matching serving run's;
 ``arkit_launches`` and ``arkit_serving_launches`` the ARKit train and
@@ -285,6 +325,12 @@ KERNEL_INFO = {
                          f"{_EXP}dfa3d_pallas5.py:185"),
     "dfa3d_win_bwd_mh": ("sgcdet_tpu_torch/csrc/dfa3d_win_bwd.cu",
                          f"{_EXP}dfa3d_pallas4.py:432; {_EXP}dfa3d_pallas5.py:284"),
+    # the windowed instances at the -L stage 2's c = 16 (the sorted -L path)
+    "dfa3d_win_fwd_mh_c16": ("sgcdet_tpu_torch/csrc/dfa3d_win_fwd.cu",
+                             f"{_EXP}dfa3d_pallas4.py:130; {_EXP}dfa3d_pallas4.py:418; "
+                             f"{_EXP}dfa3d_pallas5.py:185"),
+    "dfa3d_win_bwd_mh_c16": ("sgcdet_tpu_torch/csrc/dfa3d_win_bwd.cu",
+                             f"{_EXP}dfa3d_pallas4.py:432; {_EXP}dfa3d_pallas5.py:284"),
     "row_gather": ("sgcdet_tpu_torch/csrc/rows.cu",
                    f"{_EXP}probe_window_lowering.py:27; {_EXP}probe_window_matmul.py:27; "
                    f"{_EXP}probe_gather_batch.py:31; {_EXP}probe_gather_batch.py:47; "
@@ -297,6 +343,8 @@ KERNELS_2D = ("dfa3d_fwd_s1_c256_bd", "dfa3d_fwd_mh_c32_bd", "dfa3d_bwd_s1_c256_
               "dfa3d_bwd_mh_c32_bd")
 # the windowed kernels, launched by the sorted path
 KERNELS_SORTED = ("dfa3d_win_fwd_mh", "dfa3d_win_bwd_mh")
+# ... and at c = 16, by the sorted ScanNet200-L path
+KERNELS_SORTED_LARGE = ("dfa3d_win_fwd_mh_c16", "dfa3d_win_bwd_mh_c16")
 # the instances at the -L configs' widths, launched by the ScanNet200-L path
 KERNELS_LARGE = ("dfa3d_fwd_s1_c128", "dfa3d_fwd_mh_c16", "dfa3d_bwd_s1_c128",
                  "dfa3d_bwd_mh_c16")
@@ -338,6 +386,13 @@ LAUNCHES_PER_SCENE_LARGE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c128": 3, "dfa3d_fwd_m
 LAUNCHES_PER_STEP_LARGE = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c128": 3,
                            "dfa3d_bwd_s1_c128": 3, "dfa3d_fwd_mh_c16": 3,
                            "dfa3d_bwd_mh_c16": 3}
+# ... and on the sorted -L path: K2 and K6 at c = 128, the windowed kernels
+# at c = 16
+LAUNCHES_PER_SCENE_SORTED_LARGE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c128": 3,
+                                   "dfa3d_win_fwd_mh_c16": 3}
+LAUNCHES_PER_STEP_SORTED_LARGE = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c128": 3,
+                                  "dfa3d_bwd_s1_c128": 3, "dfa3d_win_fwd_mh_c16": 3,
+                                  "dfa3d_win_bwd_mh_c16": 3}
 TRAIN_STEPS = 4
 # the forward kernels' earlier times (PERF.md section 6, rows 1, 2, 4, 5,
 # 8-10, 12, 13: this script on an H100 80GB HBM3 at 700 W), printed beside
@@ -523,12 +578,12 @@ def sweep_work(args, outs, backward):
 # ---------------------------------------------------------------------------
 
 
-def _scene_and_cfg(config="scannet", n_views=N_VIEWS):
+def _scene_and_cfg(config="scannet", n_views=None):
     from sgcdet_tpu_torch import configs
     from sgcdet_tpu_torch.scene import example_scene
 
     cfg = getattr(configs, config)()
-    scene = example_scene(cfg.data.img_shape, cfg.data.pad_size, n_views,
+    scene = example_scene(cfg.data.img_shape, cfg.data.pad_size, n_views or N_VIEWS,
                           trajectory="indoor")
     return cfg, scene
 
@@ -1033,6 +1088,17 @@ def _occupancy_picks_of(torch, tag, ref):
         sparse_head.top_k_indices = top_k
 
 
+def _per_call_launches(sort_queries, config, train):
+    """The launches of each kernel a scene (a step where ``train``) on
+    ``config``'s path, sorted or not."""
+    large = config in LARGE_CONFIGS
+    if train:
+        return ((LAUNCHES_PER_STEP_SORTED_LARGE if large else LAUNCHES_PER_STEP_SORTED)
+                if sort_queries else LAUNCHES_PER_STEP_LARGE if large else LAUNCHES_PER_STEP)
+    return ((LAUNCHES_PER_SCENE_SORTED_LARGE if large else LAUNCHES_PER_SCENE_SORTED)
+            if sort_queries else LAUNCHES_PER_SCENE_LARGE if large else LAUNCHES_PER_SCENE)
+
+
 def phase_slice_f32(torch, dev, sort_queries=False, config="scannet", pin_picks=False,
                     n_views=N_VIEWS):
     """The f32 scene of ``config`` at ``n_views`` through kernels and plain
@@ -1097,8 +1163,7 @@ def phase_serving(torch, dev, kernels, sort_queries=False, config="scannet",
     tag = ("sorted serving" if sort_queries else "serving") + _tag(config)
     if n_views != N_VIEWS:
         tag += f" {n_views} views"
-    per_scene = (LAUNCHES_PER_SCENE_SORTED if sort_queries else
-                 LAUNCHES_PER_SCENE_LARGE if config in LARGE_CONFIGS else LAUNCHES_PER_SCENE)
+    per_scene = _per_call_launches(sort_queries, config, train=False)
     cfg, _ = _scene_and_cfg(config)
     scenes = [example_scene(cfg.data.img_shape, cfg.data.pad_size, n_views,
                             rng=np.random.RandomState(i), trajectory="indoor")
@@ -1633,19 +1698,20 @@ def phase_backward(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 
-def _train_setup(torch, dev, config="scannet", **model_kw):
+def _train_setup(torch, dev, config="scannet", n_views=None, **model_kw):
     """bench.py's train setting (exact auto budget, depth loss on) of
-    ``config`` on the indoor 40-view train scene (its yawed ground truth for
-    the ARKit head), with ``model_kw`` overrides; the model's weights come
-    from a seeded init."""
+    ``config`` on the indoor train scene of ``n_views`` views (N_VIEWS by
+    default; its yawed ground truth for the ARKit head), with ``model_kw``
+    overrides; the model's weights come from a seeded init."""
     from sgcdet_tpu_torch.scene import example_train_scene
     from sgcdet_tpu_torch.train import init_train_state, make_train_step
 
-    cfg, scene = _scene_and_cfg(config)
+    n_views = n_views or N_VIEWS
+    cfg, scene = _scene_and_cfg(config, n_views)
     mcfg = dataclasses.replace(cfg.model, visibility_budget=_auto_budget(cfg, scene),
                                depth_loss=True, **model_kw)
     cfg = dataclasses.replace(cfg, model=mcfg)
-    scene = example_train_scene(cfg.data.img_shape, cfg.data.pad_size, N_VIEWS,
+    scene = example_train_scene(cfg.data.img_shape, cfg.data.pad_size, n_views,
                                 mcfg.n_classes, mcfg.downsample_factor,
                                 yawed=mcfg.head_type == "sunrgbd")
     model, optimizer = init_train_state(cfg, torch.Generator().manual_seed(0), dev)
@@ -1793,8 +1859,7 @@ def phase_train(torch, dev, kernels, sort_queries=False, config="scannet"):
     from sgcdet_tpu_torch.train import param_label
 
     tag = ("sorted train" if sort_queries else "train") + _tag(config)
-    per_step = (LAUNCHES_PER_STEP_SORTED if sort_queries else
-                LAUNCHES_PER_STEP_LARGE if config in LARGE_CONFIGS else LAUNCHES_PER_STEP)
+    per_step = _per_call_launches(sort_queries, config, train=True)
     cfg, scene, model, step = _train_setup(torch, dev, config, sort_queries=sort_queries)
     log(f"[{tag}] config {config}, compute {cfg.model.compute_dtype}, ffn_dropout "
         f"{cfg.model.ffn_dropout}, depth loss on, budget "
@@ -2154,30 +2219,41 @@ PTXAS_KERNELS = {"K2": "dfa3d_fwd_s1_kernelI13__nv_bfloat16fLi256EE",
                  "K6 pixel pass": "s1_pixels_kernelI13__nv_bfloat16fLi256ELb0ELb1EE",
                  "K6 long pass": "s1_long_kernelI13__nv_bfloat16fLi256ELb0ELb1EE",
                  "dfa3d_win_fwd_mh": "dfa3d_win_fwd_mh_kernelI13__nv_bfloat16fLi32E",
-                 "dfa3d_win_bwd_mh": "dfa3d_win_bwd_kernelI13__nv_bfloat16fLb1ELb1E"}
+                 "dfa3d_win_bwd_mh": "dfa3d_win_bwd_kernelI13__nv_bfloat16fLi32ELb1ELb1E",
+                 # the -L stage 2's instances at c = 16
+                 "K3 c16": "dfa3d_fwd_kernelI13__nv_bfloat16fLi16ELi2E",
+                 "K5 c16": "dfa3d_bwd_kernelI13__nv_bfloat16fLi16ELb1ELb1E",
+                 "dfa3d_win_fwd_mh_c16": "dfa3d_win_fwd_mh_kernelI13__nv_bfloat16fLi16E",
+                 "dfa3d_win_bwd_mh_c16": "dfa3d_win_bwd_kernelI13__nv_bfloat16fLi16ELb1ELb1E"}
 
 
-def log_resources(torch, x):
-    """Each windowed kernel's resources at level 2 (CUDA runtime), and
-    ptxas's registers and spills of its bf16/f32 instance beside K2's, K3's,
-    K5's, K5′'s at bf16 depth and K6's."""
+def log_resources(torch, x, c=32):
+    """Each windowed kernel's resources at level 2 at c a head (CUDA
+    runtime), and ptxas's registers and spills of its bf16/f32 instances
+    beside K2's, K3's, K5's, K5′'s at bf16 depth and K6's (and at c = 16
+    K3's and K5's)."""
     from sgcdet_tpu_torch.ops import LIBRARY
-    from sgcdet_tpu_torch.ops.dfa3d_windowed import kernel_resources, window_length
+    from sgcdet_tpu_torch.ops.dfa3d_windowed import (
+        kernel_resources,
+        win_counter,
+        window_length,
+    )
 
     dsize = x["depth"].shape[-1]
     for vdt, ddt in ((torch.bfloat16, torch.float32), (torch.float32, torch.float32),
                      (torch.bfloat16, torch.bfloat16)):
         value, depth = x["value"].to(vdt), x["depth"].to(ddt)
         parts = []
-        for name, backward in (("dfa3d_win_fwd_mh", False), ("dfa3d_win_bwd_mh", True)):
+        for backward in (False, True):
+            name = win_counter(backward, c)
             wwin = window_length(value, depth, backward)
-            r = kernel_resources(name, vdt, ddt, dsize, wwin)
+            r = kernel_resources(name, vdt, ddt, dsize, wwin, c)
             parts.append(f"{name} {r['registers']} registers, {r['spill_bytes']} B "
                          f"local, {r['smem_bytes']} B shared a block ({wwin} pixels), "
                          f"{r['blocks_per_sm']} blocks of {r['threads']} an SM")
-        log(f"[windowed] resources {str(vdt)[6:]}/{str(ddt)[6:]}: " + "; ".join(parts))
+        log(f"[windowed] resources {str(vdt)[6:]}/{str(ddt)[6:]} c={c}: " + "; ".join(parts))
     found = ptxas_resources(LIBRARY.log)
-    if found:
+    if found and c == 32:  # once, every instance of PTXAS_KERNELS
         parts = []
         for label, key in PTXAS_KERNELS.items():
             hits = [v for k, v in found.items() if key in k]
@@ -2258,7 +2334,8 @@ def phase_windowed(torch, dev, report):
                            lambda: dfa3d_windowed_plain(*args),
                            lambda outs: dfa3d_work(args[:4], outs, args[5], False),
                            main=main, earlier=earlier)
-            line += f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms"
+            line += (f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms "
+                     f"({ms_w / ms_t:.3f}x)")
         log(line)
         if main:
             plan_time(name, args, False)
@@ -2281,32 +2358,38 @@ def phase_windowed(torch, dev, report):
                     lambda outs: dfa3d_work(args[:4], outs, args[5], False),
                     earlier=earlier)
 
-    def bwd(name, args, timed=False, main=False, earlier=None):
+    def bwd(name, args, timed=False, main=False, earlier=None,
+            kernel_name="dfa3d_win_bwd_mh", sample_grads=True):
         """Windowed multi-head backward, every gradient (the train path's
-        stage 2), vs its plain version and the template kernel K5."""
-        kw = dict(sample_grads=True, depth_grad=True)
+        stage 2; without ``sample_grads`` d_value and d_depth only), vs its
+        plain version and the template kernel K5."""
+        kw = dict(sample_grads=sample_grads, depth_grad=True)
         got = dfa3d_win_bwd_cuda(*args, **kw)
         want = dfa3d_windowed_bwd_plain(*args, **kw)
         template = dfa3d_bwd_cuda(*args, **kw)
         torch.cuda.synchronize()
         err = 0.0
         for label, a, b, t in zip(grads, got, want, template):
+            if b is None:
+                check(a is None and t is None, f"{name} {label}: a gradient not asked for")
+                continue
             err = max(err, compare_tensors(torch, f"{name} {label} vs plain", a, b, 1e-5))
             compare_tensors(torch, f"{name} {label} vs template", a, t, 1e-5)
-        if args[-1] is not None:
+        if args[-1] is not None and sample_grads:
             _zeros_past_count(torch, args[-1], rows=2)(got)
-        rec = report["dfa3d_win_bwd_mh"]
+        rec = report[kernel_name]
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
         fargs = args[:4] + args[5:]
         line = f"[windowed] {name}: {shares(fargs, True)}"
         if timed:
             ms_t = cuda_ms(torch, lambda: dfa3d_bwd_cuda(*args, **kw))
-            ms_w = _timing(torch, report, name, "dfa3d_win_bwd_mh",
+            ms_w = _timing(torch, report, name, kernel_name,
                            lambda: dfa3d_win_bwd_cuda(*args, **kw),
                            lambda: dfa3d_windowed_bwd_plain(*args, **kw),
                            lambda outs: dfa3d_work(args[:5], outs, args[6], True),
                            main=main, earlier=earlier)
-            line += f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms"
+            line += (f"; windowed {ms_w:.4f} ms, template {ms_t:.4f} ms "
+                     f"({ms_w / ms_t:.3f}x)")
         log(line)
         if main:
             plan_time(name, fargs, True)
@@ -2339,8 +2422,8 @@ def phase_windowed(torch, dev, report):
             model_pair = (vdt, ddt) == (bf16, f32)
             main = model_pair and level == 2
             if model_pair:
-                spans(f"stage1 {shape}", s1, (QC_FWD,))
-                spans(f"stage2 {shape}", s2, (QC_BWD, QC_FWD))
+                spans(f"stage1 {shape}", s1, (QC_FWD[32],))
+                spans(f"stage2 {shape}", s2, (QC_BWD[32], QC_FWD[32]))
             stage1(f"stage1 {tag} {shape} sorted, K2", s1, model_pair,
                    "win s1 sorted" if main else None)
             fwd(f"stage2 {tag} {shape} sorted", "dfa3d_win_fwd_mh", s2, model_pair, main,
@@ -2362,6 +2445,31 @@ def phase_windowed(torch, dev, report):
         earlier="win mh random")
     b2 = s2[:4] + (x["g"].to(bf16),) + s2[4:]
     bwd(f"stage2 bwd bf16/f32 {shape} random locs", b2, timed=True, earlier="win bwd random")
+    del x, s2, b2
+    # the sorted -L path's stage 2: the instances at c = 16 a head (two
+    # queries a warp) on ScanNet200-L's sorted level-2 queries, every type
+    # pair, the backward with and without the sample gradients; the
+    # bf16/f32 ones timed beside K3 and K5 at c = 16 on the same input
+    cfg_l, scene_l = _scene_and_cfg(LARGE)
+    x = _sorted_inputs(torch, dev, cfg_l, scene_l, 2, _auto_budget(cfg_l, scene_l)[2], gen)
+    shape = f"({N_VIEWS},{x['h']},{x['w']}) K'={x['kb']} c=16"
+    check(x["vp"].shape[-1] // x["heads"] == 16, f"-L stage 2 at {shape}")
+    for vdt, ddt in ((bf16, f32), (f32, f32), (bf16, bf16)):
+        tag = f"{str(vdt)[6:]}/{str(ddt)[6:]}"
+        s2 = (x["vp"].to(vdt), x["depth"].to(ddt), x["locs2"], x["attn2"], x["heads"],
+              x["counts"])
+        b2 = s2[:4] + (x["g"].to(vdt),) + s2[4:]
+        main = (vdt, ddt) == (bf16, f32)
+        if main:
+            spans(f"-L stage2 {shape}", s2, (QC_BWD[16], QC_FWD[16]))
+        fwd(f"-L stage2 {tag} {shape} sorted", "dfa3d_win_fwd_mh_c16", s2, main, main)
+        bwd(f"-L stage2 bwd {tag} {shape} sorted", b2, main, main,
+            kernel_name="dfa3d_win_bwd_mh_c16")
+        bwd(f"-L stage2 bwd {tag} {shape} sorted, no sample gradients", b2,
+            kernel_name="dfa3d_win_bwd_mh_c16", sample_grads=False)
+        if main:
+            log_resources(torch, x, c=16)
+    del x, s2, b2
     log(f"[windowed] chunks run from a window: {branches['window']}, from global "
         f"memory: {branches['fallback']}")
     check(branches["window"] > 0, "no windowed case ran a chunk from its window")
@@ -2512,18 +2620,30 @@ def phase_probes(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 
-def phase_large(torch, dev, kernels, serving, train):
+def phase_large(torch, dev, kernels, serving, train, sorted_serving, sorted_train):
     """``scannet200_large`` (embed 128: K2 / K6 at c = 128, K3 / K5 at 16 a
     head) at 40 views: the f32 scene and one f32 train step through the
     kernels against the plain versions, then the bf16 serving and train
-    loops with their launch counts, seconds and peak memory."""
-    phase_slice_f32(torch, dev, config=LARGE)
+    loops with their launch counts, seconds and peak memory.  Then the same
+    config with ``sort_queries`` (the windowed kernels at c = 16 in place of
+    K3 and K5): its f32 scene through kernels and plain versions and
+    against the unsorted one (as phase 10), bf16 serving and training."""
+    unsorted_f32 = phase_slice_f32(torch, dev, config=LARGE)
     torch.cuda.empty_cache()
     phase_train_f32(torch, dev, config=LARGE)
     torch.cuda.empty_cache()
     serving.update(phase_serving(torch, dev, kernels, config=LARGE))
     torch.cuda.empty_cache()
     train.update(phase_train(torch, dev, kernels, config=LARGE))
+    torch.cuda.empty_cache()
+    out = phase_slice_f32(torch, dev, sort_queries=True, config=LARGE)
+    _compare_heads(torch, f"sorted vs unsorted f32{_tag(LARGE)}", out, unsorted_f32, 1e-4)
+    del out, unsorted_f32
+    torch.cuda.empty_cache()
+    sorted_serving.update(phase_serving(torch, dev, kernels, sort_queries=True, config=LARGE))
+    torch.cuda.empty_cache()
+    sorted_train.update(phase_train(torch, dev, kernels, sort_queries=True, config=LARGE))
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2629,6 +2749,28 @@ def _arkit_kernels(torch, dev, report, config):
                     (lambda outs: dfa3d_work(b_args[:5], outs, counts, True))
                     if bf16 else None)
     del x, value, vp, g
+    if config == "arkit_large":
+        # the sorted path's stage 2 at c = 16 on this config's sorted level-2
+        # queries: the windowed instances, bf16/f32, forward and backward
+        from sgcdet_tpu_torch.ops.dfa3d_windowed import (
+            dfa3d_win_bwd_cuda,
+            dfa3d_win_fwd_cuda,
+            dfa3d_windowed_bwd_plain,
+            dfa3d_windowed_plain,
+        )
+
+        x = _sorted_inputs(torch, dev, cfg, scene, 2, budget[2], gen)
+        shape = f"({N_VIEWS},{x['h']},{x['w']}) K'={x['kb']}"
+        s2 = (x["vp"].to(torch.bfloat16), x["depth"], x["locs2"], x["attn2"], x["heads"],
+              x["counts"])
+        b2 = s2[:4] + (x["g"].to(torch.bfloat16),) + s2[4:]
+        compare(f"sorted stage2 c=16 bf16/f32 {shape}", "dfa3d_win_fwd_mh_c16",
+                lambda: dfa3d_win_fwd_cuda(*s2), lambda: dfa3d_windowed_plain(*s2),
+                ("out",), None)
+        compare(f"sorted stage2 bwd c=16 bf16/f32 {shape}", "dfa3d_win_bwd_mh_c16",
+                lambda: dfa3d_win_bwd_cuda(*b2), lambda: dfa3d_windowed_bwd_plain(*b2),
+                grads, None)
+        del x, s2, b2
 
 
 def phase_arkit(torch, dev, kernels, report, runs, detections):
@@ -2975,6 +3117,33 @@ def _phase_cli(torch, dev, kernels, root):
     del built[:], shown
     torch.cuda.empty_cache()
 
+    # 5b. eval of step 2 with --sweep_band auto: the band the CLI derives
+    # from the val rigs is visibility.required_sweep_band's largest, kept
+    # up to 20 rows (cli.AUTO_BAND_MAX); a kept band runs the banded sweep
+    # in place of K1
+    from sgcdet_tpu_torch.cli import AUTO_BAND_MAX
+    from sgcdet_tpu_torch.visibility import required_sweep_band
+
+    h4, w4 = cfg.data.img_shape[0] // 4, cfg.data.img_shape[1] // 4
+    need = max(required_sweep_band(val_ds.scene_poses(i)[2], cfg.data.n_images_test,
+                                   cfg.model, (h4, w4)) for i in range(len(val_ds)))
+    t0 = time.perf_counter()
+    ret, _, evals = _cli_run(torch, kernels, common + pinned + [
+        "--mode", "eval", "--log_folder", "eval_band", "--sweep_band", "auto",
+        "--ckpt_path", str(ckpt_dir / "step_2")], datasets, built)
+    band = built[-1][2].model.sweep_band
+    maps = {k: v for k, v in ret.items() if k.startswith("mA")}
+    log(f"[{tag}] eval of step 2 with --sweep_band auto: band {band} (the rigs need "
+        f"{need} of {h4} rows; kept up to {AUTO_BAND_MAX}); {maps} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(band == (need if need <= AUTO_BAND_MAX else None),
+          f"{tag}: --sweep_band auto gave {band}, the rigs need {need}")
+    check(all(math.isfinite(v) for v in maps.values()), f"{tag}: mAP {maps}")
+    per_scene = dict(LAUNCHES_PER_SCENE, sweep_fwd=0) if band is not None else LAUNCHES_PER_SCENE
+    _check_launches(tag, evals, per_scene, "100-view --sweep_band eval scene")
+    del built[:]
+    torch.cuda.empty_cache()
+
     # 6. one data-parallel step at world size 1 on NCCL against the
     # single-device step: same weights and scene, f32 with TF32 off
     phase_dp(torch, dev, kernels, root, train_ds)
@@ -3054,8 +3223,8 @@ def phase_dp(torch, dev, kernels, root, train_ds):
             torch.cuda.empty_cache()
         (m_s, _, r_s), (m_d, _, r_d) = runs["single"], runs["dp"]
         check(not any(r_s.values()), f"{tag}: the single-device step all-reduced {r_s}")
-        want = dict(bn_sync=n_bn, bn_sync_backward=n_bn, n_pos=1, gradients=1,
-                    metrics=1, bn_stats=1)
+        want = dict(bn_sync=n_bn, bn_sync_backward=n_bn, bn_sync_recompute=0, n_pos=1,
+                    gradients=1, metrics=1, bn_stats=1)
         check(r_d == want, f"{tag}: all-reduces {r_d}, expected {want}")
         for k in m_s:
             log(f"[{tag}] {k}: dp {m_d[k]:.6f}, single {m_s[k]:.6f}")
@@ -3071,6 +3240,262 @@ def phase_dp(torch, dev, kernels, root, train_ds):
         dist.destroy_process_group()
         (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
          torch.backends.cudnn.deterministic) = flags
+
+
+# ---------------------------------------------------------------------------
+# phase 16: depth_remat
+# ---------------------------------------------------------------------------
+
+# timed bf16 steps of each depth_remat setting (after one warm-up step), at
+# N_VIEWS and at the released eval's view count
+REMAT_STEPS = 3
+REMAT_VIEWS = 100
+
+
+def phase_remat(torch, dev, kernels):
+    """``depth_remat`` on ScanNet200-L: the f32 train step with and without
+    the remat through the kernels (TF32 off, cuDNN deterministic), and the
+    step without it a second time, whose move from the first is the
+    kernels' run-to-run rounding.  The forwards of all three are the same
+    computation (the forward kernels sum in a fixed order), so the remat
+    step takes the plain step's ReLU signs as it is; its loss terms and BN
+    running statistics equal the step's without the remat within 1e-6 of
+    scale, every gradient within phase 12's bound (2e-3 of its scale plus
+    4x its run-to-run move), and the depth net's BN statistics moved once:
+    as the step without the remat moves them.  The remat step launches K1
+    twice more (the recomputed sweeps).  Then the bf16 step with and
+    without the remat at 40 and 100 views: seconds a step and peak
+    memory."""
+    import numpy as np
+
+    tag = "remat"
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for name, remat in (("no remat", False), ("remat", True), ("no remat again", False)):
+        cfg, scene, model, step = _train_setup(torch, dev, LARGE, compute_dtype="float32",
+                                               ffn_dropout=0.0, depth_remat=remat)
+        stats = lambda: {n: b.detach().clone() for n, b in model.state_dict().items()  # noqa: E731
+                         if n.endswith(("running_mean", "running_var"))}
+        before = stats()
+        for k in kernels.values():
+            k.launches = 0
+        gen = torch.Generator(device=dev).manual_seed(1)
+        t0 = time.perf_counter()
+        metrics = step(scene, gen)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        log(f"[{tag}] f32 step, {name}: {time.perf_counter() - t0:.3f} s, launches "
+            f"{_launched(launches)}")
+        want = dict(LAUNCHES_PER_STEP_LARGE)
+        if remat:
+            want["sweep_fwd"] += 2  # the backward recomputes the depth net's sweeps
+        check(_launched(launches) == want, f"{tag} {name}: launches {_launched(launches)}, "
+              f"expected {want}")
+        runs[name] = dict(metrics=metrics, before=before, after=stats(),
+                          grads={n: p.grad for n, p in model.named_parameters()})
+        del model, step
+        torch.cuda.empty_cache()
+    ref, got, again = runs["no remat"], runs["remat"], runs["no remat again"]
+    for name in ref["metrics"]:
+        a, b = float(got["metrics"][name]), float(ref["metrics"][name])
+        log(f"[{tag}] {name}: remat {a:.7f}, without {b:.7f}")
+        check(abs(a - b) <= 1e-6 * max(abs(b), 1e-3), f"{tag}: {name} differs")
+    worst = []
+    for name, want in ref["grads"].items():
+        have = got["grads"][name]
+        check(have is not None and bool(torch.isfinite(have).all()),
+              f"{tag}: gradient of {name} missing or non-finite")
+        scale = max(float(want.abs().max()), 1e-12)
+        spread = float((again["grads"][name] - want).abs().max())
+        err = float((have - want).abs().max())
+        worst.append((err / (2e-3 * scale + 4 * spread), name, err, scale, spread))
+    worst.sort(reverse=True)
+    log(f"[{tag}] gradients, worst err/tol: " + "; ".join(
+        f"{n} {r:.3f}: err {e:.2e}, scale {m:.2e}, run-to-run {s:.2e}"
+        for r, n, e, m, s in worst[:4]))
+    check(worst[0][0] <= 1.0, f"{tag}: gradients differ: {[w[1] for w in worst if w[0] > 1]}")
+    depth_stats = [n for n in ref["after"] if n.startswith("depth_head.")]
+    moved = [n for n in depth_stats if not torch.equal(ref["after"][n], ref["before"][n])]
+    for n in ref["after"]:
+        scale = max(float(ref["after"][n].abs().max()), 1e-3)
+        err = float((got["after"][n] - ref["after"][n]).abs().max())
+        check(err <= 1e-6 * scale, f"{tag}: running statistic {n} differs by {err:.3e}")
+    log(f"[{tag}] BN running statistics equal to the step's without the remat; "
+        f"{len(moved)} of the depth net's {len(depth_stats)} moved, once")
+    check(len(moved) > len(depth_stats) // 2, f"{tag}: the depth net's BN statistics "
+          "did not move")
+    del runs, ref, got, again
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32, \
+        torch.backends.cudnn.deterministic = flags
+    torch.cuda.empty_cache()
+
+    # bf16 seconds a step and peak memory, with and without the remat
+    for n_views in (N_VIEWS, REMAT_VIEWS):
+        for remat in (True, False):
+            label = f"{n_views} views, {'remat' if remat else 'no remat'}"
+            try:
+                cfg, scene, model, step = _train_setup(torch, dev, LARGE, n_views=n_views,
+                                                       depth_remat=remat)
+                gen = torch.Generator(device=dev).manual_seed(1)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                times = []
+                for _ in range(REMAT_STEPS + 1):
+                    t0 = time.perf_counter()
+                    metrics = step(scene, gen)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+            except torch.cuda.OutOfMemoryError as e:
+                check(not remat, f"{tag} {label}: out of memory ({e})")
+                log(f"[{tag}] bf16 step {LARGE}, {label}: did not fit in device memory "
+                    f"({str(e).splitlines()[0]}); not measured")
+                model = step = None
+                torch.cuda.empty_cache()
+                continue
+            vals = {k: float(v) for k, v in metrics.items()}
+            check(all(map(math.isfinite, vals.values())), f"{tag} {label}: {vals}")
+            log(f"[{tag}] bf16 step {LARGE}, {label}: warm seconds per step "
+                f"{np.mean(times[1:]):.4f} (steps {', '.join(f'{t:.4f}' for t in times)}), "
+                f"peak memory allocated {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} "
+                f"GiB, loss {vals['loss']:.5f}")
+            del model, step
+            torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the banded-Gram plane sweep (sweep_band)
+# ---------------------------------------------------------------------------
+
+
+def phase_sweep_band(torch, dev):
+    """The banded sweep on the ScanNet config's indoor 40-view scene: the
+    band ``visibility.required_sweep_band`` gives for the sweep's feature
+    map, its violation count (0), the depth net's ``dpt_dist`` through the
+    banded path against K1's (f32, TF32 off: within phase 4's 1e-4; bf16:
+    no further from the f32 K1 distribution than 2x K1's own bf16 distance
+    plus 1e-4), and one neighbour's correlation timed, banded beside K1."""
+    from sgcdet_tpu_torch.infer import forward_scene
+    from sgcdet_tpu_torch.models import SGCDet
+    from sgcdet_tpu_torch.models.depth_net import get_closest_frame_ids
+    from sgcdet_tpu_torch.ops.sweep import plane_sweep_correlation
+    from sgcdet_tpu_torch.ops.sweep_band import (
+        plane_sweep_band_violations,
+        plane_sweep_correlation_banded,
+    )
+    from sgcdet_tpu_torch.visibility import required_sweep_band
+
+    tag = "sweep band"
+    cfg, scene = _scene_and_cfg()
+    m = cfg.model
+    h4, w4 = cfg.data.pad_size[0] // 4, cfg.data.pad_size[1] // 4
+    band = required_sweep_band(scene["proj_feat4"], N_VIEWS, m, (h4, w4))
+    db = m.dbound
+    dv = torch.arange(db[0], db[1], db[2], dtype=torch.float32, device=dev)[:m.depth_channels]
+    dv = dv + db[2] / 2
+    proj = torch.as_tensor(scene["proj_feat4"], dtype=torch.float32, device=dev)
+    nei = torch.as_tensor(get_closest_frame_ids(N_VIEWS, m.neighbor_img_num), device=dev)
+    viol = [plane_sweep_band_violations(proj[nei[:, j]], proj, dv, h4, w4, band)
+            for j in range(nei.shape[1])]
+    log(f"[{tag}] required_sweep_band on the indoor rig: {band} of {h4} rows; "
+        f"violations at that band per neighbour {viol}, one row narrower "
+        f"{[plane_sweep_band_violations(proj[nei[:, j]], proj, dv, h4, w4, band - 1) for j in range(nei.shape[1])] if band > 1 else 'n/a'}")
+    check(sum(viol) == 0, f"{tag}: {sum(viol)} samples outside the band")
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    dpt = {}
+    for dtype in ("float32", "bfloat16"):
+        mcfg = dataclasses.replace(m, compute_dtype=dtype,
+                                   visibility_budget=_auto_budget(cfg, scene))
+        model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
+                       generator=torch.Generator().manual_seed(0))
+        for route, b in (("K1", None), ("banded", band)):
+            model.depth_head.sweep_band = b
+            dpt[dtype, route] = forward_scene(model, scene)["dpt_dist"]
+        del model
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    ref = dpt["float32", "K1"]
+    err_f32 = float((dpt["float32", "banded"] - ref).abs().max())
+    err_k1 = float((dpt["bfloat16", "K1"] - ref).abs().max())
+    err_b = float((dpt["bfloat16", "banded"] - ref).abs().max())
+    err_bk = float((dpt["bfloat16", "banded"] - dpt["bfloat16", "K1"]).abs().max())
+    log(f"[{tag}] dpt_dist banded vs K1: f32 max_abs_err {err_f32:.3e} (tol 1e-4); bf16 "
+        f"banded {err_b:.3e} and K1 {err_k1:.3e} from the f32 K1 (tol {2 * err_k1 + 1e-4:.3e}), "
+        f"banded vs K1 at bf16 {err_bk:.3e}")
+    check(err_f32 <= 1e-4, f"{tag}: f32 dpt_dist differs")
+    check(err_b <= 2 * err_k1 + 1e-4, f"{tag}: bf16 banded dpt_dist differs")
+    del dpt
+    gen = torch.Generator(device=dev).manual_seed(17)
+    fea = torch.randn((N_VIEWS, 128, h4, w4), device=dev, generator=gen).to(torch.bfloat16)
+    args = (fea[nei[:, 0]], fea, proj[nei[:, 0]], proj, dv)
+    ms_k1 = cuda_ms(torch, lambda: plane_sweep_correlation(*args))
+    ms_band = cuda_ms(torch, lambda: plane_sweep_correlation_banded(*args, band))
+    err = float((plane_sweep_correlation_banded(*args, band).float()
+                 - plane_sweep_correlation(*args).float()).abs().max())
+    log(f"[{tag}] one neighbour's correlation, bf16 {tuple(fea.shape)}, {len(dv)} planes: "
+        f"K1 {ms_k1:.4f} ms, banded (band {band}) {ms_band:.4f} ms; max_abs_diff {err:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# phase 18: use_gt_dpt
+# ---------------------------------------------------------------------------
+
+
+def phase_gt_dpt(torch, dev, kernels):
+    """``use_gt_dpt`` on the ScanNet config (bf16, exact auto budget, depth
+    loss on, downsample_factor 4) with the synthetic GT depth of
+    ``scene.example_train_scene`` at the padded image's size: one forward
+    (``dpt_dist`` is the one-hot of ``downsample_gt_depth``; finite heads; no
+    sweep launch, the DFA3D kernels as phase 5) and one train step (finite
+    metrics, the depth head's gradients zero, no sweep launch)."""
+    from sgcdet_tpu_torch.models.depth_net import downsample_gt_depth
+
+    tag = "gt depth"
+    cfg, scene, model, step = _train_setup(torch, dev, use_gt_dpt=True, downsample_factor=4)
+    m = cfg.model
+    x = {k: torch.as_tensor(v).to(dev) for k, v in scene.items()}
+    for k in kernels.values():
+        k.launches = 0
+    model.eval()
+    with torch.no_grad():
+        out = model(*(x[k] for k in ("imgs", "proj_img", "proj_feat4", "origin")),
+                    gt_depth=x["gt_depth"])
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    n, h4, w4 = x["imgs"].shape[0], cfg.data.pad_size[0] // 4, cfg.data.pad_size[1] // 4
+    want = downsample_gt_depth(x["gt_depth"], 4, m.dbound, m.depth_channels,
+                               m.depth_max_tol).reshape(n, h4, w4, -1).permute(0, 3, 1, 2)
+    check(torch.equal(out["dpt_dist"], want.float()), f"{tag}: dpt_dist is not the GT one-hot")
+    check(all(bool(torch.isfinite(t).all()) for scale in out["head_outs"] for t in scale),
+          f"{tag}: non-finite head outputs")
+    want_launches = {k: v for k, v in LAUNCHES_PER_SCENE.items() if k != "sweep_fwd"}
+    check(_launched(launches) == want_launches,
+          f"{tag}: forward launches {_launched(launches)}, expected {want_launches}")
+    log(f"[{tag}] forward: dpt_dist the one-hot of the GT depth ({int(want.sum())} of "
+        f"{n * h4 * w4} pixels with a bin), launches {_launched(launches)}")
+    for k in kernels.values():
+        k.launches = 0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    t0 = time.perf_counter()
+    metrics = step(scene, gen)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    vals = {k: float(v) for k, v in metrics.items()}
+    check(all(map(math.isfinite, vals.values())), f"{tag}: train step {vals}")
+    head = [p.grad for n, p in model.named_parameters() if n.startswith("depth_head.")]
+    check(all(g is not None and not bool(g.any()) for g in head),
+          f"{tag}: a depth head parameter has a nonzero gradient")
+    want = {k: v for k, v in LAUNCHES_PER_STEP.items() if not k.startswith("sweep")}
+    check(_launched(launches) == want, f"{tag}: train launches {_launched(launches)}, "
+          f"expected {want}")
+    log(f"[{tag}] bf16 train step {time.perf_counter() - t0:.3f} s (cold): "
+        + ", ".join(f"{k} {v:.5f}" for k, v in vals.items())
+        + f"; {len(head)} depth head tensors with zero gradients; launches {_launched(launches)}")
+    del model, step
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -3116,6 +3541,7 @@ def main() -> int:
     serving, train, lifting_2d, f32_scene = {}, {}, {}, {}
     sorted_serving, sorted_train, probe_runs = {}, {}, {}
     large_serving, large_train = {}, {}
+    large_sorted_serving, large_sorted_train = {}, {}
     arkit_runs, detections = {}, {}
     cli_root = repo / "build" / "cli_smoke"
     shutil.rmtree(cli_root, ignore_errors=True)
@@ -3133,11 +3559,15 @@ def main() -> int:
             ("sorted", lambda: phase_sorted(torch, dev, KERNELS, f32_scene,
                                             sorted_serving, sorted_train)),
             ("probes", lambda: probe_runs.update(phase_probes(torch, dev, report))),
-            ("large", lambda: phase_large(torch, dev, KERNELS, large_serving, large_train)),
+            ("large", lambda: phase_large(torch, dev, KERNELS, large_serving, large_train,
+                                          large_sorted_serving, large_sorted_train)),
             ("arkit", lambda: phase_arkit(torch, dev, KERNELS, report, arkit_runs,
                                           detections)),
             ("eval", lambda: phase_eval(torch, detections)),
-            ("cli", lambda: phase_cli(torch, dev, KERNELS, cli_root))):
+            ("cli", lambda: phase_cli(torch, dev, KERNELS, cli_root)),
+            ("remat", lambda: phase_remat(torch, dev, KERNELS)),
+            ("sweep band", lambda: phase_sweep_band(torch, dev)),
+            ("gt depth", lambda: phase_gt_dpt(torch, dev, KERNELS))):
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
@@ -3156,6 +3586,8 @@ def main() -> int:
             launches, served = probe_runs[name], 0
         elif name in KERNELS_LARGE:
             launches, served = large_train[name], large_serving[name]
+        elif name in KERNELS_SORTED_LARGE:
+            launches, served = large_sorted_train[name], large_sorted_serving[name]
         else:
             launches, served = train[name], serving[name]
         # the ARKit runs' launches of the kernels they share: the arkit

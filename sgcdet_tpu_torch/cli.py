@@ -76,8 +76,11 @@ def parse_args(argv=None):
                         "values parsed as Python literals) — the analog of "
                         "the reference CLI's config merge (main.py:28-30)")
     p.add_argument("--sweep_band", default=None,
-                   help="the JAX package's banded plane sweep; not ported, any "
-                        "value raises ValueError")
+                   help="banded-Gram plane-sweep source-row band: an int, or "
+                        "'auto' to derive the exact band from the dataset's "
+                        "rigs (kept only up to 20 rows, as the JAX package's "
+                        "CLI keeps it; a taller band runs the sweep kernels, "
+                        "which are exact for every rig; see ops/sweep_band.py)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu; "
                         "without a card the default raises")
@@ -258,6 +261,30 @@ def _visibility_budget(arg, config, ds, n_scan_max):
     return None if budget >= 1.0 else budget
 
 
+# the tallest band --sweep_band auto keeps: the JAX package's CLI rule,
+# kept so that both CLIs pick the same band (a threshold chosen for its
+# own hardware, not measured for the port)
+AUTO_BAND_MAX = 20
+
+
+def _sweep_band(arg, config, ds, n_scan_max):
+    if arg != "auto":
+        return int(arg)
+    from .visibility import required_sweep_band
+
+    n_scan = min(len(ds), n_scan_max)
+    scan_ids = np.linspace(0, len(ds) - 1, n_scan).astype(int)
+    h4, w4 = config.data.img_shape[0] // 4, config.data.img_shape[1] // 4
+    band = 1
+    for i in scan_ids:
+        proj4 = ds.scene_poses(int(i))[2]
+        band = max(band, required_sweep_band(proj4, proj4.shape[0], config.model, (h4, w4)))
+    too_tall = band > AUTO_BAND_MAX
+    print(f"auto sweep band (exact over {n_scan} scenes): {band}"
+          f"{' — too tall, keeping the sweep kernels' if too_tall else ''}", flush=True)
+    return None if too_tall else band
+
+
 def main(argv=None):
     return run(parse_args(argv))
 
@@ -268,10 +295,6 @@ def run(args, train_ds=None, val_ds=None):
     on ranks other than 0); train returns None."""
     from . import parallel
 
-    if args.sweep_band is not None:
-        raise ValueError("--sweep_band: the port has no banded plane sweep (the "
-                         "JAX package's is XLA only); the sweep kernels are exact "
-                         "for every geometry")
     ctx = parallel.from_env(args.device)
     try:
         return _run(args, ctx, train_ds, val_ds)
@@ -319,6 +342,12 @@ def _run(args, ctx, train_ds, val_ds):
                                     args.visibility_scan_scenes)
         config = dataclasses.replace(
             config, model=dataclasses.replace(config.model, visibility_budget=budget))
+
+    if args.sweep_band is not None:
+        ds = train_ds if args.mode == "train" else val_ds
+        band = _sweep_band(args.sweep_band, config, ds, args.visibility_scan_scenes)
+        config = dataclasses.replace(
+            config, model=dataclasses.replace(config.model, sweep_band=band))
 
     model, optimizer = init_train_state(
         config, torch.Generator().manual_seed(args.seed), ctx.device)

@@ -1,7 +1,6 @@
 """Configuration of the port: every field of sgcdet_tpu/configs/config.py,
-with the same names, order and defaults (the options the port does not run,
-``sweep_band``, ``depth_remat`` and ``use_gt_dpt``, are refused by
-``SGCDet``), the four released configs (``get_config``): ScanNet,
+with the same names, order and defaults, the four released configs
+(``get_config``): ScanNet,
 ARKitScenes and their -L variants, the CLI's ``section.key=value``
 overrides (``apply_overrides``) and its ``config.json`` dump
 (``config_json``).
@@ -95,16 +94,17 @@ class ModelConfig:
     # depth head
     dbound: Tuple[float, float, float] = (0.2, 5.0, 0.4)
     neighbor_img_num: int = 2
-    # the banded plane sweep (XLA only in the JAX package): not ported,
-    # SGCDet refuses any value but None
+    # the banded-Gram plane sweep (ops/sweep_band.py): a source-row band
+    # per output row, exact where the rig's samples fit it
+    # (visibility.required_sweep_band); None: the sweep kernels
     sweep_band: int | None = None
     # losses; the depth loss reads GT depth maps at downsample_factor x the
     # stride-4 prediction grid
     downsample_factor: int = 8
     depth_loss_weight: float = 0.5
     depth_max_tol: int = 0
-    # rematerialize the depth net in the backward: not ported, SGCDet
-    # refuses True
+    # rematerialize the depth net in the backward (torch.utils.checkpoint):
+    # for the -L configs / 100-view training, where activation memory binds
     depth_remat: bool = False
     # attention (num_levels and attn_dropout are read by no model path, as
     # in the JAX package)
@@ -129,7 +129,8 @@ class ModelConfig:
     centerness_topk: int = 18
     occ_loss: bool = True
     depth_loss: bool = False
-    # supervise with the one-hot GT depth: not ported, SGCDet refuses True
+    # the depth distribution is the one-hot of the scene's GT depth where the
+    # model is given one (the depth net then does not run)
     use_gt_dpt: bool = False
     # 'bfloat16' (default) or 'float32'; BatchNorm statistics, the depth
     # softmax, sampling coordinates and kernel accumulation stay f32

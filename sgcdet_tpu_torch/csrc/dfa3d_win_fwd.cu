@@ -1,5 +1,6 @@
-// Windowed DFA3D sampling forward for spatially sorted queries (counter
-// `dfa3d_win_fwd_mh`).
+// Windowed DFA3D sampling forward for spatially sorted queries, c = 16, 32
+// or 256 channels a head (counters `dfa3d_win_fwd_mh` at 32 and 256,
+// `dfa3d_win_fwd_mh_c16` at 16, the -L configs' width).
 //
 // Replaces the windowed multi-head TPU forwards of
 // experiments/dfa3d_pallas4.py (_fwd_kernel_w: multi-head, full-width rows;
@@ -20,7 +21,8 @@
 // a chunk of 16 queries a block measured within 2 % of K2 (PERF.md).
 //
 // Multi-head (dfa3d_win_fwd_mh_kernel): one block of 256 threads per
-// (chunk of qc = 16 queries, view), all heads.  The block first finds its
+// (chunk of qc queries, view), all heads: qc = 16 at c = 32 and 256, 64 at
+// c = 16 (ops/dfa3d_windowed.py::QC_FWD).  The block first finds its
 // window [base, base + span): the lowest and highest pixel an in-image
 // corner of its counted samples reads, over every head and point
 // (sgc::union_window, one sync; the plain version's ops/dfa3d_windowed.py::
@@ -28,7 +30,11 @@
 // the wwin pixels the launch reserves, it copies the window's depth bins
 // into shared memory as f32 (cp.async, 16 bytes a copy, for f32 depth).
 // Then each warp takes (query, head group) items of the chunk and runs K3's
-// warp (sgc::mh_fwd_warp, csrc/dfa3d_mh.cuh): eight channels a lane, the
+// warp (sgc::mh_fwd_warp, csrc/dfa3d_mh.cuh); at c = 16, where a query's 8
+// heads fill half a warp, an item is as many whole consecutive queries of
+// the chunk as a warp holds (two; sgc::WarpRows::span), as K3 takes them,
+// the counted ones first and a view's last query alone where K is odd.
+// The warp computes eight channels a lane, the
 // sample computed once per (head, point), the value rows gathered from
 // global memory (L2) in 16-byte loads, one 512-byte store a query.  Only
 // the depth bins come from the window; a corner outside it (none, when
@@ -43,7 +49,9 @@
 // (PERF.md).  What the block adds is a prologue: the union (one sync)
 // and the staging (an L2 round trip, ~48 B a pixel, before any value load
 // of the block).  Measured choices (H100 80GB HBM3, PERF.md): chunks of 16
-// (32 and 8 ran 2 and 12 % slower); one point a round (PG = 1: no spill,
+// at c = 32 (32 and 8 ran 2 and 12 % slower); at c = 16, whose chunk
+// unions span ~740 pixels at the sorted -L level 2 at any chunk length,
+// chunks of 64 (16 ran 1.46x slower, 32 1.12x, 128 1 % slower); one point a round (PG = 1: no spill,
 // where K3's two spilled 16 bytes and ran 16 % slower); three blocks an SM;
 // blocks a view's chunks after one another (a chunk's views after one
 // another ran the sorted level 2 5 % faster but random locations 11 %
@@ -90,12 +98,16 @@ __global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
   const sgc::WindowDepth<DT> dep{{dmap, nullptr, dsize}, s_dpt, nullptr, box.x,
                                  staged ? span : 0};
   const VT* vmap = value + cam * hw * heads * C;
-  for (int item = threadIdx.x >> 5; item < (q1 - q0) * hgroups; item += kMhThreads / 32) {
-    const int q = q0 + item / hgroups;
+  // a warp's item: qpw whole queries (C = 16) or one query, and a head group
+  constexpr bool kWhole = C < 32;
+  const int qpw = kWhole ? sgc::WarpRows<HPW>::queries(heads) : 1;
+  const int items = (q1 - q0 + qpw - 1) / qpw * hgroups;
+  for (int item = threadIdx.x >> 5; item < items; item += kMhThreads / 32) {
+    const int q = q0 + item / hgroups * qpw, h0 = (item % hgroups) * HPW;
     sgc::mh_fwd_warp<VT, DT, C, 1>(
         vmap, locs, attn, out,
-        sgc::WarpRows<HPW>::query((long long)cam * k + q, q < count, (item % hgroups) * HPW,
-                                  heads),
+        kWhole ? sgc::WarpRows<HPW>::span((long long)cam * k, q, q1, count, h0, heads)
+               : sgc::WarpRows<HPW>::query((long long)cam * k + q, q < count, h0, heads),
         h, w, heads, dsize, p, dep);
   }
 }
@@ -126,7 +138,7 @@ int launch_mh(const void* value, const void* depth, const float* locs,
 
 // value (N, H, W, heads*c) of type vdtype, depth (N, H, W, dsize) of type
 // ddtype, locs (N, K, heads, P, 3) and attn (N, K, heads, P) f32, counts
-// (N,) int32 or null -> out (N, K, heads*c) of type vdtype, c = 32 or 256;
+// (N,) int32 or null -> out (N, K, heads*c) of type vdtype, c = 16, 32 or 256;
 // chunks of qc queries, windows of at most wwin pixels.
 extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
                                  const void* depth, const float* locs,
@@ -140,6 +152,8 @@ extern "C" int sgc_dfa3d_win_fwd(int vdtype, int ddtype, const void* value,
   return sgc::dispatch_types(vdtype, ddtype, [&](auto v, auto d) {
     using VT = decltype(v);
     using DT = decltype(d);
+    if (c == 16)
+      return launch_mh<VT, DT, 16>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
     if (c == 32)
       return launch_mh<VT, DT, 32>(value, depth, locs, attn, counts, out, n, h, w, heads, dsize, k, p, qc, wwin, s);
     if (c == 256)
@@ -156,6 +170,8 @@ extern "C" int sgc_dfa3d_win_fwd_attributes(int vdtype, int ddtype, int c, int d
     using VT = decltype(v);
     using DT = decltype(d);
     const size_t smem = window_smem(dsize, wwin);
+    if (c == 16)
+      return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 16>, kMhThreads, smem, out);
     if (c == 32)
       return sgc::kernel_attributes(dfa3d_win_fwd_mh_kernel<VT, DT, 32>, kMhThreads, smem, out);
     if (c == 256)

@@ -5,6 +5,8 @@ dot-product cost volume against the temporally adjacent views, through the
 truncated ResNet-18 matching extractor, and (b) a monocular branch from FPN
 features, fused by 2D U-Nets and a softmax taken in f32; and the depth
 loss against GT depth maps (``downsample_gt_depth``, ``depth_loss``).
+With ``sweep_band`` the correlation goes through the banded-Gram sweep
+(``ops/sweep_band.py``) instead of the sweep kernels.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sweep import plane_sweep_correlation
+from ..ops.sweep_band import plane_sweep_correlation_banded
 from .layers import BatchNorm2d, Conv2d, ConvTranspose2d
 from .resnet import ResNetFPNMatching
 
@@ -102,13 +105,15 @@ class DepthNetFusion(nn.Module):
 
     forward(feats (N, C_mono, H, W) FPN level 0, imgs (N, 3, Hi, Wi),
     proj_feat (N, 4, 4) K[R|t] at feature resolution) -> (N, D, H, W) f32
-    softmax depth distributions.
+    softmax depth distributions.  ``sweep_band``: the source-row band of the
+    banded-Gram sweep, or None for the sweep kernels.
     """
 
-    def __init__(self, dbound, neighbor_img_num=2, mono_channels=256):
+    def __init__(self, dbound, neighbor_img_num=2, mono_channels=256, sweep_band=None):
         super().__init__()
         self.dbound = tuple(dbound)
         self.neighbor_img_num = neighbor_img_num
+        self.sweep_band = sweep_band
         d_ch = self.depth_channels
         self.fnet_mvs = ResNetFPNMatching(output_dim=128)
         self.correlation_regulation = SimpleUnet2D(d_ch)
@@ -134,8 +139,9 @@ class DepthNetFusion(nn.Module):
                            dtype=f_mvs.dtype, device=f_mvs.device)
         for j in range(k):
             nei = torch.from_numpy(neighbor_ids[:, j]).to(f_mvs.device)
-            corr = corr + plane_sweep_correlation(
-                f_mvs[nei], f_mvs, proj_feat[nei], proj_feat, depth_values)
+            args = (f_mvs[nei], f_mvs, proj_feat[nei], proj_feat, depth_values)
+            corr = corr + (plane_sweep_correlation(*args) if self.sweep_band is None
+                           else plane_sweep_correlation_banded(*args, self.sweep_band))
         corr = corr / k
 
         cost_reg = self.correlation_regulation(corr)

@@ -5,15 +5,17 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
-from .depth_net import DepthNetFusion, depth_loss
+from .depth_net import DepthNetFusion, depth_loss, downsample_gt_depth
 from .det_head import ImVoxelHead, head_loss_single, head_points
 from .fpn import FPN
 from .layers import (
     init_weights,
     interpolate_linear,
     interpolate_nearest_size,
+    remat_contexts,
     set_compute_dtype,
 )
 from .neck3d import FastIndoorImVoxelNeck
@@ -42,19 +44,15 @@ class SGCDet(nn.Module):
                 "device='cpu' to run the plain PyTorch versions on the CPU")
         if cfg.head_type not in ("scannet", "sunrgbd"):
             raise ValueError(f"unknown head_type {cfg.head_type!r}")
-        # options of the JAX package's ModelConfig that the port does not run
-        if getattr(cfg, "use_gt_dpt", False) or getattr(cfg, "sweep_band", None) is not None:
-            raise NotImplementedError("sweep_band and use_gt_dpt are not ported")
-        if getattr(cfg, "depth_remat", False):
-            raise NotImplementedError(
-                "depth_remat is not ported: the depth net would keep its "
-                "activations, which the JAX package recomputes in the backward")
         self.cfg = cfg
         self.img_shape = tuple(img_shape)
         self.backbone = ResNet50()
         self.neck = FPN(out_channels=cfg.embed_dims)
+        # registered with use_gt_dpt too, as in the JAX package's tree (its
+        # init sees no GT depth): its parameters then get zero gradients
         self.depth_head = DepthNetFusion(cfg.dbound, cfg.neighbor_img_num,
-                                         mono_channels=cfg.embed_dims)
+                                         mono_channels=cfg.embed_dims,
+                                         sweep_band=cfg.sweep_band)
         self.voxel_head = AdaptiveSparseVolume(
             cfg.embed_dims, cfg.voxel_size_list, cfg.n_voxels_list,
             cfg.topk_list, cfg.num_heads, cfg.num_points,
@@ -72,22 +70,38 @@ class SGCDet(nn.Module):
         self.eval()
         self.to(device)
 
-    def forward(self, imgs, proj_img, proj_feat4, origin, generator=None):
+    def forward(self, imgs, proj_img, proj_feat4, origin, generator=None,
+                gt_depth=None):
         """imgs: (N, 3, Hp, Wp) normalized padded images; proj_img:
         (N, 3, 4) world->pixel at image resolution; proj_feat4: (N, 4, 4)
         K[R|t] at feature stride 4; origin: (3,); generator: a
         ``torch.Generator`` on the model's device for the dropout masks in
-        train mode.
+        train mode; gt_depth: optional (N, Hp, Wp) metric depth, the depth
+        distribution's one-hot where ``cfg.use_gt_dpt``.
 
         Returns dict: head_outs (per scale (centerness, bbox, cls) without
         the batch dim, f32), valid (X, Y, Z) f32, occ_preds, dpt_dist
         (N, D, H/4, W/4) f32."""
         cfg = self.cfg
         feats = self.neck(self.backbone(imgs))
-        # with the depth loss on, the depth net does not train the trunk
-        # through feats[0] (detector.py:55)
-        depth_in = feats[0].detach() if cfg.depth_loss else feats[0]
-        dpt_dist = self.depth_head(depth_in, imgs, proj_feat4)
+        if cfg.use_gt_dpt and gt_depth is not None:
+            n, _, h4, w4 = feats[0].shape
+            onehot = downsample_gt_depth(gt_depth, 4, cfg.dbound, cfg.depth_channels,
+                                         cfg.depth_max_tol)
+            dpt_dist = onehot.reshape(n, h4, w4, cfg.depth_channels).permute(0, 3, 1, 2)
+        else:
+            # with the depth loss on, the depth net does not train the trunk
+            # through feats[0] (detector.py:55)
+            depth_in = feats[0].detach() if cfg.depth_loss else feats[0]
+            if cfg.depth_remat and self.training and torch.is_grad_enabled():
+                # the backward recomputes the depth net instead of keeping its
+                # activations (flax's nn.remat); its BNs move their running
+                # statistics once.  It draws no random numbers (a generator
+                # passed in would not be rewound for the recomputation)
+                dpt_dist = checkpoint(self.depth_head, depth_in, imgs, proj_feat4,
+                                      use_reentrant=False, context_fn=remat_contexts)
+            else:
+                dpt_dist = self.depth_head(depth_in, imgs, proj_feat4)
         h4, w4 = dpt_dist.shape[-2:]
         mlvl_dpt = [
             dpt_dist,

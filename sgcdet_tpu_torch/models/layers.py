@@ -9,6 +9,10 @@
   Inside ``sync_batchnorm(group)`` (the data-parallel train step) every
   train-mode BN that is not frozen averages its batch statistics over the
   ranks, as the JAX package's BN does under a mesh (layers.py:210-225).
+  ``remat_contexts`` is the ``context_fn`` of a checkpointed region
+  (``depth_remat``): its recomputation normalises as the forward did and
+  leaves the running statistics alone, which the forward moved once, as
+  flax's ``nn.remat`` moves them once a step.
 * LayerNorm, MultiheadAttention and the interpolations follow the JAX code
   step by step, including its dtype promotion (bf16 activations times f32
   parameters give f32).
@@ -75,19 +79,31 @@ class Linear(_Cast, nn.Linear):
                         self._cast(self.bias))
 
 
-_BN_SYNC = {"group": None}
+_BN_SYNC = {"group": None, "recompute": False}
 
 
 @contextlib.contextmanager
-def sync_batchnorm(group):
+def sync_batchnorm(group, recompute=False):
     """Within the block, train-mode BNs that are not frozen sync their batch
-    statistics over the ranks of ``group`` (None: no sync)."""
-    previous = _BN_SYNC["group"]
-    _BN_SYNC["group"] = group
+    statistics over the ranks of ``group`` (None: no sync); with
+    ``recompute`` they leave their running statistics as they are."""
+    previous = dict(_BN_SYNC)
+    _BN_SYNC.update(group=group, recompute=recompute)
     try:
         yield
     finally:
-        _BN_SYNC["group"] = previous
+        _BN_SYNC.update(previous)
+
+
+def remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn`` for a region whose
+    train-mode BNs must move their running statistics once: the forward
+    runs as it is; the recomputation in the backward, which runs outside
+    the step's ``sync_batchnorm`` block, takes the forward's process group
+    (a synced BN all-reduces its batch statistics again, counted as
+    ``bn_sync_recompute``: the same inputs give the same statistics) and
+    updates no running statistic."""
+    return contextlib.nullcontext(), sync_batchnorm(_BN_SYNC["group"], recompute=True)
 
 
 class _F32BatchNorm:
@@ -114,23 +130,29 @@ class _F32BatchNorm:
         train = self.training and not self.frozen
         if train and _BN_SYNC["group"] is not None:
             return self._synced(x, _BN_SYNC["group"])
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, train, self.momentum, self.eps)
+        mean, var = self.running_mean, self.running_var
+        if train and _BN_SYNC["recompute"]:  # the same call, on copies it may move
+            mean, var = mean.clone(), var.clone()
+        y = F.batch_norm(x.float(), mean, var, self.weight, self.bias, train,
+                         self.momentum, self.eps)
         return y.to(x.dtype)
 
     def _synced(self, x, group):
         ch = x.shape[1]
         axes = (0,) + tuple(range(2, x.ndim))
         xf = x.float()
-        stats = mean_over_ranks(torch.cat([xf.mean(axes), xf.square().mean(axes)]), group)
+        recompute = _BN_SYNC["recompute"]
+        stats = mean_over_ranks(torch.cat([xf.mean(axes), xf.square().mean(axes)]), group,
+                                "bn_sync_recompute" if recompute else "bn_sync")
         mean, mean2 = stats[:ch], stats[ch:]
         var = mean2 - mean.square()
         n = x.numel() // ch
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var
-                                   + m * (var * n / max(n - 1, 1)))
+        if not recompute:  # a recomputation's forward moved them
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * n / max(n - 1, 1)))
         shape = (1, ch) + (1,) * (x.ndim - 2)
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = xf * inv.reshape(shape) + (self.bias - mean * inv).reshape(shape)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.dfa3d import dfa3d_attend, msda_2d_attend
+from ..ops.dfa3d import dfa3d_attend, msda_2d, msda_2d_attend
 from ..ops.dfa3d_windowed import dfa3d_attention_windowed
 from .layers import FFN, LayerNorm, Linear, MultiheadAttention
 
@@ -168,16 +168,13 @@ class MSDeformableAttention3D(nn.Module):
 class MSDeformableAttention2D(nn.Module):
     """Plain 2D multi-scale deformable attention, no depth weighting
     (deformable_cross_attention.py:119-340): the stage 2 of the 2D path.
-    Single level only: the JAX module's multi-level branch goes through the
-    flat sgcdet_tpu/ops/msda.py::msda_2d, which is not ported (no JAX path
-    reaches it: ``ViewTransformer`` lifts one level)."""
+    One level samples through the DFA3D kernels (``msda_2d_attend``); more
+    levels, one flat value, through the plain ``ops/dfa3d.py::msda_2d``, as
+    the JAX module sends them to the XLA ``ops/msda.py::msda_2d`` (no model
+    path reaches that branch: ``ViewTransformer`` lifts one level)."""
 
     def __init__(self, embed_dims=256, num_heads=8, num_points=4, num_levels=1):
         super().__init__()
-        if num_levels != 1:
-            raise NotImplementedError(
-                "MSDeformableAttention2D with num_levels > 1 needs "
-                "sgcdet_tpu/ops/msda.py::msda_2d, which is not ported")
         self.embed_dims = embed_dims
         self.num_heads = num_heads
         self.num_levels = num_levels
@@ -197,9 +194,9 @@ class MSDeformableAttention2D(nn.Module):
         self.attention_weights.bias.zero_()
 
     def forward(self, query, value, ref_points, spatial_shapes):
-        """query: (N, K, C); value: (N, H*W, C) flat; ref_points:
-        (N, K, 1, 2) normalized; spatial_shapes: ((H, W),).  Returns
-        (N, K, C)."""
+        """query: (N, K, C); value: (N, sum_l H_l * W_l, C) flat, the levels
+        one after another; ref_points: (N, K, 1, 2) normalized;
+        spatial_shapes: ((H_l, W_l), ...).  Returns (N, K, C)."""
         n, k, c = query.shape
         h, l, p = self.num_heads, self.num_levels, self.num_points
         v = self.value_proj(value)
@@ -210,6 +207,8 @@ class MSDeformableAttention2D(nn.Module):
                                   dtype=torch.float32, device=query.device)
         locs = (ref_points[:, :, None, None, :, :]
                 + off / normalizer[None, None, None, :, None, :])
+        if l > 1:
+            return msda_2d(v.reshape(n, -1, h, c // h), spatial_shapes, locs, attn)
         h_, w_ = spatial_shapes[0]
         return msda_2d_attend([v.reshape(n, h_, w_, c)], locs, attn, num_heads=h)
 

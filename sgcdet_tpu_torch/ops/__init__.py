@@ -3,11 +3,7 @@ their plain PyTorch versions, and host-side NMS."""
 from ._cuda import LIBRARY, plain_ops
 from .dfa3d import COUNTERS as DFA3D_COUNTERS
 from .dfa3d import dfa3d_attend, dfa3d_attention_plain, msda_2d_attend
-from .dfa3d_windowed import (
-    DFA3D_WIN_BWD_MH,
-    DFA3D_WIN_FWD_MH,
-    dfa3d_attention_windowed,
-)
+from .dfa3d_windowed import WIN_COUNTERS, dfa3d_attention_windowed
 from .nms import aligned_3d_nms, box3d_multiclass_nms, nms_bev, nms_normal_bev
 from .sweep import (
     SWEEP_BWD,
@@ -19,13 +15,13 @@ from .sweep import (
 # every kernel's launch counter, by the name chip_smoke.py reports: the
 # sweep's, one for each built DFA3D instance ("dfa3d_{fwd,bwd}_{s1,mh}_c<c>",
 # "_bd" at bf16 depth: ops/dfa3d.py::counter_name) and the windowed kernels'
-# of the sort_queries path ("_win")
+# of the sort_queries path ("dfa3d_win_{fwd,bwd}_mh", "_c16" at c = 16:
+# ops/dfa3d_windowed.py::win_counter)
 KERNELS = {
     "sweep_fwd": SWEEP_FWD,
     "sweep_bwd": SWEEP_BWD,
     **DFA3D_COUNTERS,
-    "dfa3d_win_fwd_mh": DFA3D_WIN_FWD_MH,
-    "dfa3d_win_bwd_mh": DFA3D_WIN_BWD_MH,
+    **WIN_COUNTERS,
 }
 
 __all__ = [

@@ -33,7 +33,9 @@ plain version as in the kernels, and get zero gradients.
   its launches apart (``COUNTERS``, ``counter_name``).
 * ``dfa3d_attend`` — the differentiable op the model calls;
   ``msda_2d_attend`` — 2D multi-scale deformable attention as DFA3D with a
-  uniform depth (the ``use_depth=False`` lifting path).
+  uniform depth (the ``use_depth=False`` lifting path); ``msda_2d`` — the
+  same over several levels of one flat value, plain PyTorch (the
+  counterpart of sgcdet_tpu/ops/msda.py::msda_2d, which is XLA).
 """
 from __future__ import annotations
 
@@ -394,3 +396,32 @@ def msda_2d_attend(value_img_list, sampling_locations, attention_weights,
                          num_heads)
         out = o if out is None else out + o
     return out
+
+
+def msda_2d(value, spatial_shapes, sampling_locations, attention_weights):
+    """2D multi-scale deformable attention over several levels in one flat
+    value (mmcv ``ms_deform_attn`` semantics), plain PyTorch on any device:
+    the counterpart of sgcdet_tpu/ops/msda.py::msda_2d, XLA gathers there
+    and no Pallas kernel.  The multi-level branch of
+    ``MSDeformableAttention2D`` (no model path of either package reaches
+    it; one level goes to ``msda_2d_attend``'s kernels).  Corners as the
+    plain versions take them (``ops/sampling.py``), summed in f32.
+
+    value: (N, sum_l H_l * W_l, heads, c), the levels one after another;
+    spatial_shapes: ((H_l, W_l), ...); sampling_locations: (N, K, heads, L,
+    P, 2) normalized (u, v); attention_weights: (N, K, heads, L, P).
+    Returns (N, K, heads*c) in the value dtype."""
+    n, nv, heads, c = value.shape
+    k, p = sampling_locations.shape[1], sampling_locations.shape[4]
+    table = value.permute(0, 2, 1, 3).reshape(n * heads, nv, c).float()
+    out = torch.zeros((n, k, heads, c), dtype=torch.float32, device=value.device)
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        loc = sampling_locations[:, :, :, lvl].float()  # (N, K, heads, P, 2)
+        attn = attention_weights[:, :, :, lvl].float()  # (N, K, heads, P)
+        for flat, wgt in bilinear_corners(loc[..., 0] * w - 0.5, loc[..., 1] * h - 0.5, h, w):
+            idx = (start + flat).permute(0, 2, 1, 3).reshape(n * heads, k * p)
+            rows = gather_rows(table, idx).reshape(n, heads, k, p, c).permute(0, 2, 1, 3, 4)
+            out = out + (rows * (wgt * attn)[..., None]).sum(3)
+        start += h * w
+    return out.reshape(n, k, heads * c).to(value.dtype)

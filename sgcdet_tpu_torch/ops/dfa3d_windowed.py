@@ -36,18 +36,23 @@ corners read, so a window would stage more than it saves.
   index relative to the window, clipped into it, and a zero weight for a
   corner outside it), other chunks from the whole map.  A planning fault
   therefore shows up on the CPU as a wrong number.
-* ``dfa3d_win_fwd_cuda`` (counter ``dfa3d_win_fwd_mh``) and
-  ``dfa3d_win_bwd_cuda`` (``dfa3d_win_bwd_mh``) — the kernels of
-  csrc/dfa3d_win_fwd.cu and csrc/dfa3d_win_bwd.cu; ``kernel_resources``
-  reads their registers, spills, shared memory and blocks an SM.
+* ``dfa3d_win_fwd_cuda`` (counters ``dfa3d_win_fwd_mh``, and
+  ``dfa3d_win_fwd_mh_c16`` at c = 16) and ``dfa3d_win_bwd_cuda``
+  (``dfa3d_win_bwd_mh``, ``dfa3d_win_bwd_mh_c16``) — the kernels of
+  csrc/dfa3d_win_fwd.cu and csrc/dfa3d_win_bwd.cu (``win_counter`` names
+  an instance's counter); ``kernel_resources`` reads their registers,
+  spills, shared memory and blocks an SM.
 * ``dfa3d_attention_windowed`` — the differentiable op of the sorted path.
   Stage 1 goes to ``dfa3d_attend`` (K2 forward, K6 backward); on the TPU
   too the windowed stage 1 has no VJP and the sorted path takes
   ``pallas_c``'s.
 
 Type pairs and counted zeros are those of ``ops/dfa3d.py``
-(``check_dtypes``); ``c`` is 32 or 256 per head (the backward 32): the
-widths of the -L configs (16 and 128) raise before any launch.
+(``check_dtypes``); ``c`` is 16, 32 or 256 per head (``WIN_FWD_WIDTHS``),
+the backward 16 or 32 (``WIN_BWD_WIDTHS``): the ScanNet widths and the -L
+configs' 16 at stage 2 (their stage 1, c = 128, is K2's and K6's).  Any
+other width raises before any launch.  At c = 16 a warp takes two whole
+queries of a chunk, as K3 and K5 do.
 """
 from __future__ import annotations
 
@@ -67,15 +72,23 @@ from .dfa3d import (
 )
 from .sampling import clip_coord
 
-SLICE = 32        # value channels of a head: the windowed backward's c
-WIN_FWD_WIDTHS = (32, 256)  # ... and the forward's (csrc/dfa3d_win_fwd.cu)
-# chunks over all heads, the forward's of 16 queries, the backward's of 8
-# (PERF.md); a window of at most WIN_CAP pixels,
-# above the 90th percentile of the unions' spans at the sorted level 2,
-# holds the depth bins in f32 (forward) or their f32 d_depth sums
-# (backward), 54 KB, in at most SMEM_MH bytes
-QC_FWD = 16
-QC_BWD = 8
+# value channels of a head the windowed kernels are built for: the forward
+# (csrc/dfa3d_win_fwd.cu) and the backward (csrc/dfa3d_win_bwd.cu)
+WIN_FWD_WIDTHS = (16, 32, 256)
+WIN_BWD_WIDTHS = (16, 32)
+# the queries of a block's chunk (over all heads), by c a head: the
+# forward's and the backward's.  At c = 16 a warp takes two queries, and a
+# chunk's union window spans ~740 pixels at the sorted -L level 2 whatever
+# its length (the heads' offsets set it), so longer chunks stage each
+# window for more work: 64 and 32 queries ran 0.90x and 0.77x K3 and K5
+# where 16 and 8 ran 1.32x and 1.15x (PERF.md, experiments/
+# window_chunks.py); a window of at most WIN_CAP
+# pixels, above the 90th percentile of the unions' spans at the sorted
+# level 2, holds the depth bins in f32 (forward) or their f32 d_depth sums
+# (backward), 54 KB, in at most SMEM_MH bytes: depth bins, not channels,
+# so the window is the same at every c
+QC_FWD = {16: 64, 32: 16, 256: 16}
+QC_BWD = {16: 32, 32: 8}
 WIN_CAP = 1152
 SMEM_MH = 56 * 1024
 
@@ -86,9 +99,24 @@ _FWD_ARGS = [_I, _I] + [_P] * 6 + [_I] * 10
 DFA3D_WIN_FWD_MH = Kernel("sgc_dfa3d_win_fwd", _FWD_ARGS)
 # sgc_dfa3d_win_bwd(vdtype, ddtype, value, depth, locs, attn, counts, g,
 #                   d_value, d_depth, d_locs, d_attn,
-#                   n, h, w, heads, dsize, k, p, qc, wwin, stream)
-_BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 9
+#                   n, h, w, heads, c, dsize, k, p, qc, wwin, stream)
+_BWD_ARGS = [_I, _I] + [_P] * 10 + [_I] * 10
 DFA3D_WIN_BWD_MH = Kernel("sgc_dfa3d_win_bwd", _BWD_ARGS)
+# the instances at c = 16 (the sorted -L path) count their launches apart
+DFA3D_WIN_FWD_MH_C16 = Kernel("sgc_dfa3d_win_fwd", _FWD_ARGS)
+DFA3D_WIN_BWD_MH_C16 = Kernel("sgc_dfa3d_win_bwd", _BWD_ARGS)
+
+
+def win_counter(backward, c):
+    """The name of the launch counter of the windowed instance at c a head:
+    ``dfa3d_win_{fwd,bwd}_mh``, with ``_c16`` at c = 16."""
+    return f"dfa3d_win_{'bwd' if backward else 'fwd'}_mh" + ("_c16" if c == 16 else "")
+
+
+WIN_COUNTERS = {"dfa3d_win_fwd_mh": DFA3D_WIN_FWD_MH,
+                "dfa3d_win_fwd_mh_c16": DFA3D_WIN_FWD_MH_C16,
+                "dfa3d_win_bwd_mh": DFA3D_WIN_BWD_MH,
+                "dfa3d_win_bwd_mh_c16": DFA3D_WIN_BWD_MH_C16}
 
 
 class WindowPlan(NamedTuple):
@@ -108,7 +136,8 @@ def window_bytes(wwin, value_img, dpt_img, backward=False, depth_grad=True):
     window of ``wwin`` pixels (csrc/dfa3d_win_fwd.cu::window_smem,
     dfa3d_win_bwd.cu::bwd_smem): the forward the depth bins in f32; the
     backward, with ``depth_grad``, the bins' f32 d_depth sums.
-    ``value_img`` changes nothing: every window holds 4 bytes a bin."""
+    Neither ``value_img`` nor its c changes it: every window holds 4 bytes
+    a bin."""
     d = dpt_img.shape[-1]
     return 0 if backward and not depth_grad else 4 * wwin * d
 
@@ -118,7 +147,7 @@ def window_length(value_img, dpt_img, backward=False, depth_grad=True):
     (the ``wwin`` it is launched with): at most ``WIN_CAP``, the whole map
     where it is smaller, and what the kernel's shared memory budget allows
     at ``window_bytes`` a window; 0 for a backward without ``depth_grad``,
-    whose window would hold nothing."""
+    whose window would hold nothing.  The same at every c."""
     if backward and not depth_grad:
         return 0
     h, w = value_img.shape[1:3]
@@ -132,11 +161,12 @@ def kernel_plan(value_img, dpt_img, locs, valid_counts, backward=False,
     computes its own), for the plain version and for reports."""
     h, w = value_img.shape[1:3]
     wwin = window_length(value_img, dpt_img, backward, depth_grad)
-    qc = QC_BWD if backward else QC_FWD
+    c = value_img.shape[-1] // locs.shape[2]
+    qc = (QC_BWD if backward else QC_FWD)[c]
     return plan_windows(locs, counts=valid_counts, h=h, w=w, wwin=wwin, qc=qc)
 
 
-def plan_windows(locs, counts, h, w, wwin, qc=QC_FWD):
+def plan_windows(locs, counts, h, w, wwin, qc):
     """The windows of one call, per (view, chunk of ``qc`` queries): a block
     takes every head of its chunk, so its window is the union of its heads'
     bands.  locs: (N, K, heads, P, 3) normalized; counts: (N,) visible-query
@@ -217,23 +247,24 @@ def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
     if c not in WIN_FWD_WIDTHS:
         raise ValueError(f"the windowed forward takes c in {WIN_FWD_WIDTHS} per head, got {c}")
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
-    DFA3D_WIN_FWD_MH(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
+    WIN_COUNTERS[win_counter(False, c)](value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
                      value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
-                     _ptr(counts), out.data_ptr(), *sizes, QC_FWD,
+                     _ptr(counts), out.data_ptr(), *sizes, QC_FWD[c],
                      window_length(value, depth))
     return out
 
 
 def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
                        valid_counts=None, sample_grads=True, depth_grad=True):
-    """The windowed multi-head backward kernel on CUDA tensors (c = 32 per
-    head); same contract as ``dfa3d_bwd_cuda``.  Every gradient is summed
-    in f32 and cast once to its input's dtype."""
+    """The windowed multi-head backward kernel on CUDA tensors (c = 16 or
+    32 per head); same contract as ``dfa3d_bwd_cuda``.  Every gradient is
+    summed in f32 and cast once to its input's dtype."""
     value, depth, loc, att, counts, _, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, h, w, heads, c, dsize, k, p = sizes
-    if c != SLICE:
-        raise ValueError(f"the windowed backward takes c = {SLICE} per head, got {c}")
+    if c not in WIN_BWD_WIDTHS:
+        raise ValueError(f"the windowed backward takes c in {WIN_BWD_WIDTHS} per head, "
+                         f"got {c}")
     gg = check_cuda_input(g.to(value.dtype), "g", (value.dtype,), 3, value.device)
     if gg.shape != (n, k, heads * c):
         raise ValueError(f"g {tuple(gg.shape)} must be {(n, k, heads * c)}")
@@ -243,11 +274,11 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     d_depth = zeros_f32(depth.shape, value.device) if depth_grad else None
     d_locs = torch.empty(loc.shape, **f32) if sample_grads else None
     d_attn = torch.empty(att.shape, **f32) if sample_grads else None
-    DFA3D_WIN_BWD_MH(value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
-                     value.data_ptr(), depth.data_ptr(), loc.data_ptr(),
-                     att.data_ptr(), _ptr(counts), gg.data_ptr(),
-                     d_value.data_ptr(), _ptr(d_depth), _ptr(d_locs),
-                     _ptr(d_attn), n, h, w, heads, dsize, k, p, QC_BWD, wwin)
+    WIN_COUNTERS[win_counter(True, c)](
+        value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
+        value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
+        _ptr(counts), gg.data_ptr(), d_value.data_ptr(), _ptr(d_depth),
+        _ptr(d_locs), _ptr(d_attn), n, h, w, heads, c, dsize, k, p, QC_BWD[c], wwin)
     return tuple(None if grad is None else grad.to(inp.dtype) for grad, inp in
                  zip((d_value, d_depth, d_locs, d_attn),
                      (value_img, dpt_img, locs, attn)))
@@ -256,18 +287,19 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
 RESOURCE_KEYS = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm", "threads")
 
 
-def kernel_resources(name, value_dtype, depth_dtype, dsize, wwin, c=SLICE,
+def kernel_resources(name, value_dtype, depth_dtype, dsize, wwin, c=32,
                      depth_grad=True):
     """Registers and local (spill) bytes a thread, shared memory bytes a
-    block and blocks an SM of the kernel behind counter ``name`` (the
-    backward with every gradient, or without d_depth) at these types, bins
-    and window length, as the CUDA runtime reports them.  Launches
+    block and blocks an SM of the windowed kernel ``name`` (the forward or
+    the backward, ``win_counter``'s names without the width; the backward
+    with every gradient, or without d_depth) at these types, c a head,
+    bins and window length, as the CUDA runtime reports them.  Launches
     nothing."""
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     types = DTYPE_CODE[value_dtype], DTYPE_CODE[depth_dtype]
-    if name == "dfa3d_win_bwd_mh":
+    if name.startswith("dfa3d_win_bwd_mh"):
         fn = LIBRARY.get().sgc_dfa3d_win_bwd_attributes
-        args = (1, int(depth_grad), dsize, wwin)
+        args = (c, 1, int(depth_grad), dsize, wwin)
     else:
         fn = LIBRARY.get().sgc_dfa3d_win_fwd_attributes
         args = (c, dsize, wwin)

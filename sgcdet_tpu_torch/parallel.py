@@ -12,6 +12,8 @@ Every all-reduce of the port goes through ``all_reduce_mean_`` or
 
 * ``bn_sync`` / ``bn_sync_backward``: a train-mode BatchNorm's mean and
   mean of squares, and their gradient (``models/layers.py``);
+  ``bn_sync_recompute``: the same statistics again where the backward
+  recomputes a checkpointed region (``depth_remat``'s depth net);
 * ``n_pos``: the positive count that normalises the head's losses;
 * ``gradients``, ``metrics``, ``bn_stats``: the train step's flat gradient
   buffer, its loss terms with the total and n_pos, and the BatchNorm
@@ -26,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 COUNTS = dict.fromkeys(
-    ("bn_sync", "bn_sync_backward", "n_pos", "gradients", "metrics", "bn_stats"), 0)
+    ("bn_sync", "bn_sync_backward", "bn_sync_recompute", "n_pos", "gradients", "metrics",
+     "bn_stats"), 0)
 
 
 @dataclass(frozen=True)
@@ -87,19 +90,20 @@ class _MeanOverRanks(torch.autograd.Function):
     is the mean of every rank's output gradient."""
 
     @staticmethod
-    def forward(ctx, t, group):
+    def forward(ctx, t, group, kind):
         ctx.group = group
-        return all_reduce_mean_(t.clone(), group, "bn_sync")
+        return all_reduce_mean_(t.clone(), group, kind)
 
     @staticmethod
     def backward(ctx, grad):
         return all_reduce_mean_(grad.clone(memory_format=torch.contiguous_format),
-                                ctx.group, "bn_sync_backward"), None
+                                ctx.group, "bn_sync_backward"), None, None
 
 
-def mean_over_ranks(t: torch.Tensor, group) -> torch.Tensor:
-    """Differentiable mean of ``t`` over the ranks of ``group``."""
-    return _MeanOverRanks.apply(t, group)
+def mean_over_ranks(t: torch.Tensor, group, kind="bn_sync") -> torch.Tensor:
+    """Differentiable mean of ``t`` over the ranks of ``group``, counted
+    under ``kind``."""
+    return _MeanOverRanks.apply(t, group, kind)
 
 
 def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:

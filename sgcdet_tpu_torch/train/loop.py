@@ -54,7 +54,10 @@ def scene_losses(model, config, scene, generator, group=None):
     model.train()
     x = {k: _to_device(scene[k], dev) for k in _INPUTS + _TARGETS if k in scene}
     with sync_batchnorm(group):
-        outputs = model(*(x[k] for k in _INPUTS), generator=generator)
+        # gt_depth goes to the model too, which reads it where use_gt_dpt
+        # (loop.py:67)
+        outputs = model(*(x[k] for k in _INPUTS), generator=generator,
+                        gt_depth=x.get("gt_depth"))
         return compute_losses(config.model, outputs, x["origin"], x["gt_boxes"],
                               x["gt_labels"], x["gt_mask"].bool(),
                               gt_depth=x.get("gt_depth"), group=group)

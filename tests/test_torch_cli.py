@@ -8,8 +8,9 @@ overrides and its show mode, on the CPU.
   the artefacts the JAX package's test asserts; jax, flax and the JAX
   package never imported; and 2 steps then ``--resume`` to 4 bit-equal to 4
   steps in one run (parameters, BN buffers, optimizer state, ``last``).
-  The refusals: ``--sweep_band`` (no banded sweep in the port) and the
-  default device without a card.
+  ``--sweep_band 16`` and ``auto`` (eval runs through the banded sweep,
+  the auto band the JAX CLI's rule picks); the default device refuses
+  without a card.
 * ``apply_overrides`` and the ``config.json`` dump byte-equal to the JAX
   package's, with its errors.
 * ``--load_from`` of a random Lightning-style .ckpt and the torchvision
@@ -94,22 +95,26 @@ def _wait(*procs):
 
 def _cli_chain(root):
     """Train 4 steps in ``b``, and at the same time 2 steps (one epoch and
-    its eval) in ``a``, then eval and show of a's step 2 and a's resume to
-    4."""
+    its eval) in ``a``, then eval and show of a's step 2, a's resume to 4
+    and evals with ``--sweep_band 16`` and ``auto``."""
     data = write_scannet_set(root / "data")
     whole = _cli(root, "--mode", "train", "--log_folder", "b", "--max_steps", "4",
                  "--eval_every_epochs", "0", data=data)
     _wait(_cli(root, "--mode", "train", "--log_folder", "a", "--max_steps", "2", data=data))
     ckpt = root / "logs/a/ckpt/step_2"
-    out_eval, out_show, _, _ = _wait(
+    out_eval, out_show, _, _, band16, band_auto = _wait(
         _cli(root, "--mode", "eval", "--log_folder", "a_eval", "--ckpt_path", str(ckpt),
              data=data),
         _cli(root, "--mode", "show", "--log_folder", "a_show", "--ckpt_path", str(ckpt),
              data=data),
         _cli(root, "--mode", "train", "--log_folder", "a", "--max_steps", "4", "--resume",
              "--eval_every_epochs", "0", data=data),
-        whole)
-    return root, out_eval, out_show
+        whole,
+        _cli(root, "--mode", "eval", "--log_folder", "band16", "--ckpt_path", str(ckpt),
+             "--sweep_band", "16", data=data),
+        _cli(root, "--mode", "eval", "--log_folder", "band_auto", "--ckpt_path", str(ckpt),
+             "--sweep_band", "auto", data=data))
+    return root, out_eval, out_show, dict(band16=band16, band_auto=band_auto)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -464,7 +469,7 @@ def test_run_eval_matches_jax(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_cli_train_artefacts(cli_runs):
-    root, _, _ = cli_runs
+    root, _, _, _ = cli_runs
     log_dir = root / "logs/a"
     cfg_dump = json.loads((log_dir / "config.json").read_text())
     assert cfg_dump["model"]["embed_dims"] == 16  # overrides reached the dump
@@ -478,7 +483,7 @@ def test_cli_train_artefacts(cli_runs):
 
 
 def test_cli_eval_and_show(cli_runs):
-    root, out_eval, out_show = cli_runs
+    root, out_eval, out_show, _ = cli_runs
     for out in (out_eval, out_show):
         ret = json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
         assert set(ret) == {"mAP_0.25", "mAR_0.25", "mAP_0.50", "mAR_0.50"}
@@ -493,7 +498,7 @@ def test_cli_eval_and_show(cli_runs):
 
 def test_cli_resume_is_bit_equal(cli_runs):
     """2 steps, then --resume to 4 == 4 steps in one run."""
-    root, _, _ = cli_runs
+    root, _, _, _ = cli_runs
     a = torch.load(root / "logs/a/ckpt/step_4", weights_only=True)
     b = torch.load(root / "logs/b/ckpt/step_4", weights_only=True)
     assert a["step"] == b["step"] == 4
@@ -513,10 +518,30 @@ def test_cli_resume_is_bit_equal(cli_runs):
     assert any(not torch.equal(s2[k], a["model"][k]) for k in s2)
 
 
-def test_cli_refusals(tmp_path, monkeypatch):
+def test_cli_refusals(tmp_path, monkeypatch, cli_runs):
+    """``--sweep_band`` (refused until the port had the banded sweep): an
+    int is the model's band, ``auto`` the band the JAX CLI picks on the same
+    val set (the JAX package's ``required_sweep_band`` over its
+    ``scene_poses``, kept up to 20 rows), and both evals score; the
+    default device still refuses without a card."""
+    root, _, _, bands = cli_runs
+    for out in bands.values():
+        ret = json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
+        assert all(np.isfinite(v) for v in ret.values())
+    assert "model sweep_band: 16" in bands["band16"]
+    jcfg = jconfigs.apply_overrides(jconfigs.get_config("scannet"), CLI_OVERRIDES + [
+        f"data.data_root={root / 'data'}"])
+    from sgcdet_tpu.data import MultiViewDataset as JMultiViewDataset
+    from sgcdet_tpu.utils.visibility import required_sweep_band as j_required_sweep_band
+
+    ds = JMultiViewDataset(jcfg.data, train=False, load_depth=False, seed=0)
+    h4, w4 = jcfg.data.img_shape[0] // 4, jcfg.data.img_shape[1] // 4
+    band = max(j_required_sweep_band(ds.scene_poses(i)[2], ds.scene_poses(i)[2].shape[0],
+                                     jcfg.model, (h4, w4)) for i in range(len(ds)))
+    want = band if band <= 20 else None
+    assert f"auto sweep band (exact over {len(ds)} scenes): {band}" in bands["band_auto"]
+    assert f"model sweep_band: {want}" in bands["band_auto"]
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(ValueError, match="banded"):
-        cli.main(["--config", "scannet", "--device", "cpu", "--sweep_band", "16"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["--config", "scannet"])

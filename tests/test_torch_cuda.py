@@ -10,8 +10,9 @@ map and depth bins past the range, the sorted query order); the 2D lifting
 path
 (``ViewTransformer(use_depth=False)``) through the kernels against its plain
 run; the DFA3D kernels also at the -L configs' widths (K2 and K6 at c =
-128, K3 and K5 at 16 a head, two queries a warp), and the windowed
-kernels refusing them; the backward kernels K4 and K5 on the contention cases of
+128, K3 and K5 at 16 a head, two queries a warp), the windowed kernels at
+16 a head (two queries a warp, an odd K, a count that splits a pair) and
+refusing 128 at stage 2; the backward kernels K4 and K5 on the contention cases of
 ``torch_port_tiny`` (many samples on one row, untiled sizes, integer and
 edge coordinates, a plane behind the camera, counted views of count 0) and
 on operands that are views at an offset breaking 16-byte alignment; the
@@ -50,7 +51,8 @@ from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, WIN_CAP,
                                                  dfa3d_attention_windowed,
                                                  dfa3d_win_bwd_cuda, dfa3d_win_fwd_cuda,
                                                  kernel_resources, plan_windows,
-                                                 window_bytes, window_length)
+                                                 win_counter, window_bytes,
+                                                 window_length)
 from sgcdet_tpu_torch.ops.sweep import (plane_sweep_correlation, sweep_bwd_cuda,
                                         sweep_bwd_plain, sweep_fwd, sweep_fwd_cuda,
                                         sweep_fwd_plain)
@@ -579,17 +581,29 @@ WINDOW_CASES = ["coherent", "random", "cap", "one_pixel", "misaligned"]
 # (heads, points, c): stage 1, stage 2 and its partial head groups (the
 # backward's shapes), and the multi-head forward at c = 256
 WINDOW_SHAPES = [(8, 4, 32), (1, 4, 32), (2, 4, 32), (6, 4, 32), (8, 3, 32)]
+# ... and at the -L configs' c = 16 a head, where a warp takes two queries
+# of 8 heads (eight of 2); these run at an odd K (599: a view's last query
+# alone in its warp) with a count that splits a pair (201)
+WINDOW_SHAPES_C16 = [(8, 4, 16), (2, 4, 16), (8, 3, 16)]
 
 
 WINDOW_FWD = ([pytest.param(*shape, case, id=f"{sid}-{case}") for shape, sid in
-               zip([(1, 1, 256)] + WINDOW_SHAPES + [(2, 4, 256)],
+               zip([(1, 1, 256)] + WINDOW_SHAPES + [(2, 4, 256)] + WINDOW_SHAPES_C16,
                    ["stage1", "stage2", "stage2_h1", "stage2_h2", "stage2_h6",
-                    "stage2_p3", "c256_h2"])
-               for case in (WINDOW_CASES if shape == (8, 4, 32) else WINDOW_CASES[:2])])
-WINDOW_BWD = ([pytest.param(*shape[:2], case, id=case if shape == (8, 4, 32) else
-                            f"h{shape[0]}p{shape[1]}-{case}")
-               for shape in WINDOW_SHAPES
-               for case in (WINDOW_CASES if shape == (8, 4, 32) else WINDOW_CASES[:2])])
+                    "stage2_p3", "c256_h2", "c16", "c16_h2", "c16_p3"])
+               for case in (WINDOW_CASES if shape[:2] == (8, 4) else WINDOW_CASES[:2])])
+WINDOW_BWD = ([pytest.param(*shape, case, id=case if shape == (8, 4, 32) else
+                            f"h{shape[0]}p{shape[1]}-{case}" if shape[2] == 32 else
+                            f"c16_h{shape[0]}p{shape[1]}-{case}")
+               for shape in WINDOW_SHAPES + WINDOW_SHAPES_C16
+               for case in (WINDOW_CASES if shape[:2] == (8, 4) else WINDOW_CASES[:2])])
+
+
+def _window_k_counts(c):
+    """Queries a view and the views' counts of a windowed case: 600 and (0,
+    200, 599, 600); at c = 16, where a warp takes two queries, an odd K and
+    a count that splits a pair."""
+    return (599, (0, 201, 598, 599)) if c == 16 else (600, (0, 200, 599, 600))
 
 
 def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=False):
@@ -597,11 +611,13 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
     (4, 30, 40) map ((4, 32, 64) for "cap" and "one_pixel", whose pixel
     centres are exact in f32, and for "random", whose chunks then span
     more than the kernels' window), 600 queries, 12 depth bins; counts 0,
-    200, 599 and 600.  Stage 1 has no windowed kernel and no plan."""
+    200, 599 and 600 (at c = 16 ``_window_k_counts``'s).  Stage 1 has no
+    windowed kernel and no plan."""
     h, w = (30, 40) if case in ("coherent", "misaligned") else (32, 64)
-    value, dpt, locs, attn = windowed_inputs(4, h, w, 600, heads, c, p, 12,
+    k, view_counts = _window_k_counts(c)
+    value, dpt, locs, attn = windowed_inputs(4, h, w, k, heads, c, p, 12,
                                              case != "random")
-    qc = QC_BWD if backward else QC_FWD
+    qc = (QC_BWD if backward else QC_FWD)[c]
     wwin = window_length(value, dpt, backward)
     if case == "cap":
         # every sample a quarter pixel past the centre of pixel (1, 1): its
@@ -615,14 +631,14 @@ def _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case, backward=Fals
             yhi, xhi = divmod(w + wwin + chunk, w)
             locs[:, chunk * qc, 0, 0, :2] = at(yhi - 1, xhi - 1)
     elif case == "one_pixel":
-        q = torch.arange(600) // qc  # chunk of each query
+        q = torch.arange(k) // qc  # chunk of each query
         locs[..., 0] = (((3 * q) % w + 0.5) / w)[None, :, None, None]
         locs[..., 1] = ((q % h + 0.5) / h)[None, :, None, None]
     args = [value.to(vdtype), dpt.to(ddtype), locs, attn]
     args = [a.to(cuda_device) for a in args]
     if case == "misaligned":
         args[0], args[1] = _misaligned(args[0]), _misaligned(args[1])
-    counts = torch.tensor([0, 200, 599, 600], dtype=torch.int32, device=cuda_device)
+    counts = torch.tensor(view_counts, dtype=torch.int32, device=cuda_device)
     if heads == p == 1:
         return args, counts
     plan = plan_windows(args[2], counts, h, w, wwin, qc)
@@ -642,7 +658,7 @@ def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vd
                                                     ddtype, case):
     args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case)
     name = (_dfa3d_kernel_name("fwd", 1, 1, c, ddtype) if heads == p == 1
-            else "dfa3d_win_fwd_mh")
+            else win_counter(False, c))
     before = KERNELS[name].launches
     got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
     assert KERNELS[name].launches == before + 1
@@ -658,26 +674,26 @@ def test_windowed_kernel_matches_plain_and_template(cuda_device, heads, p, c, vd
         assert (got[cam, cnt:] == 0).all()
 
 
-@pytest.mark.parametrize("heads,p,case", WINDOW_BWD)
+@pytest.mark.parametrize("heads,p,c,case", WINDOW_BWD)
 @pytest.mark.parametrize("vdtype,ddtype", DFA3D_TYPES)
 @pytest.mark.parametrize("sample_grads,depth_grad", GRAD_FLAGS, ids=GRAD_IDS)
 def test_windowed_backward_kernel_matches_plain_and_template(
-        cuda_device, heads, p, case, vdtype, ddtype, sample_grads, depth_grad):
-    c = 32
+        cuda_device, heads, p, c, case, vdtype, ddtype, sample_grads, depth_grad):
     args, counts = _windowed_case(cuda_device, heads, p, c, vdtype, ddtype, case,
                                   backward=True)
-    g = torch.randn((4, 600, heads * c), device=cuda_device,
+    name = win_counter(True, c)
+    g = torch.randn((4, args[2].shape[1], heads * c), device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(0)).to(vdtype)
     if case == "misaligned":
         g = _misaligned(g)
     wants = (True, depth_grad, sample_grads, sample_grads)
-    before = KERNELS["dfa3d_win_bwd_mh"].launches
+    before = KERNELS[name].launches
     for a, want in zip(args, wants):
         a.requires_grad_(want)
     out = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
     assert graph_has(out, "_DFA3DWindowedBackward")
     got = _grads(out, args, g)
-    assert KERNELS["dfa3d_win_bwd_mh"].launches == before + 1
+    assert KERNELS[name].launches == before + 1
     with plain_ops():
         expected = _grads(dfa3d_attention_windowed(*args, heads, valid_counts=counts),
                           args, g)
@@ -701,18 +717,20 @@ def test_windowed_backward_kernel_matches_plain_and_template(
 def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype):
     """Each windowed kernel's shared memory a block is window_bytes at the
     window_length the wrappers launch it with, plus the block window's two
-    static ints a warp, at the level-2 shape; the CUDA runtime's own
-    figures."""
-    value = torch.zeros((1, 59, 80, 256), dtype=vdtype, device=cuda_device)
-    depth = torch.zeros((1, 59, 80, 12), dtype=ddtype, device=cuda_device)
-    for name, backward, depth_grad in (("dfa3d_win_fwd_mh", False, True),
-                                       ("dfa3d_win_bwd_mh", True, True),
-                                       ("dfa3d_win_bwd_mh", True, False)):
-        wwin = window_length(value, depth, backward, depth_grad)
-        res = kernel_resources(name, vdtype, ddtype, 12, wwin, 32, depth_grad)
-        reserved = window_bytes(wwin, value, depth, backward, depth_grad)
-        assert res["smem_bytes"] == reserved + 8 * res["threads"] // 32, (name, res, reserved)
-        assert res["blocks_per_sm"] >= 1, (name, res)
+    static ints a warp, at the level-2 shape, at c = 32 and 16 a head; the
+    CUDA runtime's own figures."""
+    for c in (32, 16):
+        value = torch.zeros((1, 59, 80, 8 * c), dtype=vdtype, device=cuda_device)
+        depth = torch.zeros((1, 59, 80, 12), dtype=ddtype, device=cuda_device)
+        for name, backward, depth_grad in (("dfa3d_win_fwd_mh", False, True),
+                                           ("dfa3d_win_bwd_mh", True, True),
+                                           ("dfa3d_win_bwd_mh", True, False)):
+            wwin = window_length(value, depth, backward, depth_grad)
+            res = kernel_resources(name, vdtype, ddtype, 12, wwin, c, depth_grad)
+            reserved = window_bytes(wwin, value, depth, backward, depth_grad)
+            assert res["smem_bytes"] == reserved + 8 * res["threads"] // 32, (
+                name, c, res, reserved)
+            assert res["blocks_per_sm"] >= 1, (name, c, res)
 
 
 def test_windowed_stage1_backward_is_k6(cuda_device):
@@ -731,16 +749,37 @@ def test_windowed_stage1_backward_is_k6(cuda_device):
 
 @pytest.mark.parametrize("heads,p,c", [(8, 4, 16), (1, 4, 128)], ids=["c16", "c128"])
 def test_windowed_kernels_refuse_the_large_widths(cuda_device, heads, p, c):
-    """The windowed kernels are built for c = 32 (and the forward 256) a
-    head: at the -L configs' widths their wrappers and the sorted op raise
-    before any launch."""
+    """The -L configs' widths: at stage 2's 16 a head the sorted op runs
+    the windowed kernels' c = 16 instances, one launch each way, and
+    matches its plain version (spilling locations, counted); at 128 a
+    head, which no config runs multi-head, the wrappers and the sorted op
+    raise before any launch."""
     value, dpt, locs, attn = (torch.from_numpy(a).to(cuda_device)
-                              for a in dfa3d_inputs(heads, p, c, n=2, k=16))
-    g = torch.zeros((2, 16, heads * c), device=cuda_device)
+                              for a in dfa3d_inputs(heads, p, c, n=2, k=17))
+    g = torch.randn((2, 17, heads * c), device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(0))
+    counts = torch.tensor([9, 17], dtype=torch.int32, device=cuda_device)
     before = {n: k.launches for n, k in KERNELS.items()}
-    with pytest.raises(ValueError, match="windowed forward takes c in"):
+    if c == 16:
+        args = [value.requires_grad_(), dpt.requires_grad_(), locs.requires_grad_(),
+                attn.requires_grad_()]
+        got = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+        got_grads = _grads(got, args, g)
+        with plain_ops():
+            want = dfa3d_attention_windowed(*args, heads, valid_counts=counts)
+            want_grads = _grads(want, args, g)
+        torch.cuda.synchronize()
+        launched = {n: k.launches - before[n] for n, k in KERNELS.items()
+                    if k.launches != before[n]}
+        assert launched == {"dfa3d_win_fwd_mh_c16": 1, "dfa3d_win_bwd_mh_c16": 1}
+        for name, a, b in zip(("out", "d_value", "d_dpt", "d_locs", "d_attn"),
+                              [got] + list(got_grads), [want] + list(want_grads)):
+            assert_close_scaled(a.detach().cpu().numpy(), b.detach().cpu().numpy(),
+                                _rel(torch.float32), f"windowed c16 {name}")
+        return
+    with pytest.raises(ValueError, match=r"windowed forward takes c in \(16, 32, 256\)"):
         dfa3d_win_fwd_cuda(value, dpt, locs, attn, heads)
-    with pytest.raises(ValueError, match="windowed backward takes c = 32"):
+    with pytest.raises(ValueError, match=r"windowed backward takes c in \(16, 32\)"):
         dfa3d_win_bwd_cuda(value, dpt, locs, attn, g, heads)
     with pytest.raises(ValueError, match="windowed forward takes c in"):
         dfa3d_attention_windowed(value, dpt, locs, attn, heads)

@@ -13,7 +13,9 @@ the JAX package at float32, on the CPU.
   that fails if reversed;
 * three tiny ``ViewTransformer(use_depth=False)`` levels vs JAX, eval
   forward, and the gradients of one level vs ``jax.value_and_grad``;
-* the entry points default to the card and raise without one.
+* the entry points default to the card and raise without one;
+* ``MSDeformableAttention2D`` with 2 and 3 levels (the plain
+  ``ops/dfa3d.py::msda_2d``) vs the JAX module, forward and gradients.
 
 Tolerances: f32 on both sides, so only summation order differs: 2e-4 of
 each output's largest magnitude for the modules (MHA, LayerNorm and the
@@ -30,6 +32,7 @@ import jax.numpy as jnp
 
 from sgcdet_tpu.models.view_transformer import (
     DeformCrossAttention as JDeformCrossAttention,
+    MSDeformableAttention2D as JMSDeformableAttention2D,
     ViewTransformer as JViewTransformer,
     VoxFormerLayer as JVoxFormerLayer,
 )
@@ -143,8 +146,53 @@ def test_dfa3d_backward_skips_the_depth_gradient_when_not_asked(monkeypatch):
 
 
 def test_msda_2d_module_refuses_levels_it_cannot_run():
-    with pytest.raises(NotImplementedError, match="msda_2d"):
-        MSDeformableAttention2D(EMBED, HEADS, POINTS, num_levels=2)
+    """``MSDeformableAttention2D`` with more than one level (which it
+    refused until the port had ``msda_2d``) against the JAX module, whose
+    multi-level branch is the flat ``msda.msda_2d``, at 2 and 3 levels."""
+    for levels in (2, 3):
+        _check_multilevel_module(levels)
+
+
+def _check_multilevel_module(levels):
+    """Seeded weights (offsets and attention weights too), value over the
+    levels of one flat map, locations spilling off every level: output and
+    the gradients of sum(out * g) for query, value and every parameter
+    within 2e-4 of their scale."""
+    shapes = ((6, 8), (3, 4), (2, 2))[:levels]
+    n, k = 2, 30
+    rng = np.random.RandomState(levels)
+    query = rng.randn(n, k, EMBED).astype(np.float32)
+    value = rng.randn(n, sum(h * w for h, w in shapes), EMBED).astype(np.float32)
+    ref = rng.uniform(-0.1, 1.1, (n, k, 1, 2)).astype(np.float32)
+    g = rng.randn(n, k, EMBED).astype(np.float32)
+    jm = JMSDeformableAttention2D(embed_dims=EMBED, num_heads=HEADS, num_levels=levels,
+                                  num_points=POINTS)
+    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(query), jnp.asarray(value),
+                     jnp.asarray(ref), shapes)["params"]
+    params = {name: {"kernel": rng.randn(*np.shape(lin["kernel"])).astype(np.float32) * 0.2,
+                     "bias": rng.randn(*np.shape(lin["bias"])).astype(np.float32) * 0.2}
+              for name, lin in params.items()}
+    model = MSDeformableAttention2D(EMBED, HEADS, POINTS, num_levels=levels)
+    model.load_state_dict({f"{name}.{key}": torch.from_numpy(
+        np.ascontiguousarray(lin["kernel"].T) if key == "weight" else lin["bias"])
+        for name, lin in params.items() for key in ("weight", "bias")}, strict=True)
+
+    def loss(prm, q, v):
+        out = jm.apply({"params": prm}, q, v, jnp.asarray(ref), shapes)
+        return jnp.sum(out * g), out
+
+    (_, j_out), (j_dp, j_dq, j_dv) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        params, jnp.asarray(query), jnp.asarray(value))
+    q, v = (torch.from_numpy(a).requires_grad_() for a in (query, value))
+    out = model(q, v, torch.from_numpy(ref), shapes)
+    (out * torch.from_numpy(g)).sum().backward()
+    assert_close_scaled(out.detach().numpy(), np.asarray(j_out), REL, f"{levels} levels out")
+    assert_close_scaled(q.grad.numpy(), np.asarray(j_dq), REL, "d query")
+    assert_close_scaled(v.grad.numpy(), np.asarray(j_dv), REL, "d value")
+    for name, p in model.named_parameters():
+        lin, key = name.split(".")
+        want = np.asarray(j_dp[lin]["kernel"]).T if key == "weight" else j_dp[lin]["bias"]
+        assert_close_scaled(p.grad.numpy(), np.asarray(want), REL, f"d {name}")
 
 
 def _perturb(tree, seed):

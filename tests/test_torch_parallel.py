@@ -12,7 +12,8 @@ virtual CPU devices.
   mesh step's body (``_scene_loss`` under ``shard_map`` with its pmeans):
   loss terms, n_pos, grad_norm, the averaged gradients after the clip and
   the BN running statistics, at that file's tolerances; the all-reduces it
-  makes, counted.
+  makes, counted; with ``depth_remat`` the same step, with one more
+  all-reduce for each synced BN of the depth net.
 * The per-rank scene order over 2 epochs of 5 scenes against the JAX
   package's single-host batch split, with equal step counts.
 * The CLI under a 2-process gloo group (``--device cpu``): identical
@@ -249,8 +250,27 @@ def test_dp_train_step_matches_jax_mesh_step(_started, weights, jax_mesh_step, p
     # the metrics and the BN statistics
     counts, n_bn = ranks[0]["counts"], ranks[0]["n_bn"]
     assert n_bn > 20
-    assert counts == dict(bn_sync=n_bn, bn_sync_backward=n_bn, n_pos=1, gradients=1,
-                          metrics=1, bn_stats=1)
+    assert counts == dict(bn_sync=n_bn, bn_sync_backward=n_bn, bn_sync_recompute=0,
+                          n_pos=1, gradients=1, metrics=1, bn_stats=1)
+
+
+def test_dp_remat_step_equals_the_dp_step(_started):
+    """The targets pair's DP step with ``depth_remat``: the same metrics and,
+    on both ranks, the same state after the update as without it; its
+    all-reduces are the step's plus one for each synced BN of the depth net
+    when the backward recomputes it (the recomputation all-reduces the
+    same statistics again and moves no running statistic)."""
+    ranks = _started["dp"].result(timeout=600)
+    for rank in ranks:
+        remat, plain = rank["targets_remat"], rank["targets"]
+        for k, v in plain["metrics"].items():
+            assert torch.equal(remat["metrics"][k], v), k
+        assert remat["digest"] == plain["digest"]
+        n_bn, n_depth = plain["n_bn"], remat["n_depth_bn"]
+        assert 10 < n_depth < n_bn
+        assert remat["counts"] == dict(bn_sync=n_bn, bn_sync_backward=n_bn,
+                                       bn_sync_recompute=n_depth, n_pos=1, gradients=1,
+                                       metrics=1, bn_stats=1)
 
 
 def test_synced_batchnorm_matches_jax(_started, mesh):

@@ -8,7 +8,10 @@
 * the port imports (its data, eval and geometry packages too) and serves
   the ScanNet and ARKit heads, and scores detections with its indoor eval,
   with JAX, the JAX package, OpenCV and PIL made unimportable;
-* ``chip_smoke.py`` refuses to run without a GPU, and without the repo.
+* ``chip_smoke.py`` refuses to run without a GPU, and without the repo;
+* ``depth_remat``: one train step against JAX's remat step and equal to
+  the port's step without it (``test_sgcdet_refuses_depth_remat``, whose
+  name is from when the port refused the option).
 """
 import dataclasses
 import os
@@ -32,7 +35,7 @@ from sgcdet_tpu_torch.convert import state_dict_from_flax
 from sgcdet_tpu_torch.infer import detect, forward_scene
 from sgcdet_tpu_torch.models import SGCDet
 from sgcdet_tpu_torch.models.det_head import decode_bboxes
-from sgcdet_tpu_torch.scene import example_scene
+from sgcdet_tpu_torch.scene import example_scene, example_train_scene
 
 from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     IMG_SHAPE,
@@ -44,6 +47,8 @@ from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     tiny_model_cfg,
     to_numpy_tree,
 )
+
+from test_torch_options import assert_step_matches_jax, train_steps, zero_templates
 
 REPO = Path(__file__).resolve().parents[1]
 SCENE_KEYS = ("imgs", "proj_img", "proj_feat4", "origin")
@@ -159,7 +164,7 @@ from sgcdet_tpu_torch.eval import indoor_eval
 from sgcdet_tpu_torch.geometry import DepthBoxes3D
 from sgcdet_tpu_torch.infer import detect, forward_scene
 from sgcdet_tpu_torch.models import SGCDet
-from sgcdet_tpu_torch.scene import example_scene
+from sgcdet_tpu_torch.scene import example_scene, example_train_scene
 from torch_port_tiny import IMG_SHAPE, N_VIEWS, PAD, TINY_MODEL, tiny_model_cfg
 scene = example_scene(IMG_SHAPE, PAD, N_VIEWS, trajectory="indoor")
 for dtype in ("float32", "bfloat16"):
@@ -186,13 +191,37 @@ print("NO_JAX_OK")
 """
 
 
-def test_sgcdet_refuses_depth_remat():
-    """A JAX ModelConfig with depth_remat=True is refused, not run without
-    the rematerialisation the JAX package applies to the depth net."""
-    mcfg = dataclasses.replace(tiny_model_cfg(), depth_remat=True)
-    assert mcfg.depth_remat
-    with pytest.raises(NotImplementedError, match="depth_remat is not ported"):
-        SGCDet(mcfg, IMG_SHAPE, device="cpu")
+@pytest.fixture(scope="module")
+def remat_templates():
+    return zero_templates()
+
+
+def test_sgcdet_refuses_depth_remat(remat_templates):
+    """``depth_remat=True`` trains: one tiny f32 step (the ring rig, depth
+    loss off, so the depth net's gradient reaches the trunk through the
+    checkpoint) against JAX's step with ``nn.remat`` around the depth net
+    (loss terms, n_pos, gradient norm, every gradient and the BN running
+    statistics at tests/test_torch_train.py's tolerances), and equal to the
+    port's step without the remat: the recomputation gives the forward's
+    values, and the depth net's BNs move their statistics once."""
+    scene = example_train_scene(IMG_SHAPE, PAD, N_VIEWS, tiny_model_cfg().n_classes, 8,
+                                trajectory="ring")
+    remat = train_steps(remat_templates, scene, depth_remat=True)
+    assert_step_matches_jax(remat)
+    plain = train_steps(remat_templates, scene, jax_step=False)
+    for name in remat["metrics"]:
+        assert torch.equal(remat["metrics"][name], plain["metrics"][name]), name
+    grads = {n: p.grad for n, p in plain["model"].named_parameters()}
+    for name, p in remat["model"].named_parameters():
+        assert torch.equal(p.grad, grads[name]), name
+    bufs = plain["model"].state_dict()
+    for name, buf in remat["model"].state_dict().items():
+        assert torch.equal(buf, bufs[name]), name
+    moved = [n for n, b in bufs.items() if n.startswith("depth_head.")
+             and n.endswith("running_mean")
+             and not torch.equal(b, torch.from_numpy(
+                 state_dict_from_flax(plain["params"], plain["stats"])[n].numpy()))]
+    assert len(moved) > 10
 
 
 def test_port_serves_without_jax():

@@ -18,6 +18,9 @@ the row gather/scatter probes.
 * ``dfa3d_windowed_plain`` vs ``dfa3d_attention_plain`` (1e-6) and vs the
   JAX oracle on bf16-rounded inputs at test_dfa3d_windowed.py's shapes and
   tolerances (8e-3 forward, 2e-2 gradients), counted and not;
+* the windowed plain versions at the -L stage 2 (8 heads x 4 points x 16)
+  with the kernels' plan, f32, vs the JAX oracle and ``jax.vjp`` (1e-5);
+* a tiny sorted ScanNet200-L ``SGCDet`` vs JAX's and the unsorted -L model;
 * the probes' plain versions vs their JAX references.
 """
 import dataclasses
@@ -32,6 +35,7 @@ import jax.numpy as jnp
 from sgcdet_tpu.models import SGCDet as JSGCDet
 from sgcdet_tpu.models.view_transformer import ViewTransformer as JViewTransformer
 from sgcdet_tpu.ops.msda import dfa3d_attention as jax_oracle
+from sgcdet_tpu.train.checkpoint import convert_torch_state_dict
 
 from sgcdet_tpu_torch.convert import (
     state_dict_from_flax,
@@ -204,10 +208,16 @@ def test_sorted_tree_loads_strictly(sorted_model_setup):
 
 
 def test_sgcdet_still_refuses_sweep_band_and_use_gt_dpt():
+    """The port refused both options until it ran them; now ``SGCDet`` takes
+    them with ``sort_queries`` and hands the band to its depth net, and
+    its tree is the JAX one whatever the options (tests/
+    test_torch_options.py holds both paths against JAX)."""
+    keys = set(SGCDet(tiny_model_cfg(), IMG_SHAPE, device="cpu").state_dict())
     for field, value in (("sweep_band", 2), ("use_gt_dpt", True)):
-        mcfg = dataclasses.replace(tiny_model_cfg(), **{field: value})
-        with pytest.raises(NotImplementedError, match="sweep_band and use_gt_dpt"):
-            SGCDet(mcfg, IMG_SHAPE, device="cpu")
+        mcfg = dataclasses.replace(tiny_model_cfg(), sort_queries=True, **{field: value})
+        model = SGCDet(mcfg, IMG_SHAPE, device="cpu")
+        assert model.depth_head.sweep_band == mcfg.sweep_band
+        assert set(model.state_dict()) == keys
 
 
 def test_sorted_model_matches_jax_and_the_unsorted_model(sorted_model_setup):
@@ -403,6 +413,82 @@ def test_windowed_plain_matches_plain_and_jax_oracle(coherent, counted):
         jg = np.asarray(jg)
         scale = max(float(np.abs(jg).max()), 1.0)
         assert float(np.abs(t.grad.float().numpy() - jg).max()) < 2e-2 * scale
+
+
+@pytest.mark.parametrize("counted", [False, True], ids=["uncounted", "counted"])
+def test_windowed_plain_at_the_large_width_matches_jax_oracle(counted):
+    """The windowed plain versions at the -L stage 2 (8 heads x 4 points x
+    16 channels) with the kernels' own chunks and windows (``kernel_plan``),
+    at f32, against ``msda.dfa3d_attention`` and ``jax.vjp`` of it: an odd K
+    and a count that splits a pair of queries (a warp takes two at c = 16);
+    outputs and every gradient within 1e-5 of their scale."""
+    n, h, w, k, heads, c, p, d = 2, 10, 12, 97, 8, 16, 4, 6
+    value, dpt, locs, attn = windowed_inputs(n, h, w, k, heads, c, p, d, True, seed=2)
+    value, dpt = value.float(), dpt.float()
+    counts = torch.tensor([41, 97], dtype=torch.int32) if counted else None
+    keep = np.arange(k)[None, :] < (counts.numpy()[:, None] if counted else k)
+    keep = jnp.asarray(keep[..., None].astype(np.float32))
+
+    def oracle(v, dp, lo, at):
+        out, _ = jax_oracle(v.reshape(n, h * w, heads, c), dp.reshape(n, h * w, d),
+                            ((h, w),), lo[:, :, :, None], at[:, :, :, None])
+        return out * keep
+
+    jin = [jnp.asarray(t.numpy()) for t in (value, dpt, locs, attn)]
+    ref, vjp = jax.vjp(oracle, *jin)
+    got = dfa3d_windowed_plain(value, dpt, locs, attn, heads, counts)
+    assert_close_scaled(got.numpy(), np.asarray(ref), 1e-5, "windowed c16 forward")
+    g = np.random.RandomState(3).randn(n, k, heads * c).astype(np.float32)
+    j_grads = vjp(jnp.asarray(g))
+    grads = dfa3d_windowed_bwd_plain(value, dpt, locs, attn, torch.from_numpy(g), heads,
+                                     counts)
+    for name, a, b in zip(("d_value", "d_dpt", "d_locs", "d_attn"), grads, j_grads):
+        assert_close_scaled(a.numpy(), np.asarray(b), 1e-5, f"windowed c16 {name}")
+
+
+def test_sorted_large_model_matches_jax_and_the_unsorted_model():
+    """A tiny ScanNet200-L SGCDet (embed 128, 8 heads x 4 points: stage 1
+    at c = 128, stage 2 at 16 a head; the grid of tests/test_torch_large.py)
+    with ``sort_queries`` against JAX's at f32: identical ``valid``, head
+    outputs within 5e-4 of their scale; and within 1e-5 of the port's
+    unsorted -L model (the permutation is exact)."""
+    from sgcdet_tpu.configs import config as jconfigs
+    from sgcdet_tpu_torch import configs
+
+    from test_torch_large import LARGE_TINY
+
+    mcfg = dataclasses.replace(configs.scannet200_large().model, sort_queries=True,
+                               **LARGE_TINY)
+    j_mcfg = dataclasses.replace(jconfigs.scannet200_large().model, sort_queries=True,
+                                 **LARGE_TINY)
+    scene = example_scene(IMG_SHAPE, PAD, N_VIEWS, trajectory="indoor")
+    jm = JSGCDet(cfg=j_mcfg, img_shape=IMG_SHAPE, query_chunk=None)
+    args = [jnp.asarray(scene[k]) for k in SCENE_KEYS]
+    # the port's seeded init carried to flax (as tests/test_torch_large.py)
+    model = SGCDet(mcfg, IMG_SHAPE, device="cpu", generator=torch.Generator().manual_seed(3))
+    shapes = jax.eval_shape(lambda key: jm.init({"params": key}, *args, train=False),
+                            jax.random.PRNGKey(0))
+    templates = jax.tree_util.tree_map(lambda t: np.zeros(t.shape, t.dtype), shapes)
+    params, stats = convert_torch_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()}, templates["params"],
+        templates["batch_stats"])
+    params, stats = to_numpy_tree(params), randomize_batch_stats(stats)
+    j_out = jax.jit(lambda p_, s_, *a: jm.apply(
+        {"params": p_, "batch_stats": s_}, *a, train=False))(params, stats, *args)
+    sd = state_dict_from_flax(params, stats)
+    model.load_state_dict(sd, strict=True)
+    out = forward_scene(model, scene)
+    unsorted = SGCDet(dataclasses.replace(mcfg, sort_queries=False), IMG_SHAPE, device="cpu")
+    unsorted.load_state_dict(sd, strict=True)
+    u_out = forward_scene(unsorted, scene)
+    np.testing.assert_array_equal(out["valid"].numpy(), np.asarray(j_out["valid"]))
+    np.testing.assert_array_equal(out["valid"].numpy(), u_out["valid"].numpy())
+    assert 0 < out["valid"].sum() < out["valid"].numel()
+    for lvl, (a, b, u) in enumerate(zip(out["head_outs"], j_out["head_outs"],
+                                        u_out["head_outs"])):
+        for name, x, y, z in zip(("centerness", "bbox", "cls"), a, b, u):
+            assert_close_scaled(x.numpy(), np.asarray(y), 5e-4, f"{name} level {lvl} vs JAX")
+            assert_close_scaled(x.numpy(), z.numpy(), 1e-5, f"{name} level {lvl} vs unsorted")
 
 
 def test_probe_plain_versions_match_jax_references():

@@ -416,7 +416,8 @@ def _dp_worker(out_dir, weights):
     """One rank of the data-parallel tests (gloo, from torchrun's
     environment): the synced BN of ``bn_sync_case`` and one DP train step
     of the tiny config from ``weights`` on its scene of
-    each pair of ``ring_scene_pairs``; writes ``rank<r>.pt``."""
+    each pair of ``ring_scene_pairs``, and the targets pair's with
+    ``depth_remat``; writes ``rank<r>.pt``."""
     import dataclasses
 
     from sgcdet_tpu_torch import configs, parallel
@@ -469,6 +470,21 @@ def _dp_worker(out_dir, weights):
             run["stats"] = {n: b for n, b in model.state_dict().items()
                             if n.endswith(("running_mean", "running_var"))}
         out[pair] = run
+    # the targets pair's step again with depth_remat: the recomputation's
+    # synced BNs all-reduce again (bn_sync_recompute) and move nothing
+    rcfg = dataclasses.replace(mcfg, depth_remat=True)
+    model = SGCDet(rcfg, IMG_SHAPE, device="cpu")
+    model.load_state_dict(torch.load(weights, weights_only=True))
+    step = make_train_step(model, dataclasses.replace(cfg, model=rcfg),
+                           make_optimizer(model, cfg.train), group=ctx.group)
+    counts = dict(parallel.COUNTS)
+    metrics = step(ring_scene_pairs(mcfg)["targets"][ctx.rank], torch.Generator().manual_seed(0))
+    out["targets_remat"] = dict(
+        counts={k: v - counts[k] for k, v in parallel.COUNTS.items()},
+        n_depth_bn=sum(isinstance(m, layers._F32BatchNorm) and not m.frozen
+                       for m in model.depth_head.modules()),
+        metrics={k: v.detach() for k, v in metrics.items()},
+        digest=state_digest(model.state_dict()))
     torch.save(out, f"{out_dir}/rank{ctx.rank}.pt")
     parallel.shutdown(ctx)
 
@@ -496,6 +512,7 @@ if __name__ == "__main__":
         port_train.init_train_state = lambda *a, **k: built.append(
             init_train_state(*a, **k)) or built[-1]
         main(sys.argv[2:])
+        print(f"model sweep_band: {built[-1][0].depth_head.sweep_band}")
         if os.environ.get("SGCDET_TEST_DUMP"):
             torch.save(built[-1][0].state_dict(), os.path.join(
                 os.environ["SGCDET_TEST_DUMP"], f"rank{os.environ.get('RANK', '0')}.pt"))
