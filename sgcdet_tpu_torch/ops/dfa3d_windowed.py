@@ -92,6 +92,14 @@ QC_BWD = {16: 32, 32: 8}
 WIN_CAP = 1152
 SMEM_MH = 56 * 1024
 
+
+def chunk_length(c, backward=False):
+    """The queries of a block's chunk at c a head (``QC_FWD`` / ``QC_BWD``);
+    a width no kernel is built for, which only the plain versions take,
+    gets c = 32's."""
+    table = QC_BWD if backward else QC_FWD
+    return table.get(c, table[32])
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # sgc_dfa3d_win_fwd(vdtype, ddtype, value, depth, locs, attn, counts, out,
 #                   n, h, w, heads, c, dsize, k, p, qc, wwin, stream)
@@ -161,8 +169,7 @@ def kernel_plan(value_img, dpt_img, locs, valid_counts, backward=False,
     computes its own), for the plain version and for reports."""
     h, w = value_img.shape[1:3]
     wwin = window_length(value_img, dpt_img, backward, depth_grad)
-    c = value_img.shape[-1] // locs.shape[2]
-    qc = (QC_BWD if backward else QC_FWD)[c]
+    qc = chunk_length(value_img.shape[-1] // locs.shape[2], backward)
     return plan_windows(locs, counts=valid_counts, h=h, w=w, wwin=wwin, qc=qc)
 
 
@@ -249,7 +256,7 @@ def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
     WIN_COUNTERS[win_counter(False, c)](value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
                      value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
-                     _ptr(counts), out.data_ptr(), *sizes, QC_FWD[c],
+                     _ptr(counts), out.data_ptr(), *sizes, chunk_length(c),
                      window_length(value, depth))
     return out
 
@@ -278,7 +285,8 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
         value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
         value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
         _ptr(counts), gg.data_ptr(), d_value.data_ptr(), _ptr(d_depth),
-        _ptr(d_locs), _ptr(d_attn), n, h, w, heads, c, dsize, k, p, QC_BWD[c], wwin)
+        _ptr(d_locs), _ptr(d_attn), n, h, w, heads, c, dsize, k, p,
+        chunk_length(c, True), wwin)
     return tuple(None if grad is None else grad.to(inp.dtype) for grad, inp in
                  zip((d_value, d_depth, d_locs, d_attn),
                      (value_img, dpt_img, locs, attn)))
