@@ -2247,7 +2247,7 @@ def log_resources(torch, x, c=32):
         for backward in (False, True):
             name = win_counter(backward, c)
             wwin = window_length(value, depth, backward)
-            r = kernel_resources(name, vdt, ddt, dsize, wwin, c)
+            r = kernel_resources(backward, vdt, ddt, dsize, wwin, c)
             parts.append(f"{name} {r['registers']} registers, {r['spill_bytes']} B "
                          f"local, {r['smem_bytes']} B shared a block ({wwin} pixels), "
                          f"{r['blocks_per_sm']} blocks of {r['threads']} an SM")
@@ -2474,6 +2474,71 @@ def phase_windowed(torch, dev, report):
         f"memory: {branches['fallback']}")
     check(branches["window"] > 0, "no windowed case ran a chunk from its window")
     check(branches["fallback"] > 0, "no windowed case ran the global-memory branch")
+
+
+# the chunk lengths chunk_sweep tries at c = 16: forward, backward
+SWEEP_CHUNKS = {"fwd": (8, 16, 32, 64, 128), "bwd": (8, 16, 32, 64)}
+
+
+def chunk_sweep():
+    """The windowed kernels' chunk length at c = 16 a head, run by hand on
+    a card (not a phase of ``main``):
+
+        python3 -c "import chip_smoke as cs; cs.chunk_sweep()"
+
+    On phase 9's sorted ScanNet200-L level-2 inputs (bf16 value, f32
+    depth), for each length of ``SWEEP_CHUNKS`` the windowed forward and
+    backward (every gradient) with chunks of that many queries
+    (``win_fwd_launch`` / ``win_bwd_launch``), each first held against its
+    plain version on the same chunks (``plan_windows``), then timed beside
+    K3 and K5 at c = 16, twice over in turns; also the windows' spans."""
+    import torch
+
+    from sgcdet_tpu_torch.ops.dfa3d import dfa3d_bwd_cuda, dfa3d_fwd_cuda
+    from sgcdet_tpu_torch.ops.dfa3d_windowed import (
+        dfa3d_windowed_bwd_plain,
+        dfa3d_windowed_plain,
+        plan_windows,
+        win_bwd_launch,
+        win_fwd_launch,
+        window_length,
+    )
+
+    check(torch.cuda.is_available(), "chunk_sweep needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    cfg, scene = _scene_and_cfg(LARGE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = _sorted_inputs(torch, dev, cfg, scene, 2, _auto_budget(cfg, scene)[2], gen)
+    args = (x["vp"].to(torch.bfloat16), x["depth"], x["locs2"], x["attn2"], x["heads"],
+            x["counts"])
+    bargs = args[:4] + (x["g"].to(torch.bfloat16),) + args[4:]
+    h, w = x["h"], x["w"]
+    log(f"[chunks] {torch.cuda.get_device_name(0)}; sorted {LARGE} level 2: "
+        f"{tuple(args[0].shape)}, K'={x['kb']}, c=16")
+    runs = {"fwd": (lambda qc: win_fwd_launch(*args, qc=qc), lambda: dfa3d_fwd_cuda(*args)),
+            "bwd": (lambda qc: win_bwd_launch(*bargs, qc=qc), lambda: dfa3d_bwd_cuda(*bargs))}
+    for direction, sizes in SWEEP_CHUNKS.items():
+        backward = direction == "bwd"
+        for qc in sizes:
+            plan = plan_windows(args[2], args[5], h, w,
+                                window_length(args[0], args[1], backward), qc)
+            got = runs[direction][0](qc)
+            want = (dfa3d_windowed_bwd_plain(*bargs, plan=plan) if backward
+                    else dfa3d_windowed_plain(*args, plan=plan))
+            for a, b in zip(got, want) if backward else ((got, want),):
+                compare_tensors(torch, f"{direction} chunks of {qc}", a, b, 1e-5)
+            text, _ = window_spans(torch, args[2], args[5], h, w, qc)
+            log(f"[chunks] {direction} chunks of {qc}: spans (p50 / p90 / max) {text}")
+    for turn in range(2):
+        for direction, sizes in SWEEP_CHUNKS.items():
+            run, template = runs[direction]
+            ms_t = cuda_ms(torch, template)
+            parts = []
+            for qc in sizes:
+                ms = cuda_ms(torch, lambda: run(qc))
+                parts.append(f"{qc}: {ms:.4f} ms ({ms / ms_t:.3f}x)")
+            log(f"[chunks] turn {turn} {direction}: template {ms_t:.4f} ms; chunks of "
+                + ", ".join(parts))
 
 
 # ---------------------------------------------------------------------------
@@ -3437,6 +3502,18 @@ def phase_sweep_band(torch, dev):
                  - plane_sweep_correlation(*args).float()).abs().max())
     log(f"[{tag}] one neighbour's correlation, bf16 {tuple(fea.shape)}, {len(dv)} planes: "
         f"K1 {ms_k1:.4f} ms, banded (band {band}) {ms_band:.4f} ms; max_abs_diff {err:.3e}")
+    # the bands --sweep_band auto keeps (at most cli.AUTO_BAND_MAX rows),
+    # forced on the same inputs: the banded path's cost at those bands
+    # (this rig's samples leave them, so only the time is read)
+    from sgcdet_tpu_torch.cli import AUTO_BAND_MAX
+
+    parts = []
+    for b in (4, 8, 12, 16, AUTO_BAND_MAX):
+        ms_b = cuda_ms(torch, lambda: plane_sweep_correlation_banded(*args, b))
+        viol_b = plane_sweep_band_violations(proj[nei[:, 0]], proj, dv, h4, w4, b)
+        parts.append(f"band {b}: {ms_b:.4f} ms ({ms_b / ms_k1:.2f}x K1, {viol_b} "
+                     f"samples outside)")
+    log(f"[{tag}] forced narrow bands, K1 {ms_k1:.4f} ms: " + "; ".join(parts))
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,11 @@ def parse_args(argv=None):
                         "'auto' to derive the exact band from the dataset's "
                         "rigs (kept only up to 20 rows, as the JAX package's "
                         "CLI keeps it; a taller band runs the sweep kernels, "
-                        "which are exact for every rig; see ops/sweep_band.py)")
+                        "which are exact for every rig; see ops/sweep_band.py). "
+                        "On the H100 the banded path is slower than the sweep "
+                        "kernel at every band (10-17x at 4-20 rows), so "
+                        "'auto' is kept for parity with the JAX CLI and costs "
+                        "time wherever it keeps a band")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; cuda:LOCAL_RANK under torchrun) or cpu; "
                         "without a card the default raises")
@@ -263,7 +267,8 @@ def _visibility_budget(arg, config, ds, n_scan_max):
 
 # the tallest band --sweep_band auto keeps: the JAX package's CLI rule,
 # kept so that both CLIs pick the same band (a threshold chosen for its
-# own hardware, not measured for the port)
+# own hardware; on the H100 the banded path loses to the sweep kernel at
+# every band of 4-20 rows, PERF.md)
 AUTO_BAND_MAX = 20
 
 

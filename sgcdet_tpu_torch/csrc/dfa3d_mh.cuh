@@ -123,8 +123,7 @@ struct WindowDepth {
 // queries, at C = 32 and 8 heads one), else HPW heads of one query.  The
 // templates launch a grid of (warps of a view, views) so that a warp finds
 // its rows by 32-bit arithmetic.  The windowed kernels take a chunk of a
-// view a block: at C = 16 a warp takes whole queries of the chunk (span),
-// at C = 32 and 256 heads of one query (query).
+// view a block, and a warp the same rows of the chunk (span).
 template <int HPW>
 struct WarpRows {
   long long row0;  // the warp's first row
@@ -152,17 +151,10 @@ struct WarpRows {
     return {((long long)cam * k + q0) * heads + h0, nq * nh,
             min(max(count - q0, 0), nq) * nh, h0};
   }
-  // heads [h0, h0 + HPW) of the query at row nq = view * K + q (the
-  // windowed kernels' warps at C = 32 and 256)
-  static __device__ __forceinline__ WarpRows query(long long nq, bool counted, int h0,
-                                                   int heads) {
-    const int nh = min(HPW, heads - h0);
-    return {nq * heads + h0, nh, counted ? nh : 0, h0};
-  }
   // heads [h0, h0 + HPW) of the queries [q, q + queries(heads)) of the view
   // whose first row is vq = view * K, cut at qend (the block's chunk end:
   // a view's last query may be alone); the view's first `count` queries
-  // are counted (the windowed kernels' warps at C = 16, as of())
+  // are counted (the windowed kernels' warps, as of())
   static __device__ __forceinline__ WarpRows span(long long vq, int q, int qend, int count,
                                                   int h0, int heads) {
     const int nq = min(queries(heads), qend - q), nh = min(HPW, heads - h0);

@@ -18,10 +18,11 @@
 // window the union of its heads' bands (sgc::union_window).
 // Where the window fits the wwin pixels the launch reserves, the block
 // zeroes an f32 d_depth sum of the window in shared memory (48 B a pixel at
-// 12 bins).  Each warp then takes a (query, head group) item of the chunk
-// (one at 8 heads; at c = 16 two whole queries, as K5 takes them:
-// sgc::WarpRows::span, the counted ones first, a view's last query alone
-// where K is odd) and runs K5's warp (sgc::mh_bwd_warp, csrc/
+// 12 bins).  Each warp then takes items of the chunk on K5's rows
+// (sgc::WarpRows::span: a head group of as many whole consecutive queries
+// as a warp holds, one at 8 heads of 32 channels and two at c = 16, the
+// counted ones first, a view's last query alone where K is odd) and runs
+// K5's warp (sgc::mh_bwd_warp, csrc/
 // dfa3d_mh.cuh): a query's eight heads in 8-channel lanes, the incoming
 // gradient in registers, 16-byte value loads, the dot product in 2
 // shuffle steps, d_value by 16-byte vector reductions into global memory
@@ -99,16 +100,15 @@ __global__ void __launch_bounds__(kThreads, 3) dfa3d_win_bwd_kernel(
 
   const sgc::WindowDepth<DT, false> dep{{depth + cam * hw * dsize, ddmap, dsize}, nullptr,
                                         s_dd, base, staged ? span : 0};
-  // a warp's item: qpw whole queries (C = 16) or one query, and a head group
-  constexpr bool kWhole = C < 32;
-  const int qpw = kWhole ? sgc::WarpRows<HPW>::queries(heads) : 1;
+  // a warp's item: qpw whole queries (two at C = 16, one at 8 heads of 32
+  // or 256 channels) and a head group
+  const int qpw = sgc::WarpRows<HPW>::queries(heads);
   const int items = (q1 - q0 + qpw - 1) / qpw * hgroups;
   for (int item = threadIdx.x >> 5; item < items; item += kThreads / 32) {
     const int q = q0 + item / hgroups * qpw, h0 = (item % hgroups) * HPW;
     sgc::mh_bwd_warp<VT, DT, C, SAMPLE_GRADS, DOT>(
         value + cam * vstride, locs, attn, g, d_value + cam * vstride, d_locs, d_attn,
-        kWhole ? sgc::WarpRows<HPW>::span((long long)cam * k, q, q1, count, h0, heads)
-               : sgc::WarpRows<HPW>::query((long long)cam * k + q, q < count, h0, heads),
+        sgc::WarpRows<HPW>::span((long long)cam * k, q, q1, count, h0, heads),
         h, w, heads, dsize, p, dep);
   }
   if (staged) {  // uniform over the block

@@ -29,11 +29,12 @@
 // plan_windows computes the same union in PyTorch).  Where the span fits
 // the wwin pixels the launch reserves, it copies the window's depth bins
 // into shared memory as f32 (cp.async, 16 bytes a copy, for f32 depth).
-// Then each warp takes (query, head group) items of the chunk and runs K3's
-// warp (sgc::mh_fwd_warp, csrc/dfa3d_mh.cuh); at c = 16, where a query's 8
-// heads fill half a warp, an item is as many whole consecutive queries of
-// the chunk as a warp holds (two; sgc::WarpRows::span), as K3 takes them,
-// the counted ones first and a view's last query alone where K is odd.
+// Then each warp takes items of the chunk and runs K3's warp
+// (sgc::mh_fwd_warp, csrc/dfa3d_mh.cuh) on K3's rows (sgc::WarpRows::span):
+// an item is a head group of as many whole consecutive queries as a warp
+// holds (one query at 8 heads of 32 or 256 channels; two at c = 16, where
+// a query's 8 heads fill half a warp), the counted ones first and a view's
+// last query alone where K is odd.
 // The warp computes eight channels a lane, the
 // sample computed once per (head, point), the value rows gathered from
 // global memory (L2) in 16-byte loads, one 512-byte store a query.  Only
@@ -98,16 +99,15 @@ __global__ void __launch_bounds__(kMhThreads, 3) dfa3d_win_fwd_mh_kernel(
   const sgc::WindowDepth<DT> dep{{dmap, nullptr, dsize}, s_dpt, nullptr, box.x,
                                  staged ? span : 0};
   const VT* vmap = value + cam * hw * heads * C;
-  // a warp's item: qpw whole queries (C = 16) or one query, and a head group
-  constexpr bool kWhole = C < 32;
-  const int qpw = kWhole ? sgc::WarpRows<HPW>::queries(heads) : 1;
+  // a warp's item: qpw whole queries (two at C = 16, one at 8 heads of 32
+  // or 256 channels) and a head group
+  const int qpw = sgc::WarpRows<HPW>::queries(heads);
   const int items = (q1 - q0 + qpw - 1) / qpw * hgroups;
   for (int item = threadIdx.x >> 5; item < items; item += kMhThreads / 32) {
     const int q = q0 + item / hgroups * qpw, h0 = (item % hgroups) * HPW;
     sgc::mh_fwd_warp<VT, DT, C, 1>(
         vmap, locs, attn, out,
-        kWhole ? sgc::WarpRows<HPW>::span((long long)cam * k, q, q1, count, h0, heads)
-               : sgc::WarpRows<HPW>::query((long long)cam * k + q, q < count, h0, heads),
+        sgc::WarpRows<HPW>::span((long long)cam * k, q, q1, count, h0, heads),
         h, w, heads, dsize, p, dep);
   }
 }

@@ -40,8 +40,9 @@ corners read, so a window would stage more than it saves.
   ``dfa3d_win_fwd_mh_c16`` at c = 16) and ``dfa3d_win_bwd_cuda``
   (``dfa3d_win_bwd_mh``, ``dfa3d_win_bwd_mh_c16``) — the kernels of
   csrc/dfa3d_win_fwd.cu and csrc/dfa3d_win_bwd.cu (``win_counter`` names
-  an instance's counter); ``kernel_resources`` reads their registers,
-  spills, shared memory and blocks an SM.
+  an instance's counter; ``win_fwd_launch`` / ``win_bwd_launch`` are the
+  same launches at a chosen chunk length, for timing); ``kernel_resources``
+  reads their registers, spills, shared memory and blocks an SM.
 * ``dfa3d_attention_windowed`` — the differentiable op of the sorted path.
   Stage 1 goes to ``dfa3d_attend`` (K2 forward, K6 backward); on the TPU
   too the windowed stage 1 has no VJP and the sorted path takes
@@ -81,9 +82,8 @@ WIN_BWD_WIDTHS = (16, 32)
 # chunk's union window spans ~740 pixels at the sorted -L level 2 whatever
 # its length (the heads' offsets set it), so longer chunks stage each
 # window for more work: 64 and 32 queries ran 0.90x and 0.77x K3 and K5
-# where 16 and 8 ran 1.32x and 1.15x (PERF.md, experiments/
-# window_chunks.py); a window of at most WIN_CAP
-# pixels, above the 90th percentile of the unions' spans at the sorted
+# where 16 and 8 ran 1.32x and 1.15x (PERF.md, chip_smoke.py::
+# chunk_sweep); a window of at most WIN_CAP pixels, above the 90th percentile of the unions' spans at the sorted
 # level 2, holds the depth bins in f32 (forward) or their f32 d_depth sums
 # (backward), 54 KB, in at most SMEM_MH bytes: depth bins, not channels,
 # so the window is the same at every c
@@ -248,6 +248,13 @@ def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
                        valid_counts=None):
     """The windowed forward kernel on CUDA tensors; same contract as the
     plain version, whose windows are the kernels' own (``kernel_plan``)."""
+    return win_fwd_launch(value_img, dpt_img, locs, attn, num_heads, valid_counts)
+
+
+def win_fwd_launch(value_img, dpt_img, locs, attn, num_heads, valid_counts, qc=None):
+    """``dfa3d_win_fwd_cuda`` with chunks of ``qc`` queries (None: the
+    kernel's own, ``chunk_length``), so that a timing script can try other
+    lengths; the plain version takes the same chunks through ``plan``."""
     value, depth, loc, att, counts, _, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, _, _, heads, c, _, k, _ = sizes
@@ -256,7 +263,7 @@ def dfa3d_win_fwd_cuda(value_img, dpt_img, locs, attn, num_heads,
     out = torch.empty((n, k, heads * c), dtype=value.dtype, device=value.device)
     WIN_COUNTERS[win_counter(False, c)](value.device, DTYPE_CODE[value.dtype], DTYPE_CODE[depth.dtype],
                      value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
-                     _ptr(counts), out.data_ptr(), *sizes, chunk_length(c),
+                     _ptr(counts), out.data_ptr(), *sizes, qc or chunk_length(c),
                      window_length(value, depth))
     return out
 
@@ -266,6 +273,14 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
     """The windowed multi-head backward kernel on CUDA tensors (c = 16 or
     32 per head); same contract as ``dfa3d_bwd_cuda``.  Every gradient is
     summed in f32 and cast once to its input's dtype."""
+    return win_bwd_launch(value_img, dpt_img, locs, attn, g, num_heads, valid_counts,
+                          sample_grads, depth_grad)
+
+
+def win_bwd_launch(value_img, dpt_img, locs, attn, g, num_heads, valid_counts,
+                   sample_grads=True, depth_grad=True, qc=None):
+    """``dfa3d_win_bwd_cuda`` with chunks of ``qc`` queries (None: the
+    kernel's own), as ``win_fwd_launch``."""
     value, depth, loc, att, counts, _, sizes = _check(
         value_img, dpt_img, locs, attn, num_heads, valid_counts)
     n, h, w, heads, c, dsize, k, p = sizes
@@ -286,7 +301,7 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
         value.data_ptr(), depth.data_ptr(), loc.data_ptr(), att.data_ptr(),
         _ptr(counts), gg.data_ptr(), d_value.data_ptr(), _ptr(d_depth),
         _ptr(d_locs), _ptr(d_attn), n, h, w, heads, c, dsize, k, p,
-        chunk_length(c, True), wwin)
+        qc or chunk_length(c, True), wwin)
     return tuple(None if grad is None else grad.to(inp.dtype) for grad, inp in
                  zip((d_value, d_depth, d_locs, d_attn),
                      (value_img, dpt_img, locs, attn)))
@@ -295,17 +310,16 @@ def dfa3d_win_bwd_cuda(value_img, dpt_img, locs, attn, g, num_heads,
 RESOURCE_KEYS = ("registers", "spill_bytes", "smem_bytes", "blocks_per_sm", "threads")
 
 
-def kernel_resources(name, value_dtype, depth_dtype, dsize, wwin, c=32,
+def kernel_resources(backward, value_dtype, depth_dtype, dsize, wwin, c=32,
                      depth_grad=True):
     """Registers and local (spill) bytes a thread, shared memory bytes a
-    block and blocks an SM of the windowed kernel ``name`` (the forward or
-    the backward, ``win_counter``'s names without the width; the backward
-    with every gradient, or without d_depth) at these types, c a head,
-    bins and window length, as the CUDA runtime reports them.  Launches
-    nothing."""
+    block and blocks an SM of the windowed forward, or with ``backward``
+    the windowed backward (with every gradient, or without d_depth), at
+    these types, c a head, bins and window length, as the CUDA runtime
+    reports them.  Launches nothing."""
     out = (ctypes.c_int * len(RESOURCE_KEYS))()
     types = DTYPE_CODE[value_dtype], DTYPE_CODE[depth_dtype]
-    if name.startswith("dfa3d_win_bwd_mh"):
+    if backward:
         fn = LIBRARY.get().sgc_dfa3d_win_bwd_attributes
         args = (c, 1, int(depth_grad), dsize, wwin)
     else:
@@ -314,7 +328,8 @@ def kernel_resources(name, value_dtype, depth_dtype, dsize, wwin, c=32,
     fn.argtypes, fn.restype = [_I] * (2 + len(args)) + [_P], _I
     err = fn(*types, *args, out)
     if err:
-        raise RuntimeError(f"{name}: kernel attributes failed with CUDA error {err}")
+        raise RuntimeError(f"{win_counter(backward, c)}: kernel attributes failed with "
+                           f"CUDA error {err}")
     return dict(zip(RESOURCE_KEYS, out))
 
 

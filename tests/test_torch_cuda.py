@@ -726,7 +726,7 @@ def test_windowed_kernels_reserve_what_the_plan_says(cuda_device, vdtype, ddtype
                                            ("dfa3d_win_bwd_mh", True, True),
                                            ("dfa3d_win_bwd_mh", True, False)):
             wwin = window_length(value, depth, backward, depth_grad)
-            res = kernel_resources(name, vdtype, ddtype, 12, wwin, c, depth_grad)
+            res = kernel_resources(backward, vdtype, ddtype, 12, wwin, c, depth_grad)
             reserved = window_bytes(wwin, value, depth, backward, depth_grad)
             assert res["smem_bytes"] == reserved + 8 * res["threads"] // 32, (
                 name, c, res, reserved)

@@ -167,8 +167,10 @@ def _check_multilevel_module(levels):
     g = rng.randn(n, k, EMBED).astype(np.float32)
     jm = JMSDeformableAttention2D(embed_dims=EMBED, num_heads=HEADS, num_levels=levels,
                                   num_points=POINTS)
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(query), jnp.asarray(value),
-                     jnp.asarray(ref), shapes)["params"]
+    # only the tree's shapes are used: eval_shape traces init without running it
+    params = jax.eval_shape(lambda key: jm.init(key, jnp.asarray(query), jnp.asarray(value),
+                                                jnp.asarray(ref), shapes),
+                            jax.random.PRNGKey(0))["params"]
     params = {name: {"kernel": rng.randn(*np.shape(lin["kernel"])).astype(np.float32) * 0.2,
                      "bias": rng.randn(*np.shape(lin["bias"])).astype(np.float32) * 0.2}
               for name, lin in params.items()}
@@ -181,7 +183,8 @@ def _check_multilevel_module(levels):
         out = jm.apply({"params": prm}, q, v, jnp.asarray(ref), shapes)
         return jnp.sum(out * g), out
 
-    (_, j_out), (j_dp, j_dq, j_dv) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+    (_, j_out), (j_dp, j_dq, j_dv) = jax.jit(
+        jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
         params, jnp.asarray(query), jnp.asarray(value))
     q, v = (torch.from_numpy(a).requires_grad_() for a in (query, value))
     out = model(q, v, torch.from_numpy(ref), shapes)

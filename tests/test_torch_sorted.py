@@ -435,7 +435,7 @@ def test_windowed_plain_at_the_large_width_matches_jax_oracle(counted):
         return out * keep
 
     jin = [jnp.asarray(t.numpy()) for t in (value, dpt, locs, attn)]
-    ref, vjp = jax.vjp(oracle, *jin)
+    ref, vjp = jax.vjp(jax.jit(oracle), *jin)
     got = dfa3d_windowed_plain(value, dpt, locs, attn, heads, counts)
     assert_close_scaled(got.numpy(), np.asarray(ref), 1e-5, "windowed c16 forward")
     g = np.random.RandomState(3).randn(n, k, heads * c).astype(np.float32)
