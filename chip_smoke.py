@@ -253,6 +253,25 @@ Phases, each fatal on failure:
               depth at the padded image's size): a forward whose dpt_dist
               is the GT one-hot and one train step whose depth head has
               zero gradients, neither launching a sweep kernel.
+19. view    — view sharding (train.make_view_sharded_train_step /
+              make_view_sharded_eval_step) on the ScanNet config: the f32
+              train step at 40 views (TF32 off, cuDNN deterministic,
+              ffn_dropout 0, exact auto budget, depth loss on) in one
+              process, again on images nudged by 1e-7, view-sharded at
+              world size 1 on NCCL (a FileStore) and over 2 ranks (two gloo
+              processes on cuda:0, `chip_smoke.py --view-rank`, 20 views
+              each), every one on the first's ReLU signs (a rank its views'
+              rows) and occupancy picks and held to it at phase 6's bounds;
+              the ranks' metrics and parameters bit-identical, each rank's
+              launches those of one process, its collectives counted by
+              kind.  bf16 evals at 40 and 100 views: one process, the same
+              on images nudged by 2^-9, NCCL at world size 1 (bit-equal to
+              one process) and the 2 ranks on one process's occupancy picks
+              (scores and swaps within 4x the nudge's), ``valid`` identical,
+              each head output and the decoded detections within 4x the
+              nudge's move, the ranks' outputs bit-identical.  Timed bf16
+              steps and scenes (two processes sharing one card, one
+              process, NCCL at world size 1) and peak memory a rank.
 
 Each phase prints its seconds.  The last three lines are the kernel report
 (one JSON object; ``launches`` are the train run's for the kernels of the
@@ -271,6 +290,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -1040,7 +1060,7 @@ def _compare_heads(torch, tag, got, want, rel):
 
 
 @contextlib.contextmanager
-def _occupancy_picks_of(torch, tag, ref):
+def _occupancy_picks_of(torch, tag, ref, limits=None, errs=None):
     """Give a forward the occupancy top-k picks of a reference forward
     (``models/sparse_head.py::top_k_indices``, each level's selection of
     the voxels to lift), for phase 13's f32 runs.  With ``ref`` empty,
@@ -1053,21 +1073,25 @@ def _occupancy_picks_of(torch, tag, ref):
     close.  Kernels and plain versions sum in other orders, so a score
     within rounding of the k-th lands on either side of the cut, and a
     swapped voxel then holds a lifted feature in one run and an upsampled
-    one in the other."""
+    one in the other.  ``limits``: per call (the scores' bound, absolute;
+    the swaps' bound) in place of these (phase 19's bf16 runs); ``errs``
+    collects each call's (scores' error, swaps)."""
     from sgcdet_tpu_torch.models import sparse_head
 
     top_k = sparse_head.top_k_indices
     recording = not ref
-    calls = iter(list(ref))
+    calls = iter(enumerate(list(ref)))
 
     def pinned(scores, k):
         own = top_k(scores, k)
         if recording:
             ref.append((scores.detach().clone(), own))
             return own
-        want_scores, want = next(calls)
-        tol = PICK_SCORE_TOL * float(want_scores.abs().max())
-        err = float((scores - want_scores).abs().max())
+        i, (want_scores, want) = next(calls)
+        tol, max_swaps = (PICK_SCORE_TOL * float(want_scores.abs().max()), PICK_SWAPS_MAX)
+        if limits is not None:
+            tol, max_swaps = limits[i]
+        err = float((scores.detach() - want_scores).abs().max())
         kth = want_scores[want].min()
         near = int(((want_scores - kth).abs() <= 2 * err).sum())
         swapped = torch.cat([own[~torch.isin(own, want)], want[~torch.isin(want, own)]])
@@ -1075,10 +1099,12 @@ def _occupancy_picks_of(torch, tag, ref):
         n_swapped = swapped.numel() // 2
         log(f"[{tag}] occupancy top-{k} of {scores.numel()}: scores max_abs_err "
             f"{err:.3e} (tol {tol:.3e}); {n_swapped} picks swapped (at most "
-            f"{PICK_SWAPS_MAX}), at most {margin:.3e} from the reference's k-th score; "
+            f"{max_swaps}), at most {margin:.3e} from the reference's k-th score; "
             f"{near} reference scores lie within {2 * err:.3e} of it")
+        if errs is not None:
+            errs.append((err, n_swapped))
         check(err <= tol, f"{tag}: occupancy scores differ beyond rounding")
-        check(n_swapped <= PICK_SWAPS_MAX, f"{tag}: {n_swapped} occupancy picks swapped")
+        check(n_swapped <= max_swaps, f"{tag}: {n_swapped} occupancy picks swapped")
         return want
 
     sparse_head.top_k_indices = pinned
@@ -1698,13 +1724,13 @@ def phase_backward(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 
-def _train_setup(torch, dev, config="scannet", n_views=None, **model_kw):
+def _train_parts(torch, dev, config="scannet", n_views=None, **model_kw):
     """bench.py's train setting (exact auto budget, depth loss on) of
     ``config`` on the indoor train scene of ``n_views`` views (N_VIEWS by
     default; its yawed ground truth for the ARKit head), with ``model_kw``
-    overrides; the model's weights come from a seeded init."""
+    overrides: (config, scene, model from a seeded init, optimizer)."""
     from sgcdet_tpu_torch.scene import example_train_scene
-    from sgcdet_tpu_torch.train import init_train_state, make_train_step
+    from sgcdet_tpu_torch.train import init_train_state
 
     n_views = n_views or N_VIEWS
     cfg, scene = _scene_and_cfg(config, n_views)
@@ -1715,11 +1741,20 @@ def _train_setup(torch, dev, config="scannet", n_views=None, **model_kw):
                                 mcfg.n_classes, mcfg.downsample_factor,
                                 yawed=mcfg.head_type == "sunrgbd")
     model, optimizer = init_train_state(cfg, torch.Generator().manual_seed(0), dev)
+    return cfg, scene, model, optimizer
+
+
+def _train_setup(torch, dev, config="scannet", n_views=None, **model_kw):
+    """``_train_parts`` with the single-device step in place of the
+    optimizer."""
+    from sgcdet_tpu_torch.train import make_train_step
+
+    cfg, scene, model, optimizer = _train_parts(torch, dev, config, n_views, **model_kw)
     return cfg, scene, model, make_train_step(model, cfg, optimizer)
 
 
 @contextlib.contextmanager
-def _relu_signs_of(torch, tag, ref):
+def _relu_signs_of(torch, tag, ref, views=None):
     """Give a train step the side of 0 of every ReLU input of a reference
     step (``F.relu``, which ``nn.ReLU`` calls too).  With ``ref`` empty,
     record the signs into it; else hold each input whose sign differs to
@@ -1730,7 +1765,9 @@ def _relu_signs_of(torch, tag, ref):
     backward passes or stops a whole gradient element there.  Where the
     loss's gradient sits on a few voxels (the FCOS positives of the -L
     step), one such ReLU in the 3D neck moves a weight gradient by percents
-    of its scale."""
+    of its scale.  ``views`` (rank, world): the step is a view-sharded
+    rank's, whose per-view inputs take their views' rows of the
+    reference's signs; a reference entry may be packed (``_pack_bits``)."""
     from torch.nn import functional as F
 
     relu = F.relu
@@ -1743,6 +1780,14 @@ def _relu_signs_of(torch, tag, ref):
             ref.append(x.detach() > 0)
             return relu(x, inplace=inplace)
         want = next(signs)
+        if isinstance(want, tuple):
+            want = _unpack_bits(torch, *want, x.device)
+        if views is not None and want.shape != x.shape:
+            rank, world = views
+            n = x.shape[0]
+            check(want.shape == (world * n,) + x.shape[1:],
+                  f"{tag}: ReLU input {tuple(x.shape)} is no rank's slice of {tuple(want.shape)}")
+            want = want[rank * n:(rank + 1) * n]
         mag = x.detach().abs()
         differ = (x.detach() > 0) != want
         n = int(differ.sum())
@@ -1769,7 +1814,6 @@ def phase_train_f32(torch, dev, config="scannet", pin_picks=False):
     import numpy as np
 
     from sgcdet_tpu_torch.ops import plain_ops
-    from sgcdet_tpu_torch.train import param_label
 
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
              torch.backends.cudnn.deterministic)
@@ -1813,22 +1857,35 @@ def phase_train_f32(torch, dev, config="scannet", pin_picks=False):
     if cfg.model.head_type == "sunrgbd":  # the step must train the rotated IoU loss
         check(all(float(m["n_pos"]) > 0 and float(m["loss_bbox"]) != 0 for m in (m_p, m_k)),
               f"{tag}: no FCOS positive or a zero loss_bbox")
-    # loss terms: the kernels and the plain versions sum in other orders
-    # (checked after the gradients are logged)
+    _compare_steps(torch, tag, runs["plain"], runs["nudged plain"], runs["kernels"],
+                   ("kernels", "plain", "nudged plain"))
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic) = flags
+
+
+def _compare_steps(torch, tag, ref, nudged, got, names=("got", "reference", "nudged")):
+    """Phase 6's bounds between two f32 train steps from the same weights on
+    the same ReLU signs: each (metrics, {name: gradient}).  Loss terms
+    within 1e-4 of their magnitude; every gradient within 2e-3 of its
+    tensor's largest reference gradient (floored at 1e-5 of the largest
+    anywhere in the model) plus 4x how far the reference's moves in
+    ``nudged``, the reference step on images moved by 1e-7 relative noise
+    (the size of the kernels' own rounding differences).  The second term
+    covers the train-mode BatchNorm nets (depth U-Nets, 3D neck), whose
+    gradients in this state are determined by rounding to about 1e-2
+    only."""
+    from sgcdet_tpu_torch.train import param_label
+
+    (m_p, grads_p), (m_n, grads_n), (m_k, grads_k) = ref, nudged, got
+    # loss terms: checked after the gradients are logged
     differ = []
     for name in m_p:
         a, b = float(m_k[name]), float(m_p[name])
         tol = 1e-4 * max(abs(b), 1e-3)
-        log(f"[{tag}] {name}: kernels {a:.6f}, plain {b:.6f} (tol {tol:.1e}; the "
-            f"nudged plain step {float(m_n[name]):.6f})")
+        log(f"[{tag}] {name}: {names[0]} {a:.6f}, {names[1]} {b:.6f} (tol {tol:.1e}; "
+            f"the {names[2]} step {float(m_n[name]):.6f})")
         if abs(a - b) > tol:
             differ.append(name)
-    # every parameter's gradient (after the clip, which scales both alike).
-    # Each tensor is held to 2e-3 of its largest plain gradient (floored at
-    # 1e-5 of the largest anywhere in the model) plus 4x the move of its
-    # plain gradient under the image nudge.  The second term covers the
-    # train-mode BatchNorm nets (depth U-Nets, 3D neck), whose gradients in
-    # this state are determined by rounding to about 1e-2 only.
     floor = 1e-5 * max(float(g.abs().max()) for g in grads_p.values())
     rows = []
     for name, want in grads_p.items():
@@ -1851,8 +1908,6 @@ def phase_train_f32(torch, dev, config="scannet", pin_picks=False):
     bad = [n for r, n, *_ in rows if r > 1.0]
     check(not bad, f"{tag}: gradients differ: {bad}")
     log(f"[{tag}] all {len(rows)} parameter gradients match")
-    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-     torch.backends.cudnn.deterministic) = flags
 
 
 def phase_train(torch, dev, kernels, sort_queries=False, config="scannet"):
@@ -3288,8 +3343,8 @@ def phase_dp(torch, dev, kernels, root, train_ds):
             torch.cuda.empty_cache()
         (m_s, _, r_s), (m_d, _, r_d) = runs["single"], runs["dp"]
         check(not any(r_s.values()), f"{tag}: the single-device step all-reduced {r_s}")
-        want = dict(bn_sync=n_bn, bn_sync_backward=n_bn, bn_sync_recompute=0, n_pos=1,
-                    gradients=1, metrics=1, bn_stats=1)
+        want = dict(dict.fromkeys(parallel.COUNTS, 0), bn_sync=n_bn, bn_sync_backward=n_bn,
+                    n_pos=1, gradients=1, metrics=1, bn_stats=1)
         check(r_d == want, f"{tag}: all-reduces {r_d}, expected {want}")
         for k in m_s:
             log(f"[{tag}] {k}: dp {m_d[k]:.6f}, single {m_s[k]:.6f}")
@@ -3575,6 +3630,517 @@ def phase_gt_dpt(torch, dev, kernels):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 19: view sharding
+# ---------------------------------------------------------------------------
+
+# the ranks of the view-sharded runs on the one card (gloo, each its own
+# process on cuda:0), the eval's view counts, the timed bf16 steps and
+# scenes after a warm-up, and each rank process's time limit (seconds)
+VIEW_RANKS = 2
+VIEW_EVAL_VIEWS = (N_VIEWS, 100)
+VIEW_TIMED = 3
+VIEW_RANK_TIMEOUT = 600
+
+
+def _pack_bits(torch, mask):
+    """A bool tensor as (its bits packed 8 to a byte on the host, shape)."""
+    flat = mask.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % 8)]).view(-1, 8)
+    weights = 2 ** torch.arange(8, device=flat.device, dtype=torch.uint8)
+    return (flat.to(torch.uint8) * weights).sum(1, dtype=torch.uint8).cpu(), tuple(mask.shape)
+
+
+def _unpack_bits(torch, packed, shape, dev):
+    weights = 2 ** torch.arange(8, device=dev, dtype=torch.uint8)
+    bits = packed.to(dev)[:, None].bitwise_and(weights) > 0
+    return bits.reshape(-1)[:math.prod(shape)].reshape(shape)
+
+
+def _digest(torch, tensors):
+    """sha1 of the bytes of a list of tensors (the ranks' replicated state
+    and outputs are compared by it)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _view_eval_setup(torch, dev, n_views):
+    """The bf16 ScanNet model with the exact auto budget of the indoor scene
+    of ``n_views`` (phase 5's, seeded) and that scene."""
+    from sgcdet_tpu_torch.models import SGCDet
+
+    cfg, scene = _scene_and_cfg("scannet", n_views)
+    mcfg = dataclasses.replace(cfg.model, visibility_budget=_auto_budget(cfg, scene))
+    model = SGCDet(mcfg, cfg.data.img_shape, device=dev,
+                   generator=torch.Generator().manual_seed(0))
+    return model, scene
+
+
+@contextlib.contextmanager
+def _f32_flags(torch):
+    """Phase 6's setting: TF32 off, cuDNN deterministic."""
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def _view_f32_step(torch, dev, tag, signs, picks, group=None, views=None, scene_fn=None):
+    """One f32 train step (ffn_dropout 0) of ``_train_parts`` from the seeded
+    weights, on the ReLU signs ``signs`` and the occupancy picks ``picks``
+    (recorded into them when empty): single-process without ``group``,
+    else view-sharded over it.  Returns (metrics as floats, {name:
+    gradient on the host}, the model's state digest, the collectives by
+    kind, the launches, seconds)."""
+    from sgcdet_tpu_torch import parallel
+    from sgcdet_tpu_torch.models import layers
+    from sgcdet_tpu_torch.ops import KERNELS
+    from sgcdet_tpu_torch.train import make_train_step, make_view_sharded_train_step
+
+    with _f32_flags(torch):
+        cfg, scene, model, optimizer = _train_parts(torch, dev, compute_dtype="float32",
+                                                    ffn_dropout=0.0)
+        if scene_fn is not None:
+            scene = scene_fn(scene)
+        step = (make_train_step(model, cfg, optimizer) if group is None else
+                make_view_sharded_train_step(model, cfg, optimizer, group))
+        counts = dict(parallel.COUNTS)
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with (_relu_signs_of(torch, tag, signs, views),
+              _occupancy_picks_of(torch, tag, picks)):
+            metrics = step(scene, torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    reduces = {k: v - counts[k] for k, v in parallel.COUNTS.items() if v != counts[k]}
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    digest = _digest(torch, list(model.state_dict().values()))
+    n_bn = sum(1 for m in model.depth_head.modules()
+               if isinstance(m, layers._F32BatchNorm) and not m.frozen)
+    return ({k: float(v) for k, v in metrics.items()}, grads, digest, reduces, launches,
+            secs, n_bn)
+
+
+def _view_step_counts(n_bn):
+    """The collectives of a rank's view-sharded train step: the depth net's
+    two gathers, two a level for the fusion, the reduce-scatters of the
+    features and the three levels' queries, each depth-net BN's statistics
+    once each way, the depth loss once each way, the gradients once."""
+    return dict(view_gather=2, view_fusion=6, view_scatter=4, view_bn=n_bn,
+                view_bn_backward=n_bn, view_depth_loss=1, view_depth_loss_backward=1,
+                view_gradients=1)
+
+
+def _view_evals(torch, dev, evaluate, n_views, first=None, scene_fn=None, timed=VIEW_TIMED):
+    """``evaluate(model, scene)`` on the bf16 eval setup of ``n_views``: a
+    first call inside the context ``first`` (occupancy picks recorded or
+    pinned), then ``timed`` calls.  Returns (the first call's outputs with
+    the launches it made, warm seconds a scene, peak memory, the model,
+    the scene)."""
+    from sgcdet_tpu_torch.ops import KERNELS
+
+    model, scene = _view_eval_setup(torch, dev, n_views)
+    if scene_fn is not None:
+        scene = scene_fn(scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in KERNELS.values():
+        k.launches = 0
+    with first or contextlib.nullcontext():
+        out = evaluate(model, scene)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    secs = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        evaluate(model, scene)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out = dict(out, launches=launches)
+    return (out, sum(secs) / len(secs) if secs else None,
+            torch.cuda.max_memory_allocated(dev), model, scene)
+
+
+def _nudged(scene, rel, seed=2):
+    """``scene`` with its images moved by ``rel`` relative noise."""
+    import numpy as np
+
+    imgs = scene["imgs"]
+    noise = rel * np.random.RandomState(seed).randn(*imgs.shape)
+    return dict(scene, imgs=(imgs * (1 + noise)).astype(imgs.dtype))
+
+
+def _timed_bf16_steps(torch, dev, group=None):
+    """A warm-up and VIEW_TIMED timed bf16 train steps (phase 7's setting)
+    at N_VIEWS, single-process or view-sharded over ``group``: (warm
+    seconds a step, peak memory, each step's launches, the last metrics,
+    the state's digest)."""
+    from sgcdet_tpu_torch.ops import KERNELS
+    from sgcdet_tpu_torch.train import make_train_step, make_view_sharded_train_step
+
+    cfg, scene, model, optimizer = _train_parts(torch, dev)
+    step = (make_train_step(model, cfg, optimizer) if group is None else
+            make_view_sharded_train_step(model, cfg, optimizer, group))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, per_step = [], []
+    for i in range(VIEW_TIMED + 1):
+        for k in KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        metrics = step(scene, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append({n: k.launches for n, k in KERNELS.items()})
+        check(all(math.isfinite(float(v)) for v in metrics.values()),
+              f"bf16 step {i}: non-finite metrics")
+    return (sum(times[1:]) / VIEW_TIMED, torch.cuda.max_memory_allocated(dev), per_step,
+            {k: float(v) for k, v in metrics.items()},
+            _digest(torch, list(model.state_dict().values())))
+
+
+def view_rank_main(root: Path) -> int:
+    """One rank of phase 19 (``python3 chip_smoke.py --view-rank <dir>``,
+    started by ``phase_view`` with RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT): gloo with CUDA tensors on cuda:0.  The f32 view-sharded
+    step on the single-process step's ReLU signs (this rank's views' rows)
+    and occupancy picks, the bf16 evals at VIEW_EVAL_VIEWS views and timed
+    bf16 steps; writes ``rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from sgcdet_tpu_torch import infer, parallel
+    from sgcdet_tpu_torch.ops import LIBRARY
+    from sgcdet_tpu_torch.train import make_view_sharded_eval_step
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=VIEW_RANK_TIMEOUT))
+    group = dist.group.WORLD
+    LIBRARY.get()
+    tag = f"view rank {rank}"
+    ref = torch.load(root / "view_ref.pt", weights_only=False)
+    picks = [(sc.to(dev), pk.to(dev)) for sc, pk in ref["picks"]]
+    out = {}
+    metrics, grads, digest, reduces, launches, secs, n_bn = _view_f32_step(
+        torch, dev, f"{tag} f32", ref["signs"], picks, group, (rank, world))
+    out["f32"] = dict(metrics=metrics, digest=digest, counts=reduces, launches=launches,
+                      secs=secs, n_bn=n_bn, grads=grads if rank == 0 else None)
+    log(f"[{tag}] f32 step {secs:.3f} s on {dist.get_backend(group)} with CUDA tensors; "
+        f"collectives {reduces}")
+    del grads
+    torch.cuda.empty_cache()
+
+    evals = {}
+    for n_views in VIEW_EVAL_VIEWS:
+        counts = dict(parallel.COUNTS)
+        want = [(sc.to(dev), pk.to(dev)) for sc, pk in ref["eval_picks"][n_views]]
+        errs = []
+        res, secs, peak, model, scene = _view_evals(
+            torch, dev, lambda m, sc: make_view_sharded_eval_step(m, None, group)(sc),
+            n_views, _occupancy_picks_of(torch, f"{tag} eval {n_views}", want,
+                                         ref["eval_limits"][n_views], errs))
+        head = [t for scale in res["head_outs"] for t in scale]
+        rec = dict(secs=secs, peak=peak, launches=res["launches"], pick_errs=errs,
+                   counts={k: (v - counts[k]) // (VIEW_TIMED + 1)
+                           for k, v in parallel.COUNTS.items() if v != counts[k]},
+                   digest=_digest(torch, head + [res["valid"], res["dpt_dist"]]))
+        if rank == 0:  # the host decode of the gathered outputs
+            rec["outputs"] = dict(head_outs=[tuple(t.cpu() for t in sc) for sc in res["head_outs"]],
+                                  valid=res["valid"].cpu())
+            rec["detections"] = infer.decode(model, res, scene["origin"])
+        rec["unpinned_valid"] = make_view_sharded_eval_step(model, None, group)(scene)["valid"].cpu()
+        evals[n_views] = rec
+        log(f"[{tag}] bf16 eval {n_views} views: {secs:.4f} s a scene, peak "
+            f"{peak / 2**30:.3f} GiB, launches {_launched(res['launches'])}")
+        del model, res
+        torch.cuda.empty_cache()
+    out["evals"] = evals
+
+    secs, peak, per_step, metrics, digest = _timed_bf16_steps(torch, dev, group)
+    out["train"] = dict(secs=secs, peak=peak, launches=per_step, metrics=metrics,
+                        digest=digest)
+    log(f"[{tag}] bf16 steps: {out['train']['secs']:.4f} s a step, peak "
+        f"{out['train']['peak'] / 2**30:.3f} GiB")
+    torch.save(out, root / f"rank{rank}.pt")
+    dist.barrier(group)
+    dist.destroy_process_group()
+    return 0
+
+
+def _start_view_ranks(root):
+    """The VIEW_RANKS processes of ``view_rank_main``; each logs to
+    ``rank<r>.log`` in ``root``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for rank in range(VIEW_RANKS):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(VIEW_RANKS),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        with open(root / f"rank{rank}.log", "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--view-rank", str(root)],
+                env=env, stdout=f, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _wait_view_ranks(procs, root):
+    """Wait for every rank (VIEW_RANK_TIMEOUT in all), echo their logs; a
+    rank that fails ends the others at once (they would wait in a
+    collective) and fails the phase."""
+    deadline = time.monotonic() + VIEW_RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, p in enumerate(procs):
+        text = (root / f"rank{rank}.log").read_text()
+        lines = [ln for ln in text.splitlines() if ln.startswith("[") or "Error" in ln
+                 or "FAILED" in ln]
+        for ln in lines[-40:]:
+            log(f"    {ln}")
+        check(p.returncode == 0,
+              f"view rank {rank} exited with {p.returncode}: {text[-2000:]}")
+
+
+def phase_view(torch, dev, kernels, root):
+    """Phase 19: the ScanNet config's views split over ranks
+    (``train.make_view_sharded_train_step`` / ``make_view_sharded_eval_step``)
+    against the single-process step and eval on the card."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sgcdet_tpu_torch import infer
+    from sgcdet_tpu_torch.train import make_view_sharded_eval_step
+
+    tag = "view"
+    card = card_line()
+
+    def say(msg):  # a measured line, beside the card it was measured on
+        log(f"{msg} ({card})")
+
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    # the single-process f32 step, whose ReLU signs and occupancy picks every
+    # other f32 step here takes, and the same on images nudged by 1e-7 (the
+    # bound's rounding term)
+    signs, picks = [], []
+    single = _view_f32_step(torch, dev, f"{tag} f32 single", signs, picks)
+    say(f"[{tag}] single-process f32 step {single[5]:.3f} s")
+    nudged = _view_f32_step(torch, dev, f"{tag} f32 nudged", signs, picks,
+                            scene_fn=lambda sc: _nudged(sc, 1e-7))
+    torch.cuda.empty_cache()
+    n_bn = single[6]
+    step_counts = _view_step_counts(n_bn)
+    expected_step = {n: LAUNCHES_PER_STEP.get(n, 0) for n in kernels}
+    expected_scene = {n: LAUNCHES_PER_SCENE.get(n, 0) for n in kernels}
+
+    # world size 1 on NCCL (a FileStore): the product route
+    store = root / "nccl_store"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        nccl = _view_f32_step(torch, dev, f"{tag} f32 nccl", signs, picks,
+                              dist.group.WORLD, (0, 1))
+        say(f"[{tag}] NCCL world size 1 f32 step {nccl[5]:.3f} s; collectives {nccl[3]}")
+        _compare_steps(torch, f"{tag} nccl", single[:2], nudged[:2], nccl[:2],
+                       ("view nccl", "single", "nudged single"))
+        check(nccl[3] == step_counts, f"{tag} nccl: collectives {nccl[3]}, expected {step_counts}")
+        check(nccl[4] == expected_step, f"{tag} nccl: launches {_launched(nccl[4])}")
+        nccl_eval, nccl_secs, _, model, scene = _view_evals(
+            torch, dev, lambda m, sc: make_view_sharded_eval_step(m, None, dist.group.WORLD)(sc),
+            N_VIEWS)
+        say(f"[{tag}] NCCL world size 1 bf16 eval {N_VIEWS} views: {nccl_secs:.4f} s a scene")
+        del model
+        nccl_train = _timed_bf16_steps(torch, dev, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+
+    single_train = _timed_bf16_steps(torch, dev)
+    for name, rec in (("single process", single_train), ("NCCL world size 1", nccl_train)):
+        check(all(step == expected_step for step in rec[2]),
+              f"{tag} bf16 steps, {name}: launches {rec[2]}")
+    say(f"[{tag}] bf16 train step at {N_VIEWS} views: single process {single_train[0]:.4f} s "
+        f"a step, peak {single_train[1] / 2**30:.3f} GiB; view-sharded at NCCL world size 1 "
+        f"{nccl_train[0]:.4f} s, peak {nccl_train[1] / 2**30:.3f} GiB")
+    torch.cuda.empty_cache()
+
+    # the single-process bf16 evals, the ranks' references: the first call's
+    # occupancy picks, which the ranks take, and the same call on images
+    # nudged by 2^-9 relative noise on those picks, whose move measures how
+    # far bf16 rounding alone moves the outputs (phase 6's nudge at bf16)
+    evals = {}
+    for n_views in VIEW_EVAL_VIEWS:
+        picks_n, errs = [], []
+        res, secs, peak, model, scene = _view_evals(
+            torch, dev, infer.forward_scene, n_views,
+            _occupancy_picks_of(torch, f"{tag} eval {n_views} single", picks_n))
+        dets = infer.decode(model, res, scene["origin"])
+        del model
+        moved, _, _, model, scene = _view_evals(
+            torch, dev, infer.forward_scene, n_views,
+            _occupancy_picks_of(torch, f"{tag} eval {n_views} nudged", picks_n,
+                                [(math.inf, math.inf)] * len(picks_n), errs),
+            scene_fn=lambda sc: _nudged(sc, 2.0 ** -9), timed=0)
+        evals[n_views] = dict(out=res, secs=secs, peak=peak, detections=dets, picks=picks_n,
+                              nudged=moved, nudged_detections=infer.decode(
+                                  model, moved, scene["origin"]),
+                              limits=[(max(PICK_SCORE_TOL * float(sc.abs().max()), 4 * err),
+                                       max(PICK_SWAPS_MAX, 4 * swaps))
+                                      for (sc, _), (err, swaps) in zip(picks_n, errs)])
+        say(f"[{tag}] single-process bf16 eval {n_views} views: {secs:.4f} s a scene, "
+            f"peak {peak / 2**30:.3f} GiB")
+        del model
+    torch.cuda.empty_cache()
+    # world size 1 runs the single process's batch: bit-equal outputs
+    check(all(torch.equal(x, y) for a, b in zip(nccl_eval["head_outs"],
+                                                 evals[N_VIEWS]["out"]["head_outs"])
+              for x, y in zip(a, b))
+          and torch.equal(nccl_eval["valid"], evals[N_VIEWS]["out"]["valid"]),
+          f"{tag}: the NCCL world-size-1 eval differs from the single process's")
+    log(f"[{tag}] NCCL world size 1 bf16 eval: outputs bit-equal to the single process's")
+    problems = []  # the bf16 comparisons, all logged before the phase fails
+
+    def compare_eval(what, got, want, nudged):
+        """``valid`` identical; each head output within 4x its move under the
+        nudge (at least one bf16 unit, 2^-8 of its scale)."""
+        if not torch.equal(got["valid"].to(want["valid"].device), want["valid"]):
+            problems.append(f"{what}: valid differs")
+        rows = []
+        for lvl, (a, b, c) in enumerate(zip(got["head_outs"], want["head_outs"],
+                                            nudged["head_outs"])):
+            for name, x, y, z in zip(("centerness", "bbox", "cls"), a, b, c):
+                x, y, z = x.to(y.device).float(), y.float(), z.float()
+                scale = max(float(y.abs().max()), 1e-3)
+                err = float((x - y).abs().max())
+                tol = 4 * max(float((z - y).abs().max()), 2.0 ** -8 * scale)
+                rows.append((err / tol, f"{name} {lvl}", err, tol, scale))
+        rows.sort(reverse=True)
+        log(f"[{what}] head outputs (err / tol / scale): "
+            + "; ".join(f"{n} {e:.3e} / {t:.3e} / {sc:.3e}" for _, n, e, t, sc in rows))
+        if rows[0][0] > 1.0:
+            problems.append(f"{what}: head output {rows[0][1]} differs")
+
+    def compare_detections(what, got, want, nudged):
+        """The same boxes and labels, each coordinate and score within 4x
+        its move under the nudge (at least a bf16 unit of its scale)."""
+        (bg, sg, lg), (bw, sw, lw), (bn, sn, ln) = got, want, nudged
+
+        def tol(moved, ref):
+            if not len(ref):
+                return 0.0
+            return 4 * max(float(np.abs(moved - ref).max()) if len(moved) == len(ref) else 0.0,
+                           2.0 ** -8 * float(np.abs(ref).max()))
+
+        same = len(bg) == len(bw) and np.array_equal(lg, lw)
+        err_b = float(np.abs(bg - bw).max()) if same and len(bw) else 0.0
+        err_s = float(np.abs(sg - sw).max()) if same and len(bw) else 0.0
+        tol_b, tol_s = tol(bn, bw), tol(sn, sw)
+        log(f"[{what}] detections: {len(bg)} boxes against {len(bw)} (the nudged run "
+            f"{len(bn)}), labels {'equal' if same else 'differ'}; boxes' largest difference "
+            f"{err_b:.3e} (tol {tol_b:.3e}), scores' {err_s:.3e} (tol {tol_s:.3e}); "
+            f"bit-equal {same and np.array_equal(bg, bw) and np.array_equal(sg, sw)}")
+        if not same or err_b > tol_b or err_s > tol_s:
+            problems.append(f"{what}: detections differ")
+
+    # the ranks: the signs go packed (their views' rows are taken there)
+    torch.save(dict(signs=[_pack_bits(torch, sg) for sg in signs],
+                    picks=[(sc.cpu(), pk.cpu()) for sc, pk in picks],
+                    eval_picks={n: [(sc.cpu(), pk.cpu()) for sc, pk in ev["picks"]]
+                                for n, ev in evals.items()},
+                    eval_limits={n: ev["limits"] for n, ev in evals.items()}),
+               root / "view_ref.pt")
+    del signs, picks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _wait_view_ranks(_start_view_ranks(root), root)
+    log(f"[{tag}] {VIEW_RANKS} rank processes took {time.perf_counter() - t0:.1f} s")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(VIEW_RANKS)]
+    f32 = [r["f32"] for r in ranks]
+    _compare_steps(torch, f"{tag} {VIEW_RANKS} ranks",
+                   single[:2], nudged[:2], (f32[0]["metrics"], f32[0]["grads"]),
+                   (f"view {VIEW_RANKS} ranks", "single", "nudged single"))
+    for r, rec in enumerate(f32):
+        check(rec["metrics"] == f32[0]["metrics"], f"{tag}: rank {r}'s metrics differ")
+        check(rec["digest"] == f32[0]["digest"], f"{tag}: rank {r}'s state differs")
+        check(rec["counts"] == step_counts,
+              f"{tag} rank {r}: collectives {rec['counts']}, expected {step_counts}")
+        check(rec["launches"] == expected_step,
+              f"{tag} rank {r}: launches {_launched(rec['launches'])}")
+        say(f"[{tag}] rank {r} f32 step: launches {_launched(rec['launches'])}; collectives "
+            f"{rec['counts']}")
+    log(f"[{tag}] f32 step: the ranks' metrics and parameters bit-identical")
+    for n_views in VIEW_EVAL_VIEWS:
+        recs = [r["evals"][n_views] for r in ranks]
+        ref = evals[n_views]
+        unpinned = int((recs[0]["unpinned_valid"] != ref["out"]["valid"].cpu()).sum())
+        log(f"[{tag} eval {n_views} views] on its own occupancy picks, {unpinned} voxels of "
+            f"{ref['out']['valid'].numel()} of valid differ from the single process's")
+        compare_eval(f"{tag} eval {n_views} views", recs[0]["outputs"], ref["out"],
+                     ref["nudged"])
+        compare_detections(f"{tag} eval {n_views} views", recs[0]["detections"],
+                           ref["detections"], ref["nudged_detections"])
+        for r, rec in enumerate(recs):
+            check(rec["digest"] == recs[0]["digest"],
+                  f"{tag} eval {n_views} views: rank {r}'s outputs differ")
+            check(rec["launches"] == expected_scene,
+                  f"{tag} eval rank {r}: launches {_launched(rec['launches'])}")
+            check(rec["counts"] == dict(view_gather=3, view_fusion=6),
+                  f"{tag} eval rank {r}: collectives {rec['counts']}")
+        say(f"[{tag}] bf16 eval {n_views} views: ranks' outputs bit-identical; launches a "
+            f"scene a rank {_launched(recs[0]['launches'])}; collectives a scene "
+            f"{recs[0]['counts']}")
+        say(f"[{tag}] bf16 eval {n_views} views, two processes sharing one card: "
+            + ", ".join(f"rank {r} {rec['secs']:.4f} s a scene, peak "
+                        f"{rec['peak'] / 2**30:.3f} GiB" for r, rec in enumerate(recs))
+            + f"; one process alone {ref['secs']:.4f} s a scene, peak "
+              f"{ref['peak'] / 2**30:.3f} GiB")
+    trains = [r["train"] for r in ranks]
+    for r, rec in enumerate(trains):
+        check(all(step == expected_step for step in rec["launches"]),
+              f"{tag} bf16 steps rank {r}: launches {rec['launches']}")
+        check(rec["digest"] == trains[0]["digest"] and rec["metrics"] == trains[0]["metrics"],
+              f"{tag} bf16 steps: rank {r}'s state or metrics differ")
+    check(not problems, f"{tag}: {problems}")
+    say(f"[{tag}] bf16 train step at {N_VIEWS} views, two processes sharing one card: "
+        + ", ".join(f"rank {r} {rec['secs']:.4f} s a step, peak {rec['peak'] / 2**30:.3f} GiB"
+                    for r, rec in enumerate(trains))
+        + f"; launches a step a rank {_launched(trains[0]['launches'][-1])}; the ranks' "
+          f"state bit-identical after {VIEW_TIMED + 1} steps")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     repo = Path(__file__).resolve().parent
     if not (repo / "sgcdet_tpu_torch").is_dir():
@@ -3584,15 +4150,16 @@ def main() -> int:
     sys.path.insert(0, str(repo))
     import torch
 
+    if sys.argv[1:2] == ["--view-rank"]:  # a rank process of phase 19
+        return view_rank_main(Path(sys.argv[2]))
+
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
               "False); this smoke run needs the GPU and never falls back to "
               "the CPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; nvidia-smi: {smi}")
 
@@ -3644,7 +4211,8 @@ def main() -> int:
             ("cli", lambda: phase_cli(torch, dev, KERNELS, cli_root)),
             ("remat", lambda: phase_remat(torch, dev, KERNELS)),
             ("sweep band", lambda: phase_sweep_band(torch, dev)),
-            ("gt depth", lambda: phase_gt_dpt(torch, dev, KERNELS))):
+            ("gt depth", lambda: phase_gt_dpt(torch, dev, KERNELS)),
+            ("view", lambda: phase_view(torch, dev, KERNELS, repo / "build" / "view_smoke"))):
         t0 = time.perf_counter()
         fn()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")

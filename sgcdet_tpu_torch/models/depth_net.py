@@ -6,17 +6,23 @@ truncated ResNet-18 matching extractor, and (b) a monocular branch from FPN
 features, fused by 2D U-Nets and a softmax taken in f32; and the depth
 loss against GT depth maps (``downsample_gt_depth``, ``depth_loss``).
 With ``sweep_band`` the correlation goes through the banded-Gram sweep
-(``ops/sweep_band.py``) instead of the sweep kernels.
+(``ops/sweep_band.py``) instead of the sweep kernels.  Inside
+``parallel.view_sharding(group)`` each rank holds a slice of the scene's
+views: the neighbours come from the scene's view ids, the sweep reads them
+from an all-gather of every view's matching features, and the depth loss
+sums over every view.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.sweep import plane_sweep_correlation
 from ..ops.sweep_band import plane_sweep_correlation_banded
+from ..parallel import gather_views, sum_over_ranks, view_group
 from .layers import BatchNorm2d, Conv2d, ConvTranspose2d
 from .resnet import ResNetFPNMatching
 
@@ -133,13 +139,21 @@ class DepthNetFusion(nn.Module):
             np.arange(d0, d1, step, dtype=np.float32) + step / 2).to(feats.device)
 
         f_mvs = self.fnet_mvs(imgs)
-        k = min(self.neighbor_img_num, n - 1)
-        neighbor_ids = get_closest_frame_ids(n, k)
+        # the sources: every view of the scene (a view-sharded rank holds
+        # views first .. first + n - 1 of n_all; an end view's neighbours lie
+        # up to 3 views away, so every view is gathered)
+        f_src, proj_src, n_all, first = f_mvs, proj_feat, n, 0
+        group = view_group()
+        if group is not None:
+            f_src, proj_src = gather_views(f_mvs, group), gather_views(proj_feat, group)
+            n_all, first = f_src.shape[0], n * dist.get_rank(group)
+        k = min(self.neighbor_img_num, n_all - 1)
+        neighbor_ids = get_closest_frame_ids(n_all, k)[first:first + n]
         corr = torch.zeros((n, self.depth_channels) + tuple(f_mvs.shape[2:]),
                            dtype=f_mvs.dtype, device=f_mvs.device)
         for j in range(k):
             nei = torch.from_numpy(neighbor_ids[:, j]).to(f_mvs.device)
-            args = (f_mvs[nei], f_mvs, proj_feat[nei], proj_feat, depth_values)
+            args = (f_src[nei], f_mvs, proj_src[nei], proj_feat, depth_values)
             corr = corr + (plane_sweep_correlation(*args) if self.sweep_band is None
                            else plane_sweep_correlation_banded(*args, self.sweep_band))
         corr = corr / k
@@ -181,9 +195,11 @@ def downsample_gt_depth(gt_depths, downsample_factor, dbound, depth_channels,
 
 
 def depth_loss(gt_depths, depth_preds, downsample_factor, dbound,
-               loss_weight=0.5, max_tol=0):
+               loss_weight=0.5, max_tol=0, group=None):
     """Masked BCE between the predicted distributions (N, D, H, W) and the
-    one-hot GT bins (depth_net.py:267-277)."""
+    one-hot GT bins (depth_net.py:267-277).  With the ``group`` of a
+    view-sharded step (this rank's views in, the loss of every view out),
+    the BCE sum and the foreground count are summed over the ranks."""
     d_ch = depth_preds.shape[1]
     labels = downsample_gt_depth(gt_depths, downsample_factor, dbound, d_ch, max_tol)
     preds = depth_preds.permute(0, 2, 3, 1).reshape(-1, d_ch)
@@ -191,4 +207,8 @@ def depth_loss(gt_depths, depth_preds, downsample_factor, dbound,
     preds = preds.clamp(1e-7, 1 - 1e-7)
     bce = -(labels * torch.log(preds) + (1 - labels) * torch.log(1 - preds))
     bce = torch.where(fg[:, None], bce, 0.0).sum()
-    return loss_weight * bce / fg.sum().clamp(min=1)
+    n_fg = fg.sum()
+    if group is not None:
+        bce, n_fg = sum_over_ranks(torch.stack([bce, n_fg.to(bce.dtype)]), group,
+                                   "view_depth_loss")
+    return loss_weight * bce / n_fg.clamp(min=1)

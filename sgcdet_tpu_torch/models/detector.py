@@ -8,6 +8,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs import ModelConfig
+from ..parallel import view_sharding
 from .depth_net import DepthNetFusion, depth_loss, downsample_gt_depth
 from .det_head import ImVoxelHead, head_loss_single, head_points
 from .fpn import FPN
@@ -71,17 +72,39 @@ class SGCDet(nn.Module):
         self.to(device)
 
     def forward(self, imgs, proj_img, proj_feat4, origin, generator=None,
-                gt_depth=None):
+                gt_depth=None, view_group=None):
         """imgs: (N, 3, Hp, Wp) normalized padded images; proj_img:
         (N, 3, 4) world->pixel at image resolution; proj_feat4: (N, 4, 4)
         K[R|t] at feature stride 4; origin: (3,); generator: a
         ``torch.Generator`` on the model's device for the dropout masks in
         train mode; gt_depth: optional (N, Hp, Wp) metric depth, the depth
-        distribution's one-hot where ``cfg.use_gt_dpt``.
+        distribution's one-hot where ``cfg.use_gt_dpt``; view_group: the
+        process group of a view-sharded step, whose ranks each pass their
+        slice of the scene's views (``parallel.view_slice``; N is then the
+        slice's).  The per-view region (backbone to the lifting's sampling)
+        runs on the slice; from the fusion over views on, everything is
+        replicated, and the dropout masks are drawn alike on every rank
+        from ``generator``.
 
         Returns dict: head_outs (per scale (centerness, bbox, cls) without
         the batch dim, f32), valid (X, Y, Z) f32, occ_preds, dpt_dist
-        (N, D, H/4, W/4) f32."""
+        (N, D, H/4, W/4) f32 (this rank's views)."""
+        with view_sharding(view_group):
+            volume, valid, occ_preds, dpt_dist = self._lift(
+                imgs, proj_img, proj_feat4, origin, generator, gt_depth)
+        neck_outs = self.neck_3d(volume[None])
+        head_outs = [tuple(o[0].float() for o in scale)
+                     for scale in self.bbox_head(neck_outs)]
+        return dict(
+            head_outs=head_outs,
+            valid=valid.float(),
+            occ_preds=None if occ_preds is None else occ_preds.float(),
+            dpt_dist=dpt_dist.float(),
+        )
+
+    def _lift(self, imgs, proj_img, proj_feat4, origin, generator, gt_depth):
+        """Backbone, FPN, depth head and the adaptive sparse volume:
+        (volume (C, X, Y, Z), valid, occ_preds, dpt_dist)."""
         cfg = self.cfg
         feats = self.neck(self.backbone(imgs))
         if cfg.use_gt_dpt and gt_depth is not None:
@@ -111,15 +134,7 @@ class SGCDet(nn.Module):
         volume, valid, occ_preds = self.voxel_head(
             feats[:3], mlvl_dpt, origin, proj_img, self.img_shape, cfg.dbound,
             generator)
-        neck_outs = self.neck_3d(volume[None])
-        head_outs = [tuple(o[0].float() for o in scale)
-                     for scale in self.bbox_head(neck_outs)]
-        return dict(
-            head_outs=head_outs,
-            valid=valid.float(),
-            occ_preds=None if occ_preds is None else occ_preds.float(),
-            dpt_dist=dpt_dist.float(),
-        )
+        return volume, valid, occ_preds, dpt_dist
 
 
 def flatten_valids(valid, featmap_sizes):
@@ -133,14 +148,17 @@ def flatten_valids(valid, featmap_sizes):
 
 
 def compute_losses(cfg, outputs, origin, gt_boxes, gt_labels, gt_mask,
-                   gt_depth=None, group=None):
+                   gt_depth=None, group=None, view_group=None):
     """The loss dict of one scene (detector.py:126-157) and n_pos.
 
     gt_boxes: (B, 7) gravity-centre boxes (padded); gt_labels: (B,);
     gt_mask: (B,) bool; gt_depth: (N, H, W) metric depth at
     downsample_factor x the stride-4 grid, read when ``cfg.depth_loss``;
     group: the process group of a data-parallel step (the head's average
-    factor is then the ranks' mean positive count)."""
+    factor is then the ranks' mean positive count); view_group: that of a
+    view-sharded step (gt_depth and ``outputs["dpt_dist"]`` are this
+    rank's views; the depth loss sums over every view, and the head's
+    losses, replicated, take the whole scene's n_pos as it is)."""
     head_outs = outputs["head_outs"]
     featmap_sizes = [h[0].shape[-3:] for h in head_outs]
     points, scales, level_sizes = head_points(featmap_sizes, cfg.voxel_size, origin)
@@ -155,5 +173,5 @@ def compute_losses(cfg, outputs, origin, gt_boxes, gt_labels, gt_mask,
     if cfg.depth_loss and gt_depth is not None:
         losses["loss_dpt"] = depth_loss(
             gt_depth, outputs["dpt_dist"], cfg.downsample_factor, cfg.dbound,
-            cfg.depth_loss_weight, cfg.depth_max_tol)
+            cfg.depth_loss_weight, cfg.depth_max_tol, group=view_group)
     return losses, n_pos

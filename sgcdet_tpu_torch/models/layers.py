@@ -8,7 +8,9 @@
   (layers.py:229-232); a plain ``nn.BatchNorm2d`` on bf16 input does not.
   Inside ``sync_batchnorm(group)`` (the data-parallel train step) every
   train-mode BN that is not frozen averages its batch statistics over the
-  ranks, as the JAX package's BN does under a mesh (layers.py:210-225).
+  ranks, as the JAX package's BN does under a mesh (layers.py:210-225);
+  inside ``parallel.view_sharding(group)`` (the per-view region of a
+  view-sharded step) it takes them over every view of the scene.
   ``remat_contexts`` is the ``context_fn`` of a checkpointed region
   (``depth_remat``): its recomputation normalises as the forward did and
   leaves the running statistics alone, which the forward moved once, as
@@ -28,10 +30,11 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel import mean_over_ranks
+from ..parallel import mean_over_ranks, view_group, view_sharding
 
 
 class _Cast:
@@ -99,11 +102,18 @@ def remat_contexts():
     """``torch.utils.checkpoint``'s ``context_fn`` for a region whose
     train-mode BNs must move their running statistics once: the forward
     runs as it is; the recomputation in the backward, which runs outside
-    the step's ``sync_batchnorm`` block, takes the forward's process group
-    (a synced BN all-reduces its batch statistics again, counted as
-    ``bn_sync_recompute``: the same inputs give the same statistics) and
-    updates no running statistic."""
-    return contextlib.nullcontext(), sync_batchnorm(_BN_SYNC["group"], recompute=True)
+    the step's ``sync_batchnorm`` and ``view_sharding`` blocks, takes the
+    forward's process groups (a synced BN all-reduces its batch statistics
+    again, counted as ``bn_sync_recompute`` or ``view_bn_recompute``: the
+    same inputs give the same statistics; a view-sharded region gathers its
+    views again) and updates no running statistic."""
+    return contextlib.nullcontext(), _recomputing(_BN_SYNC["group"], view_group())
+
+
+@contextlib.contextmanager
+def _recomputing(group, view):
+    with sync_batchnorm(group, recompute=True), view_sharding(view):
+        yield
 
 
 class _F32BatchNorm:
@@ -115,12 +125,24 @@ class _F32BatchNorm:
     momentum 0.1, which is what ``F.batch_norm`` does.  A frozen BN's affine
     still gets gradients (the optimizer leaves it alone).
 
-    Train mode inside ``sync_batchnorm(group)``: the f32 per-channel mean and
-    mean of squares are averaged over the ranks (``parallel.mean_over_ranks``,
-    whose backward averages their gradients too), var = mean2 - mean^2, and
-    the running variance moves by var * n / (n - 1) with n the local count
-    of elements a channel, as the JAX package does.  (Not
-    ``nn.SyncBatchNorm``, which weighs by the global count.)"""
+    Train mode with a process group: the f32 per-channel mean and mean of
+    squares are averaged over the ranks (``parallel.mean_over_ranks``,
+    whose backward averages their gradients too), var = mean2 - mean^2,
+    and the running variance moves by var * n / (n - 1).  The count n
+    depends on the mode, as the JAX package's BN gets it from the shape it
+    sees (layers.py:215-228):
+
+    * inside ``sync_batchnorm(group)``, data parallel (one scene a rank,
+      the ``pmean`` of a mesh step): n is the local count of elements a
+      channel, x.numel() / C;
+    * inside ``parallel.view_sharding(group)`` (G equal slices of one
+      scene's views, which GSPMD sees as one global batch): n is the
+      global count, G x.numel() / C, the count of a single process that
+      holds every view.
+
+    (Not ``nn.SyncBatchNorm``, which weighs by the global count in both.)
+    A BN outside the per-view region (the 3D neck) sees no view group: its
+    input is the replicated volume, alike on every rank."""
 
     def __init__(self, *args, frozen: bool = False, **kwargs):
         super().__init__(*args, **kwargs)
@@ -129,7 +151,9 @@ class _F32BatchNorm:
     def forward(self, x):
         train = self.training and not self.frozen
         if train and _BN_SYNC["group"] is not None:
-            return self._synced(x, _BN_SYNC["group"])
+            return self._synced(x, _BN_SYNC["group"], views=False)
+        if train and view_group() is not None:
+            return self._synced(x, view_group(), views=True)
         mean, var = self.running_mean, self.running_var
         if train and _BN_SYNC["recompute"]:  # the same call, on copies it may move
             mean, var = mean.clone(), var.clone()
@@ -137,16 +161,18 @@ class _F32BatchNorm:
                          self.momentum, self.eps)
         return y.to(x.dtype)
 
-    def _synced(self, x, group):
+    def _synced(self, x, group, views):
         ch = x.shape[1]
         axes = (0,) + tuple(range(2, x.ndim))
         xf = x.float()
         recompute = _BN_SYNC["recompute"]
+        prefix = "view_bn" if views else "bn_sync"
         stats = mean_over_ranks(torch.cat([xf.mean(axes), xf.square().mean(axes)]), group,
-                                "bn_sync_recompute" if recompute else "bn_sync")
+                                prefix + ("_recompute" if recompute else ""),
+                                prefix + "_backward")
         mean, mean2 = stats[:ch], stats[ch:]
         var = mean2 - mean.square()
-        n = x.numel() // ch
+        n = x.numel() // ch * (dist.get_world_size(group) if views else 1)
         if not recompute:  # a recomputation's forward moved them
             with torch.no_grad():
                 m = self.momentum

@@ -14,7 +14,10 @@ ordered by their projected pixel (no budget then compacts at B = K) and
 both sampling stages go through the windowed kernels
 (``ops/dfa3d_windowed.py``); the order changes no result.  The 2D path never
 compacts (the JAX package compacts only with ``use_depth``), ignores
-``sort_queries`` and adds its stage-2 output to stage 1's.
+``sort_queries`` and adds its stage-2 output to stage 1's.  Inside
+``parallel.view_sharding(group)`` the projection, compaction and sampling
+run on this rank's views, and the fusion over views on an all-gather of
+every view's queries and mask, replicated on every rank.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from torch import nn
 
 from ..ops.dfa3d import dfa3d_attend, msda_2d, msda_2d_attend
 from ..ops.dfa3d_windowed import dfa3d_attention_windowed
+from ..parallel import gather_views, view_group
 from .layers import FFN, LayerNorm, Linear, MultiheadAttention
 
 
@@ -247,6 +251,10 @@ class DeformCrossAttention(nn.Module):
                                                spatial_shapes)
         else:
             queries = self._sample_2d(value_img, ref_cam, spatial_shapes)
+        group = view_group()
+        if group is not None:  # the fusion sees every view of the scene
+            queries = gather_views(queries, group, "view_fusion")
+            mask = gather_views(mask, group, "view_fusion")
 
         # inter-view fusion: masked mean over visible views ...
         slots = queries * mask.to(queries.dtype)[..., None]

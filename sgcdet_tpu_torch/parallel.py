@@ -7,8 +7,10 @@ process group that ``torchrun`` describes (``RANK``, ``WORLD_SIZE``,
 device ``cuda:LOCAL_RANK``, and gloo only when the caller asks for the CPU.
 Its ``rank`` and ``world`` go to the loader and to the sharded eval.
 
-Every all-reduce of the port goes through ``all_reduce_mean_`` or
-``mean_over_ranks``, which count each call by kind in ``COUNTS``:
+Every collective of the port goes through ``all_reduce_sum_``,
+``all_reduce_mean_``, ``mean_over_ranks`` or the view sharding's
+``gather_views`` and ``sum_over_ranks``, which count each call by kind in
+``COUNTS``:
 
 * ``bn_sync`` / ``bn_sync_backward``: a train-mode BatchNorm's mean and
   mean of squares, and their gradient (``models/layers.py``);
@@ -18,9 +20,40 @@ Every all-reduce of the port goes through ``all_reduce_mean_`` or
 * ``gradients``, ``metrics``, ``bn_stats``: the train step's flat gradient
   buffer, its loss terms with the total and n_pos, and the BatchNorm
   running statistics (``train/loop.py``).
+
+View sharding (``train/loop.py::make_view_sharded_train_step`` and
+``make_view_sharded_eval_step``): the N views of one scene split into G
+equal slices over the ranks of a group, rank r holding views r N/G to
+(r + 1) N/G - 1 (``view_slice``).  Inside ``view_sharding(group)`` the
+per-view region of the model (backbone, FPN, depth net, the DFA3D stages)
+runs on this rank's views and places its collectives by hand where the JAX
+package's GSPMD places them; everything after the inter-view fusion is
+replicated.  Their kinds in ``COUNTS``:
+
+* ``view_gather``: the depth net's all-gathers of the matching features
+  and projections (the sweep's neighbours may lie on any rank), and the
+  eval step's of the depth distributions;
+* ``view_fusion``: the lifting's all-gathers of each level's per-view
+  queries and visibility mask before the fusion over views;
+* ``view_scatter``: the reduce-scatters (sum) that carry the gradients of
+  gathered tensors back to their views' ranks, the all-gather's transpose;
+* ``view_bn``, ``view_bn_backward``, ``view_bn_recompute``: a train-mode
+  BatchNorm's statistics over every view of the scene, their gradient,
+  and the same statistics again in ``depth_remat``'s recomputation;
+* ``view_depth_loss``, ``view_depth_loss_backward``: the depth loss's BCE
+  sum and foreground count over every view (all-reduce sum, whose
+  transpose is an all-reduce sum);
+* ``view_gradients``: the train step's flat gradient buffer (a sum).
+
+They are the backend's ``all_gather_into_tensor``, ``reduce_scatter_tensor``
+and ``all_reduce``: NCCL's on the cards, gloo's on the CPU and, two
+processes sharing one card, on CUDA tensors too (``chip_smoke.py`` phase
+19).  Gathers copy bytes, so every dtype gathers exactly; gloo sums 16-bit
+floats in f32.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 
@@ -29,7 +62,12 @@ import torch.distributed as dist
 
 COUNTS = dict.fromkeys(
     ("bn_sync", "bn_sync_backward", "bn_sync_recompute", "n_pos", "gradients", "metrics",
-     "bn_stats"), 0)
+     "bn_stats", "view_gather", "view_fusion", "view_scatter", "view_bn", "view_bn_backward",
+     "view_bn_recompute", "view_depth_loss", "view_depth_loss_backward", "view_gradients"), 0)
+
+# the keys of a scene that hold one entry a view (loop.py:180-183 of the
+# JAX package); the rest is replicated
+VIEW_KEYS = ("imgs", "proj_img", "proj_feat4", "gt_depth")
 
 
 @dataclass(frozen=True)
@@ -77,12 +115,18 @@ def shutdown(ctx: Context):
         dist.destroy_process_group()
 
 
+def all_reduce_sum_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """``t`` replaced in place by its sum over the ranks of ``group``
+    (``lax.psum``); counted under ``kind``."""
+    COUNTS[kind] += 1
+    dist.all_reduce(t, group=group)
+    return t
+
+
 def all_reduce_mean_(t: torch.Tensor, group, kind: str) -> torch.Tensor:
     """``t`` replaced in place by its mean over the ranks of ``group``
     (``lax.pmean``); counted under ``kind``."""
-    COUNTS[kind] += 1
-    dist.all_reduce(t, group=group)
-    return t.div_(dist.get_world_size(group))
+    return all_reduce_sum_(t, group, kind).div_(dist.get_world_size(group))
 
 
 class _MeanOverRanks(torch.autograd.Function):
@@ -90,20 +134,123 @@ class _MeanOverRanks(torch.autograd.Function):
     is the mean of every rank's output gradient."""
 
     @staticmethod
-    def forward(ctx, t, group, kind):
-        ctx.group = group
+    def forward(ctx, t, group, kind, backward_kind):
+        ctx.group, ctx.backward_kind = group, backward_kind
         return all_reduce_mean_(t.clone(), group, kind)
 
     @staticmethod
     def backward(ctx, grad):
         return all_reduce_mean_(grad.clone(memory_format=torch.contiguous_format),
-                                ctx.group, "bn_sync_backward"), None, None
+                                ctx.group, ctx.backward_kind), None, None, None
 
 
-def mean_over_ranks(t: torch.Tensor, group, kind="bn_sync") -> torch.Tensor:
+def mean_over_ranks(t: torch.Tensor, group, kind="bn_sync",
+                    backward_kind="bn_sync_backward") -> torch.Tensor:
     """Differentiable mean of ``t`` over the ranks of ``group``, counted
-    under ``kind``."""
-    return _MeanOverRanks.apply(t, group, kind)
+    under ``kind`` (its gradient's under ``backward_kind``)."""
+    return _MeanOverRanks.apply(t, group, kind, backward_kind)
+
+
+# ---------------------------------------------------------------------------
+# view sharding
+# ---------------------------------------------------------------------------
+
+_VIEW = {"group": None}
+
+
+@contextlib.contextmanager
+def view_sharding(group):
+    """Within the block, the model's per-view region holds this rank's
+    slice of the scene's views and communicates over ``group`` (None: the
+    whole scene in this process)."""
+    previous = _VIEW["group"]
+    _VIEW["group"] = group
+    try:
+        yield
+    finally:
+        _VIEW["group"] = previous
+
+
+def view_group():
+    """The group of the enclosing ``view_sharding`` block, or None."""
+    return _VIEW["group"]
+
+
+def view_slice(scene: dict, rank: int, world: int) -> dict:
+    """Rank ``rank``'s slice of ``world`` equal slices of the scene's views
+    (the ``VIEW_KEYS`` entries; the rest is shared).  A view count that
+    ``world`` does not divide is refused, as the JAX package's sharding
+    refuses it."""
+    n = len(scene["imgs"])
+    if n % world:
+        raise ValueError(f"a scene of {n} views does not split into {world} equal "
+                         f"slices: the view count must divide by the ranks of the group")
+    m = n // world
+    return {k: v[rank * m:(rank + 1) * m] if k in VIEW_KEYS else v for k, v in scene.items()}
+
+
+def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' ``t`` (n, ...) one after another in rank order, (G n, ...),
+    copied as bytes."""
+    n = t.shape[0]
+    raw = t.contiguous().reshape(n, -1).view(torch.uint8)
+    out = raw.new_empty((dist.get_world_size(group) * n, raw.shape[1]))
+    dist.all_gather_into_tensor(out, raw, group=group)
+    return out.view(t.dtype).reshape((-1,) + t.shape[1:])
+
+
+def _reduce_scatter(t: torch.Tensor, group) -> torch.Tensor:
+    """This rank's slice of the sum over the ranks of ``t`` (G n, ...):
+    (n, ...)."""
+    dtype = t.dtype
+    if dist.get_backend(group) == "gloo" and dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    t = t.contiguous()
+    out = t.new_empty((t.shape[0] // dist.get_world_size(group),) + t.shape[1:])
+    dist.reduce_scatter_tensor(out, t, group=group)
+    return out.to(dtype)
+
+
+class _GatherViews(torch.autograd.Function):
+    """All-gather over the view axis, whose transpose is a reduce-scatter
+    (sum): each rank's slice gets the sum of every rank's gradient of it."""
+
+    @staticmethod
+    def forward(ctx, t, group, kind):
+        ctx.group = group
+        COUNTS[kind] += 1
+        return _all_gather(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        COUNTS["view_scatter"] += 1
+        return _reduce_scatter(grad, ctx.group), None, None
+
+
+def gather_views(t: torch.Tensor, group, kind="view_gather") -> torch.Tensor:
+    """Every rank's slice of a view-major tensor, (G n, ...) in view order;
+    differentiable, counted under ``kind``."""
+    return _GatherViews.apply(t, group, kind)
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce sum, whose transpose is an all-reduce sum."""
+
+    @staticmethod
+    def forward(ctx, t, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return all_reduce_sum_(t.clone(memory_format=torch.contiguous_format), group, kind)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum_(grad.clone(memory_format=torch.contiguous_format),
+                               ctx.group, ctx.kind + "_backward"), None, None
+
+
+def sum_over_ranks(t: torch.Tensor, group, kind) -> torch.Tensor:
+    """Differentiable sum of ``t`` over the ranks of ``group``, counted
+    under ``kind`` (its gradient's under ``kind + "_backward"``)."""
+    return _SumOverRanks.apply(t, group, kind)
 
 
 def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:

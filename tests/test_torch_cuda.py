@@ -28,7 +28,9 @@ the gather epilogue at 1-8 points, on rows that fit its window or not, and
 its refusal of more points),
 a permutation moved bit for bit, the scatter equal from run to run and
 within f32 summation error at probe_f32_onehot.py's shape, and the device
-work of a probe call counted by torch.profiler.
+work of a probe call counted by torch.profiler; and the view sharding's
+collectives (``parallel.gather_views``, ``sum_over_ranks``) with their
+transposes on CUDA tensors in two gloo processes on the card.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device: the hand-written kernels have no CPU mode.  The module imports no
@@ -66,6 +68,7 @@ from torch_port_tiny import (  # noqa: F401 (keep_global_torch_rng is autouse)
     dfa3d_inputs,
     graph_has,
     keep_global_torch_rng,
+    launch_view_collectives,
     sweep_contention_case,
     sweep_edge_rig,
     sweep_inputs,
@@ -1042,3 +1045,10 @@ def test_probe_wrappers_launch_only_their_kernels(cuda_device, index_dtype):
         work = probes.device_work(lambda: probes.row_scatter_add(uu, r, n_rows, window))
         assert 1 <= len(work) <= 3 and all(probes.KERNEL_SYMBOLS["row_scatter_add"] in name
                                           for name in work), work
+
+
+def test_view_collectives_on_cuda_tensors(cuda_device):
+    """The view sharding's all-gather (f32, bf16, bool), its reduce-scatter
+    transpose and the all-reduce sum with its transpose on CUDA tensors:
+    two gloo processes on cuda:0, as chip_smoke.py phase 19 runs them."""
+    launch_view_collectives("cuda")

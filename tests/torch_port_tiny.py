@@ -489,8 +489,262 @@ def _dp_worker(out_dir, weights):
     parallel.shutdown(ctx)
 
 
+# ---------------------------------------------------------------------------
+# view sharding (tests/test_torch_view_parallel.py): the tiny config and
+# 4-view ring scene of tests/test_multichip.py, with the depth loss on
+# ---------------------------------------------------------------------------
+
+VIEW_MODEL = dict(
+    n_voxels_list=((4, 4, 2), (8, 8, 4), (16, 16, 8)), topk_list=(32, 128),
+    embed_dims=32, n_classes=5, limit=4, centerness_topk=4, compute_dtype="float32",
+    depth_loss=True,
+)
+VIEW_IMG, VIEW_PAD, VIEW_BOXES, VIEW_N = (60, 80), (64, 80), 8, 4
+
+
+def view_config(configs=None, **model_kw):
+    """tests/test_multichip.py's tiny config with the depth loss on and
+    ``model_kw``, from ``configs`` (the JAX package's by default, or the
+    port's)."""
+    if configs is None:
+        from sgcdet_tpu.configs import config as configs
+    base = configs.scannet()
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, **dict(VIEW_MODEL, **model_kw)),
+        data=dataclasses.replace(base.data, img_shape=VIEW_IMG, pad_size=VIEW_PAD,
+                                 max_boxes=VIEW_BOXES))
+
+
+def view_scene(downsample_factor):
+    """tests/test_multichip.py's scene (the 4-view ring, its boxes from
+    RandomState(0)) with metric depth maps of RandomState(1) for the depth
+    loss, as NumPy."""
+    from sgcdet_tpu_torch.scene import example_scene
+
+    scene = example_scene(VIEW_IMG, VIEW_PAD, VIEW_N)
+    rng = np.random.RandomState(0)
+    dh, dw = VIEW_PAD[0] // 4 * downsample_factor, VIEW_PAD[1] // 4 * downsample_factor
+    return dict(
+        scene,
+        gt_boxes=np.abs(rng.randn(VIEW_BOXES, 7)).astype(np.float32) * 0.5 + 0.2,
+        gt_labels=np.zeros((VIEW_BOXES,), np.int32),
+        gt_mask=np.arange(VIEW_BOXES) < 3,
+        gt_depth=np.random.RandomState(1).uniform(0.5, 4.5, (VIEW_N, dh, dw)).astype(
+            np.float32))
+
+
+def view_module_case():
+    """Inputs of the module-level view cases: a BatchNorm2d input over 4
+    views (4, 6, 5, 4) with its output gradient and the BN's parameters,
+    and the depth net's FPN features (4, 32, 16, 20) and output gradient."""
+    rng = np.random.RandomState(11)
+    bn = dict(x=(rng.randn(4, 6, 5, 4) * 2 + 1).astype(np.float32),
+              g=rng.randn(4, 6, 5, 4).astype(np.float32),
+              scale=rng.uniform(0.5, 2, 6).astype(np.float32),
+              bias=rng.randn(6).astype(np.float32),
+              mean=(rng.randn(6) * 0.2).astype(np.float32),
+              var=rng.uniform(0.7, 1.2, 6).astype(np.float32))
+    feats = rng.randn(VIEW_N, 32, VIEW_PAD[0] // 4, VIEW_PAD[1] // 4).astype(np.float32)
+    return bn, feats
+
+
+def _view_worker(out_dir, weights):
+    """One process of the view-sharding tests (gloo, from torchrun's
+    environment): with WORLD_SIZE 2 a rank of the view-sharded runs, with
+    WORLD_SIZE 1 the single-process runs they are held to.  Each run is
+    recorded with the collectives it made by kind: a BatchNorm2d and the
+    depth net at module level in train mode (output, input and parameter
+    gradients, running statistics), one train step of ``view_config`` from
+    ``weights`` with ffn_dropout 0 (the JAX comparison) and 0.1 (each
+    dropout call's mask recorded), the latter again with depth_remat, and
+    the eval forward; writes ``view_rank<r>.pt`` or ``view_single.pt``."""
+    from sgcdet_tpu_torch import configs, infer, parallel
+    from sgcdet_tpu_torch.models import SGCDet, layers
+    from sgcdet_tpu_torch.models.depth_net import DepthNetFusion
+    from sgcdet_tpu_torch.train import (make_optimizer, make_train_step,
+                                        make_view_sharded_eval_step,
+                                        make_view_sharded_train_step)
+
+    ctx = parallel.from_env("cpu")
+    group = ctx.group
+    views = slice(None) if group is None else slice(2 * ctx.rank, 2 * ctx.rank + 2)
+    out = {}
+
+    def counted(fn):
+        before = dict(parallel.COUNTS)
+        run = fn()
+        run["counts"] = {k: v - before[k] for k, v in parallel.COUNTS.items() if v != before[k]}
+        return run
+
+    def sum_grads(module):
+        grads = torch.cat([p.grad.reshape(-1) for p in module.parameters()])
+        if group is not None:
+            torch.distributed.all_reduce(grads, group=group)
+        return grads
+
+    bn_case, feats = view_module_case()
+
+    def bn_run():
+        bn = layers.BatchNorm2d(6).train()
+        with torch.no_grad():
+            for name, key in (("weight", "scale"), ("bias", "bias"),
+                              ("running_mean", "mean"), ("running_var", "var")):
+                getattr(bn, name).copy_(torch.from_numpy(bn_case[key]))
+        x = torch.from_numpy(bn_case["x"][views]).requires_grad_()
+        with parallel.view_sharding(group):
+            y = bn(x)
+        (y * torch.from_numpy(bn_case["g"][views])).sum().backward()
+        return dict(y=y.detach(), x_grad=x.grad, param_grads=sum_grads(bn),
+                    running_mean=bn.running_mean.clone(), running_var=bn.running_var.clone())
+
+    cfg = view_config(configs, ffn_dropout=0.0)
+    scene = view_scene(cfg.model.downsample_factor)
+
+    def depth_run():
+        net = DepthNetFusion(cfg.model.dbound, 2, mono_channels=32).train()
+        layers.init_weights(net, torch.Generator().manual_seed(4))
+        f = torch.from_numpy(feats[views]).requires_grad_()
+        imgs = torch.from_numpy(scene["imgs"][views])
+        proj = torch.from_numpy(scene["proj_feat4"][views])
+        with parallel.view_sharding(group):
+            dpt = net(f, imgs, proj)
+        g = torch.from_numpy(np.random.RandomState(12).randn(*dpt.shape[1:]).astype(np.float32))
+        (dpt * g).sum().backward()
+        return dict(dpt=dpt.detach(), feats_grad=f.grad, param_grads=sum_grads(net),
+                    stats={n: b.clone() for n, b in net.state_dict().items()
+                           if n.endswith(("running_mean", "running_var"))})
+
+    out["bn"] = counted(bn_run)
+    out["depth_net"] = counted(depth_run)
+
+    def model_of(mcfg):
+        model = SGCDet(mcfg, VIEW_IMG, device="cpu")
+        model.load_state_dict(torch.load(weights, weights_only=True))
+        return model
+
+    masks = []
+    dropout = layers.dropout
+
+    def recorded(x, rate, generator):
+        y = dropout(x, rate, generator)
+        if rate > 0:
+            masks.append(state_digest({"mask": y == 0})["mask"])
+        return y
+
+    layers.dropout = recorded
+    # the single process also takes the dropout-free view-sharded step in a
+    # group of one process (its BNs' statistics the view mode's, E[x^2] -
+    # E[x]^2 as the JAX package's, where F.batch_norm's differ in rounding)
+    runs = [("step", dict(ffn_dropout=0.0), group), ("dropout_step", {}, group),
+            ("remat_step", dict(depth_remat=True), group)]
+    if group is None:
+        torch.distributed.init_process_group("gloo", store=torch.distributed.HashStore(),
+                                             rank=0, world_size=1)
+        runs.append(("view1_step", dict(ffn_dropout=0.0), torch.distributed.group.WORLD))
+    for name, kw, run_group in runs:
+        run_cfg = view_config(configs, **kw)
+        model = model_of(run_cfg.model)
+        optimizer = make_optimizer(model, run_cfg.train)
+        step = (make_train_step(model, run_cfg, optimizer) if run_group is None else
+                make_view_sharded_train_step(model, run_cfg, optimizer, run_group))
+        masks.clear()
+
+        def step_run():
+            metrics = step(scene, torch.Generator().manual_seed(0))
+            return dict(metrics={k: v.detach() for k, v in metrics.items()},
+                        digest=state_digest(model.state_dict()), masks=list(masks))
+
+        run = counted(step_run)
+        run["n_depth_bn"] = sum(isinstance(m, layers._F32BatchNorm) and not m.frozen
+                                for m in model.depth_head.modules())
+        if name in ("step", "view1_step") and ctx.rank == 0:  # the ranks' by digest
+            run["state"] = model.state_dict()
+            run["grads"] = {n: q.grad for n, q in model.named_parameters()}
+        out[name] = run
+    layers.dropout = dropout
+
+    model = model_of(cfg.model)
+    evaluate = (infer.forward_scene if group is None else
+                make_view_sharded_eval_step(model, cfg, group))
+    out["eval"] = counted(lambda: dict(evaluate(model, scene) if group is None
+                                       else evaluate(scene)))
+    suffix = "single" if group is None else f"rank{ctx.rank}"
+    torch.save(out, f"{out_dir}/view_{suffix}.pt")
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def _view_collectives_worker(device):
+    """One rank of the view collectives' check (gloo from torchrun's
+    environment, tensors on ``device``): ``parallel.gather_views`` of f32,
+    bf16 and bool slices against their concatenation, its backward (a
+    reduce-scatter sum: each rank's slice gets the sum of every rank's
+    gradient of it) and ``sum_over_ranks`` with its backward, at 2 views a
+    rank."""
+    import torch.distributed as dist
+
+    from sgcdet_tpu_torch import parallel
+
+    dist.init_process_group("gloo")
+    group = dist.group.WORLD
+    rank, world = dist.get_rank(), dist.get_world_size()
+    dev = torch.device(device)
+    rows = [torch.arange(2 * 3 * 5, dtype=torch.float32).reshape(2, 3, 5) + 100 * r
+            for r in range(world)]
+    x = rows[rank].to(dev).requires_grad_()
+    gathered = parallel.gather_views(x, group)
+    assert torch.equal(gathered.detach().cpu(), torch.cat(rows))
+    weight = torch.arange(gathered.numel(), dtype=torch.float32).reshape(gathered.shape)
+    (gathered * weight.to(dev) * (rank + 1)).sum().backward()
+    share = sum(range(1, world + 1))  # every rank's gradient of this rank's slice
+    assert torch.equal(x.grad.cpu(), weight[2 * rank:2 * rank + 2] * share)
+    for dtype in (torch.bfloat16, torch.bool):
+        t = torch.cat(rows).to(dtype)
+        got = parallel.gather_views(t[2 * rank:2 * rank + 2].to(dev), group)
+        assert got.dtype == dtype and torch.equal(got.cpu(), t)
+    y = torch.tensor([1.0, 2.0], device=dev, requires_grad=True)
+    total = parallel.sum_over_ranks(y * (rank + 1), group, "view_depth_loss")
+    assert torch.equal(total.detach().cpu(), torch.tensor([1.0, 2.0]) * share)
+    (total * torch.tensor([3.0, 4.0], device=dev)).sum().backward()
+    assert torch.equal(y.grad.cpu(), torch.tensor([3.0, 4.0]) * world * (rank + 1))
+    print(f"view collectives ok on {device}")
+    dist.destroy_process_group()
+
+
+def launch_view_collectives(device, timeout=120):
+    """2 gloo processes of ``_view_collectives_worker`` on ``device``;
+    returns their outputs (each asserted to have passed)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    repo = str(Path(__file__).resolve().parents[1])
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--view-collectives", device],
+        env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1", MASTER_ADDR="localhost",
+                 MASTER_PORT=port, RANK=str(rank), WORLD_SIZE="2"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            assert p.returncode == 0 and "view collectives ok" in out, out[-3000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            p.kill()
+    return outs
+
+
 # ``python tests/torch_port_tiny.py --cli <flags>`` runs the port's CLI (and
-# ``--dp <out_dir> <weights>`` one rank of ``_dp_worker``) in a subprocess
+# ``--dp <out_dir> <weights>`` one rank of ``_dp_worker``, ``--view <out_dir>
+# <weights>`` one process of ``_view_worker``, ``--view-collectives <device>``
+# one rank of ``_view_collectives_worker``) in a subprocess
 # of the tests, which then asserts that it imported none of jax, flax and
 # the JAX package (tensorflow, which torch's tensorboard writer would import
 # slowly, is blocked).  With SGCDET_TEST_DUMP set, the CLI's model is saved
@@ -518,6 +772,10 @@ if __name__ == "__main__":
                 os.environ["SGCDET_TEST_DUMP"], f"rank{os.environ.get('RANK', '0')}.pt"))
     elif sys.argv[1] == "--dp":
         _dp_worker(*sys.argv[2:4])
+    elif sys.argv[1] == "--view":
+        _view_worker(*sys.argv[2:4])
+    elif sys.argv[1] == "--view-collectives":
+        _view_collectives_worker(sys.argv[2])
     present = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "sgcdet_tpu")]
     assert not present, present
     print(PORT_ONLY)
