@@ -24,7 +24,8 @@ Layout:
   parallel.py  the process group from torchrun's environment, the counted
             all-reduces of the data-parallel step and the synced BatchNorm
   cli.py    python -m sgcdet_tpu_torch.cli: train / eval / show
-  profile_serving.py  where the serving time goes, on a card
+  tracing.py  spans and counters at the layer boundaries, on while a torch
+            profiler records (cli train --profile_steps, the benchmark)
 
 Entry points build on the card unless the caller passes device="cpu".
 """

@@ -8,7 +8,9 @@ Lightning Trainer wiring).
 A run writes ``logs/<log_folder>/``: ``config.json``, ``metrics.jsonl``
 (and TensorBoard events when ``torch.utils.tensorboard`` imports), a
 checkpoint per epoch under ``ckpt/`` with a ``last`` pointer, the
-``torch.profiler`` trace of ``--profile_steps`` under ``profile/``, the
+``torch.profiler`` trace of ``--profile_steps`` under ``profile/`` (the
+program's spans on its timeline, and their sums with its counters in
+``spans_rank<r>.json``: ``tracing.py``), the
 show mode's dumps under ``show/`` and the sharded eval's detections under
 ``eval_gather/step_<n>/``.  Under torchrun each process trains one scene a
 step on ``cuda:LOCAL_RANK`` (``parallel.from_env``) and evaluates its
@@ -55,7 +57,8 @@ def parse_args(argv=None):
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--eval_every_epochs", type=int, default=1)
     p.add_argument("--profile_steps", type=int, default=0,
-                   help="capture a torch.profiler trace for N steps")
+                   help="capture a torch.profiler trace for N steps, with the "
+                        "program's spans and counters")
     p.add_argument("--query_chunk", type=int, default=100,
                    help="accepted so that the JAX package's command lines run; "
                         "no effect here (it sized the JAX package's XLA DFA3D "
@@ -404,7 +407,7 @@ def _run(args, ctx, train_ds, val_ds):
 
 def _train(args, ctx, config, model, optimizer, step, train_ds, train_loader,
            val_ds, log_dir, logger):
-    from . import parallel
+    from . import parallel, tracing
     from .train import make_train_step
     from .train.checkpoint import save_checkpoint
 
@@ -457,6 +460,9 @@ def _train(args, ctx, config, model, optimizer, step, train_ds, train_loader,
                 trace_dir = log_dir / "profile"
                 trace_dir.mkdir(exist_ok=True)
                 profiler.export_chrome_trace(str(trace_dir / f"trace_rank{ctx.rank}.json"))
+                (trace_dir / f"spans_rank{ctx.rank}.json").write_text(
+                    json.dumps(tracing.summary(), indent=1))
+                tracing.reset()
                 profiler = False
             step += 1
             if step % 10 == 0:

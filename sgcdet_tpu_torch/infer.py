@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
 from .models.det_head import decode_bboxes
 
 _SCENE_KEYS = ("imgs", "proj_img", "proj_feat4", "origin")
@@ -14,9 +15,10 @@ _SCENE_KEYS = ("imgs", "proj_img", "proj_feat4", "origin")
 def scene_inputs(scene, dev) -> list:
     """The model's inputs imgs, proj_img, proj_feat4, origin of one scene
     (dict of arrays or tensors; arrays taken as f32), on ``dev``."""
-    args = [x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x, np.float32))
-            for x in (scene[k] for k in _SCENE_KEYS)]
-    return [a.to(dev) for a in args]
+    with tracing.span("sgc.detect.upload"):
+        args = [x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x, np.float32))
+                for x in (scene[k] for k in _SCENE_KEYS)]
+        return [a.to(dev) for a in args]
 
 
 @torch.inference_mode()
@@ -33,14 +35,16 @@ def detect(model, scene):
     dz) after the aligned 3D NMS; the ARKit head (``head_type="sunrgbd"``)
     gives yawed boxes (M, 7) (cx, cy, cz, dx, dy, dz, yaw) after the
     per-class rotated BEV NMS.  z is at the geometric center."""
-    return decode(model, forward_scene(model, scene), scene["origin"])
+    with tracing.span("sgc.detect"):
+        return decode(model, forward_scene(model, scene), scene["origin"])
 
 
 def decode(model, out, origin):
     """``detect``'s host half: the detections of the outputs ``out`` of one
     scene (of ``forward_scene``, or of a view-sharded eval step, on one
     rank) whose origin is ``origin``."""
-    head_outs = [tuple(t.cpu().numpy() for t in scale) for scale in out["head_outs"]]
-    origin = origin.cpu().numpy() if torch.is_tensor(origin) else np.asarray(origin)
-    return decode_bboxes(head_outs, out["valid"].cpu().numpy(), origin,
-                         model.cfg.voxel_size, model.cfg)
+    with tracing.span("sgc.decode"):
+        head_outs = [tuple(t.cpu().numpy() for t in scale) for scale in out["head_outs"]]
+        origin = origin.cpu().numpy() if torch.is_tensor(origin) else np.asarray(origin)
+        return decode_bboxes(head_outs, out["valid"].cpu().numpy(), origin,
+                             model.cfg.voxel_size, model.cfg)

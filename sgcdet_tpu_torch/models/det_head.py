@@ -14,6 +14,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..geometry.boxes import rotation_3d_in_axis
 from ..ops.nms import aligned_3d_nms, box3d_multiclass_nms
 from ..parallel import all_reduce_mean_
@@ -274,13 +275,17 @@ def decode_bboxes(head_outs, valid, origin, voxel_size, cfg):
         bev = np.stack([bboxes[:, 0] - bboxes[:, 3] / 2, bboxes[:, 1] - bboxes[:, 4] / 2,
                         bboxes[:, 0] + bboxes[:, 3] / 2, bboxes[:, 1] + bboxes[:, 4] / 2,
                         bboxes[:, 6]], axis=1)
-        return box3d_multiclass_nms(bboxes, bev, scores_bg, t.score_thr, t.nms_pre,
-                                    t.nms_thr, use_rotate_nms=t.use_rotate_nms)
+        tracing.count("decode.nms_in", len(bboxes))
+        with tracing.span("sgc.decode.nms"):
+            return box3d_multiclass_nms(bboxes, bev, scores_bg, t.score_thr, t.nms_pre,
+                                        t.nms_thr, use_rotate_nms=t.use_rotate_nms)
     labels = scores.argmax(axis=1)
     max_scores = scores.max(axis=1)
     ids = max_scores > t.score_thr
     bboxes, max_scores, labels = bboxes[ids], max_scores[ids], labels[ids]
-    keep = aligned_3d_nms(bboxes, max_scores, labels, t.iou_thr)
+    tracing.count("decode.nms_in", len(bboxes))
+    with tracing.span("sgc.decode.nms"):
+        keep = aligned_3d_nms(bboxes, max_scores, labels, t.iou_thr)
     bboxes = bboxes[keep]
     center_form = np.stack([
         (bboxes[:, 0] + bboxes[:, 3]) / 2, (bboxes[:, 1] + bboxes[:, 4]) / 2,

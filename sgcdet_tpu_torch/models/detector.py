@@ -7,6 +7,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import tracing
 from ..configs import ModelConfig
 from ..parallel import view_sharding
 from .depth_net import DepthNetFusion, depth_loss, downsample_gt_depth
@@ -92,9 +93,10 @@ class SGCDet(nn.Module):
         with view_sharding(view_group):
             volume, valid, occ_preds, dpt_dist = self._lift(
                 imgs, proj_img, proj_feat4, origin, generator, gt_depth)
-        neck_outs = self.neck_3d(volume[None])
-        head_outs = [tuple(o[0].float() for o in scale)
-                     for scale in self.bbox_head(neck_outs)]
+        with tracing.span("sgc.model.head"):
+            neck_outs = self.neck_3d(volume[None])
+            head_outs = [tuple(o[0].float() for o in scale)
+                         for scale in self.bbox_head(neck_outs)]
         return dict(
             head_outs=head_outs,
             valid=valid.float(),
@@ -106,34 +108,38 @@ class SGCDet(nn.Module):
         """Backbone, FPN, depth head and the adaptive sparse volume:
         (volume (C, X, Y, Z), valid, occ_preds, dpt_dist)."""
         cfg = self.cfg
-        feats = self.neck(self.backbone(imgs))
-        if cfg.use_gt_dpt and gt_depth is not None:
-            n, _, h4, w4 = feats[0].shape
-            onehot = downsample_gt_depth(gt_depth, 4, cfg.dbound, cfg.depth_channels,
-                                         cfg.depth_max_tol)
-            dpt_dist = onehot.reshape(n, h4, w4, cfg.depth_channels).permute(0, 3, 1, 2)
-        else:
-            # with the depth loss on, the depth net does not train the trunk
-            # through feats[0] (detector.py:55)
-            depth_in = feats[0].detach() if cfg.depth_loss else feats[0]
-            if cfg.depth_remat and self.training and torch.is_grad_enabled():
-                # the backward recomputes the depth net instead of keeping its
-                # activations (flax's nn.remat); its BNs move their running
-                # statistics once.  It draws no random numbers (a generator
-                # passed in would not be rewound for the recomputation)
-                dpt_dist = checkpoint(self.depth_head, depth_in, imgs, proj_feat4,
-                                      use_reentrant=False, context_fn=remat_contexts)
+        with tracing.span("sgc.model.backbone"):
+            feats = self.neck(self.backbone(imgs))
+        with tracing.span("sgc.model.depth"):
+            if cfg.use_gt_dpt and gt_depth is not None:
+                n, _, h4, w4 = feats[0].shape
+                onehot = downsample_gt_depth(gt_depth, 4, cfg.dbound, cfg.depth_channels,
+                                             cfg.depth_max_tol)
+                dpt_dist = onehot.reshape(n, h4, w4, cfg.depth_channels).permute(0, 3, 1, 2)
             else:
-                dpt_dist = self.depth_head(depth_in, imgs, proj_feat4)
-        h4, w4 = dpt_dist.shape[-2:]
-        mlvl_dpt = [
-            dpt_dist,
-            interpolate_nearest_size(dpt_dist, (h4 // 2, w4 // 2)),
-            interpolate_nearest_size(dpt_dist, (h4 // 4, w4 // 4)),
-        ]
-        volume, valid, occ_preds = self.voxel_head(
-            feats[:3], mlvl_dpt, origin, proj_img, self.img_shape, cfg.dbound,
-            generator)
+                # with the depth loss on, the depth net does not train the
+                # trunk through feats[0] (detector.py:55)
+                depth_in = feats[0].detach() if cfg.depth_loss else feats[0]
+                if cfg.depth_remat and self.training and torch.is_grad_enabled():
+                    # the backward recomputes the depth net instead of keeping
+                    # its activations (flax's nn.remat); its BNs move their
+                    # running statistics once.  It draws no random numbers (a
+                    # generator passed in would not be rewound for the
+                    # recomputation)
+                    dpt_dist = checkpoint(self.depth_head, depth_in, imgs, proj_feat4,
+                                          use_reentrant=False, context_fn=remat_contexts)
+                else:
+                    dpt_dist = self.depth_head(depth_in, imgs, proj_feat4)
+        with tracing.span("sgc.model.lifting"):
+            h4, w4 = dpt_dist.shape[-2:]
+            mlvl_dpt = [
+                dpt_dist,
+                interpolate_nearest_size(dpt_dist, (h4 // 2, w4 // 2)),
+                interpolate_nearest_size(dpt_dist, (h4 // 4, w4 // 4)),
+            ]
+            volume, valid, occ_preds = self.voxel_head(
+                feats[:3], mlvl_dpt, origin, proj_img, self.img_shape, cfg.dbound,
+                generator)
         return volume, valid, occ_preds, dpt_dist
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..ops.dfa3d import dfa3d_attend, msda_2d, msda_2d_attend
 from ..ops.dfa3d_windowed import dfa3d_attention_windowed
 from ..parallel import gather_views, view_group
@@ -300,6 +301,8 @@ class DeformCrossAttention(nn.Module):
         # stage 1 — geometry: depth-weighted trilinear sample at the
         # projected point (1 head = full C, 1 point, weight 1)
         kk = ref_cam_s.shape[1]
+        tracing.count("lift.visible", mask if valid_counts is None else valid_counts)
+        tracing.count("lift.slots", n * kk)
         locs1 = ref_cam_s[:, :, None, None, :].float()
         attn1 = torch.ones((n, kk, 1, 1), dtype=torch.float32, device=mask.device)
         attend = dfa3d_attention_windowed if self.sort_queries else dfa3d_attend

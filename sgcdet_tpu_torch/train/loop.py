@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..models import SGCDet
 from ..models.detector import compute_losses
 from ..models.layers import sync_batchnorm
@@ -103,11 +104,15 @@ def make_train_step(model, config, optimizer, group=None):
     before clipping, of the averaged gradients)."""
     if group is None:
         def step(scene, generator):
-            losses, n_pos = scene_losses(model, config, scene, generator)
-            total = sum(losses.values())
-            optimizer.zero_grad()
-            total.backward()
-            grad_norm = optimizer.step()
+            with tracing.span("sgc.step"):
+                with tracing.span("sgc.step.forward"):
+                    losses, n_pos = scene_losses(model, config, scene, generator)
+                    total = sum(losses.values())
+                with tracing.span("sgc.step.backward"):
+                    optimizer.zero_grad()
+                    total.backward()
+                with tracing.span("sgc.step.optimizer"):
+                    grad_norm = optimizer.step()
             metrics = {k: v.detach() for k, v in losses.items()}
             metrics.update(loss=total.detach(), n_pos=n_pos, grad_norm=grad_norm)
             return metrics
@@ -120,19 +125,24 @@ def make_train_step(model, config, optimizer, group=None):
              if name.endswith(("running_mean", "running_var"))]
 
     def dp_step(scene, generator):
-        losses, n_pos = scene_losses(model, config, scene,
-                                     rank_generator(generator, rank), group)
-        total = sum(losses.values())
-        optimizer.zero_grad()
-        total.backward()
-        with torch.no_grad():
-            _over_ranks_(_grads(params), group, "gradients")
-            names = list(losses)
-            scalars = torch.stack([losses[k].detach().float() for k in names]
-                                  + [total.detach().float(), n_pos.float()])
-            all_reduce_mean_(scalars, group, "metrics")
-            _over_ranks_(stats, group, "bn_stats")
-        grad_norm = optimizer.step()
+        with tracing.span("sgc.step"):
+            with tracing.span("sgc.step.rank_seed"):
+                rank_gen = rank_generator(generator, rank)
+            with tracing.span("sgc.step.forward"):
+                losses, n_pos = scene_losses(model, config, scene, rank_gen, group)
+                total = sum(losses.values())
+            with tracing.span("sgc.step.backward"):
+                optimizer.zero_grad()
+                total.backward()
+            with tracing.span("sgc.step.exchange"), torch.no_grad():
+                _over_ranks_(_grads(params), group, "gradients")
+                names = list(losses)
+                scalars = torch.stack([losses[k].detach().float() for k in names]
+                                      + [total.detach().float(), n_pos.float()])
+                all_reduce_mean_(scalars, group, "metrics")
+                _over_ranks_(stats, group, "bn_stats")
+            with tracing.span("sgc.step.optimizer"):
+                grad_norm = optimizer.step()
         metrics = dict(zip(names, scalars[:len(names)]))
         metrics.update(loss=scalars[-2], n_pos=scalars[-1], grad_norm=grad_norm)
         return metrics
@@ -167,14 +177,18 @@ def make_view_sharded_train_step(model, config, optimizer, group):
     params = [p for _, p in optimizer.named]
 
     def step(scene, generator):
-        losses, n_pos = scene_losses(model, config, view_slice(scene, rank, world),
-                                     generator, view_group=group)
-        total = sum(losses.values())
-        optimizer.zero_grad()
-        (total / world).backward()
-        with torch.no_grad():
-            _over_ranks_(_grads(params), group, "view_gradients", all_reduce_sum_)
-        grad_norm = optimizer.step()
+        with tracing.span("sgc.step"):
+            with tracing.span("sgc.step.forward"):
+                losses, n_pos = scene_losses(model, config, view_slice(scene, rank, world),
+                                             generator, view_group=group)
+                total = sum(losses.values())
+            with tracing.span("sgc.step.backward"):
+                optimizer.zero_grad()
+                (total / world).backward()
+            with tracing.span("sgc.step.exchange"), torch.no_grad():
+                _over_ranks_(_grads(params), group, "view_gradients", all_reduce_sum_)
+            with tracing.span("sgc.step.optimizer"):
+                grad_norm = optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics.update(loss=total.detach(), n_pos=n_pos, grad_norm=grad_norm)
         return metrics
