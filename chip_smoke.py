@@ -69,6 +69,22 @@ Phases, each fatal on failure:
               from the design) with their rate, and for K6
               and K6' the lists the call builds (entries, pixels, the
               longest list, the lists of more than 32 entries).
+3c. frozen bn — ResNet-50's frozen BN epilogue (ops/frozen_bn.py): the
+              forward and backward kernels against their plain versions at
+              the main path's serving shapes (100 x 256 x 60 x 80 with the
+              identity, 100 x 2048 x 8 x 10, the stem's 100 x 64 x 120 x
+              160, a downsample without ReLU) and a 24-channel width whose
+              rows fill no block, bf16 and f32: y within one ulp of the
+              larger of |bn(x)|, |identity| and |y|, dx within one ulp,
+              d_identity equal to g', d_weight and d_bias within 1e-5 of
+              their terms' summed magnitudes; each kernel launched once a
+              call and bit-identical over two calls; the share of ReLU
+              decisions that differ from the plain version's.  Warm times
+              of kernel, plain version (the same ops on the channels-last
+              tensors) and library chain (the ops on NCHW tensors, as the
+              model ran before), their bound, and ptxas's registers of
+              every instance; refusals of NCHW operands, float16, mixed
+              types and widths with no block.
 4. slice    — the ScanNet forward at compute_dtype=float32 with TF32 off, on
               the indoor 40-view scene, once through the kernels and once
               through the plain versions: identical `valid`, matching
@@ -351,6 +367,13 @@ KERNEL_INFO = {
                              f"{_EXP}dfa3d_pallas5.py:185"),
     "dfa3d_win_bwd_mh_c16": ("sgcdet_tpu_torch/csrc/dfa3d_win_bwd.cu",
                              f"{_EXP}dfa3d_pallas4.py:432; {_EXP}dfa3d_pallas5.py:284"),
+    # no TPU kernel: XLA fuses the frozen BN, the residual add and the ReLU
+    # into the convolution there
+    "frozen_bn_fwd": ("sgcdet_tpu_torch/csrc/frozen_bn.cu",
+                      "none (ResNet-50's frozen BN + add + ReLU, sgcdet_tpu/models/"
+                      "layers.py:229-232, fused by XLA)"),
+    "frozen_bn_bwd": ("sgcdet_tpu_torch/csrc/frozen_bn.cu",
+                      "none (the backward of frozen_bn_fwd, by autograd through XLA)"),
     "row_gather": ("sgcdet_tpu_torch/csrc/rows.cu",
                    f"{_EXP}probe_window_lowering.py:27; {_EXP}probe_window_matmul.py:27; "
                    f"{_EXP}probe_gather_batch.py:31; {_EXP}probe_gather_batch.py:47; "
@@ -388,31 +411,38 @@ _TRAIN_PEAKS = {}
 # the tensor cores, where every kernel here computes
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# ResNet-50's frozen BN epilogues, one launch each a forward (the stem, 3 a
+# bottleneck, 4 downsamples) and a backward, in every config
+RESNET_BN = {"frozen_bn_fwd": 53}
+RESNET_BN_STEP = {"frozen_bn_fwd": 53, "frozen_bn_bwd": 53}
 # launches of each kernel per scene on the serving path
-LAUNCHES_PER_SCENE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c256": 3, "dfa3d_fwd_mh_c32": 3}
+LAUNCHES_PER_SCENE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c256": 3, "dfa3d_fwd_mh_c32": 3,
+                      **RESNET_BN}
 # ... and per step on the train path
 LAUNCHES_PER_STEP = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c256": 3,
-                     "dfa3d_bwd_s1_c256": 3, "dfa3d_fwd_mh_c32": 3, "dfa3d_bwd_mh_c32": 3}
+                     "dfa3d_bwd_s1_c256": 3, "dfa3d_fwd_mh_c32": 3, "dfa3d_bwd_mh_c32": 3,
+                     **RESNET_BN_STEP}
 # ... and on the sorted path (sort_queries): K2 and K6 for stage 1, the
 # windowed multi-head forward and backward
 LAUNCHES_PER_SCENE_SORTED = {"sweep_fwd": 2, "dfa3d_fwd_s1_c256": 3,
-                             "dfa3d_win_fwd_mh": 3}
+                             "dfa3d_win_fwd_mh": 3, **RESNET_BN}
 LAUNCHES_PER_STEP_SORTED = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c256": 3,
                             "dfa3d_bwd_s1_c256": 3, "dfa3d_win_fwd_mh": 3,
-                            "dfa3d_win_bwd_mh": 3}
+                            "dfa3d_win_bwd_mh": 3, **RESNET_BN_STEP}
 # ... and on the ScanNet200-L path: the DFA3D instances at c = 128 (stage 1)
 # and 16 a head (stage 2)
-LAUNCHES_PER_SCENE_LARGE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c128": 3, "dfa3d_fwd_mh_c16": 3}
+LAUNCHES_PER_SCENE_LARGE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c128": 3, "dfa3d_fwd_mh_c16": 3,
+                            **RESNET_BN}
 LAUNCHES_PER_STEP_LARGE = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c128": 3,
                            "dfa3d_bwd_s1_c128": 3, "dfa3d_fwd_mh_c16": 3,
-                           "dfa3d_bwd_mh_c16": 3}
+                           "dfa3d_bwd_mh_c16": 3, **RESNET_BN_STEP}
 # ... and on the sorted -L path: K2 and K6 at c = 128, the windowed kernels
 # at c = 16
 LAUNCHES_PER_SCENE_SORTED_LARGE = {"sweep_fwd": 2, "dfa3d_fwd_s1_c128": 3,
-                                   "dfa3d_win_fwd_mh_c16": 3}
+                                   "dfa3d_win_fwd_mh_c16": 3, **RESNET_BN}
 LAUNCHES_PER_STEP_SORTED_LARGE = {"sweep_fwd": 2, "sweep_bwd": 2, "dfa3d_fwd_s1_c128": 3,
                                   "dfa3d_bwd_s1_c128": 3, "dfa3d_win_fwd_mh_c16": 3,
-                                  "dfa3d_win_bwd_mh_c16": 3}
+                                  "dfa3d_win_bwd_mh_c16": 3, **RESNET_BN_STEP}
 TRAIN_STEPS = 4
 # the forward kernels' earlier times (PERF.md section 6, rows 1, 2, 4, 5,
 # 8-10, 12, 13: this script on an H100 80GB HBM3 at 700 W), printed beside
@@ -1724,6 +1754,180 @@ def phase_backward(torch, dev, report):
 # ---------------------------------------------------------------------------
 
 
+# the frozen BN epilogue's cases (phase 3c): label, (N, C, H, W), with the
+# identity, with the ReLU.  The first two are the main path's serving
+# shapes (stage 1's last bn3 and stage 4's at 100 views), then the stem's
+# and a downsample's, and a width whose rows fill no block (24 channels: 3
+# lanes a row, 85 rows a block of 255 threads) on a ragged row count
+FROZEN_BN_CASES = (("stage 1 bn3", (100, 256, 60, 80), True, True),
+                   ("stage 4 bn3", (100, 2048, 8, 10), True, True),
+                   ("stem bn1", (100, 64, 120, 160), False, True),
+                   ("stage 1 downsample", (100, 256, 60, 80), False, False),
+                   ("ragged", (3, 24, 5, 7), True, True))
+
+
+def frozen_bn_inputs(torch, dev, shape, identity, dtype, gen):
+    """Seeded channels-last x (a conv output with an offset), identity and
+    incoming gradient g, and f32 BN parameters (weight, bias, running mean,
+    running variance) of ``shape``'s channels."""
+    n, c, h, w = shape
+
+    def normal(*size, scale=1.0, offset=0.0):
+        return torch.randn(*size, generator=gen, device=dev) * scale + offset
+
+    def act(scale=1.0, offset=0.0):
+        return normal(n, c, h, w, scale=scale, offset=offset).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    x = act(2.0, 0.3)
+    ident = act() if identity else None
+    g = act()
+    params = (torch.rand(c, generator=gen, device=dev) + 0.5, normal(c, scale=0.2),
+              normal(c, scale=0.5), torch.rand(c, generator=gen, device=dev) * 2 + 0.25)
+    return x, ident, params, g
+
+
+def phase_frozen_bn(torch, dev, report):
+    """ResNet-50's frozen BN epilogue (``ops/frozen_bn.py``) on the card:
+    forward and backward kernels against their plain versions, twice
+    bit-identical, timed beside the plain version and the chain the model
+    ran before (NCHW ``F.batch_norm`` + casts + add + ReLU), and refusing
+    what they do not take."""
+    import torch.nn.functional as F
+
+    from sgcdet_tpu_torch.ops import KERNELS, LIBRARY
+    from sgcdet_tpu_torch.ops.frozen_bn import (frozen_bn_bwd_cuda, frozen_bn_bwd_plain,
+                                                frozen_bn_fwd_cuda, frozen_bn_plain)
+
+    eps = 1e-5
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def within(name, got, want, tol, kernel_name):
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        worst = float((diff / tol.clamp_min(1e-30)).max())
+        ok = bool(torch.isfinite(got).all()) and bool((diff <= tol).all())
+        log(f"[frozen bn] {name}: max_abs_err {err:.3e}, worst err/tol {worst:.3f} "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{name}: kernel disagrees with plain version")
+        rec = report[kernel_name]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+
+    def launched_once(kernel_name, fn):
+        before = KERNELS[kernel_name].launches
+        out = fn()
+        check(KERNELS[kernel_name].launches == before + 1, f"{kernel_name} did not launch once")
+        return out
+
+    for (label, shape, identity, relu), dtype in (
+            [(case, torch.bfloat16) for case in FROZEN_BN_CASES]
+            + [(FROZEN_BN_CASES[0], torch.float32), (FROZEN_BN_CASES[4], torch.float32)]):
+        name = f"{label} {tuple(shape)} {str(dtype)[6:]}"
+        x, ident, params, g = frozen_bn_inputs(torch, dev, shape, identity, dtype, gen)
+        w, b, mean, var = params
+        args = (x, ident, w, b, mean, var, eps, relu)
+        y = launched_once("frozen_bn_fwd", lambda: frozen_bn_fwd_cuda(*args))
+        check(y.is_contiguous(memory_format=torch.channels_last), f"{name}: y not channels-last")
+        y_plain = frozen_bn_plain(*args)
+        bn = F.batch_norm(x.float(), mean, var, w, b, False, 0.0, eps)
+        mag = torch.maximum(bn.abs(), y_plain.float().abs())
+        if identity:
+            mag = torch.maximum(mag, ident.float().abs())
+        # bf16: one ulp of the larger of |bn(x)|, |identity| and |y| (the
+        # plain version rounds bn(x) and the sum, the kernel their sum
+        # once); f32: the two affine forms' rounding
+        unit = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -21
+        within(f"{name} y", y, y_plain, unit * mag + 1e-6 * float(mag.max()), "frozen_bn_fwd")
+        check(torch.equal(frozen_bn_fwd_cuda(*args), y), f"{name}: forward not bit-identical")
+
+        bwd_args = (g, x, y, w, mean, var, eps, relu, identity)
+        outs = launched_once("frozen_bn_bwd", lambda: frozen_bn_bwd_cuda(*bwd_args))
+        want = frozen_bn_bwd_plain(*bwd_args)
+        again = frozen_bn_bwd_cuda(*bwd_args)
+        check(all(a is b_ or torch.equal(a, b_) for a, b_ in zip(outs, again)),
+              f"{name}: backward not bit-identical")
+        dx, d_id, d_w, d_b = outs
+        check(dx.is_contiguous(memory_format=torch.channels_last), f"{name}: dx not channels-last")
+        within(f"{name} dx", dx, want[0], unit * want[0].float().abs()
+               + 1e-6 * float(want[0].float().abs().max()), "frozen_bn_bwd")
+        check(d_id is None if not identity else torch.equal(d_id, want[1]),
+              f"{name}: d_identity is not g'")
+        # the sums: f32 summation error, 1e-5 of the sum of the terms' magnitudes
+        gp = torch.where(y <= 0, 0.0, g.float()) if relu else g.float()
+        inv = torch.rsqrt(var + eps)
+        within(f"{name} d_bias", d_b, want[3], 1e-5 * gp.abs().sum((0, 2, 3)) + 1e-30,
+               "frozen_bn_bwd")
+        within(f"{name} d_weight", d_w, want[2],
+               1e-5 * (gp * (x.float() - mean[:, None, None])).abs().sum((0, 2, 3)) * inv
+               + 1e-30, "frozen_bn_bwd")
+        if relu:  # where the kernel's y and the plain version's take other sides of 0
+            flips = int(((y > 0) != (y_plain > 0)).sum())
+            log(f"[frozen bn] {name}: {flips} of {y.numel()} outputs ({flips / y.numel():.2e}) "
+                "on the other side of 0 than the plain version's")
+            check(flips <= 1e-2 * y.numel(), f"{name}: {flips} ReLU decisions differ")
+
+        if dtype != torch.bfloat16 or label == "ragged":
+            continue
+        # timing: kernel, plain version on the same channels-last tensors, and
+        # the chain as the model ran it before (NCHW tensors, cuDNN's BN)
+        xn, idn, gn = (None if t is None else t.contiguous() for t in (x, ident, g))
+
+        def chain(xx, ii):
+            return frozen_bn_plain(xx, ii, w, b, mean, var, eps, relu)
+
+        # the bound: x, identity, y once (forward); g, x, y, dx, d_identity
+        # once (backward), where the case has them
+        elems = x.numel() * x.element_size()
+        fwd_bytes = elems * (2 + identity)
+        bwd_bytes = elems * (3 + relu + (relu and identity))
+        main = label == FROZEN_BN_CASES[0][0]
+        _timing(torch, report, f"frozen bn fwd {name}", "frozen_bn_fwd",
+                lambda: frozen_bn_fwd_cuda(*args), lambda: chain(x, ident),
+                lambda outs: (fwd_bytes, 0), run_library=lambda: chain(xn, idn), main=main)
+        wl, bl = w.detach().requires_grad_(), b.detach().requires_grad_()
+        graphs = []
+        for xx, ii, gg in ((x, ident, g), (xn, idn, gn)):
+            ins = [t.detach().requires_grad_() for t in (xx, ii) if t is not None]
+            out = frozen_bn_plain(ins[0], ins[1] if identity else None, wl, bl, mean, var,
+                                  eps, relu)
+            graphs.append((out, ins + [wl, bl], gg))
+
+        def autograd_bwd(out, ins, gg):
+            return lambda: torch.autograd.grad(out, ins, gg, retain_graph=True)
+
+        _timing(torch, report, f"frozen bn bwd {name}", "frozen_bn_bwd",
+                lambda: frozen_bn_bwd_cuda(*bwd_args), autograd_bwd(*graphs[0]),
+                lambda outs: (bwd_bytes, 0), run_library=autograd_bwd(*graphs[1]), main=main)
+        del graphs
+
+    # refusals: NCHW memory, a type without a kernel, widths without a block
+    x, ident, params, g = frozen_bn_inputs(torch, dev, (2, 64, 6, 10), True, torch.bfloat16, gen)
+    for what, args, error in (
+            ("NCHW x", (x.contiguous(), None), ValueError),
+            ("NCHW identity", (x, ident.contiguous()), ValueError),
+            ("float16", (x.half(), None), TypeError),
+            ("identity of another dtype", (x, ident.float()), TypeError)):
+        try:
+            frozen_bn_fwd_cuda(*args, *params, eps, True)
+        except error:
+            log(f"[frozen bn] refuses {what}")
+        else:
+            raise SmokeFailure(f"frozen_bn_fwd_cuda took {what}")
+    for c in (12, 2056):
+        x, _, params, _ = frozen_bn_inputs(torch, dev, (1, c, 2, 2), False, torch.bfloat16, gen)
+        try:
+            frozen_bn_fwd_cuda(x, None, *params, eps, True)
+        except ValueError:
+            log(f"[frozen bn] refuses {c} channels")
+        else:
+            raise SmokeFailure(f"frozen_bn_fwd_cuda took {c} channels")
+    found = ptxas_resources(LIBRARY.log)
+    parts = [f"{name} {regs} registers, {spill} B spill stores"
+             for name, (regs, spill) in sorted(found.items()) if "frozen_bn" in name]
+    log("[frozen bn] ptxas: " + ("; ".join(parts) if parts else "not built by this process"))
+    torch.cuda.synchronize()
+
+
 def _train_parts(torch, dev, config="scannet", n_views=None, **model_kw):
     """bench.py's train setting (exact auto budget, depth loss on) of
     ``config`` on the indoor train scene of ``n_views`` views (N_VIEWS by
@@ -1767,8 +1971,13 @@ def _relu_signs_of(torch, tag, ref, views=None):
     step), one such ReLU in the 3D neck moves a weight gradient by percents
     of its scale.  ``views`` (rank, world): the step is a view-sharded
     rank's, whose per-view inputs take their views' rows of the
-    reference's signs; a reference entry may be packed (``_pack_bits``)."""
+    reference's signs; a reference entry may be packed (``_pack_bits``).
+    A frozen BN's ReLU (ResNet-50's, inside ``ops.frozen_bn``'s kernel)
+    runs as the op without it and the pinned ReLU."""
     from torch.nn import functional as F
+
+    from sgcdet_tpu_torch.models import layers
+    from sgcdet_tpu_torch.models.layers import is_channels_last
 
     relu = F.relu
     recording = not ref
@@ -1792,13 +2001,22 @@ def _relu_signs_of(torch, tag, ref, views=None):
         differ = (x.detach() > 0) != want
         n = int(differ.sum())
         flips.append((n, float(mag[differ].max()) / max(float(mag.max()), 1e-30) if n else 0.0))
-        return torch.where(want, x, 0.0)
+        # in x's layout: an unpacked reference is NCHW, a backbone input channels-last
+        return torch.where(want, x, 0.0).contiguous(
+            memory_format=torch.channels_last if is_channels_last(x) else torch.contiguous_format)
 
-    F.relu = pinned
+    def fused_pinned(x, identity, weight, bias, mean, var, eps, relu_after):
+        # a frozen BN's ReLU is inside its kernel: the kernel without it,
+        # then the pinned ReLU (the plain version calls F.relu there)
+        y = fused(x, identity, weight, bias, mean, var, eps, False)
+        return pinned(y) if relu_after else y
+
+    fused = layers.frozen_bn
+    F.relu, layers.frozen_bn = pinned, fused_pinned
     try:
         yield
     finally:
-        F.relu = relu
+        F.relu, layers.frozen_bn = relu, fused
     if not recording:
         worst = max(r for _, r in flips)
         log(f"[{tag}] ReLU inputs on the other side of 0 than the reference's: "
@@ -4193,6 +4411,7 @@ def main() -> int:
     for name, fn in (
             ("kernels", lambda: phase_kernels(torch, dev, report)),
             ("backward", lambda: phase_backward(torch, dev, report)),
+            ("frozen bn", lambda: phase_frozen_bn(torch, dev, report)),
             ("slice f32", lambda: f32_scene.update(phase_slice_f32(torch, dev))),
             ("serving", lambda: serving.update(phase_serving(
                 torch, dev, KERNELS, detections=detections.setdefault("scannet", [])))),

@@ -37,8 +37,11 @@ class FPN(nn.Module):
             nn.init.xavier_uniform_(m.conv.weight, generator=generator)
 
     def forward(self, inputs):
+        """Every op keeps the inputs' layout (channels-last from
+        ``ResNet50`` on the card); the levels leave contiguous (N, C, H, W),
+        the layout the depth net and the lifting read."""
         laterals = [conv(x) for conv, x in zip(self.lateral_convs, inputs)]
         for i in range(len(laterals) - 1, 0, -1):
             laterals[i - 1] = laterals[i - 1] + interpolate_nearest_size(
                 laterals[i], laterals[i - 1].shape[2:])
-        return [conv(x) for conv, x in zip(self.fpn_convs, laterals)]
+        return [conv(x).contiguous() for conv, x in zip(self.fpn_convs, laterals)]

@@ -34,6 +34,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
+from ..ops.frozen_bn import frozen_bn
 from ..parallel import mean_over_ranks, view_group, view_sharding
 
 
@@ -50,8 +52,16 @@ class _Cast:
 
 class Conv2d(_Cast, nn.Conv2d):
     def forward(self, x):
-        return self._conv_forward(self._cast(x), self._cast(self.weight),
-                                  self._cast(self.bias))
+        return self._conv_forward(self._cast(x), self._weight_like(x), self._cast(self.bias))
+
+    def _weight_like(self, x):
+        """The weight in the compute dtype and, for a channels-last x, laid
+        out channels-last too, in one copy (cuDNN would transpose the cast
+        weight again)."""
+        w = self.weight
+        if is_channels_last(x):
+            return w.to(self.compute_dtype or w.dtype, memory_format=torch.channels_last)
+        return self._cast(w)
 
 
 class Conv3d(_Cast, nn.Conv3d):
@@ -120,9 +130,12 @@ class _F32BatchNorm:
     """BatchNorm in f32, result in the input dtype (layers.py:187-232).
 
     Eval mode, or ``frozen=True`` whatever the mode: running statistics,
-    never updated.  Train mode: biased batch statistics over (N, spatial),
-    and the running variance moves by the unbiased n/(n-1) estimate with
-    momentum 0.1, which is what ``F.batch_norm`` does.  A frozen BN's affine
+    never updated.  A frozen BN is ``ops.frozen_bn`` (``fused``, which also
+    takes ResNet-50's residual add and ReLU): the hand-written kernel on
+    the card, the same ops as eval mode elsewhere.  Train mode: biased
+    batch statistics over (N, spatial), and the running variance moves by
+    the unbiased n/(n-1) estimate with momentum 0.1, which is what
+    ``F.batch_norm`` does.  A frozen BN's affine
     still gets gradients (the optimizer leaves it alone).
 
     Train mode with a process group: the f32 per-channel mean and mean of
@@ -149,17 +162,33 @@ class _F32BatchNorm:
         self.frozen = frozen
 
     def forward(self, x):
-        train = self.training and not self.frozen
+        if self.frozen:
+            return self.fused(x)
+        train = self.training
         if train and _BN_SYNC["group"] is not None:
             return self._synced(x, _BN_SYNC["group"], views=False)
         if train and view_group() is not None:
             return self._synced(x, view_group(), views=True)
         mean, var = self.running_mean, self.running_var
-        if train and _BN_SYNC["recompute"]:  # the same call, on copies it may move
+        if not train:
+            tracing.count("bn.running", 1)
+        elif _BN_SYNC["recompute"]:  # the same call, on copies it may move
             mean, var = mean.clone(), var.clone()
         y = F.batch_norm(x.float(), mean, var, self.weight, self.bias, train,
                          self.momentum, self.eps)
         return y.to(x.dtype)
+
+    def fused(self, x, identity=None, relu=False):
+        """A frozen BN's relu(bn(x) (+ identity)) as one op
+        (``ops.frozen_bn``): the kernel on a CUDA tensor, which must be
+        channels-last; the plain sequence of ops on the CPU and under
+        ``plain_ops()``."""
+        if not self.frozen:
+            raise ValueError("only a frozen BN normalises by its running statistics "
+                             "in training too")
+        tracing.count("bn.running", 1)
+        return frozen_bn(x, identity, self.weight, self.bias, self.running_mean,
+                         self.running_var, self.eps, relu)
 
     def _synced(self, x, group, views):
         ch = x.shape[1]
@@ -324,18 +353,27 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 hook(generator)
 
 
+def is_channels_last(x: torch.Tensor) -> bool:
+    """x is 4-D and laid out channels-last (and not also NCHW)."""
+    return (x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
+
+
 def interpolate_nearest_size(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     """F.interpolate(size=..., mode='nearest') on NC... tensors, with the
-    JAX package's f32 index arithmetic."""
-    out = x
+    JAX package's f32 index arithmetic.  A channels-last 4-D input gives a
+    channels-last output (the rows are gathered in NHWC order)."""
+    last = is_channels_last(x)
+    out = x.permute(0, 2, 3, 1) if last else x
+    first = 1 if last else 2
     for axis, new_s in enumerate(size):
-        s = out.shape[axis + 2]
+        s = out.shape[axis + first]
         if new_s == s:
             continue
         idx = torch.floor(torch.arange(new_s, dtype=torch.float32, device=x.device)
                           * (s / new_s)).long().clamp(0, s - 1)
-        out = out.index_select(axis + 2, idx)
-    return out
+        out = out.index_select(axis + first, idx)
+    return out.permute(0, 3, 1, 2) if last else out
 
 
 def _linear_resize_1d(length_in, length_out, align_corners, device):

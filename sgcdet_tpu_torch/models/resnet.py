@@ -5,6 +5,7 @@ naming so ``state_dict`` keys match the released checkpoints.
   (running statistics in train mode too, resnet.py:45-61,75), and the
   optimizer keeps the stem, stage 1 and every BN affine fixed
   (configs/SGCDet_ScanNet.py:74-83, ``train/optim.py::param_label``).
+  Channels-last on the card, each BN fused with its add and ReLU.
 * ``ResNetFPNMatching`` — the truncated ResNet-18 stereo-matching extractor
   of the depth head, output stride 4; its BNs train normally.  Its blocks register the downsample
   BN twice, as ``bn3`` and as ``downsample.1`` (the same module), exactly as
@@ -13,6 +14,7 @@ naming so ``state_dict`` keys match the released checkpoints.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -40,14 +42,21 @@ class Bottleneck(nn.Module):
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return F.relu(out + identity)
+        out = self.bn1.fused(self.conv1(x), relu=True)
+        out = self.bn2.fused(self.conv2(out), relu=True)
+        return self.bn3.fused(self.conv3(out), identity, relu=True)
 
 
 class ResNet50(nn.Module):
-    """ResNet-50 returning the four stage outputs, NCHW."""
+    """ResNet-50 returning the four stage outputs, (N, C, H, W).
+
+    On the card it runs in channels-last memory: the input is cast to the
+    compute dtype and laid out channels-last in one copy, cuDNN's convs
+    keep that layout (no NCHW <-> NHWC transposes around them), and each
+    frozen BN with its residual add and ReLU is one kernel
+    (``BatchNorm2d.fused``).  The stage outputs stay channels-last.  On the
+    CPU it keeps its input's layout (oneDNN's channels-last convs round
+    otherwise than its NCHW ones)."""
 
     def __init__(self):
         super().__init__()
@@ -66,7 +75,9 @@ class ResNet50(nn.Module):
             setattr(self, f"layer{s}", nn.Sequential(*layers))
 
     def forward(self, x):
-        x = F.relu(self.bn1(self.conv1(x)))
+        layout = torch.channels_last if x.is_cuda else torch.preserve_format
+        x = x.to(self.conv1.compute_dtype or x.dtype, memory_format=layout)
+        x = self.bn1.fused(self.conv1(x), relu=True)
         x = F.max_pool2d(x, 3, 2, 1)
         outs = []
         for s in range(1, 5):

@@ -30,7 +30,11 @@ a permutation moved bit for bit, the scatter equal from run to run and
 within f32 summation error at probe_f32_onehot.py's shape, and the device
 work of a probe call counted by torch.profiler; and the view sharding's
 collectives (``parallel.gather_views``, ``sum_over_ranks``) with their
-transposes on CUDA tensors in two gloo processes on the card.
+transposes on CUDA tensors in two gloo processes on the card; and
+ResNet-50's frozen BN epilogue (``ops/frozen_bn.py``) forward and backward
+against their plain versions at the serving shapes, bit-identical from run
+to run, 53 launches each way a ResNet-50 in channels-last memory, and its
+refusals of NCHW operands, other dtypes and widths.
 
 Every test here is marked ``cuda`` and skips where torch sees no CUDA
 device: the hand-written kernels have no CPU mode.  The module imports no
@@ -41,6 +45,7 @@ JAX, so it also runs on a GPU host without it:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sgcdet_tpu_torch.experiments import probes
 from sgcdet_tpu_torch.models.depth_net import _warp_grid
@@ -55,6 +60,9 @@ from sgcdet_tpu_torch.ops.dfa3d_windowed import (QC_BWD, QC_FWD, WIN_CAP,
                                                  kernel_resources, plan_windows,
                                                  win_counter, window_bytes,
                                                  window_length)
+from sgcdet_tpu_torch.ops.frozen_bn import (frozen_bn, frozen_bn_bwd_cuda,
+                                            frozen_bn_bwd_plain, frozen_bn_fwd_cuda,
+                                            frozen_bn_plain)
 from sgcdet_tpu_torch.ops.sweep import (plane_sweep_correlation, sweep_bwd_cuda,
                                         sweep_bwd_plain, sweep_fwd, sweep_fwd_cuda,
                                         sweep_fwd_plain)
@@ -1052,3 +1060,144 @@ def test_view_collectives_on_cuda_tensors(cuda_device):
     transpose and the all-reduce sum with its transpose on CUDA tensors:
     two gloo processes on cuda:0, as chip_smoke.py phase 19 runs them."""
     launch_view_collectives("cuda")
+
+
+def _frozen_bn_case(device, shape, identity, dtype, seed=0):
+    """Seeded channels-last x (a conv output with an offset), identity and
+    incoming gradient, and f32 BN parameters (weight, bias, running mean and
+    variance)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n, c, h, w = shape
+
+    def act(scale=1.0, offset=0.0):
+        t = torch.randn(n, c, h, w, generator=gen, device=device) * scale + offset
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    x, ident, g = act(2.0, 0.3), act() if identity else None, act()
+    params = (torch.rand(c, generator=gen, device=device) + 0.5,
+              torch.randn(c, generator=gen, device=device) * 0.2,
+              torch.randn(c, generator=gen, device=device) * 0.5,
+              torch.rand(c, generator=gen, device=device) * 2 + 0.25)
+    return x, ident, params, g
+
+
+# the serving shapes of the main path (stage 1's last bn3 and stage 4's at
+# 100 views, with the identity), the stem's, a downsample's (no ReLU), and 24
+# channels on a ragged row count (no block of 256 threads filled)
+FROZEN_BN_SHAPES = [pytest.param((100, 256, 60, 80), True, True, id="stage1_bn3"),
+                    pytest.param((100, 2048, 8, 10), True, True, id="stage4_bn3"),
+                    pytest.param((100, 64, 120, 160), False, True, id="stem"),
+                    pytest.param((100, 256, 60, 80), False, False, id="downsample"),
+                    pytest.param((3, 24, 5, 7), True, True, id="ragged")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape, identity, relu", FROZEN_BN_SHAPES)
+def test_frozen_bn_kernels_match_plain(cuda_device, shape, identity, relu, dtype):
+    """Forward within one ulp of the larger of |bn(x)|, |identity| and |y|
+    (the plain version rounds bn(x) and the sum, the kernel the sum once);
+    dx within one ulp of the plain backward on the kernel's y, d_identity
+    equal to g', d_weight and d_bias within 1e-5 of the summed magnitudes of
+    their terms (f32 sums in another order)."""
+    x, ident, (w, b, mean, var), g = _frozen_bn_case(cuda_device, shape, identity, dtype)
+    eps = 1e-5
+    before = KERNELS["frozen_bn_fwd"].launches
+    y = frozen_bn_fwd_cuda(x, ident, w, b, mean, var, eps, relu)
+    assert KERNELS["frozen_bn_fwd"].launches == before + 1
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    want = frozen_bn_plain(x, ident, w, b, mean, var, eps, relu).float()
+    bn = F.batch_norm(x.float(), mean, var, w, b, False, 0.0, eps)
+    mag = torch.maximum(bn.abs(), want.abs())
+    if identity:
+        mag = torch.maximum(mag, ident.float().abs())
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
+    assert ((y.float() - want).abs() <= ulp * mag + 1e-6 * float(mag.max())).all()
+
+    before = KERNELS["frozen_bn_bwd"].launches
+    dx, d_id, d_w, d_b = frozen_bn_bwd_cuda(g, x, y, w, mean, var, eps, relu, identity)
+    assert KERNELS["frozen_bn_bwd"].launches == before + 1
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    p_dx, p_id, p_w, p_b = frozen_bn_bwd_plain(g, x, y, w, mean, var, eps, relu, identity)
+    assert ((dx.float() - p_dx.float()).abs()
+            <= ulp * p_dx.float().abs() + 1e-6 * float(p_dx.float().abs().max())).all()
+    assert d_id is None if not identity else torch.equal(d_id, p_id)
+    gp = torch.where(y <= 0, 0.0, g.float()) if relu else g.float()
+    assert ((d_b - p_b).abs() <= 1e-5 * gp.abs().sum((0, 2, 3))).all()
+    terms = (gp * (x.float() - mean[:, None, None])).abs().sum((0, 2, 3))
+    assert ((d_w - p_w).abs() <= 1e-5 * terms * torch.rsqrt(var + eps)).all()
+
+
+def test_frozen_bn_kernels_are_bit_identical_from_run_to_run(cuda_device):
+    x, ident, (w, b, mean, var), g = _frozen_bn_case(cuda_device, (100, 256, 60, 80), True,
+                                                     torch.bfloat16, seed=1)
+    runs = []
+    for _ in range(2):
+        y = frozen_bn_fwd_cuda(x, ident, w, b, mean, var, 1e-5, True)
+        runs.append((y, *frozen_bn_bwd_cuda(g, x, y, w, mean, var, 1e-5, True, True)))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+def test_frozen_bn_op_gradients_are_the_kernels(cuda_device):
+    """The autograd op routes a CUDA tensor to both kernels, and its
+    gradients in x, identity, weight and bias are the backward kernel's."""
+    x, ident, (w, b, mean, var), g = _frozen_bn_case(cuda_device, (4, 64, 6, 10), True,
+                                                     torch.bfloat16, seed=2)
+    leaves = [t.detach().requires_grad_() for t in (x, ident, w, b)]
+    y = frozen_bn(leaves[0], leaves[1], leaves[2], leaves[3], mean, var, 1e-5, True)
+    got = torch.autograd.grad(y, leaves, g)
+    want = frozen_bn_bwd_cuda(g, x, y.detach(), w, mean, var, 1e-5, True, True)
+    for a, b_ in zip(got, want):
+        assert torch.equal(a, b_)
+
+
+def test_resnet50_runs_channels_last_through_53_frozen_bn_launches(cuda_device):
+    """A ResNet-50 forward launches the forward kernel 53 times (the stem,
+    three a bottleneck, four downsamples) and its backward the backward
+    kernel 53 times; the stages leave channels-last, the FPN's levels
+    contiguous, and the outputs agree with the plain versions'."""
+    from sgcdet_tpu_torch.models.fpn import FPN
+    from sgcdet_tpu_torch.models.resnet import ResNet50
+
+    gen = torch.Generator().manual_seed(3)
+    backbone, fpn = ResNet50(), FPN(out_channels=64)
+    init_weights(backbone, gen)
+    init_weights(fpn, gen)
+    backbone, fpn = backbone.to(cuda_device), fpn.to(cuda_device)
+    for m in (backbone, fpn):
+        set_compute_dtype(m, torch.bfloat16)
+    imgs = torch.randn(2, 3, 64, 96, generator=gen).to(cuda_device)
+    fwd0, bwd0 = KERNELS["frozen_bn_fwd"].launches, KERNELS["frozen_bn_bwd"].launches
+    stages = backbone(imgs)
+    levels = fpn(stages)
+    assert KERNELS["frozen_bn_fwd"].launches - fwd0 == 53
+    assert all(s.is_contiguous(memory_format=torch.channels_last) and not s.is_contiguous()
+               for s in stages)
+    assert all(lv.is_contiguous() for lv in levels)
+    sum(lv.float().sum() for lv in levels).backward()
+    assert KERNELS["frozen_bn_bwd"].launches - bwd0 == 53
+    with plain_ops(), torch.no_grad():
+        plain = fpn(backbone(imgs))
+    for got, want in zip(levels, plain):
+        assert_close_scaled(got.detach().float().cpu().numpy(), want.float().cpu().numpy(),
+                            0.05, "FPN level")
+
+
+def test_frozen_bn_wrapper_refuses(cuda_device):
+    x, ident, params, g = _frozen_bn_case(cuda_device, (2, 64, 6, 10), True, torch.bfloat16)
+    with pytest.raises(ValueError, match="channels-last"):
+        frozen_bn_fwd_cuda(x.contiguous(), None, *params, 1e-5, True)
+    with pytest.raises(ValueError, match="channels-last"):
+        frozen_bn_fwd_cuda(x, ident.contiguous(), *params, 1e-5, True)
+    with pytest.raises(TypeError):
+        frozen_bn_fwd_cuda(x.half(), None, *params, 1e-5, True)
+    with pytest.raises(TypeError):
+        frozen_bn_fwd_cuda(x.double(), None, *params, 1e-5, True)
+    with pytest.raises(TypeError):
+        frozen_bn_fwd_cuda(x, ident.float(), *params, 1e-5, True)
+    with pytest.raises(ValueError, match="channels-last"):
+        frozen_bn(x.contiguous(), None, *params, 1e-5, True)
+    for c in (12, 2056):
+        xc, _, pc, _ = _frozen_bn_case(cuda_device, (1, c, 2, 2), False, torch.bfloat16)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            frozen_bn_fwd_cuda(xc, None, *pc, 1e-5, True)
